@@ -21,7 +21,21 @@ Phases, any failure exits non-zero:
      against the dense plain MIPS on the same user embeddings, and the user
      embeddings against the CPU run of the same model on a slice.  The user
      tower and the exact MIPS are then timed alone, for the breakdown of a
-     batch's time.
+     batch's time;
+  4. train: the flagship training configuration (bench.py's _bench_cfg,
+     copied: 65,536-row user and item tables, D=64, 16 features, T=3,
+     H=32, 3-layer 4-head bf16 encoder, Debias.BOTH, fused loss; B=4096,
+     Adam at lr 1e-3), weights and one fixed batch random from --seed.
+     The five training kernels (encoder residual forward and backward,
+     in-batch CE forward and its two backward kernels) are held against
+     their plain versions on the step's own tensors and timed.  Then 3
+     warm-up and 20 timed steps through make_train_step; launch
+     counters are zeroed around the timed steps and must show one launch
+     per step of each training kernel (and of the backward's reduce) and
+     none of the forward-only encoder kernel.  Three more steps run under
+     torch.profiler, for the device time per kernel and the device's busy
+     share.  Last, train_loss and its gradients at B=256 on the card
+     against a CPU copy of the model.
 
 Prints one JSON line of per-kernel numbers, then, last, the ok line.  It
 imports nothing of JAX or of the JAX package.
@@ -47,6 +61,11 @@ BATCH = 1024
 HIST = 32
 TOPK = 100
 DEVICE = "cuda"
+TRAIN_ROWS = 65536
+TRAIN_BATCH = 4096
+TRAIN_STEPS = 20  # timed training steps
+CHECK_BATCH = 256  # card-against-CPU gradient check
+BF16_TOL = 1e-2  # tests/test_torch_train_step.py's bf16 tolerance
 
 
 def _fail(msg: str) -> None:
@@ -81,6 +100,258 @@ def close(a, b, rtol: float, atol: float) -> tuple[bool, float]:
     err = (a[fin] - b[fin]).abs()
     ok = bool((a[~fin] == b[~fin]).all()) and bool((err <= atol + rtol * b[fin].abs()).all())
     return ok, float(err.max()) if err.numel() else 0.0
+
+
+def bf16_ulps(torch, a, b) -> int:
+    """Largest distance between two bf16 tensors in steps of the bf16
+    number line (0 = bit-equal up to the sign of zero); -1 if their NaNs
+    are not in the same places."""
+    if not torch.equal(a.isnan(), b.isnan()):
+        return -1
+    keys = []
+    for t in (a, b):
+        bits = t.contiguous().view(torch.int16).int()
+        keys.append(torch.where(bits < 0, -(bits & 0x7FFF), bits)[~t.isnan()])
+    return int((keys[0] - keys[1]).abs().max()) if keys[0].numel() else 0
+
+
+def phase_train(torch, args, smi, dev, entry, entries, failures) -> None:
+    from two_tower_models_tpu_torch.config import (
+        Debias, HistoryEncoderConfig, ModelConfig, TrainConfig,
+    )
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.models.history_encoder import (
+        sinusoidal_positional_encoding,
+    )
+    from two_tower_models_tpu_torch.ops import _lib
+    from two_tower_models_tpu_torch.ops import fused_encoder as fe
+    from two_tower_models_tpu_torch.ops import fused_softmax as fs
+    from two_tower_models_tpu_torch.training.data import SyntheticRecData, gather_batch
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import make_train_step
+
+    # bench.py's _bench_cfg, copied
+    cfg = ModelConfig(
+        user_id_hash_size=TRAIN_ROWS,
+        user_id_embedding_dim=64,
+        item_id_hash_size=TRAIN_ROWS,
+        item_id_embedding_dim=64,
+        user_features_size=16,
+        item_features_size=16,
+        user_value_weights=(1.0, 0.5, 0.25),
+        history_len=HIST,
+        history_encoder=HistoryEncoderConfig(fused_encoder=True),
+        debias=Debias.BOTH,
+        compute_dtype="bfloat16",
+        fused_loss=True,
+    )
+    train_cfg = TrainConfig(batch_size=TRAIN_BATCH, learning_rate=1e-3)
+    b, d, h, nh, nl = TRAIN_BATCH, 64, HIST, 4, 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 1)
+    state = create_train_state(gen, cfg, train_cfg, device=dev)
+    model = state.params
+    randint = lambda hi, *shape: torch.randint(0, hi, shape, generator=gen, device=dev)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    data = SyntheticRecData(  # __graft_entry__._make_batch's shapes
+        user_ids=randint(TRAIN_ROWS, b),
+        user_features=randn(b, 16),
+        user_history=randint(TRAIN_ROWS, b, h),
+        item_ids=randint(TRAIN_ROWS, b),
+        item_features=randn(b, 16),
+        positions=randint(cfg.position_table_size, b),
+        labels=torch.bernoulli(torch.full((b, 3), 0.5, device=dev), generator=gen),
+        catalog_ids=torch.arange(4, device=dev),
+        catalog_features=torch.zeros(4, 16, device=dev),
+    )
+    idx = torch.arange(b, device=dev)
+    batch = gather_batch(data, idx)
+
+    # -- the five training kernels on the step's own tensors --
+    with torch.no_grad():
+        u, _ = tt.compute_user_embedding(model, cfg, batch.user_id, batch.user_features,
+                                         batch.user_history)
+        it = tt.compute_item_embeddings(model, cfg, batch.item_id, batch.item_features)
+        nuv, _ = tt.example_weights(model, cfg, u, batch.position, batch.labels)
+    g_ce = nuv / b  # the cotangent of ce in the loss
+    ce_k, lse_k = fs.in_batch_ce_fwd(u, it)
+    ce_p, lse_p = fs.in_batch_ce_fwd_plain(u, it)
+    ok_c, err_c = close(ce_k, ce_p, 0.0, 1e-5 * float(ce_p.abs().max()))
+    ok_l, err_l = close(lse_k, lse_p, 0.0, 1e-5 * float(lse_p.abs().max()))
+    ce_lib = lambda: torch.logsumexp(u @ it.T, 1) - (u * it).sum(1)
+    entry(
+        "fused_in_batch_ce", "two_tower_models_tpu_torch/csrc/fused_softmax.cu",
+        "two_tower_models_tpu/ops/pallas/fused_softmax.py:121", ok_c and ok_l,
+        max(err_c, err_l),
+        time_ms(torch, lambda: fs.in_batch_ce_fwd(u, it)),
+        time_ms(torch, lambda: fs.in_batch_ce_fwd_plain(u, it)),
+        2 * b * d * 4 + 2 * b * 4, 2 * b * b * d, F32_FLOPS, time_ms(torch, ce_lib),
+    )
+    term = float(g_ce.abs().max()) * max(float(u.abs().max()), float(it.abs().max()))
+    sm = lambda: torch.softmax(u @ it.T, 1) * g_ce[:, None]
+    for name, kern, plain, other, lib, src in (
+        ("in_batch_ce_bwd_du", fs.in_batch_ce_bwd_du, fs.in_batch_ce_bwd_du_plain, it,
+         lambda: sm() @ it - g_ce[:, None] * it, ":228"),
+        ("in_batch_ce_bwd_di", fs.in_batch_ce_bwd_di, fs.in_batch_ce_bwd_di_plain, u,
+         lambda: sm().T @ u - g_ce[:, None] * u, ":246"),
+    ):
+        got, want = kern(u, it, lse_k, g_ce), plain(u, it, lse_p, g_ce)
+        ok, err = close(got, want, 0.0, 1e-5 * max(float(want.abs().max()), term))
+        entry(
+            name, "two_tower_models_tpu_torch/csrc/fused_softmax.cu",
+            "two_tower_models_tpu/ops/pallas/fused_softmax.py" + src, ok, err,
+            time_ms(torch, lambda: kern(u, it, lse_k, g_ce)),
+            time_ms(torch, lambda: plain(u, it, lse_k, g_ce)),
+            2 * b * d * 4 + 2 * b * 4 + b * d * 4, 4 * b * b * d, F32_FLOPS,
+            time_ms(torch, lib),
+        )
+    del ce_p, lse_p
+
+    layers = model.history_encoder.attn_layers
+    w = [torch.stack([getattr(getattr(l, p), a) for l in layers]).detach()
+         for p, a in (("in_proj", "w"), ("in_proj", "b"), ("out_proj", "w"), ("out_proj", "b"))]
+    pe = sinusoidal_positional_encoding(h, d, dev)
+    x = model.item_id_table.detach()[batch.user_history].to(torch.bfloat16)
+    res_k = fe.fused_history_encoder_res(x, pe, *w, nh)
+    res_p = fe.fused_history_encoder_res_plain(x, pe, *w, nh)
+    # y and the bf16 residuals (xs, ps, p0) round where the plain version
+    # does: each value within one bf16 step of it
+    ulps = [bf16_ulps(torch, a, e) for a, e in zip(res_k, res_p)]
+    print(f"encoder residual forward, bf16 steps from plain (y, xs, ps, p0): {ulps}", flush=True)
+    checks = [(0 <= n <= 1, close(a, e, 0.0, 0.0)[1]) for n, a, e in zip(ulps, res_k, res_p)]
+    w_bytes = sum(t.numel() for t in w) * 4 + pe.numel() * 4
+    resid_bytes = (nl * b * h * d + (nl - 1) * b * nh * h * h + b * nh * h) * 2
+    per_ex = (nl - 1) * (2 * h * d * 3 * d + 4 * h * h * d + 2 * h * d * d) \
+        + (2 * h * d * 2 * d + 2 * d * d + 4 * h * d + 2 * d * d)
+    entry(
+        "fused_history_encoder_res", "two_tower_models_tpu_torch/csrc/fused_encoder.cu",
+        "two_tower_models_tpu/ops/pallas/fused_encoder.py:561",
+        all(ok for ok, _ in checks), max(err for _, err in checks),
+        time_ms(torch, lambda: fe.fused_history_encoder_res(x, pe, *w, nh)),
+        time_ms(torch, lambda: fe.fused_history_encoder_res_plain(x, pe, *w, nh)),
+        b * h * d * 2 + w_bytes + b * 2 * d * 2 + resid_bytes, b * per_ex, BF16_FLOPS, None,
+    )
+    # B6 on the plain residuals, so it is held alone; the cotangent is
+    # random at the size of a loss averaged over B (bf16, as autograd gives it)
+    g_enc = (randn(b, 2, d) / b).to(torch.bfloat16)
+    _, xs, ps, p0 = res_p
+    bwd_args = (g_enc, xs, ps, p0, w[0], w[1], w[2], nh)
+    got, want = fe.fused_history_encoder_bwd(*bwd_args), fe.fused_history_encoder_bwd_plain(*bwd_args)
+    checks = [close(a, e, 0.0, 3e-2 * float(e.float().abs().max())) for a, e in zip(got, want)]
+    bwd_flops = (nl - 1) * (22 * h * d * d + 10 * h * h * d) \
+        + (4 * h * d * d + 6 * d * d + 10 * h * d + 12 * h * d * d)
+    grads_bytes = sum(t.numel() for t in want[1:]) * 4
+    entry(
+        "fused_history_encoder_bwd", "two_tower_models_tpu_torch/csrc/fused_encoder_bwd.cu",
+        "two_tower_models_tpu/ops/pallas/fused_encoder.py:618",
+        all(ok for ok, _ in checks), max(err for _, err in checks),
+        time_ms(torch, lambda: fe.fused_history_encoder_bwd(*bwd_args)),
+        time_ms(torch, lambda: fe.fused_history_encoder_bwd_plain(*bwd_args)),
+        b * 2 * d * 2 + resid_bytes + w_bytes + b * h * d * 2 + grads_bytes,
+        b * bwd_flops, BF16_FLOPS, None,
+    )
+    entries["fused_history_encoder_bwd"]["note"] = (
+        "ms includes the second launch that sums the per-block weight grads")
+    del res_k, res_p, got, want, xs, ps, p0
+    torch.cuda.empty_cache()
+
+    # -- the training steps --
+    step = make_train_step(cfg, train_cfg)
+    with torch.enable_grad():
+        metrics = []
+        for _ in range(3):
+            state, m = step(state, data, idx)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(TRAIN_STEPS):
+            state, m = step(state, data, idx)
+            metrics.append(m)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_lib.launches)
+    ms_step = start.elapsed_time(end) / TRAIN_STEPS
+    print(f"launches on the training path ({TRAIN_STEPS} steps): {json.dumps(counts)}", flush=True)
+    expect = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1,
+              "fused_history_encoder_bwd_reduce": 1, "fused_in_batch_ce": 1,
+              "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1, "fused_history_encoder": 0}
+    for name, per in expect.items():
+        if counts.get(name, 0) != per * TRAIN_STEPS:
+            failures.append(f"train launches[{name}]={counts.get(name, 0)}")
+        if name in entries and per:
+            entries[name]["launches"] = counts.get(name, 0)
+    entries["fused_history_encoder_bwd"]["reduce_launches"] = counts.get(
+        "fused_history_encoder_bwd_reduce", 0)
+    first, last = metrics[0], metrics[-1]
+    if not all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values()):
+        failures.append("train metrics not finite")
+    kernel_ms = sum(entries[n]["ms"] for n in expect if n in entries and expect[n])
+    print(
+        f"train on {torch.cuda.get_device_name(0)} ({smi}): {TRAIN_STEPS} steps of B={b}: "
+        f"ms/step {ms_step:.3f}, examples/s {b / ms_step * 1e3:.0f}; host wall "
+        f"{wall * 1e3 / TRAIN_STEPS:.3f} ms/step; loss first {float(first['loss']):.5f} "
+        f"last {float(last['loss']):.5f}; softmax_ce first {float(first['softmax_ce']):.5f} "
+        f"last {float(last['softmax_ce']):.5f}; five kernels alone {kernel_ms:.3f} ms "
+        f"({kernel_ms / ms_step * 100:.1f}% of the step)",
+        flush=True,
+    )
+
+    # -- where a step's device time goes: a trace of three steps --
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.enable_grad(), torch.profiler.profile(activities=acts) as prof:
+        start.record()
+        for _ in range(3):
+            state, m = step(state, data, idx)
+        end.record()
+        torch.cuda.synchronize()
+    window_us = start.elapsed_time(end) * 1e3
+    by_name = {}  # device-side events only: kernels and copies, one stream
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    if busy:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        print(f"train trace, 3 steps under the profiler ({window_us / 3e3:.3f} ms/step): "
+              f"device busy {busy / 3e3:.3f} ms/step ({busy / window_us * 100:.1f}% of the "
+              f"window) in {len(by_name)} distinct kernels and copies; top per step: "
+              + "; ".join(f"{k[:48]} {v / 3e3:.3f} ms" for k, v in top), flush=True)
+    else:
+        print("train trace: the profiler recorded no device time (not measured)", flush=True)
+
+    # -- train_loss and its gradients, card against a CPU copy --
+    cpu_model = copy.deepcopy(model).cpu()
+    sub = gather_batch(data, idx[:CHECK_BATCH])
+    sub_cpu = type(sub)(*(None if t is None else t.cpu() for t in sub))
+    results = []
+    with torch.enable_grad():
+        for mdl, bt in ((model, sub), (cpu_model, sub_cpu)):
+            mdl.zero_grad(set_to_none=True)
+            loss, m = tt.train_loss(mdl, cfg, bt)
+            loss.backward()
+            results.append(({k: float(v.detach()) for k, v in m.items()},
+                            {n: p.grad.detach().float().cpu() for n, p in mdl.named_parameters()}))
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = results
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    worst, worst_leaf = 0.0, ""
+    for name, want in g_cpu.items():
+        scale = tt.ZERO_GRAD_FLOOR * top if name in tt.ZERO_GRAD_LEAVES else float(want.abs().max())
+        rel = float((g_gpu[name] - want).abs().max()) / max(scale, 1e-30)
+        if not (rel <= BF16_TOL):
+            failures.append(f"grad {name} card vs CPU: {rel:.3g} of its scale")
+        if rel > worst:
+            worst, worst_leaf = rel, name
+    for k, v in m_cpu.items():
+        if not abs(m_gpu[k] - v) <= BF16_TOL * max(abs(v), 1.0):
+            failures.append(f"metric {k} card vs CPU: {m_gpu[k]} vs {v}")
+    print(f"train_loss B={CHECK_BATCH} card vs CPU: loss {m_gpu['loss']:.6f} vs "
+          f"{m_cpu['loss']:.6f}; worst grad leaf {worst_leaf} at {worst:.3g} of its "
+          f"scale (tol {BF16_TOL})", flush=True)
 
 
 def main() -> int:
@@ -347,6 +618,11 @@ def main() -> int:
         f"host wall {wall * 1e3 / len(batches):.3f} ms/batch",
         flush=True,
     )
+    del engine, corpus, outs, batches, model, cpu_model
+    torch.cuda.empty_cache()
+
+    # ---- phase 4: train ------------------------------------------------
+    phase_train(torch, args, smi, dev, entry, entries, failures)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     if failures:
         _fail(", ".join(failures))

@@ -1,6 +1,7 @@
-"""PyTorch port: the four CUDA kernels against their plain PyTorch versions
-on the card, at shapes the serving run does not reach (ragged corpora,
-padded rows, odd batches, other encoder widths, hierarchical selects).
+"""PyTorch port: the CUDA kernels against their plain PyTorch versions on
+the card, at shapes the main paths do not reach (ragged corpora, padded
+rows, odd batches, other encoder widths, hierarchical selects, D = 65 and
+C != B for the CE kernels, NaN rows), and the encoder's autograd route.
 
 Needs an NVIDIA GPU with ``nvcc``; skips elsewhere.  It imports neither JAX
 nor the JAX package, so on a machine without JAX run it without the suite's
@@ -9,8 +10,14 @@ conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Tolerances: tile-max and rescore scores are f32 sums in another order than
-cuBLAS's (rtol 1e-5); the encoder at 1e-4 (f32) and 3e-2 (bf16, three
-layers of bf16 rounding); selections exactly.
+cuBLAS's (rtol 1e-5); the CE kernels the same, relative to each output's
+largest magnitude; the encoder forward at 1e-4 (f32) and 3e-2 (bf16, three
+layers of bf16 rounding); the residual forward's output and stored
+residuals at 1e-4 (f32) and within one bf16 step of each value (bf16: it
+rounds where the plain version does); the encoder backward at 1e-4 (f32) and 3e-2 (bf16)
+of each output's largest magnitude, since a bf16 rounding point that flips
+by one ulp between two sum orders carries into the sums over the batch;
+selections exactly.
 """
 
 import math
@@ -21,6 +28,7 @@ import torch
 
 from two_tower_models_tpu_torch.ops import _lib
 from two_tower_models_tpu_torch.ops import fused_encoder as fe
+from two_tower_models_tpu_torch.ops import fused_softmax as fs
 from two_tower_models_tpu_torch.ops import mips_topk as mt
 from two_tower_models_tpu_torch.retrieval.mips import mips_topk
 
@@ -190,3 +198,192 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
             torch.zeros(1, 192, device=dev), torch.zeros(1, 64, 64, device=dev),
             torch.zeros(1, 64, device=dev), 4,
         )
+
+
+def _scaled_close(got, want, tol, floor=1e-30):
+    """|got - want| <= tol * max(max|want|, floor), NaN where want is NaN.
+    ``floor`` is the size of one term of a sum whose exact value may be 0."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.equal(got.isnan(), want.isnan())
+    fin = ~want.isnan()
+    scale = float(want[fin].abs().max()) if bool(fin.any()) else 0.0
+    torch.testing.assert_close(got[fin], want[fin], rtol=0.0, atol=tol * max(scale, floor))
+
+
+def _term(g, x):
+    """The size of one g_b * p_bj * x_j term of a CE gradient (p <= 1)."""
+    return float(g.abs().max() * x[~x.isnan()].abs().max())
+
+
+_CE_SHAPES = [(1, 1, 64, True), (100, 100, 64, True), (4096, 4096, 64, True),
+              (300, 1000, 65, False), (77, 130, 65, False), (50, 20, 7, False)]
+
+
+@pytest.mark.parametrize("b,c,d,diag", _CE_SHAPES)
+def test_ce_kernels_match_plain(dev, b, c, d, diag):
+    """B10, B11 and B12: B not a multiple of the 32-row tile, C != B with
+    D = 65 (the logQ route's width), B = 1."""
+    u, i = _randn(20, b, d, dev=dev) * 0.3, _randn(21, c, d, dev=dev) * 0.3
+    g = _randn(22, b, dev=dev)
+    before = dict(_lib.launches)
+    ce, lse = fs.in_batch_ce_fwd(u, i, diag)
+    du = fs.in_batch_ce_bwd_du(u, i, lse, g, diag)
+    di = fs.in_batch_ce_bwd_di(u, i, lse, g, diag)
+    for name in ("fused_in_batch_ce", "in_batch_ce_bwd_du", "in_batch_ce_bwd_di"):
+        assert _lib.launches[name] == before.get(name, 0) + 1
+    ce_p, lse_p = fs.in_batch_ce_fwd_plain(u, i, diag)
+    _scaled_close(ce, ce_p, 1e-5)
+    _scaled_close(lse, lse_p, 1e-5)
+    _scaled_close(du, fs.in_batch_ce_bwd_du_plain(u, i, lse_p, g, diag), 1e-5, _term(g, i))
+    _scaled_close(di, fs.in_batch_ce_bwd_di_plain(u, i, lse_p, g, diag), 1e-5, _term(g, u))
+
+
+def test_ce_kernels_propagate_nan_like_plain(dev):
+    """A NaN row of U: its ce and lse are NaN, its dU row is NaN and, since
+    every column sees that row, so is all of dI; other rows stay finite."""
+    b, d = 200, 64
+    u, i = _randn(23, b, d, dev=dev), _randn(24, b, d, dev=dev)
+    u[17] = float("nan")
+    g = _randn(25, b, dev=dev)
+    ce, lse = fs.in_batch_ce_fwd(u, i)
+    ce_p, lse_p = fs.in_batch_ce_fwd_plain(u, i)
+    _scaled_close(ce, ce_p, 1e-5)
+    _scaled_close(lse, lse_p, 1e-5)
+    assert bool(ce[17].isnan()) and int(ce.isnan().sum()) == 1
+    _scaled_close(fs.in_batch_ce_bwd_du(u, i, lse, g), fs.in_batch_ce_bwd_du_plain(u, i, lse_p, g),
+                  1e-5, _term(g, i))
+    _scaled_close(fs.in_batch_ce_bwd_di(u, i, lse, g), fs.in_batch_ce_bwd_di_plain(u, i, lse_p, g),
+                  1e-5, _term(g, u))
+
+
+def test_ce_autograd_matches_plain_route(dev):
+    u, i = _randn(26, 300, 64, dev=dev) * 0.3, _randn(27, 300, 64, dev=dev) * 0.3
+    w = _randn(28, 300, dev=dev)
+    grads = []
+    for x, y in ((u, i), (u.cpu(), i.cpu())):
+        x, y = x.clone().requires_grad_(), y.clone().requires_grad_()
+        ce, _ = fs.fused_in_batch_ce(x, y)
+        lse = fs.fused_lse(x, y)
+        ((ce * w.to(x.device)).sum() + lse.sum()).backward()
+        grads.append((x.grad, y.grad))
+    for got, want in zip(grads[0], grads[1]):
+        _scaled_close(got, want, 1e-5)
+
+
+def test_ce_wrappers_reject_what_the_kernels_do_not_take(dev):
+    u, i = _randn(29, 8, 64, dev=dev), _randn(30, 8, 64, dev=dev)
+    with pytest.raises(TypeError):
+        fs.in_batch_ce_fwd(u.to(torch.bfloat16), i.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        fs.in_batch_ce_fwd(u, i[:5])
+    with pytest.raises(ValueError):
+        fs.in_batch_ce_fwd(u, i[:, :32], with_diag=False)
+
+
+def _encoder_inputs(b, h, d, nh, nl, dtype, dev, seed):
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    lim_in, lim_out = math.sqrt(6.0 / (4 * d)), math.sqrt(6.0 / (2 * d))
+    x = t(r.normal(size=(b, h, d))).to(dtype)
+    weights = (
+        t(r.normal(size=(h, d)) * 0.5),
+        t(r.uniform(-lim_in, lim_in, (nl, d, 3 * d))),
+        t(r.uniform(-0.1, 0.1, (nl, 3 * d))),
+        t(r.uniform(-lim_out, lim_out, (nl, d, d))),
+        t(r.uniform(-0.1, 0.1, (nl, d))),
+    )
+    g = t(r.normal(size=(b, 2, d)) * 0.1).to(dtype)
+    return x, weights, g
+
+
+_ENC_SHAPES = [(1, 32, 64, 4, 3), (37, 10, 64, 2, 1), (64, 8, 32, 4, 2), (300, 32, 64, 4, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,d,nh,nl", _ENC_SHAPES)
+def test_encoder_res_kernel_matches_plain(dev, dtype, b, h, d, nh, nl):
+    """B5: the output and the stored residuals, B = 1, H = 10, L = 1."""
+    x, w, _ = _encoder_inputs(b, h, d, nh, nl, dtype, dev, seed=b + h)
+    before = _lib.launches["fused_history_encoder_res"]
+    got = fe.fused_history_encoder_res(x, *w, nh)
+    assert _lib.launches["fused_history_encoder_res"] == before + 1
+    want = fe.fused_history_encoder_res_plain(x, *w, nh)
+    assert (got[2] is None) == (want[2] is None) == (nl == 1)
+    for a, e in zip(got, want):
+        if e is not None:
+            assert a.dtype == dtype and a.shape == e.shape
+            if dtype == torch.float32:
+                _assert_close(a, e, 1e-4, 1e-4)
+            else:
+                assert _bf16_ulps(a, e) <= 1
+
+
+def _bf16_ulps(a, b):
+    """Largest distance between two bf16 tensors in steps of the bf16
+    number line (0 = bit-equal up to the sign of zero); NaNs must coincide."""
+    assert torch.equal(a.isnan(), b.isnan())
+    keys = []
+    for t in (a, b):
+        bits = t.contiguous().view(torch.int16).int()
+        keys.append(torch.where(bits < 0, -(bits & 0x7FFF), bits)[~t.isnan()])
+    return int((keys[0] - keys[1]).abs().max()) if keys[0].numel() else 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,d,nh,nl", _ENC_SHAPES)
+def test_encoder_bwd_kernel_matches_plain(dev, dtype, b, h, d, nh, nl):
+    """B6 and its reduce on the plain version's residuals, all six outputs."""
+    x, w, g = _encoder_inputs(b, h, d, nh, nl, dtype, dev, seed=b + h + 1)
+    _, xs, ps, p0 = fe.fused_history_encoder_res_plain(x, *w, nh)
+    pe, w_in, b_in, w_out, _ = w
+    before = dict(_lib.launches)
+    got = fe.fused_history_encoder_bwd(g, xs, ps, p0, w_in, b_in, w_out, nh)
+    for name in ("fused_history_encoder_bwd", "fused_history_encoder_bwd_reduce"):
+        assert _lib.launches[name] == before.get(name, 0) + 1
+    want = fe.fused_history_encoder_bwd_plain(g, xs, ps, p0, w_in, b_in, w_out, nh)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for a, e in zip(got, want):
+        assert a.shape == e.shape and a.dtype == e.dtype
+        _scaled_close(a, e, tol)
+
+
+def test_encoder_bwd_is_deterministic(dev):
+    """Two runs on the same inputs give bit-equal weight grads: the per-block
+    partials are summed in a fixed order, with no float atomics."""
+    x, w, g = _encoder_inputs(1000, 32, 64, 4, 3, torch.bfloat16, dev, seed=3)
+    _, xs, ps, p0 = fe.fused_history_encoder_res(x, *w, 4)
+    runs = [fe.fused_history_encoder_bwd(g, xs, ps, p0, w[1], w[2], w[3], 4) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_encoder_autograd_grads_match_plain_route(dev, dtype):
+    """The autograd Function on the card (B5 then B6, never B1) gives the
+    weight and input grads of the plain route on the CPU."""
+    x, w, g = _encoder_inputs(129, 32, 64, 4, 3, dtype, dev, seed=4)
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        leaves = [t.to(device).clone().requires_grad_() for t in (x, *w)]
+        before = dict(_lib.launches)
+        y = fe.fused_history_encoder(*leaves, 4)
+        (y.float() * g.float().to(device)).sum().backward()
+        if device.type == "cuda":
+            assert _lib.launches["fused_history_encoder_res"] == before.get("fused_history_encoder_res", 0) + 1
+            assert _lib.launches["fused_history_encoder_bwd"] == before.get("fused_history_encoder_bwd", 0) + 1
+            assert _lib.launches["fused_history_encoder"] == before.get("fused_history_encoder", 0)
+        grads.append([t.grad for t in leaves])
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for a, e in zip(*grads):
+        _scaled_close(a, e, tol)
+
+
+def test_encoder_inference_runs_the_forward_kernel(dev):
+    """Serving (no grad wanted) launches B1, not B5."""
+    x, w, _ = _encoder_inputs(16, 32, 64, 4, 3, torch.bfloat16, dev, seed=5)
+    w = [t.requires_grad_() for t in w]
+    before = dict(_lib.launches)
+    with torch.inference_mode():
+        fe.fused_history_encoder(x, *w, 4)
+    assert _lib.launches["fused_history_encoder"] == before.get("fused_history_encoder", 0) + 1
+    assert _lib.launches["fused_history_encoder_res"] == before.get("fused_history_encoder_res", 0)

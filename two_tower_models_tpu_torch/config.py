@@ -1,6 +1,7 @@
-"""Configuration of the PyTorch port: the model-space dataclasses of
-``two_tower_models_tpu.config``, copied field for field so the port imports
-nothing of the JAX package, plus the device rules of the port's entry points.
+"""Configuration of the PyTorch port: the model-space dataclasses and
+``TrainConfig`` of ``two_tower_models_tpu.config``, copied field for field
+so the port imports nothing of the JAX package, plus the device rules of
+the port's entry points.
 
 ``pdtype``/``cdtype`` return torch dtypes.  AUTO (``None``) kernel flags
 resolve against the device a call runs on (``resolve_kernel_flags``), at
@@ -141,6 +142,36 @@ class ModelConfig:
                 f"must be >= num_items ({self.num_items})"
             )
         return self
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop configuration, field for field the JAX package's
+    ``TrainConfig`` (its comments say what each knob does there).  The port
+    trains through ``training.step.make_train_step``; of the optional paths
+    it raises on ``lazy_table_adam``, ``fused_adam``, ``streaming_logq`` and
+    on tables large enough to pack (``training.state``)."""
+
+    batch_size: int = 32
+    num_epochs: int = 2
+    learning_rate: float = 1e-3
+    grad_clip_norm: Optional[float] = None  # global-norm clip before Adam
+    seed: int = 42
+    log_every: int = 10
+    eval_every: int = 0
+    eval_top_k: int = 100
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
+    profile_dir: Optional[str] = None
+    donate_state: bool = True
+    steps_per_dispatch: int = 1  # K > 1: K steps per call, metrics averaged
+    debug_nans: bool = False
+    lazy_table_adam: bool = False
+    pack_tables: bool = True
+    pack_tables_min_rows: int = 1 << 22
+    streaming_logq: bool = False
+    logq_decay: float = 0.999
+    fused_adam: bool = False
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -22,6 +22,16 @@
 // layer for each of its examples with all activations in shared memory:
 // x [EPB][H][D] across layers, qkv [H][3D], scores [NH][H][H], out [H][D].
 // Matmuls are plain f32 FMA loops on the CUDA cores; wgmma is later work.
+//
+// With RES (B5, replacing _enc_fwd_res_kernel, fused_encoder.py:199-229,
+// call at :561) the same forward also stores, in x's dtype, what the
+// backward (fused_encoder_bwd.cu) rebuilds a layer from: each layer's input
+// xs [L, B, H, D] and the probabilities of the full layers
+// ps [L-1, B, NH, H, H] and of the thin last layer p0 [B, NH, H].  The
+// probabilities are the rounded values P.V used, so the backward sees the
+// forward's numbers.  Per head [NH, H, H] holds the values of the Pallas
+// kernel's merged [H, NH*H] layout, without its padding.  B1 (RES = false)
+// compiles to the code it had before the flag.
 
 #include "common.cuh"
 
@@ -33,12 +43,19 @@ __device__ __forceinline__ float rnd(float x, bool bf) {
   return bf ? tt::round_bf16(x) : x;
 }
 
+__device__ __forceinline__ void store(void* dst, size_t i, float v, bool bf) {
+  if (bf) ((__nv_bfloat16*)dst)[i] = __float2bfloat16_rn(v);
+  else ((float*)dst)[i] = v;
+}
+
+template <bool RES>
 __global__ void __launch_bounds__(THREADS)
 encoder_kernel(const void* __restrict__ x_in, const float* __restrict__ pe,
                const float* __restrict__ w_in, const float* __restrict__ b_in,
                const float* __restrict__ w_out, const float* __restrict__ b_out,
-               void* __restrict__ y_out, int B, int H, int D, int NH, int L,
-               int bf, int epb, float scale) {
+               void* __restrict__ y_out, void* __restrict__ xs_out,
+               void* __restrict__ ps_out, void* __restrict__ p0_out, int B,
+               int H, int D, int NH, int L, int bf, int epb, float scale) {
   extern __shared__ float smem[];
   const int D3 = 3 * D;
   const int hd = D / NH;
@@ -90,6 +107,10 @@ encoder_kernel(const void* __restrict__ x_in, const float* __restrict__ pe,
 
     for (int e = 0; e < ne; ++e) {
       float* x = xs + e * H * D;
+      if (RES) {  // this layer's input, in x's dtype
+        const size_t base = ((size_t)l * B + e0 + e) * H * D;
+        for (int i = t; i < H * D; i += THREADS) store(xs_out, base + i, x[i], bf);
+      }
       // qkv = round(round(x) @ round(W_in) + b_in); q for row 0 only when last
       for (int i = t; i < H * D3; i += THREADS) {
         int r = i / D3, j = i % D3;
@@ -128,6 +149,13 @@ encoder_kernel(const void* __restrict__ x_in, const float* __restrict__ pe,
         for (int kj = lane; kj < H; kj += 32) sr[kj] = rnd(sr[kj] / den, bf);
       }
       __syncthreads();
+      if (RES) {  // the probabilities: [NH][H][H] per example, [NH][H] when last
+        const int n = NH * nq * H;
+        void* dst = last ? p0_out : ps_out;
+        const size_t base = last ? (size_t)(e0 + e) * n
+                                 : ((size_t)l * B + e0 + e) * n;
+        for (int i = t; i < n; i += THREADS) store(dst, base + i, s[i], bf);
+      }
       // o[qi][c] = round(sum_kj p[h(c)][qi][kj] * v[kj][c])
       for (int i = t; i < nq * D; i += THREADS) {
         int qi = i / D, c = i % D, h = c / hd;
@@ -155,6 +183,28 @@ encoder_kernel(const void* __restrict__ x_in, const float* __restrict__ pe,
   }
 }
 
+template <bool RES>
+int launch(const void* x, const void* pe, const void* w_in, const void* b_in,
+           const void* w_out, const void* b_out, void* y, void* xs, void* ps,
+           void* p0, int B, int H, int D, int NH, int L, int bf, int epb,
+           void* stream) {
+  if (D % NH != 0 || epb < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  const size_t floats = (size_t)D * 3 * D + 3 * D + (size_t)D * D + D +
+                        (size_t)epb * H * D + (size_t)H * 3 * D +
+                        (size_t)NH * H * H + (size_t)H * D;
+  const size_t smem = floats * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      encoder_kernel<RES>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const float scale = (float)(1.0 / sqrt((double)(D / NH)));
+  const int blocks = (B + epb - 1) / epb;
+  encoder_kernel<RES><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      x, (const float*)pe, (const float*)w_in, (const float*)b_in,
+      (const float*)w_out, (const float*)b_out, y, xs, ps, p0, B, H, D, NH, L,
+      bf, epb, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int tt_fused_history_encoder(const void* x, const void* pe,
@@ -162,19 +212,15 @@ extern "C" int tt_fused_history_encoder(const void* x, const void* pe,
                                         const void* w_out, const void* b_out,
                                         void* y, int B, int H, int D, int NH,
                                         int L, int bf, int epb, void* stream) {
-  if (D % NH != 0 || epb < 1 || L < 1) return (int)cudaErrorInvalidValue;
-  const size_t floats = (size_t)D * 3 * D + 3 * D + (size_t)D * D + D +
-                        (size_t)epb * H * D + (size_t)H * 3 * D +
-                        (size_t)NH * H * H + (size_t)H * D;
-  const size_t smem = floats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      encoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const float scale = (float)(1.0 / sqrt((double)(D / NH)));
-  const int blocks = (B + epb - 1) / epb;
-  encoder_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      x, (const float*)pe, (const float*)w_in, (const float*)b_in,
-      (const float*)w_out, (const float*)b_out, y, B, H, D, NH, L, bf, epb,
-      scale);
-  return (int)cudaGetLastError();
+  return launch<false>(x, pe, w_in, b_in, w_out, b_out, y, nullptr, nullptr,
+                       nullptr, B, H, D, NH, L, bf, epb, stream);
+}
+
+// B5: the forward plus its residuals xs, ps (null when L == 1) and p0.
+extern "C" int tt_fused_history_encoder_res(
+    const void* x, const void* pe, const void* w_in, const void* b_in,
+    const void* w_out, const void* b_out, void* y, void* xs, void* ps, void* p0,
+    int B, int H, int D, int NH, int L, int bf, int epb, void* stream) {
+  return launch<true>(x, pe, w_in, b_in, w_out, b_out, y, xs, ps, p0, B, H, D,
+                      NH, L, bf, epb, stream);
 }

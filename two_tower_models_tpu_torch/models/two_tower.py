@@ -1,20 +1,21 @@
-"""Two-tower retrieval model: parameters, towers and inference.
+"""Two-tower retrieval model: parameters, towers, training loss, inference.
 
-Port of the serving half of ``two_tower_models_tpu/models/two_tower.py``.
+Port of ``two_tower_models_tpu/models/two_tower.py``.
 ``TwoTowerModel`` holds every parameter leaf of the JAX params pytree for
 any of the 8 presets, under the pytree's own path names
 (``history_encoder.attn_layers.0.in_proj.w``), so the weight bridge
 (``bridge.py``) is a mechanical flatten.  The towers are plain functions of
 (model, cfg, inputs), like their JAX counterparts.
 
-Not in this slice, and raising ``NotImplementedError`` rather than taking
-another path: the light-ranker rerank, ``approx_mips``, a quantized corpus,
-user-embedding arms other than the id table.
+Not ported yet, and raising ``NotImplementedError`` rather than taking
+another path: the light-ranker rerank and train terms, the reward model,
+mixed negatives and logQ, precomputed ``scores``, ``approx_mips``, a
+quantized corpus, user-embedding arms other than the id table.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -33,10 +34,29 @@ from two_tower_models_tpu_torch.nn.layers import (
     MLP,
     Linear,
     embedding_init,
+    embedding_lookup,
     linear_apply,
     mlp_apply,
     table_lookup,
 )
+from two_tower_models_tpu_torch.ops.fused_softmax import fused_in_batch_ce
+
+
+class Batch(NamedTuple):
+    """One training or inference batch (the JAX package's ``Batch``)."""
+
+    user_id: torch.Tensor  # [B] int
+    user_features: torch.Tensor  # [B, IU]
+    user_history: torch.Tensor  # [B, H] int, newest first
+    item_id: Optional[torch.Tensor] = None  # [B] (training only)
+    item_features: Optional[torch.Tensor] = None  # [B, II] (training only)
+    position: Optional[torch.Tensor] = None  # [B] (training only)
+    labels: Optional[torch.Tensor] = None  # [B, T]
+    history_len: Optional[torch.Tensor] = None  # [B] valid history lengths
+    neg_item_id: Optional[torch.Tensor] = None  # mixed negatives (not ported)
+    neg_item_features: Optional[torch.Tensor] = None
+    item_logq: Optional[torch.Tensor] = None
+    neg_logq: Optional[torch.Tensor] = None
 
 
 def _not_ported(what: str, item: str):
@@ -165,6 +185,143 @@ def compute_item_embeddings(
     ifeat_emb = mlp_apply(params.item_features_mlp, item_features, cd)
     x = torch.cat([iid_emb.float(), ifeat_emb], dim=-1)
     return linear_apply(params.item_tower_head, x, cd)
+
+
+def _clip_min(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """``jnp.clip(x, min=lo)`` with JAX's gradient: half to each side at a
+    tie (``torch.clamp_min`` would pass all of it to ``x``)."""
+    return torch.maximum(x, torch.tensor(lo, dtype=x.dtype, device=x.device))
+
+
+def debias_net_user_value(
+    params: TwoTowerModel,
+    cfg: ModelConfig,
+    net_user_value: torch.Tensor,  # [B]
+    position: torch.Tensor,  # [B]
+    user_embedding: torch.Tensor,  # [B, DI]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(re-weighted nuv, aux loss), with the three heads' different clamp
+    and MSE orders: POSITION takes the MSE of the raw estimate, then clamps;
+    USER clamps first and takes the MSE of the clamped estimate; BOTH takes
+    both raw MSEs and divides by the clamped user estimate."""
+    zero = net_user_value.new_zeros((), dtype=torch.float32)
+    if cfg.debias == Debias.NONE:
+        return net_user_value, zero
+    if cfg.debias == Debias.POSITION:
+        est = embedding_lookup(params.position_bias_table, position)[:, 0]
+        aux = torch.sum((est - net_user_value) ** 2)
+        return net_user_value / _clip_min(est, cfg.position_debias_min), aux
+    if cfg.debias == Debias.USER:
+        est = _clip_min(linear_apply(params.user_debias_head, user_embedding)[:, 0],
+                        cfg.user_debias_min)
+        aux = torch.sum((est - net_user_value) ** 2)
+        return net_user_value / est, aux
+    e_pos = embedding_lookup(params.position_bias_table, position)  # [B, 1]
+    e_user = linear_apply(
+        params.user_debias_head,
+        torch.cat([user_embedding, e_pos.to(user_embedding.dtype)], dim=-1),
+    )[:, 0]
+    aux_pos = torch.sum((e_pos[:, 0] - net_user_value) ** 2)
+    aux_user = torch.sum((e_user - net_user_value) ** 2)
+    e_user = _clip_min(e_user, cfg.combined_debias_min)
+    return net_user_value / e_user, aux_user + aux_pos
+
+
+def _in_batch_ce(scores: torch.Tensor) -> torch.Tensor:
+    """Per-row CE of the [B, B] logits against the diagonal."""
+    scores = scores.float()
+    return torch.logsumexp(scores, dim=-1) - torch.diagonal(scores)
+
+
+def _net_user_value(cfg: ModelConfig, labels: torch.Tensor) -> torch.Tensor:
+    """nuv = labels @ user_value_weights over the first T tasks, [B]."""
+    w = torch.tensor(cfg.user_value_weights, dtype=torch.float32, device=labels.device)
+    return labels[:, : cfg.num_tasks].float() @ w
+
+
+def example_weights(
+    params: TwoTowerModel, cfg: ModelConfig, user_embedding, position, labels,
+    max_normalize: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(per-example CE weights [B], debias aux loss): nuv, the debias hook,
+    the clamp at ``nuv_min`` and the normalisation by the batch max (``amax``
+    splits its gradient among tied maxima, as ``jnp.max`` does)."""
+    nuv = _net_user_value(cfg, labels)
+    nuv, aux_loss = debias_net_user_value(params, cfg, nuv, position, user_embedding)
+    aux_loss = aux_loss * cfg.debias_aux_weight
+    nuv = _clip_min(nuv, cfg.nuv_min)
+    if max_normalize:
+        nuv = nuv / torch.amax(nuv)
+    return nuv, aux_loss
+
+
+def softmax_retrieval_loss(
+    params: TwoTowerModel,
+    cfg: ModelConfig,
+    user_embedding: torch.Tensor,  # [B, DI]
+    item_embeddings: torch.Tensor,  # [B, DI]
+    position: torch.Tensor,  # [B]
+    labels: torch.Tensor,  # [B, T]
+    *,
+    max_normalize: bool = True,
+    scores: Optional[torch.Tensor] = None,
+    neg_item_embeddings: Optional[torch.Tensor] = None,
+    item_logq: Optional[torch.Tensor] = None,
+    neg_logq: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """In-batch sampled-softmax loss weighted by the (debiased) net user
+    value, plus the debias aux loss.  ``cfg.fused_loss`` takes
+    ``fused_in_batch_ce`` (kernels B10-B12 on the card), otherwise the [B, B]
+    logits materialise.  The port has one device, so the JAX package's mesh
+    branch has no counterpart here (ROADMAP.md, queue A, 'Multi-device')."""
+    if neg_item_embeddings is not None or item_logq is not None or neg_logq is not None:
+        raise _not_ported("mixed negatives and the logQ correction", "Mixed negatives and logQ")
+    if scores is not None:
+        raise _not_ported("precomputed scores", "Other zoo variants")
+    if cfg.fused_loss:
+        ce, _ = fused_in_batch_ce(user_embedding, item_embeddings)
+    else:
+        ce = _in_batch_ce(user_embedding.float() @ item_embeddings.float().T)
+    nuv, aux_loss = example_weights(params, cfg, user_embedding, position, labels, max_normalize)
+    loss = torch.mean(ce * nuv) + aux_loss
+    metrics = {
+        "softmax_ce": torch.mean(ce),
+        "debias_aux_loss": aux_loss,
+        "nuv_mean": torch.mean(nuv),
+    }
+    return loss, metrics
+
+
+def train_loss(
+    params: TwoTowerModel, cfg: ModelConfig, batch: Batch
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Scalar training loss and metrics for the base, history and debias
+    presets.  AUTO kernel flags resolve on the device of the params."""
+    if cfg.light_ranker is not None or cfg.reward_model:
+        raise _not_ported("the light-ranker and reward-model terms", "Other zoo variants")
+    if batch.neg_item_id is not None or batch.item_logq is not None:
+        raise _not_ported("mixed negatives and the logQ correction", "Mixed negatives and logQ")
+    cfg = resolve_kernel_flags(cfg, params.item_id_table.device)
+    user_emb, _ = compute_user_embedding(
+        params, cfg, batch.user_id, batch.user_features, batch.user_history,
+        batch.history_len,
+    )
+    item_embs = compute_item_embeddings(params, cfg, batch.item_id, batch.item_features)
+    loss, metrics = softmax_retrieval_loss(
+        params, cfg, user_emb, item_embs, batch.position, batch.labels
+    )
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+# train_loss gradients that are zero in exact arithmetic: the item-tower head
+# bias and the item feature MLP's last bias each add one vector to every item
+# embedding, which shifts all logits of a row's softmax alike, so their
+# gradients cancel and hold only rounding noise.  A comparison of gradients
+# holds them relative to ZERO_GRAD_FLOOR times the largest magnitude over all
+# leaves instead of their own scale.
+ZERO_GRAD_LEAVES = ("item_tower_head.b", "item_features_mlp.1.b")
+ZERO_GRAD_FLOOR = 1e-2
 
 
 def retrieve_from_embeddings(

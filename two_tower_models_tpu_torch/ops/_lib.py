@@ -48,6 +48,11 @@ _SIGNATURES = {
     "tt_tile_max_scores": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tt_select_topk_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tt_gather_rescore": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tt_fused_history_encoder_res": [_P] * 10 + [_I] * 7 + [_P],
+    "tt_fused_history_encoder_bwd": [_P] * 10 + [_I] * 7 + [_P],
+    "tt_fused_history_encoder_bwd_reduce": [_P, _P, _I, _I, _P],
+    "tt_in_batch_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tt_in_batch_ce_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
