@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--batches 10]
 
-Phases, any failure exits non-zero:
+Phases, in the order they run; any failure exits non-zero:
 
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, and the build of the CUDA kernels from csrc/ (nvcc, on
@@ -22,6 +22,12 @@ Phases, any failure exits non-zero:
      embeddings against the CPU run of the same model on a slice.  The user
      tower and the exact MIPS are then timed alone, for the breakdown of a
      batch's time;
+  2b. serve, variable-length histories: the same engine warmed up with
+     variable_history=True, then ten batches with lengths uniform in
+     [1, 32] and id 0 past each length.  The length-masked attention stack
+     (B8) is held against its plain version on the batch's own tensors;
+     launch counts, indices and user embeddings are checked as in phase 3,
+     with B8 in place of the whole-encoder forward;
   4. train: the flagship training configuration (bench.py's _bench_cfg,
      copied: 65,536-row user and item tables, D=64, 16 features, T=3,
      H=32, 3-layer 4-head bf16 encoder, Debias.BOTH, fused loss; B=4096,
@@ -34,8 +40,19 @@ Phases, any failure exits non-zero:
      per step of each training kernel (and of the backward's reduce) and
      none of the forward-only encoder kernel.  Three more steps run under
      torch.profiler, for the device time per kernel and the device's busy
-     share.  Last, train_loss and its gradients at B=256 on the card
-     against a CPU copy of the model.
+     share;
+  4c. the recompute encoder backward (B7) on phase 4's encoder tensors,
+     against its plain version and against B6; then the step with B1 and
+     B7 in place of B5 and B6 (_RESIDUAL_BWD False), timed beside the B5/B6
+     step in the order B6, B7, B7, B6.  Last, train_loss and its gradients
+     at B=256 on the card against a CPU copy of the model;
+  4b. train, variable-length histories: the flagship config on
+     make_synthetic_data with variable_history (lengths in [1, 32], id 0
+     past them).  The stack's backward (B9) is held against its plain
+     version on the step's own tensors; 3 warm-up and 20 timed steps
+     launch B8, B9 and the CE kernels once each and none of the
+     fixed-length encoder kernels; three steps under torch.profiler; grads
+     against a CPU copy at B=256.
 
 Prints one JSON line of per-kernel numbers, then, last, the ok line.  It
 imports nothing of JAX or of the JAX package.
@@ -115,7 +132,272 @@ def bf16_ulps(torch, a, b) -> int:
     return int((keys[0] - keys[1]).abs().max()) if keys[0].numel() else 0
 
 
-def phase_train(torch, args, smi, dev, entry, entries, failures) -> None:
+def enc_flops(n: int, d: int, nl: int) -> int:
+    """Operations of the encoder's layers on one example of n valid rows:
+    nl - 1 full layers and the thin last one (query row 0)."""
+    return (nl - 1) * (2 * n * d * 3 * d + 4 * n * n * d + 2 * n * d * d) \
+        + (2 * n * d * 2 * d + 2 * d * d + 4 * n * d + 2 * d * d)
+
+
+def bwd_flops(n: int, d: int, nl: int) -> int:
+    """Operations of the encoder's backward proper on one example of n valid
+    rows.  A full layer: dW_out and do (2nd^2 each), dp, dv, dq and dk (2n^2d
+    each), dW_in and dx (6nd^2 each).  The thin last layer, whose output and
+    dq are row 0 only: dW_out and do (2d^2 each), dp, dv, dq0 and dk (2nd
+    each), dW_in and dx (4nd^2 for k, v and 2d^2 for q, each)."""
+    return (nl - 1) * (16 * n * d * d + 8 * n * n * d) \
+        + (4 * d * d + 8 * n * d + 8 * n * d * d + 4 * d * d)
+
+
+def vjp_flops(n: int, d: int, nl: int) -> int:
+    """What a backward that recomputes the forward must do on one example of
+    n valid rows: the forward but the thin layer's output projection, whose
+    result the backward does not need, then the backward."""
+    return enc_flops(n, d, nl) - 2 * d * d + bwd_flops(n, d, nl)
+
+
+def resid_bwd_flops(n: int, d: int, nl: int) -> int:
+    """What a backward from stored layer inputs and probabilities must do on
+    one example of n valid rows: vjp_flops less the scores and the full
+    layers' output projections, which the stored residuals stand for."""
+    return vjp_flops(n, d, nl) - (nl - 1) * (2 * n * n * d + 2 * n * d * d) - 2 * n * d
+
+
+def scaled_close(got, want, tol: float) -> tuple[bool, float]:
+    """Each output within ``tol`` of its largest magnitude."""
+    return close(got, want, 0.0, tol * float(want.float().abs().max()))
+
+
+def check_launches(counts: dict, expect: dict, n: int, failures: list, label: str) -> None:
+    for name, per in expect.items():
+        if counts.get(name, 0) != per * n:
+            failures.append(f"{label} launches[{name}]={counts.get(name, 0)}")
+
+
+def run_steps(torch, step, state, data, idx, n: int):
+    """n training steps, the launch counts zeroed just before and read just
+    after: (state, metrics, device ms/step, host ms/step, counts)."""
+    from two_tower_models_tpu_torch.ops import _lib
+
+    metrics = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.enable_grad():
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            state, m = step(state, data, idx)
+            metrics.append(m)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_lib.launches)
+    return state, metrics, start.elapsed_time(end) / n, wall * 1e3 / n, counts
+
+
+def finite(torch, metrics) -> bool:
+    return all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values())
+
+
+def grads_vs_cpu(torch, model, cfg, data, idx, failures, label: str) -> None:
+    """train_loss and every grad leaf on the card against a CPU copy of the
+    model, on the first CHECK_BATCH rows of idx, at BF16_TOL of each leaf's
+    scale (the zero-gradient leaves against ZERO_GRAD_FLOOR of the top)."""
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.training.data import gather_batch
+
+    cpu_model = copy.deepcopy(model).cpu()
+    sub = gather_batch(data, idx[:CHECK_BATCH])
+    sub_cpu = type(sub)(*(None if t is None else t.cpu() for t in sub))
+    results = []
+    with torch.enable_grad():
+        for mdl, bt in ((model, sub), (cpu_model, sub_cpu)):
+            mdl.zero_grad(set_to_none=True)
+            loss, m = tt.train_loss(mdl, cfg, bt)
+            loss.backward()
+            results.append(({k: float(v.detach()) for k, v in m.items()},
+                            {n: p.grad.detach().float().cpu() for n, p in mdl.named_parameters()}))
+    model.zero_grad(set_to_none=True)
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = results
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    worst, worst_leaf = 0.0, ""
+    for name, want in g_cpu.items():
+        scale = tt.ZERO_GRAD_FLOOR * top if name in tt.ZERO_GRAD_LEAVES else float(want.abs().max())
+        rel = float((g_gpu[name] - want).abs().max()) / max(scale, 1e-30)
+        if not (rel <= BF16_TOL):
+            failures.append(f"{label} grad {name} card vs CPU: {rel:.3g} of its scale")
+        if rel > worst:
+            worst, worst_leaf = rel, name
+    for k, v in m_cpu.items():
+        if not abs(m_gpu[k] - v) <= BF16_TOL * max(abs(v), 1.0):
+            failures.append(f"{label} metric {k} card vs CPU: {m_gpu[k]} vs {v}")
+    print(f"{label}: train_loss B={CHECK_BATCH} card vs CPU: loss {m_gpu['loss']:.6f} vs "
+          f"{m_cpu['loss']:.6f}; worst grad leaf {worst_leaf} at {worst:.3g} of its "
+          f"scale (tol {BF16_TOL})", flush=True)
+
+
+def stack_input(torch, model, hist, lens):
+    """What the history encoder hands fused_attn_stack: the embedded
+    history zeroed past each length, plus the PE at each length (f32)."""
+    from two_tower_models_tpu_torch.models.history_encoder import (
+        per_example_positional_encoding,
+    )
+
+    emb = model.item_id_table.detach()[hist]
+    valid = torch.arange(HIST, device=hist.device)[None, :] < lens[:, None]
+    return torch.where(valid[..., None], emb, 0) + per_example_positional_encoding(
+        lens, HIST, emb.shape[-1])
+
+
+def serve_leg(torch, label, engine, model, cpu_model, cfg, batches, expect, own,
+              entries, failures, smi) -> None:
+    """Ten query batches through engine.query, launch counts zeroed just
+    before and read just after (``own``: the kernels whose ``launches`` this
+    leg reports); indices against the dense plain MIPS on the same user
+    embeddings, and the user embeddings against the CPU model on 32 rows."""
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.ops import _lib
+    from two_tower_models_tpu_torch.retrieval.mips import mips_topk
+
+    _lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in batches]
+    outs = []
+    t0 = time.perf_counter()
+    for (s, e), (u, f, h, lens) in zip(evs, batches):
+        s.record()
+        outs.append(engine.query(u, f, h, history_len=lens))
+        e.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_lib.launches)
+    ms = [s.elapsed_time(e) for s, e in evs]
+    print(f"launches on the {label} path: {json.dumps(counts)}", flush=True)
+    check_launches(counts, expect, len(batches), failures, label)
+    for name in own:
+        entries[name]["launches"] = counts.get(name, 0)
+
+    hits, total, margin_rows, mismatched = 0, 0, 0, 0
+    for (u, f, h, lens), got in zip(batches, outs):
+        with torch.inference_mode():
+            qq, _ = tt.compute_user_embedding(model, cfg, u, f, h, lens)
+            ridx, rsc, _ = mips_topk(engine.corpus, qq, TOPK + 1)
+        if got.shape != (BATCH, TOPK) or int(got.min()) < 0 or int(got.max()) >= CORPUS:
+            failures.append(f"{label} output shape/range")
+        clear = (rsc[:, TOPK - 1] - rsc[:, TOPK]) > 1e-5 * rsc[:, TOPK - 1].abs()
+        margin_rows += int(clear.sum())
+        same = torch.sort(got[clear], dim=1).values == torch.sort(ridx[clear, :TOPK], dim=1).values
+        mismatched += int((~same).any(dim=1).sum())
+        for g, r in zip(got.tolist(), ridx[:, :TOPK].tolist()):
+            hits += len(set(g) & set(r))
+            total += TOPK
+    recall = hits / total
+    print(f"{label}: recall@{TOPK} vs plain {recall:.6f}; clear-margin rows "
+          f"{margin_rows} with index mismatch {mismatched}", flush=True)
+    if recall < 0.999 or mismatched:
+        failures.append(f"{label} indices")
+
+    u, f, h, lens = (None if t is None else t[:32] for t in batches[0])
+    cpu = lambda t: None if t is None else t.cpu()
+    with torch.inference_mode():
+        q_gpu, _ = tt.compute_user_embedding(model, cfg, u, f, h, lens)
+        q_cpu, _ = tt.compute_user_embedding(cpu_model, cfg, cpu(u), cpu(f), cpu(h), cpu(lens))
+    ok, err = close(q_gpu.cpu(), q_cpu, 3e-2, 3e-2)
+    print(f"{label} user embeddings GPU vs CPU: ok={ok} max_abs_err={err:.3g} (tol 3e-2)",
+          flush=True)
+    if not ok or not bool(q_gpu.isfinite().all()):
+        failures.append(f"{label} user embeddings vs CPU")
+    ms_batch = sum(ms) / len(ms)
+    print(
+        f"{label} on {torch.cuda.get_device_name(0)} ({smi}): {len(batches)} batches of "
+        f"B={BATCH} over C={CORPUS}, k={TOPK}: ms/batch mean {ms_batch:.3f} "
+        f"min {min(ms):.3f} max {max(ms):.3f}; QPS {BATCH / ms_batch * 1e3:.0f}; "
+        f"host wall {wall * 1e3 / len(batches):.3f} ms/batch",
+        flush=True,
+    )
+
+
+def phase_serve_varlen(torch, args, gen, smi, dev, cfg, model, cpu_model, engine, w,
+                       entry, entries, failures) -> None:
+    """Phase 2b: B8 on a variable-length batch, then the varlen serve leg."""
+    from two_tower_models_tpu_torch.ops import fused_encoder as fe
+
+    nh, nl, d = 4, 3, 64
+    engine.warmup(BATCH, variable_history=True)
+    batches = []
+    for _ in range(args.batches):
+        lens = torch.randint(1, HIST + 1, (BATCH,), generator=gen, device=dev)
+        hist = torch.randint(0, CORPUS, (BATCH, HIST), generator=gen, device=dev)
+        hist = torch.where(torch.arange(HIST, device=dev)[None, :] < lens[:, None], hist, 0)
+        batches.append((
+            torch.randint(0, cfg.user_id_hash_size, (BATCH,), generator=gen, device=dev),
+            torch.randn(BATCH, 16, generator=gen, device=dev), hist, lens,
+        ))
+    _, _, hist, lens = batches[0]
+    x = stack_input(torch, model, hist, lens)
+    xb = x.to(torch.bfloat16)
+    yk = fe.fused_attn_stack_fwd(xb, lens, *w, nh)
+    yp = fe.fused_attn_stack_fwd_plain(xb, lens, *w, nh)
+    ulps = bf16_ulps(torch, yk, yp)
+    ok_32, err_32 = close(fe.fused_attn_stack_fwd(x, lens, *w, nh),
+                          fe.fused_attn_stack_fwd_plain(x, lens, *w, nh), 1e-4, 1e-4)
+    print(f"attention stack bf16 steps from plain: {ulps}; f32: ok={ok_32} "
+          f"max_abs_err={err_32:.3g} (tol 1e-4)", flush=True)
+    n_valid = int(lens.sum())
+    w_bytes = sum(t.numel() for t in w) * 4
+    entry(
+        "fused_attn_stack", "two_tower_models_tpu_torch/csrc/fused_encoder.cu",
+        "two_tower_models_tpu/ops/pallas/fused_encoder.py:853", 0 <= ulps <= 1 and ok_32,
+        close(yk, yp, 0.0, 0.0)[1],
+        time_ms(torch, lambda: fe.fused_attn_stack_fwd(xb, lens, *w, nh)),
+        time_ms(torch, lambda: fe.fused_attn_stack_fwd_plain(xb, lens, *w, nh)),
+        n_valid * d * 2 + BATCH * 4 + w_bytes + BATCH * d * 2,
+        sum(enc_flops(n, d, nl) for n in lens.tolist()), BF16_FLOPS, None,
+    )
+    entries["fused_attn_stack"]["note"] = (
+        "bytes and operations count each example's valid rows only")
+    serve_leg(
+        torch, "serve varlen", engine, model, cpu_model, cfg, batches,
+        {"fused_attn_stack": 1, "fused_history_encoder": 0, "tile_max_scores": 1,
+         "select_topk": 2, "gather_rescore": 1},
+        ["fused_attn_stack"], entries, failures, smi,
+    )
+
+
+def trace_steps(torch, step, state, data, idx, label: str):
+    """Three steps under torch.profiler: device time per kernel (device-side
+    events only: kernels and copies, one stream) and the device's busy
+    share of the window.  Returns the state."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.enable_grad(), torch.profiler.profile(activities=acts) as prof:
+        start.record()
+        for _ in range(3):
+            state, _ = step(state, data, idx)
+        end.record()
+        torch.cuda.synchronize()
+    window_us = start.elapsed_time(end) * 1e3
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    if busy:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        print(f"{label} trace, 3 steps under the profiler ({window_us / 3e3:.3f} ms/step): "
+              f"device busy {busy / 3e3:.3f} ms/step ({busy / window_us * 100:.1f}% of the "
+              f"window) in {len(by_name)} distinct kernels and copies; top per step: "
+              + "; ".join(f"{k[:48]} {v / 3e3:.3f} ms" for k, v in top), flush=True)
+    else:
+        print(f"{label} trace: the profiler recorded no device time (not measured)", flush=True)
+    return state
+
+
+def phase_train(torch, args, smi, dev, entry, entries, failures):
     from two_tower_models_tpu_torch.config import (
         Debias, HistoryEncoderConfig, ModelConfig, TrainConfig,
     )
@@ -123,7 +405,6 @@ def phase_train(torch, args, smi, dev, entry, entries, failures) -> None:
     from two_tower_models_tpu_torch.models.history_encoder import (
         sinusoidal_positional_encoding,
     )
-    from two_tower_models_tpu_torch.ops import _lib
     from two_tower_models_tpu_torch.ops import fused_encoder as fe
     from two_tower_models_tpu_torch.ops import fused_softmax as fs
     from two_tower_models_tpu_torch.training.data import SyntheticRecData, gather_batch
@@ -221,15 +502,14 @@ def phase_train(torch, args, smi, dev, entry, entries, failures) -> None:
     checks = [(0 <= n <= 1, close(a, e, 0.0, 0.0)[1]) for n, a, e in zip(ulps, res_k, res_p)]
     w_bytes = sum(t.numel() for t in w) * 4 + pe.numel() * 4
     resid_bytes = (nl * b * h * d + (nl - 1) * b * nh * h * h + b * nh * h) * 2
-    per_ex = (nl - 1) * (2 * h * d * 3 * d + 4 * h * h * d + 2 * h * d * d) \
-        + (2 * h * d * 2 * d + 2 * d * d + 4 * h * d + 2 * d * d)
     entry(
         "fused_history_encoder_res", "two_tower_models_tpu_torch/csrc/fused_encoder.cu",
         "two_tower_models_tpu/ops/pallas/fused_encoder.py:561",
         all(ok for ok, _ in checks), max(err for _, err in checks),
         time_ms(torch, lambda: fe.fused_history_encoder_res(x, pe, *w, nh)),
         time_ms(torch, lambda: fe.fused_history_encoder_res_plain(x, pe, *w, nh)),
-        b * h * d * 2 + w_bytes + b * 2 * d * 2 + resid_bytes, b * per_ex, BF16_FLOPS, None,
+        b * h * d * 2 + w_bytes + b * 2 * d * 2 + resid_bytes, b * enc_flops(h, d, nl),
+        BF16_FLOPS, None,
     )
     # B6 on the plain residuals, so it is held alone; the cotangent is
     # random at the size of a loss averaged over B (bf16, as autograd gives it)
@@ -238,8 +518,6 @@ def phase_train(torch, args, smi, dev, entry, entries, failures) -> None:
     bwd_args = (g_enc, xs, ps, p0, w[0], w[1], w[2], nh)
     got, want = fe.fused_history_encoder_bwd(*bwd_args), fe.fused_history_encoder_bwd_plain(*bwd_args)
     checks = [close(a, e, 0.0, 3e-2 * float(e.float().abs().max())) for a, e in zip(got, want)]
-    bwd_flops = (nl - 1) * (22 * h * d * d + 10 * h * h * d) \
-        + (4 * h * d * d + 6 * d * d + 10 * h * d + 12 * h * d * d)
     grads_bytes = sum(t.numel() for t in want[1:]) * 4
     entry(
         "fused_history_encoder_bwd", "two_tower_models_tpu_torch/csrc/fused_encoder_bwd.cu",
@@ -248,53 +526,66 @@ def phase_train(torch, args, smi, dev, entry, entries, failures) -> None:
         time_ms(torch, lambda: fe.fused_history_encoder_bwd(*bwd_args)),
         time_ms(torch, lambda: fe.fused_history_encoder_bwd_plain(*bwd_args)),
         b * 2 * d * 2 + resid_bytes + w_bytes + b * h * d * 2 + grads_bytes,
-        b * bwd_flops, BF16_FLOPS, None,
+        b * resid_bwd_flops(h, d, nl), BF16_FLOPS, None,
     )
     entries["fused_history_encoder_bwd"]["note"] = (
         "ms includes the second launch that sums the per-block weight grads")
-    del res_k, res_p, got, want, xs, ps, p0
+
+    # -- phase 4c, first half: B7 on the same input, against its plain
+    # version and against B6 on B5's residuals (one VJP, p rounded in B6) --
+    rc_args = (g_enc, x, pe, *w, nh)
+    got7 = fe.fused_history_encoder_bwd_recompute(*rc_args)
+    want7 = fe.fused_history_encoder_bwd_recompute_plain(*rc_args)
+    checks = [scaled_close(a, e, 3e-2) for a, e in zip(got7, want7)]
+    b6 = fe.fused_history_encoder_bwd(g_enc, *res_k[1:], w[0], w[1], w[2], nh)
+    vs_b6 = [scaled_close(a, e, 3e-2) for a, e in zip(got7, b6)]
+    x32, g32 = x.float(), g_enc.float()
+    ok_32 = all(scaled_close(a, e, 1e-4)[0] for a, e in zip(
+        fe.fused_history_encoder_bwd_recompute(g32, x32, pe, *w, nh),
+        fe.fused_history_encoder_bwd_recompute_plain(g32, x32, pe, *w, nh)))
+    print(f"encoder recompute backward vs B6 (dx, dpe, dW_in, db_in, dW_out, db_out): "
+          f"ok={all(ok for ok, _ in vs_b6)} max_abs_err "
+          f"{[float(f'{err:.3g}') for _, err in vs_b6]} (tol 3e-2 of scale); f32 vs plain "
+          f"ok={ok_32} (tol 1e-4 of scale)", flush=True)
+    entry(
+        "fused_history_encoder_bwd_recompute",
+        "two_tower_models_tpu_torch/csrc/fused_encoder_bwd.cu",
+        "two_tower_models_tpu/ops/pallas/fused_encoder.py:700",
+        all(ok for ok, _ in checks + vs_b6) and ok_32, max(err for _, err in checks),
+        time_ms(torch, lambda: fe.fused_history_encoder_bwd_recompute(*rc_args)),
+        time_ms(torch, lambda: fe.fused_history_encoder_bwd_recompute_plain(*rc_args)),
+        b * h * d * 2 + b * 2 * d * 2 + w_bytes + b * h * d * 2 + grads_bytes,
+        b * vjp_flops(h, d, nl), BF16_FLOPS, None,
+    )
+    entries["fused_history_encoder_bwd_recompute"]["note"] = (
+        "ms includes the second launch that sums the per-block weight grads")
+    del res_k, res_p, got, want, xs, ps, p0, got7, want7, b6
     torch.cuda.empty_cache()
 
     # -- the training steps --
     step = make_train_step(cfg, train_cfg)
-    with torch.enable_grad():
-        metrics = []
-        for _ in range(3):
-            state, m = step(state, data, idx)
-            metrics.append(m)
-        torch.cuda.synchronize()
-        _lib.reset_launch_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(TRAIN_STEPS):
-            state, m = step(state, data, idx)
-            metrics.append(m)
-        end.record()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(_lib.launches)
-    ms_step = start.elapsed_time(end) / TRAIN_STEPS
+    state, metrics, _, _, _ = run_steps(torch, step, state, data, idx, 3)
+    state, timed, ms_step, host_ms, counts = run_steps(torch, step, state, data, idx, TRAIN_STEPS)
+    metrics += timed
     print(f"launches on the training path ({TRAIN_STEPS} steps): {json.dumps(counts)}", flush=True)
     expect = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1,
               "fused_history_encoder_bwd_reduce": 1, "fused_in_batch_ce": 1,
-              "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1, "fused_history_encoder": 0}
+              "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1, "fused_history_encoder": 0,
+              "fused_history_encoder_bwd_recompute": 0}
+    check_launches(counts, expect, TRAIN_STEPS, failures, "train")
     for name, per in expect.items():
-        if counts.get(name, 0) != per * TRAIN_STEPS:
-            failures.append(f"train launches[{name}]={counts.get(name, 0)}")
         if name in entries and per:
             entries[name]["launches"] = counts.get(name, 0)
     entries["fused_history_encoder_bwd"]["reduce_launches"] = counts.get(
         "fused_history_encoder_bwd_reduce", 0)
     first, last = metrics[0], metrics[-1]
-    if not all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values()):
+    if not finite(torch, metrics):
         failures.append("train metrics not finite")
     kernel_ms = sum(entries[n]["ms"] for n in expect if n in entries and expect[n])
     print(
         f"train on {torch.cuda.get_device_name(0)} ({smi}): {TRAIN_STEPS} steps of B={b}: "
         f"ms/step {ms_step:.3f}, examples/s {b / ms_step * 1e3:.0f}; host wall "
-        f"{wall * 1e3 / TRAIN_STEPS:.3f} ms/step; loss first {float(first['loss']):.5f} "
+        f"{host_ms:.3f} ms/step; loss first {float(first['loss']):.5f} "
         f"last {float(last['loss']):.5f}; softmax_ce first {float(first['softmax_ce']):.5f} "
         f"last {float(last['softmax_ce']):.5f}; five kernels alone {kernel_ms:.3f} ms "
         f"({kernel_ms / ms_step * 100:.1f}% of the step)",
@@ -302,56 +593,130 @@ def phase_train(torch, args, smi, dev, entry, entries, failures) -> None:
     )
 
     # -- where a step's device time goes: a trace of three steps --
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.enable_grad(), torch.profiler.profile(activities=acts) as prof:
-        start.record()
-        for _ in range(3):
-            state, m = step(state, data, idx)
-        end.record()
-        torch.cuda.synchronize()
-    window_us = start.elapsed_time(end) * 1e3
-    by_name = {}  # device-side events only: kernels and copies, one stream
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-    busy = sum(by_name.values())
-    if busy:
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-        print(f"train trace, 3 steps under the profiler ({window_us / 3e3:.3f} ms/step): "
-              f"device busy {busy / 3e3:.3f} ms/step ({busy / window_us * 100:.1f}% of the "
-              f"window) in {len(by_name)} distinct kernels and copies; top per step: "
-              + "; ".join(f"{k[:48]} {v / 3e3:.3f} ms" for k, v in top), flush=True)
-    else:
-        print("train trace: the profiler recorded no device time (not measured)", flush=True)
+    state = trace_steps(torch, step, state, data, idx, "train")
+
+    # -- phase 4c, second half: the step with B1 + B7 (_RESIDUAL_BWD False)
+    # beside the B5 + B6 step, in the order B6, B7, B7, B6 --
+    b6_ms, b7_ms = [ms_step], []
+    try:
+        fe._RESIDUAL_BWD = False
+        for i in range(2):
+            state, m7, ms, _, counts = run_steps(torch, step, state, data, idx, TRAIN_STEPS)
+            b7_ms.append(ms)
+            if not finite(torch, m7):
+                failures.append("train (B7) metrics not finite")
+            if i == 0:
+                print(f"launches on the B7 training path ({TRAIN_STEPS} steps): "
+                      f"{json.dumps(counts)}", flush=True)
+                check_launches(counts, {
+                    "fused_history_encoder": 1, "fused_history_encoder_bwd_recompute": 1,
+                    "fused_history_encoder_bwd_recompute_reduce": 1,
+                    "fused_history_encoder_res": 0, "fused_history_encoder_bwd": 0,
+                }, TRAIN_STEPS, failures, "train (B7)")
+                entries["fused_history_encoder_bwd_recompute"]["launches"] = counts.get(
+                    "fused_history_encoder_bwd_recompute", 0)
+                entries["fused_history_encoder_bwd_recompute"]["reduce_launches"] = counts.get(
+                    "fused_history_encoder_bwd_recompute_reduce", 0)
+    finally:
+        fe._RESIDUAL_BWD = True
+    state, _, ms, _, _ = run_steps(torch, step, state, data, idx, TRAIN_STEPS)
+    b6_ms.append(ms)
+    print(f"encoder backward in the step on {torch.cuda.get_device_name(0)} ({smi}), "
+          f"{TRAIN_STEPS} steps each, order B6 B7 B7 B6: B5+B6 ms/step "
+          f"{b6_ms[0]:.3f} {b6_ms[1]:.3f}; B1+B7 ms/step {b7_ms[0]:.3f} {b7_ms[1]:.3f}",
+          flush=True)
 
     # -- train_loss and its gradients, card against a CPU copy --
-    cpu_model = copy.deepcopy(model).cpu()
-    sub = gather_batch(data, idx[:CHECK_BATCH])
-    sub_cpu = type(sub)(*(None if t is None else t.cpu() for t in sub))
-    results = []
-    with torch.enable_grad():
-        for mdl, bt in ((model, sub), (cpu_model, sub_cpu)):
-            mdl.zero_grad(set_to_none=True)
-            loss, m = tt.train_loss(mdl, cfg, bt)
-            loss.backward()
-            results.append(({k: float(v.detach()) for k, v in m.items()},
-                            {n: p.grad.detach().float().cpu() for n, p in mdl.named_parameters()}))
-    (m_gpu, g_gpu), (m_cpu, g_cpu) = results
-    top = max(float(g.abs().max()) for g in g_cpu.values())
-    worst, worst_leaf = 0.0, ""
-    for name, want in g_cpu.items():
-        scale = tt.ZERO_GRAD_FLOOR * top if name in tt.ZERO_GRAD_LEAVES else float(want.abs().max())
-        rel = float((g_gpu[name] - want).abs().max()) / max(scale, 1e-30)
-        if not (rel <= BF16_TOL):
-            failures.append(f"grad {name} card vs CPU: {rel:.3g} of its scale")
-        if rel > worst:
-            worst, worst_leaf = rel, name
-    for k, v in m_cpu.items():
-        if not abs(m_gpu[k] - v) <= BF16_TOL * max(abs(v), 1.0):
-            failures.append(f"metric {k} card vs CPU: {m_gpu[k]} vs {v}")
-    print(f"train_loss B={CHECK_BATCH} card vs CPU: loss {m_gpu['loss']:.6f} vs "
-          f"{m_cpu['loss']:.6f}; worst grad leaf {worst_leaf} at {worst:.3g} of its "
-          f"scale (tol {BF16_TOL})", flush=True)
+    grads_vs_cpu(torch, model, cfg, data, idx, failures, "train")
+    return cfg, train_cfg  # phase 4b trains the same configuration
+
+
+def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, failures) -> None:
+    """Phase 4b: the flagship step on make_synthetic_data's variable-length
+    histories; B9 on the step's own tensors."""
+    from two_tower_models_tpu_torch.config import DataConfig
+    from two_tower_models_tpu_torch.ops import fused_encoder as fe
+    from two_tower_models_tpu_torch.training.data import gather_batch, make_synthetic_data
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import make_train_step
+
+    b, d, nh, nl = TRAIN_BATCH, 64, 4, 3
+    data = make_synthetic_data(DataConfig(
+        num_samples=b, num_users=TRAIN_ROWS, num_items=TRAIN_ROWS, feature_dim=16,
+        history_len=HIST, num_tasks=3, max_position=cfg.position_table_size,
+        seed=args.seed, variable_history=True,
+    ), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 2)
+    state = create_train_state(gen, cfg, train_cfg, device=dev)
+    model = state.params
+    idx = torch.arange(b, device=dev)
+    batch = gather_batch(data, idx)
+    layers = model.history_encoder.attn_layers
+    w = [torch.stack([getattr(getattr(l, p), a) for l in layers]).detach()
+         for p, a in (("in_proj", "w"), ("in_proj", "b"), ("out_proj", "w"), ("out_proj", "b"))]
+    lens = batch.history_len
+    x = stack_input(torch, model, batch.user_history, lens)
+    xb = x.to(torch.bfloat16)
+    g = torch.randn(b, d, generator=gen, device=dev) / b
+    gb = g.to(torch.bfloat16)
+    got = fe.fused_attn_stack_bwd(gb, xb, lens, *w, nh)
+    want = fe.fused_attn_stack_bwd_plain(gb, xb, lens, *w, nh)
+    checks = [scaled_close(a, e, 3e-2) for a, e in zip(got, want)]
+    ok_32 = all(scaled_close(a, e, 1e-4)[0] for a, e in zip(
+        fe.fused_attn_stack_bwd(g, x, lens, *w, nh),
+        fe.fused_attn_stack_bwd_plain(g, x, lens, *w, nh)))
+    past = torch.arange(HIST, device=dev)[None, :] >= lens[:, None]
+    zero_past = bool((got[0][past] == 0).all())
+    print(f"attention stack backward (dx, dW_in, db_in, dW_out, db_out) vs plain: "
+          f"max_abs_err {[float(f'{err:.3g}') for _, err in checks]} (tol 3e-2 of scale); "
+          f"f32 ok={ok_32} (tol 1e-4 of scale); dx zero past each length: {zero_past}",
+          flush=True)
+    n_valid = int(lens.sum())
+    grads_bytes = sum(t.numel() for t in want[1:]) * 4
+    entry(
+        "fused_attn_stack_bwd", "two_tower_models_tpu_torch/csrc/fused_encoder_bwd.cu",
+        "two_tower_models_tpu/ops/pallas/fused_encoder.py:893",
+        all(ok for ok, _ in checks) and ok_32 and zero_past, max(err for _, err in checks),
+        time_ms(torch, lambda: fe.fused_attn_stack_bwd(gb, xb, lens, *w, nh)),
+        time_ms(torch, lambda: fe.fused_attn_stack_bwd_plain(gb, xb, lens, *w, nh)),
+        n_valid * d * 2 + b * 4 + b * d * 2 + sum(t.numel() for t in w) * 4
+        + b * HIST * d * 2 + grads_bytes,
+        sum(vjp_flops(n, d, nl) for n in lens.tolist()), BF16_FLOPS, None,
+    )
+    entries["fused_attn_stack_bwd"]["note"] = (
+        "ms includes the second launch that sums the per-block weight grads; bytes and "
+        "operations count each example's valid rows only")
+    del got, want, x, xb
+    torch.cuda.empty_cache()
+
+    step = make_train_step(cfg, train_cfg)
+    state, metrics, _, _, _ = run_steps(torch, step, state, data, idx, 3)
+    state, timed, ms_step, host_ms, counts = run_steps(torch, step, state, data, idx, TRAIN_STEPS)
+    metrics += timed
+    print(f"launches on the varlen training path ({TRAIN_STEPS} steps): {json.dumps(counts)}",
+          flush=True)
+    check_launches(counts, {
+        "fused_attn_stack": 1, "fused_attn_stack_bwd": 1, "fused_attn_stack_bwd_reduce": 1,
+        "fused_in_batch_ce": 1, "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1,
+        "fused_history_encoder": 0, "fused_history_encoder_res": 0,
+        "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
+    }, TRAIN_STEPS, failures, "train varlen")
+    entries["fused_attn_stack_bwd"]["launches"] = counts.get("fused_attn_stack_bwd", 0)
+    entries["fused_attn_stack_bwd"]["reduce_launches"] = counts.get(
+        "fused_attn_stack_bwd_reduce", 0)
+    if not finite(torch, metrics):
+        failures.append("train varlen metrics not finite")
+    first, last = metrics[0], metrics[-1]
+    print(
+        f"train varlen on {torch.cuda.get_device_name(0)} ({smi}): {TRAIN_STEPS} steps of "
+        f"B={b}, lengths uniform in [1, {HIST}] (mean {n_valid / b:.2f}): ms/step "
+        f"{ms_step:.3f}, examples/s {b / ms_step * 1e3:.0f}; host wall {host_ms:.3f} ms/step; "
+        f"loss first {float(first['loss']):.5f} last {float(last['loss']):.5f}",
+        flush=True,
+    )
+    state = trace_steps(torch, step, state, data, idx, "train varlen")
+    grads_vs_cpu(torch, model, cfg, data, idx, failures, "train varlen")
 
 
 def main() -> int:
@@ -376,7 +741,7 @@ def main() -> int:
         from two_tower_models_tpu_torch.ops import _lib
         from two_tower_models_tpu_torch.ops import fused_encoder as fe
         from two_tower_models_tpu_torch.ops import mips_topk as mt
-        from two_tower_models_tpu_torch.retrieval.mips import mips_topk, mips_topk_exact
+        from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact
         from two_tower_models_tpu_torch.serving import RetrievalEngine
     except ImportError as e:
         print(f"the port is not importable here: {e}", file=sys.stderr)
@@ -471,15 +836,13 @@ def main() -> int:
     ok_32, err_32 = close(fe.fused_history_encoder(*enc_args(x_f32)),
                           fe.fused_history_encoder_plain(*enc_args(x_f32)), 1e-4, 1e-4)
     print(f"encoder f32: ok={ok_32} max_abs_err={err_32:.3g} (tol 1e-4)", flush=True)
-    per_ex = (nl - 1) * (2 * HIST * d * 3 * d + 4 * HIST * HIST * d + 2 * HIST * d * d) \
-        + (2 * HIST * d * 2 * d + 2 * d * d + 4 * HIST * d + 2 * d * d)
     entry(
         "fused_history_encoder", "two_tower_models_tpu_torch/csrc/fused_encoder.cu",
         "two_tower_models_tpu/ops/pallas/fused_encoder.py:506", ok_bf and ok_32, err_bf,
         time_ms(torch, lambda: fe.fused_history_encoder(*enc_args(x_bf16))),
         time_ms(torch, lambda: fe.fused_history_encoder_plain(*enc_args(x_bf16))),
         b * HIST * d * 2 + HIST * d * 4 + sum(t.numel() for t in w) * 4 + b * 2 * d * 2,
-        b * per_ex, BF16_FLOPS, None,
+        b * enc_flops(HIST, d, nl), BF16_FLOPS, None,
     )
 
     # kernel 2: tile maxes
@@ -548,58 +911,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 3: serve ------------------------------------------------
-    _lib.reset_launch_counts()
-    torch.cuda.synchronize()
-    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-           for _ in batches]
-    outs = []
-    t0 = time.perf_counter()
-    for (s, e), (u, f, h) in zip(evs, batches):
-        s.record()
-        outs.append(engine.query(u, f, h))
-        e.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(_lib.launches)
-    ms = [s.elapsed_time(e) for s, e in evs]
-    print(f"launches on the serving path: {json.dumps(counts)}", flush=True)
-    expect = {"fused_history_encoder": 1, "tile_max_scores": 1, "select_topk": 2,
-              "gather_rescore": 1}
-    for name, per in expect.items():
-        entries[name]["launches"] = counts.get(name, 0)
-        if counts.get(name, 0) != per * len(batches):
-            failures.append(f"launches[{name}]={counts.get(name, 0)}")
-
-    hits, total, margin_rows, mismatched = 0, 0, 0, 0
-    for (u, f, h), got in zip(batches, outs):
-        with torch.inference_mode():
-            qq, _ = tt.compute_user_embedding(model, cfg, u, f, h)
-            ridx, rsc, _ = mips_topk(corpus, qq, TOPK + 1)
-        if got.shape != (BATCH, TOPK) or int(got.min()) < 0 or int(got.max()) >= CORPUS:
-            failures.append("serve output shape/range")
-        clear = (rsc[:, TOPK - 1] - rsc[:, TOPK]) > 1e-5 * rsc[:, TOPK - 1].abs()
-        margin_rows += int(clear.sum())
-        same = torch.sort(got[clear], dim=1).values == torch.sort(ridx[clear, :TOPK], dim=1).values
-        mismatched += int((~same).any(dim=1).sum())
-        for g, r in zip(got.tolist(), ridx[:, :TOPK].tolist()):
-            hits += len(set(g) & set(r))
-            total += TOPK
-    recall = hits / total
-    print(f"serve: recall@{TOPK} vs plain {recall:.6f}; clear-margin rows "
-          f"{margin_rows} with index mismatch {mismatched}", flush=True)
-    if recall < 0.999 or mismatched:
-        failures.append("serve indices")
-
-    # user embeddings against the same model on the CPU (plain kernels), 32 rows
     cpu_model = copy.deepcopy(model).cpu()
-    u, f, h = (t[:32] for t in batches[0])
-    with torch.inference_mode():
-        q_gpu, _ = tt.compute_user_embedding(model, cfg, u, f, h)
-        q_cpu, _ = tt.compute_user_embedding(cpu_model, cfg, u.cpu(), f.cpu(), h.cpu())
-    ok, err = close(q_gpu.cpu(), q_cpu, 3e-2, 3e-2)
-    print(f"user embeddings GPU vs CPU: ok={ok} max_abs_err={err:.3g} (tol 3e-2)", flush=True)
-    if not ok or not bool(q_gpu.isfinite().all()):
-        failures.append("user embeddings vs CPU")
+    serve_leg(
+        torch, "serve", engine, model, cpu_model, cfg, [(*bt, None) for bt in batches],
+        {"fused_history_encoder": 1, "tile_max_scores": 1, "select_topk": 2,
+         "gather_rescore": 1},
+        ["fused_history_encoder", "tile_max_scores", "select_topk", "gather_rescore"],
+        entries, failures, smi,
+    )
 
     # where a batch's time goes: the user tower and the MIPS, each alone
     u, f, h = batches[0]
@@ -610,19 +929,16 @@ def main() -> int:
     print(f"stages: user tower {tower_ms:.4f} ms, exact MIPS {mips_ms:.4f} ms "
           f"per B={BATCH} batch", flush=True)
 
-    ms_batch = sum(ms) / len(ms)
-    print(
-        f"serve on {torch.cuda.get_device_name(0)} ({smi}): {len(batches)} batches of "
-        f"B={BATCH} over C={CORPUS}, k={TOPK}: ms/batch mean {ms_batch:.3f} "
-        f"min {min(ms):.3f} max {max(ms):.3f}; QPS {BATCH / ms_batch * 1e3:.0f}; "
-        f"host wall {wall * 1e3 / len(batches):.3f} ms/batch",
-        flush=True,
-    )
-    del engine, corpus, outs, batches, model, cpu_model
+    # ---- phase 2b: serve variable-length histories ----------------------
+    phase_serve_varlen(torch, args, gen, smi, dev, cfg, model, cpu_model, engine, w,
+                       entry, entries, failures)
+    del engine, corpus, batches, model, cpu_model
     torch.cuda.empty_cache()
 
-    # ---- phase 4: train ------------------------------------------------
-    phase_train(torch, args, smi, dev, entry, entries, failures)
+    # ---- phase 4 (and 4c): train; phase 4b: train variable lengths -------
+    train_cfgs = phase_train(torch, args, smi, dev, entry, entries, failures)
+    torch.cuda.empty_cache()
+    phase_train_varlen(torch, args, smi, dev, *train_cfgs, entry, entries, failures)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     if failures:
         _fail(", ".join(failures))

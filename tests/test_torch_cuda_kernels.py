@@ -17,7 +17,9 @@ residuals at 1e-4 (f32) and within one bf16 step of each value (bf16: it
 rounds where the plain version does); the encoder backward at 1e-4 (f32) and 3e-2 (bf16)
 of each output's largest magnitude, since a bf16 rounding point that flips
 by one ulp between two sum orders carries into the sums over the batch;
-selections exactly.
+selections exactly.  The length-masked stack (B8) as the residual forward,
+its backward (B9) and the recompute encoder backward (B7) as the encoder
+backward.
 """
 
 import math
@@ -387,3 +389,144 @@ def test_encoder_inference_runs_the_forward_kernel(dev):
         fe.fused_history_encoder(x, *w, 4)
     assert _lib.launches["fused_history_encoder"] == before.get("fused_history_encoder", 0) + 1
     assert _lib.launches["fused_history_encoder_res"] == before.get("fused_history_encoder_res", 0)
+
+
+def _stack_case(b, h, d, nh, nl, dtype, dev, seed, lens_kind):
+    """x with rows past each length zeroed (as the encoder hands it over),
+    lengths, the stacked weights and a cotangent of y0 [B, D]."""
+    x, w, _ = _encoder_inputs(b, h, d, nh, nl, dtype, dev, seed)
+    r = np.random.default_rng(seed + 1)
+    lens = {"mix": r.integers(1, h + 1, size=b), "ones": np.ones(b), "full": np.full(b, h)}[lens_kind]
+    if lens_kind == "mix":
+        lens[: min(b, 2)] = [h, 1][: min(b, 2)]
+    lens = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    x = torch.where((torch.arange(h, device=dev)[None, :] < lens[:, None])[..., None], x, 0)
+    g = torch.from_numpy((r.normal(size=(b, d)) * 0.1).astype(np.float32)).to(dev).to(dtype)
+    return x, lens, w[1:], g
+
+
+# B below and above one block's examples (8 in the forward; one block per SM
+# in the backward, so above 132), the thin layer alone, length 1 everywhere,
+# full lengths, the flagship's H = 32 with D = 64
+_STACK_SHAPES = [
+    (3, 32, 64, 4, 3, "mix"), (300, 32, 64, 4, 3, "mix"), (37, 10, 64, 2, 1, "mix"),
+    (64, 8, 32, 4, 2, "ones"), (129, 12, 64, 4, 2, "full"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,d,nh,nl,lens_kind", _STACK_SHAPES)
+def test_attn_stack_kernel_matches_plain(dev, dtype, b, h, d, nh, nl, lens_kind):
+    """B8: y0 [B, D] within one bf16 step of the plain version (it rounds
+    where the plain version does), 1e-4 in f32."""
+    x, lens, w, _ = _stack_case(b, h, d, nh, nl, dtype, dev, b + h, lens_kind)
+    before = _lib.launches["fused_attn_stack"]
+    got = fe.fused_attn_stack_fwd(x, lens, *w, nh)
+    assert _lib.launches["fused_attn_stack"] == before + 1
+    want = fe.fused_attn_stack_fwd_plain(x, lens, *w, nh)
+    assert got.dtype == dtype and got.shape == (b, d)
+    if dtype == torch.float32:
+        _assert_close(got, want, 1e-4, 1e-4)
+    else:
+        assert _bf16_ulps(got, want) <= 1
+
+
+def test_attn_stack_at_full_length_is_the_encoders_row0(dev):
+    """At lengths H and a zero PE, B8's output is B1's row 0, bit for bit:
+    one kernel, where every key is valid."""
+    x, lens, w, _ = _stack_case(300, 32, 64, 4, 3, torch.bfloat16, dev, 5, "full")
+    y1 = fe.fused_history_encoder(x, torch.zeros(32, 64, device=dev), *w, 4)
+    assert torch.equal(fe.fused_attn_stack_fwd(x, lens, *w, 4), y1[:, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,d,nh,nl,lens_kind", _STACK_SHAPES)
+def test_attn_stack_bwd_kernel_matches_plain(dev, dtype, b, h, d, nh, nl, lens_kind):
+    """B9 and its reduce: dx and the four weight grads at 1e-4 (f32) and
+    3e-2 (bf16) of each output's scale; dx exactly zero past each length."""
+    x, lens, w, g = _stack_case(b, h, d, nh, nl, dtype, dev, b + h + 2, lens_kind)
+    before = dict(_lib.launches)
+    got = fe.fused_attn_stack_bwd(g, x, lens, *w, nh)
+    for name in ("fused_attn_stack_bwd", "fused_attn_stack_bwd_reduce"):
+        assert _lib.launches[name] == before.get(name, 0) + 1
+    want = fe.fused_attn_stack_bwd_plain(g, x, lens, *w, nh)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for a, e in zip(got, want):
+        assert a.shape == e.shape and a.dtype == e.dtype
+        _scaled_close(a, e, tol)
+    past = torch.arange(h, device=dev)[None, :] >= lens[:, None]
+    assert bool((got[0][past] == 0).all())
+
+
+def test_attn_stack_bwd_is_deterministic(dev):
+    x, lens, w, g = _stack_case(1000, 32, 64, 4, 3, torch.bfloat16, dev, 6, "mix")
+    runs = [fe.fused_attn_stack_bwd(g, x, lens, *w, 4) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,d,nh,nl", _ENC_SHAPES)
+def test_encoder_recompute_bwd_kernel_matches_plain_and_b6(dev, dtype, b, h, d, nh, nl):
+    """B7 and its reduce against its plain version (1e-4 f32, 3e-2 bf16 of
+    each output's scale), and against B6 on the same input, which computes
+    the same VJP but rounds p: within 3e-2 of each output's scale."""
+    x, w, g = _encoder_inputs(b, h, d, nh, nl, dtype, dev, seed=b + h + 3)
+    before = dict(_lib.launches)
+    got = fe.fused_history_encoder_bwd_recompute(g, x, *w, nh)
+    for name in ("fused_history_encoder_bwd_recompute", "fused_history_encoder_bwd_recompute_reduce"):
+        assert _lib.launches[name] == before.get(name, 0) + 1
+    want = fe.fused_history_encoder_bwd_recompute_plain(g, x, *w, nh)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for a, e in zip(got, want):
+        assert a.shape == e.shape and a.dtype == e.dtype
+        _scaled_close(a, e, tol)
+    _, xs, ps, p0 = fe.fused_history_encoder_res(x, *w, nh)
+    b6 = fe.fused_history_encoder_bwd(g, xs, ps, p0, w[1], w[2], w[3], nh)
+    for a, e in zip(got, b6):
+        _scaled_close(a, e, 3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attn_stack_autograd_grads_match_plain_route(dev, dtype):
+    """fused_attn_stack with grad wanted launches B8 then B9 on the card and
+    gives the input and weight grads of the plain route on the CPU."""
+    x, lens, w, g = _stack_case(129, 32, 64, 4, 3, dtype, dev, 7, "mix")
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        leaves = [t.to(device).clone().requires_grad_() for t in (x, *w)]
+        before = dict(_lib.launches)
+        y = fe.fused_attn_stack(leaves[0], lens.to(device), *leaves[1:], 4)
+        (y.float() * g.float().to(device)).sum().backward()
+        if device.type == "cuda":
+            for name in ("fused_attn_stack", "fused_attn_stack_bwd"):
+                assert _lib.launches[name] == before.get(name, 0) + 1
+        grads.append([t.grad for t in leaves])
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for a, e in zip(*grads):
+        _scaled_close(a, e, tol)
+
+
+def test_encoder_recompute_route_launches_b1_and_b7(dev, monkeypatch):
+    """With _RESIDUAL_BWD False a training call of the encoder launches B1
+    and B7, and neither B5 nor B6."""
+    monkeypatch.setattr(fe, "_RESIDUAL_BWD", False)
+    x, w, g = _encoder_inputs(129, 32, 64, 4, 3, torch.bfloat16, dev, seed=8)
+    leaves = [t.clone().requires_grad_() for t in (x, *w)]
+    before = dict(_lib.launches)
+    (fe.fused_history_encoder(*leaves, 4).float() * g.float()).sum().backward()
+    counts = {k: _lib.launches[k] - before.get(k, 0) for k in (
+        "fused_history_encoder", "fused_history_encoder_bwd_recompute",
+        "fused_history_encoder_res", "fused_history_encoder_bwd")}
+    assert counts == {"fused_history_encoder": 1, "fused_history_encoder_bwd_recompute": 1,
+                      "fused_history_encoder_res": 0, "fused_history_encoder_bwd": 0}
+
+
+def test_stack_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x, lens, w, g = _stack_case(8, 8, 32, 4, 2, torch.float32, dev, 9, "mix")
+    with pytest.raises(ValueError):
+        fe.fused_attn_stack_fwd(x, lens[:4], *w, 4)
+    with pytest.raises(ValueError):
+        fe.fused_attn_stack_bwd(g[:, None].expand(8, 2, 32), x, lens, *w, 4)
+    with pytest.raises(ValueError):
+        fe.fused_history_encoder_bwd_recompute(g, x, torch.zeros(8, 32, device=dev), *w, 4)

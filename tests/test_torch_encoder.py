@@ -102,25 +102,25 @@ def test_history_encoder_apply_matches_jax(fused, use_pe, cd):
 
 
 def test_history_encoder_lengths_dense_matches_jax():
-    """Variable-length histories through the dense layers (the fused
-    variable-length kernel is not ported and raises)."""
+    """Variable-length histories (lengths 0 to H, clipped to [1, H] by the
+    encoder) through the dense layers, and through the fused tier
+    (fused_attn_stack, its plain version here) against the JAX fused tier
+    (its Pallas kernel in interpret mode), both in f32 at 1e-5."""
     b, h, d, nh, nl = 12, 8, 32, 2, 2
     jcfg, jparams, tcfg, enc = _encoders(d, nh, nl, seed=7, fused_encoder=False)
     r = np.random.default_rng(8)
     x = r.normal(size=(b, h, d)).astype(np.float32)
     lengths = r.integers(0, h + 1, size=(b,)).astype(np.int32)
-    want = jhe.history_encoder_apply(
-        jparams, jnp.asarray(x), jcfg, lengths=jnp.asarray(lengths)
-    )
-    got = the.history_encoder_apply(
-        enc, torch.from_numpy(x), tcfg, lengths=torch.from_numpy(lengths)
-    )
-    _close(got.detach(), want, 1e-5)
-    with pytest.raises(NotImplementedError, match="Variable-length"):
-        the.history_encoder_apply(
-            enc, torch.from_numpy(x), dataclasses.replace(tcfg, fused_encoder=True),
+    for fused in (False, True):
+        want = jhe.history_encoder_apply(
+            jparams, jnp.asarray(x), dataclasses.replace(jcfg, fused_encoder=fused),
+            lengths=jnp.asarray(lengths),
+        )
+        got = the.history_encoder_apply(
+            enc, torch.from_numpy(x), dataclasses.replace(tcfg, fused_encoder=fused),
             lengths=torch.from_numpy(lengths),
         )
+        _close(got.detach(), want, 1e-5)
 
 
 def test_positional_encoding_matches_jax():
@@ -132,6 +132,16 @@ def test_positional_encoding_matches_jax():
     np.testing.assert_array_equal(
         the.per_example_positional_encoding(torch.from_numpy(lengths), 32, 64).numpy(),
         np.asarray(jhe.per_example_positional_encoding(jnp.asarray(lengths), 32, 64)),
+    )
+
+
+@pytest.mark.parametrize("seq_len", [1, 2])
+def test_positional_encoding_of_short_histories_matches_jax(seq_len):
+    """One or two positions: the flipped table of one row is a view numpy
+    calls contiguous (with a negative stride), which torch.tensor refused."""
+    np.testing.assert_array_equal(
+        the.sinusoidal_positional_encoding(seq_len, 16).numpy(),
+        np.asarray(jhe.sinusoidal_positional_encoding(seq_len, 16)),
     )
 
 

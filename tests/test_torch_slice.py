@@ -155,14 +155,36 @@ def test_engine_query_matches_jax_engine():
 
 
 def test_engine_variable_history_needs_the_unported_kernel():
-    """history_len through the fused encoder is fused_attn_stack, not in
-    this slice: it raises instead of taking the dense layers."""
-    _, cfg_t = _configs("float32")
-    model = ttt.init_params(0, cfg_t, device="cpu")
-    eng = RetrievalEngine(model, cfg_t, torch.randn(C, D), device="cpu")
-    eng.warmup(2)
-    with pytest.raises(NotImplementedError, match="fused_attn_stack"):
-        eng.warmup(2, variable_history=True)
+    """history_len through the fused encoder is fused_attn_stack (its plain
+    version here; kernels B8 and B9 on the card).  The name is from when
+    that kernel was unported and the engine raised; the test now holds the
+    port to JAX: warmup(variable_history=True) serves, and queries with per-example
+    lengths and id 0 past each length give JAX's indices on clear-margin
+    rows, with the same f32 user embeddings at 1e-5.  The dense encoder
+    serves the same lengths too."""
+    cfg_j, cfg_t = _configs("float32")
+    a = _inputs(13)
+    params = jtt.init_params(jax.random.key(8), cfg_j)
+    model = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, params), cfg_t, device="cpu")
+    ids, feats = a["catalog_ids"], a["catalog_feats"]
+    eng_j = jserving.RetrievalEngine.from_params(params, cfg_j, jnp.asarray(ids), jnp.asarray(feats))
+    eng_t = RetrievalEngine.from_params(model, cfg_t, ids, feats, device="cpu")
+    eng_t.warmup(2, variable_history=True)
+    lens = np.random.default_rng(14).integers(1, H + 1, size=(B,)).astype(np.int32)
+    lens[:2] = [1, H]
+    hist = np.where(np.arange(H)[None, :] < lens[:, None], a["hist"], 0).astype(np.int32)
+    jin = [jnp.asarray(a["uid"]), jnp.asarray(a["feat"]), jnp.asarray(hist)]
+    want = np.asarray(eng_j.query(*jin, history_len=jnp.asarray(lens)))
+    got = eng_t.query(a["uid"], a["feat"], hist, history_len=lens).numpy()
+    uemb_j, _ = jtt.compute_user_embedding(params, cfg_j, *jin, jnp.asarray(lens))
+    with torch.no_grad():
+        uemb_t, _ = ttt.compute_user_embedding(
+            model, cfg_t, *(torch.from_numpy(t) for t in (a["uid"], a["feat"], hist, lens))
+        )
+    np.testing.assert_allclose(uemb_t.numpy(), np.asarray(uemb_j), rtol=1e-5, atol=1e-5)
+    clear = _clear_margin_rows(uemb_j, eng_j.corpus, K)
+    assert clear.sum() >= B // 2
+    np.testing.assert_array_equal(got[clear], want[clear])
     dense = dataclasses.replace(
         cfg_t, history_encoder=tcfg.HistoryEncoderConfig(num_heads=NH, num_layers=L)
     )

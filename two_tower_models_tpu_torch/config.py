@@ -1,7 +1,7 @@
-"""Configuration of the PyTorch port: the model-space dataclasses and
-``TrainConfig`` of ``two_tower_models_tpu.config``, copied field for field
-so the port imports nothing of the JAX package, plus the device rules of
-the port's entry points.
+"""Configuration of the PyTorch port: the model-space dataclasses,
+``DataConfig`` and ``TrainConfig`` of ``two_tower_models_tpu.config``,
+copied field for field so the port imports nothing of the JAX package, plus
+the device rules of the port's entry points.
 
 ``pdtype``/``cdtype`` return torch dtypes.  AUTO (``None``) kernel flags
 resolve against the device a call runs on (``resolve_kernel_flags``), at
@@ -142,6 +142,25 @@ class ModelConfig:
                 f"must be >= num_items ({self.num_items})"
             )
         return self
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Synthetic dataset, field for field the JAX package's ``DataConfig``
+    (``training.data.make_synthetic_data``; its comments say what each
+    field does there)."""
+
+    num_samples: int = 1000
+    num_users: int = 100
+    num_items: int = 200  # corpus size C
+    feature_dim: int = 8
+    history_len: int = 10
+    num_tasks: int = 1
+    max_position: int = 10
+    seed: int = 0
+    structured: bool = True  # plant the 8-group user-item affinity
+    variable_history: bool = False  # per-example lengths in [1, H], id 0 past them
+    popularity_skew: float = 0.0  # Zipf exponent of item engagement (0: uniform)
 
 
 @dataclass(frozen=True)

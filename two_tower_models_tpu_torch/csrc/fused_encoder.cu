@@ -23,6 +23,17 @@
 // x [EPB][H][D] across layers, qkv [H][3D], scores [NH][H][H], out [H][D].
 // Matmuls are plain f32 FMA loops on the CUDA cores; wgmma is later work.
 //
+// With STACK (B8, replacing fused_encoder.py: fused_attn_stack ->
+// _stack_fwd_kernel, call at :853) the same layers run as the length-masked
+// attention stack: x arrives with its PE already added and rows past each
+// length zeroed, there is no PE add and no mean-pool, a key column kj of
+// example b is valid iff kj < lens[b] (an invalid score is -1e30 after the
+// scale, before the per-head max, so its exponential is exactly 0), and the
+// output is the last layer's row 0, y [B, D] in x's dtype.  Query rows at or
+// past the length are still computed; their keys are masked, so they never
+// reach row 0.  Without STACK every key is valid (lens is not read), and B1
+// and B5 compute what they computed before the flag.
+//
 // With RES (B5, replacing _enc_fwd_res_kernel, fused_encoder.py:199-229,
 // call at :561) the same forward also stores, in x's dtype, what the
 // backward (fused_encoder_bwd.cu) rebuilds a layer from: each layer's input
@@ -48,9 +59,10 @@ __device__ __forceinline__ void store(void* dst, size_t i, float v, bool bf) {
   else ((float*)dst)[i] = v;
 }
 
-template <bool RES>
+template <bool RES, bool STACK>
 __global__ void __launch_bounds__(THREADS)
 encoder_kernel(const void* __restrict__ x_in, const float* __restrict__ pe,
+               const int* __restrict__ lens,
                const float* __restrict__ w_in, const float* __restrict__ b_in,
                const float* __restrict__ w_out, const float* __restrict__ b_out,
                void* __restrict__ y_out, void* __restrict__ xs_out,
@@ -76,13 +88,14 @@ encoder_kernel(const void* __restrict__ x_in, const float* __restrict__ pe,
   __nv_bfloat16* yb = (__nv_bfloat16*)y_out;
   float* yf = (float*)y_out;
 
-  // layer-0 input (x + PE) and the mean-pool of the input
+  // layer-0 input (x + PE, or x alone in the stack) and the mean-pool
   for (int e = 0; e < ne; ++e) {
     const size_t base = (size_t)(e0 + e) * H * D;
     for (int i = t; i < H * D; i += THREADS) {
       float v = bf ? __bfloat162float(xb[base + i]) : xf[base + i];
-      xs[e * H * D + i] = v + pe[i];
+      xs[e * H * D + i] = STACK ? v : v + pe[i];
     }
+    if (STACK) continue;
     for (int c = t; c < D; c += THREADS) {
       float sum = 0.0f;
       for (int r = 0; r < H; ++r)
@@ -107,6 +120,7 @@ encoder_kernel(const void* __restrict__ x_in, const float* __restrict__ pe,
 
     for (int e = 0; e < ne; ++e) {
       float* x = xs + e * H * D;
+      const int len = STACK ? lens[e0 + e] : H;  // valid keys of this example
       if (RES) {  // this layer's input, in x's dtype
         const size_t base = ((size_t)l * B + e0 + e) * H * D;
         for (int i = t; i < H * D; i += THREADS) store(xs_out, base + i, x[i], bf);
@@ -120,14 +134,15 @@ encoder_kernel(const void* __restrict__ x_in, const float* __restrict__ pe,
         qkv[i] = rnd(acc + bi[j], bf);
       }
       __syncthreads();
-      // scores s[h][qi][kj] = (q_qi . k_kj over head h) * scale
+      // scores s[h][qi][kj] = (q_qi . k_kj over head h) * scale, -1e30 at
+      // keys past the length
       for (int i = t; i < NH * nq * H; i += THREADS) {
         int h = i / (nq * H), qi = (i / H) % nq, kj = i % H;
         const float* qp = qkv + qi * D3 + h * hd;
         const float* kp = qkv + kj * D3 + D + h * hd;
         float acc = 0.0f;
         for (int dd = 0; dd < hd; ++dd) acc = fmaf(qp[dd], kp[dd], acc);
-        s[i] = acc * scale;
+        s[i] = kj < len ? acc * scale : -1e30f;
       }
       __syncthreads();
       // per-head softmax, one warp per (head, query row)
@@ -174,7 +189,7 @@ encoder_kernel(const void* __restrict__ x_in, const float* __restrict__ pe,
         if (!last) {
           x[i] = y;
         } else {
-          size_t oi = (size_t)(e0 + e) * 2 * D + j;
+          size_t oi = (size_t)(e0 + e) * (STACK ? 1 : 2) * D + j;
           if (bf) yb[oi] = __float2bfloat16_rn(y); else yf[oi] = y;
         }
       }
@@ -183,23 +198,24 @@ encoder_kernel(const void* __restrict__ x_in, const float* __restrict__ pe,
   }
 }
 
-template <bool RES>
-int launch(const void* x, const void* pe, const void* w_in, const void* b_in,
-           const void* w_out, const void* b_out, void* y, void* xs, void* ps,
-           void* p0, int B, int H, int D, int NH, int L, int bf, int epb,
-           void* stream) {
+template <bool RES, bool STACK>
+int launch(const void* x, const void* pe, const int* lens, const void* w_in,
+           const void* b_in, const void* w_out, const void* b_out, void* y,
+           void* xs, void* ps, void* p0, int B, int H, int D, int NH, int L,
+           int bf, int epb, void* stream) {
   if (D % NH != 0 || epb < 1 || L < 1) return (int)cudaErrorInvalidValue;
   const size_t floats = (size_t)D * 3 * D + 3 * D + (size_t)D * D + D +
                         (size_t)epb * H * D + (size_t)H * 3 * D +
                         (size_t)NH * H * H + (size_t)H * D;
   const size_t smem = floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      encoder_kernel<RES>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      encoder_kernel<RES, STACK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const float scale = (float)(1.0 / sqrt((double)(D / NH)));
   const int blocks = (B + epb - 1) / epb;
-  encoder_kernel<RES><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      x, (const float*)pe, (const float*)w_in, (const float*)b_in,
+  encoder_kernel<RES, STACK><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      x, (const float*)pe, lens, (const float*)w_in, (const float*)b_in,
       (const float*)w_out, (const float*)b_out, y, xs, ps, p0, B, H, D, NH, L,
       bf, epb, scale);
   return (int)cudaGetLastError();
@@ -212,8 +228,9 @@ extern "C" int tt_fused_history_encoder(const void* x, const void* pe,
                                         const void* w_out, const void* b_out,
                                         void* y, int B, int H, int D, int NH,
                                         int L, int bf, int epb, void* stream) {
-  return launch<false>(x, pe, w_in, b_in, w_out, b_out, y, nullptr, nullptr,
-                       nullptr, B, H, D, NH, L, bf, epb, stream);
+  return launch<false, false>(x, pe, nullptr, w_in, b_in, w_out, b_out, y,
+                              nullptr, nullptr, nullptr, B, H, D, NH, L, bf,
+                              epb, stream);
 }
 
 // B5: the forward plus its residuals xs, ps (null when L == 1) and p0.
@@ -221,6 +238,17 @@ extern "C" int tt_fused_history_encoder_res(
     const void* x, const void* pe, const void* w_in, const void* b_in,
     const void* w_out, const void* b_out, void* y, void* xs, void* ps, void* p0,
     int B, int H, int D, int NH, int L, int bf, int epb, void* stream) {
-  return launch<true>(x, pe, w_in, b_in, w_out, b_out, y, xs, ps, p0, B, H, D,
-                      NH, L, bf, epb, stream);
+  return launch<true, false>(x, pe, nullptr, w_in, b_in, w_out, b_out, y, xs,
+                             ps, p0, B, H, D, NH, L, bf, epb, stream);
+}
+
+// B8: the length-masked stack; x [B, H, D], lens [B] int32 -> y [B, D].
+extern "C" int tt_fused_attn_stack(const void* x, const void* lens,
+                                   const void* w_in, const void* b_in,
+                                   const void* w_out, const void* b_out,
+                                   void* y, int B, int H, int D, int NH, int L,
+                                   int bf, int epb, void* stream) {
+  return launch<false, true>(x, nullptr, (const int*)lens, w_in, b_in, w_out,
+                             b_out, y, nullptr, nullptr, nullptr, B, H, D, NH,
+                             L, bf, epb, stream);
 }

@@ -4,7 +4,9 @@ Port of ``two_tower_models_tpu/models/history_encoder.py``.  Given an
 embedded history [B, H, DI], newest item at row 0, the output is
 (row 0 after the attention stack, mean-pool of the input).  With
 ``fused_encoder`` the whole stack runs in one kernel
-(``ops.fused_encoder``); otherwise the dense ``mha_apply`` layers run.
+(``ops.fused_encoder``): ``fused_history_encoder`` for full histories,
+``fused_attn_stack`` under per-example ``lengths``; otherwise the dense
+``mha_apply`` layers run.
 """
 
 from __future__ import annotations
@@ -17,7 +19,10 @@ from torch import nn
 
 from two_tower_models_tpu_torch.config import HistoryEncoderConfig
 from two_tower_models_tpu_torch.nn.attention import MultiheadAttention, mha_apply
-from two_tower_models_tpu_torch.ops.fused_encoder import fused_history_encoder
+from two_tower_models_tpu_torch.ops.fused_encoder import (
+    fused_attn_stack,
+    fused_history_encoder,
+)
 
 
 @functools.lru_cache(maxsize=32)
@@ -32,8 +37,10 @@ def _cached_pe_raw(seq_len: int, d_model: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _cached_pe(seq_len: int, d_model: int) -> np.ndarray:
-    # flipped along positions: the newest item sits at index 0
-    return np.ascontiguousarray(_cached_pe_raw(seq_len, d_model)[::-1])
+    # flipped along positions: the newest item sits at index 0 (a copy: for
+    # one position the flipped view counts as contiguous, with a negative
+    # stride torch.tensor refuses)
+    return _cached_pe_raw(seq_len, d_model)[::-1].copy()
 
 
 def sinusoidal_positional_encoding(seq_len: int, d_model: int, device=None) -> torch.Tensor:
@@ -87,14 +94,12 @@ def history_encoder_apply(
         )
     b, h, d = history_emb.shape
     layers = encoder.attn_layers
+    stacked = lambda: [
+        torch.stack([getattr(getattr(l, proj), leaf) for l in layers])
+        for proj, leaf in (("in_proj", "w"), ("in_proj", "b"), ("out_proj", "w"), ("out_proj", "b"))
+    ]
 
     if lengths is not None:
-        if cfg.fused_encoder:
-            raise NotImplementedError(
-                "variable-length histories through the fused encoder "
-                "(fused_attn_stack) are not ported yet (ROADMAP.md, queue A, "
-                "'Variable-length histories')"
-            )
         lengths = lengths.to(device=history_emb.device, dtype=torch.int64).clamp(1, h)
         valid = torch.arange(h, device=history_emb.device)[None, :] < lengths[:, None]
         x0 = torch.where(valid[..., None], history_emb, 0)
@@ -104,6 +109,14 @@ def history_encoder_apply(
         x = x0
         if cfg.use_positional_encoding:
             x = x0 + per_example_positional_encoding(lengths, h, d).to(x0.dtype)
+        if cfg.fused_encoder:
+            # the stack alone in the kernel: PE, zeroing and the f32 mean
+            # stay outside it, and y0 comes back in the compute dtype
+            y0 = fused_attn_stack(
+                x if compute_dtype is None else x.to(compute_dtype),
+                lengths, *stacked(), cfg.num_heads,
+            ).to(history_emb.dtype)
+            return torch.stack([y0, mean_pooled], dim=1)
         for layer in layers:
             x = mha_apply(layer, x, cfg.num_heads, compute_dtype, lengths=lengths)
         return torch.stack([x[:, 0, :], mean_pooled], dim=1)
@@ -116,15 +129,7 @@ def history_encoder_apply(
             else torch.zeros((h, d), device=dev)
         )
         he = history_emb if compute_dtype is None else history_emb.to(compute_dtype)
-        out = fused_history_encoder(
-            he,
-            pe,
-            torch.stack([l.in_proj.w for l in layers]),
-            torch.stack([l.in_proj.b for l in layers]),
-            torch.stack([l.out_proj.w for l in layers]),
-            torch.stack([l.out_proj.b for l in layers]),
-            cfg.num_heads,
-        )
+        out = fused_history_encoder(he, pe, *stacked(), cfg.num_heads)
         return out.to(history_emb.dtype)
 
     mean_pooled = history_emb.mean(dim=1)

@@ -1,22 +1,32 @@
-"""Whole history encoder in one kernel: forward, residual forward, backward.
+"""Whole history encoder in one kernel, and the length-masked attention
+stack: forward, residual forward, backward.
 
-Port of ``two_tower_models_tpu/ops/pallas/fused_encoder.py:
-fused_history_encoder`` and its custom VJP with ``_RESIDUAL_BWD = True``:
+Port of ``two_tower_models_tpu/ops/pallas/fused_encoder.py``:
 
-- B1, ``_enc_fwd_kernel``: the forward alone (``csrc/fused_encoder.cu``),
-  taken when no gradient is wanted (serving);
+- B1, ``_enc_fwd_kernel``: ``fused_history_encoder``'s forward alone
+  (``csrc/fused_encoder.cu``), taken when no gradient is wanted (serving);
 - B5, ``_enc_fwd_res_kernel``: the same forward that also stores each
   layer's input and attention probabilities (``csrc/fused_encoder.cu`` with
   its residual flag), taken when a gradient is wanted;
 - B6, ``_enc_bwd_res_kernel``: the backward from those residuals
   (``csrc/fused_encoder_bwd.cu``), plus a second launch that sums the
-  per-block weight grads in a fixed order.
+  per-block weight grads in a fixed order;
+- B7, ``_enc_bwd_kernel``: the backward that recomputes the forward in the
+  kernel instead (same file, same reduce), taken with B1 as the forward
+  when ``_RESIDUAL_BWD`` is False;
+- B8, ``_stack_fwd_kernel``: ``fused_attn_stack``, the attention stack
+  under per-example history lengths, row 0 of the last layer out
+  (``csrc/fused_encoder.cu`` with its stack flag);
+- B9, ``_stack_bwd_kernel``: its backward, recomputing the forward
+  (``csrc/fused_encoder_bwd.cu``, same reduce).
 
 ``fused_history_encoder`` picks B1 or the ``autograd.Function`` (B5 then
-B6), as the JAX primal / ``_vjp_fwd`` split does.  Each kernel has a plain
-PyTorch version with its rounding points: the CPU path, and the reference
-the kernel is held against on the card.  The plain backward is written out
-with B6's rounding points; it is not torch autograd of the plain forward.
+B6, or B1 then B7), and ``fused_attn_stack`` picks B8 or its
+``autograd.Function`` (B8 then B9), as the JAX primal / ``_vjp_fwd`` split
+does.  Each kernel has a plain PyTorch version with its rounding points:
+the CPU path, and the reference the kernel is held against on the card.
+The plain backwards are written out with the Pallas kernels' rounding
+points; they are not torch autograd of the plain forward.
 
 Residual layouts (any layout will do, as long as kernel and plain agree):
 xs [L, B, H, D], ps [L-1, B, NH, H, H] (None when L == 1) and p0
@@ -35,45 +45,56 @@ from two_tower_models_tpu_torch.ops import _lib
 
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 _MAX_EXAMPLES_PER_BLOCK = 8
+_NEG_INF = -1e30  # an invalid key's score (the Pallas kernels' mask value)
+
+# Backward strategy of fused_history_encoder, the JAX module's constant of
+# the same name: True = B5 stores each layer's input and probabilities and
+# B6 reads them; False = B1 stores nothing and B7 recomputes the forward.
+_RESIDUAL_BWD = True
 
 
-def _forward_plain(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads, keep: bool):
-    mm = torch.bfloat16 if hist_emb.dtype == torch.bfloat16 else None
-    b, h, d = hist_emb.shape
+def _mm(dtype):
+    """The matmul operand dtype of the kernels: bf16 for bf16 input, else f32."""
+    return torch.bfloat16 if dtype == torch.bfloat16 else None
+
+
+def _layers_plain(x, w_in, b_in, w_out, b_out, num_heads, mm, lengths=None):
+    """The attention layers on an f32 input x [B, H, D], the last one thin
+    (query row 0 only).  With ``lengths`` [B], key kj of example b is valid
+    iff kj < lengths[b]: an invalid score is -1e30 after the scale, before
+    the per-head max.  Returns (the last layer's row 0 [B, D] f32, each
+    layer's input [B, H, D] f32, each layer's probabilities [B, NH, nq, H]
+    f32 and unrounded, nq = 1 in the last layer).  Operands round to ``mm``
+    where the Pallas kernels round them."""
+    b, h, d = x.shape
     nh, hd = num_heads, d // num_heads
     scale = 1.0 / math.sqrt(hd)
-    xin = hist_emb.float()
-    mean = xin.sum(dim=1) / h
-    x = xin + pe.float()
     num_layers = w_in.shape[0]
-    xs, ps, p0 = [], [], None
+    invalid = None
+    if lengths is not None:
+        pos = torch.arange(h, device=x.device)
+        invalid = (pos[None, :] >= lengths.to(x.device)[:, None])[:, None, None, :]
+    xs, ps = [], []
     for l in range(num_layers):
-        last = l == num_layers - 1
-        if keep:
-            xs.append(x.to(hist_emb.dtype))
+        xs.append(x)
         qkv = round_to(x, mm) @ round_to(w_in[l], mm) + b_in[l].float()
         q, k, v = (round_to(t, mm) for t in qkv.split(d, dim=-1))
-        if last:  # only query row 0 is consumed downstream
+        if l == num_layers - 1:  # only query row 0 is consumed downstream
             q = q[:, :1]
         nq = q.shape[1]
         qh = q.reshape(b, nq, nh, hd).transpose(1, 2)  # [B, NH, nq, hd]
         kh = k.reshape(b, h, nh, hd).transpose(1, 2)
         vh = v.reshape(b, h, nh, hd).transpose(1, 2)
         s = (qh @ kh.transpose(-1, -2)) * scale  # [B, NH, nq, H]
+        if invalid is not None:
+            s = s.masked_fill(invalid, _NEG_INF)
         e = torch.exp(s - s.amax(dim=-1, keepdim=True))  # per-head max
         denom = round_to(e, mm).sum(dim=-1, keepdim=True)
-        p = round_to(e / denom.clamp_min(1e-30), mm)
-        if keep:
-            if last:
-                p0 = p[:, :, 0].to(hist_emb.dtype)
-            else:
-                ps.append(p.to(hist_emb.dtype))
-        out = (p @ vh).transpose(1, 2).reshape(b, nq, d)
+        p = e / denom.clamp_min(1e-30)
+        ps.append(p)
+        out = (round_to(p, mm) @ vh).transpose(1, 2).reshape(b, nq, d)
         x = round_to(out, mm) @ round_to(w_out[l], mm) + b_out[l].float()
-    y = torch.stack([x[:, 0], mean], dim=1).to(hist_emb.dtype)
-    if not keep:
-        return y
-    return y, torch.stack(xs), (torch.stack(ps) if ps else None), p0
+    return x[:, 0], xs, ps
 
 
 def fused_history_encoder_plain(
@@ -89,65 +110,131 @@ def fused_history_encoder_plain(
     mean-pool of the input).  Under bf16 input every matmul operand is
     rounded to bf16 (weights too) and accumulated in f32, exactly where the
     Pallas kernel rounds."""
-    return _forward_plain(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads, False)
+    xin = hist_emb.float()
+    y0, _, _ = _layers_plain(
+        xin + pe.float(), w_in, b_in, w_out, b_out, num_heads, _mm(hist_emb.dtype)
+    )
+    return torch.stack([y0, xin.sum(dim=1) / xin.shape[1]], dim=1).to(hist_emb.dtype)
 
 
 def fused_history_encoder_res_plain(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads):
     """B5's function: (y, xs, ps, p0), the forward of
     ``fused_history_encoder_plain`` and its residuals (module docstring)."""
-    return _forward_plain(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads, True)
+    dt = hist_emb.dtype
+    xin = hist_emb.float()
+    y0, xs, ps = _layers_plain(
+        xin + pe.float(), w_in, b_in, w_out, b_out, num_heads, _mm(dt)
+    )
+    y = torch.stack([y0, xin.sum(dim=1) / xin.shape[1]], dim=1).to(dt)
+    full = torch.stack([p.to(dt) for p in ps[:-1]]) if len(ps) > 1 else None
+    return y, torch.stack([x.to(dt) for x in xs]), full, ps[-1][:, :, 0].to(dt)
 
 
-def fused_history_encoder_bwd_plain(g, xs, ps, p0, w_in, b_in, w_out, num_heads):
-    """B6's function: from the cotangent ``g`` [B, 2, D] and the residuals,
-    (dx [B, H, D] in the residuals' dtype, dpe [H, D], dw_in, db_in, dw_out,
-    db_out), the grads f32 and summed over the batch.  The rounding points
-    of ``_layer_bwd`` / ``_thin_bwd``: g2, do, p, ds and dqkv are rounded
-    before their products; the per-head pdp sum adds rounded dp * p; db_out
-    sums the unrounded dy and db_in the rounded dqkv; the thin last layer
-    has dq at row 0 only."""
-    dtype = xs.dtype
-    mm = torch.bfloat16 if dtype == torch.bfloat16 else None
-    num_layers, b, h, d = xs.shape
+def _backward_plain(dy, xs, ps, w_in, b_in, w_out, num_heads, mm):
+    """The layers' backward, last to first, with the rounding points of
+    ``_layer_bwd`` / ``_thin_bwd``: from ``dy`` [B, 1, D], the f32
+    cotangent of the last layer's row 0, each layer's input ``xs[l]`` and
+    probabilities ``ps[l]`` [B, NH, nq, H].  g2, do, dp * p, ds and dqkv are
+    rounded before their products; p is rounded where it is a P.V operand
+    and used as given in dp * p and ds; db_out sums the unrounded dy and
+    db_in the rounded dqkv; the thin last layer has dq at row 0 only.
+    Returns (the f32 cotangent of layer 0's input [B, H, D], [dw_in, db_in,
+    dw_out, db_out] f32 summed over the batch)."""
+    num_layers = w_in.shape[0]
+    b, h, d = xs[0].shape
     nh, hd = num_heads, d // num_heads
     scale = 1.0 / math.sqrt(hd)
-    g = g.to(dtype).float()
     heads = lambda t: t.reshape(b, t.shape[1], nh, hd).transpose(1, 2)
     merge = lambda t: t.transpose(1, 2).reshape(b, t.shape[2], d)
     grads = [[None] * num_layers for _ in range(4)]  # dwi, dbi, dwo, dbo
-    dy = g[:, :1]  # cotangent of the last layer's row 0
     for l in range(num_layers - 1, -1, -1):
-        thin = l == num_layers - 1
-        x2 = xs[l].float()
+        x2 = round_to(xs[l], mm)
         wi = round_to(w_in[l], mm)
         qkv = x2 @ wi + b_in[l].float()
         q, k, v = (round_to(t, mm) for t in qkv.split(d, dim=-1))
-        if thin:
-            q, p = q[:, :1], p0.float()[:, :, None, :]  # [B, NH, 1, H]
-        else:
-            p = ps[l].float()  # [B, NH, H, H]
+        p = ps[l]
+        q = q[:, : p.shape[2]]  # row 0 only in the thin last layer
+        pv = round_to(p, mm)
         qh, kh, vh = heads(q), heads(k), heads(v)
-        ao = round_to(merge(p @ vh), mm)  # [B, nq, D]
+        ao = round_to(merge(pv @ vh), mm)  # [B, nq, D]
         g2 = round_to(dy, mm)
         grads[2][l] = torch.einsum("bqc,bqj->cj", ao, g2)
         grads[3][l] = dy.sum(dim=(0, 1))
         do = heads(round_to(g2 @ round_to(w_out[l], mm).T, mm))  # [B, NH, nq, hd]
         dp = do @ vh.transpose(-1, -2)  # [B, NH, nq, H]
-        dv = merge(p.transpose(-1, -2) @ do)  # [B, H, D]
+        dv = merge(pv.transpose(-1, -2) @ do)  # [B, H, D]
         pdp = round_to(dp * p, mm).sum(dim=-1, keepdim=True)
         ds = round_to(p * (dp - pdp) * scale, mm)
         dq = merge(ds @ kh)  # [B, nq, D]
         dk = merge(ds.transpose(-1, -2) @ qh)  # [B, H, D]
-        if thin:
-            dq = torch.cat([dq, dq.new_zeros(b, h - 1, d)], dim=1)
+        if dq.shape[1] < h:
+            dq = torch.cat([dq, dq.new_zeros(b, h - dq.shape[1], d)], dim=1)
         dqkv = round_to(torch.cat([dq, dk, dv], dim=-1), mm)  # [B, H, 3D]
         grads[0][l] = torch.einsum("brd,brj->dj", x2, dqkv)
         grads[1][l] = dqkv.sum(dim=(0, 1))
         dy = dqkv @ wi.T  # [B, H, D]: the layer input's cotangent
-    dpe = dy.sum(dim=0)
-    dx = (dy + g[:, 1:] / h).to(dtype)
-    dwi, dbi, dwo, dbo = (torch.stack(t) for t in grads)
-    return dx, dpe, dwi, dbi, dwo, dbo
+    return dy, [torch.stack(t) for t in grads]
+
+
+def _encoder_grads(g, xs, ps, w_in, b_in, w_out, num_heads, dtype):
+    """(dx, dpe, dw_in, db_in, dw_out, db_out) of the whole encoder from its
+    cotangent g [B, 2, D]: dx = dy0 + gmean / H in ``dtype``, dpe sums dy0."""
+    g = g.to(dtype).float()
+    dy, grads = _backward_plain(g[:, :1], xs, ps, w_in, b_in, w_out, num_heads, _mm(dtype))
+    return ((dy + g[:, 1:] / dy.shape[1]).to(dtype), dy.sum(dim=0), *grads)
+
+
+def fused_history_encoder_bwd_plain(g, xs, ps, p0, w_in, b_in, w_out, num_heads):
+    """B6's function: from the cotangent ``g`` [B, 2, D] and the residuals,
+    (dx [B, H, D] in the residuals' dtype, dpe [H, D], dw_in, db_in, dw_out,
+    db_out), the grads f32 and summed over the batch (``_backward_plain``;
+    the stored p is already rounded)."""
+    num_layers = xs.shape[0]
+    probs = [ps[l].float() for l in range(num_layers - 1)] + [p0.float()[:, :, None, :]]
+    return _encoder_grads(g, list(xs.float()), probs, w_in, b_in, w_out, num_heads, xs.dtype)
+
+
+def fused_history_encoder_bwd_recompute_plain(g, hist_emb, pe, w_in, b_in, w_out, b_out,
+                                              num_heads):
+    """B7's function: the outputs of ``fused_history_encoder_bwd_plain``
+    from the encoder's inputs, the forward recomputed.  Its p is the f32
+    probability, unrounded in dp * p and ds (B6's is the stored, rounded
+    one), as in ``_enc_bwd_kernel``."""
+    dt = hist_emb.dtype
+    _, xs, ps = _layers_plain(
+        hist_emb.float() + pe.float(), w_in, b_in, w_out, b_out, num_heads, _mm(dt)
+    )
+    return _encoder_grads(g, xs, ps, w_in, b_in, w_out, num_heads, dt)
+
+
+def fused_attn_stack_fwd_plain(
+    x: torch.Tensor,  # [B, H, D] bf16 or f32: PE added, rows past the length zeroed
+    lengths: torch.Tensor,  # [B] int valid-history counts
+    w_in: torch.Tensor,
+    b_in: torch.Tensor,
+    w_out: torch.Tensor,
+    b_out: torch.Tensor,
+    num_heads: int,
+) -> torch.Tensor:
+    """B8's function: [B, H, D] -> [B, D] in x's dtype, row 0 of the last
+    layer of the length-masked stack.  No PE add and no mean-pool; query
+    rows at or past the length are computed, but their keys are masked."""
+    y0, _, _ = _layers_plain(
+        x.float(), w_in, b_in, w_out, b_out, num_heads, _mm(x.dtype), lengths
+    )
+    return y0.to(x.dtype)
+
+
+def fused_attn_stack_bwd_plain(g, x, lengths, w_in, b_in, w_out, b_out, num_heads):
+    """B9's function: from the cotangent g [B, D] of the stack's output,
+    (dx [B, H, D] in x's dtype, dw_in, db_in, dw_out, db_out), the forward
+    recomputed with its f32 probabilities (``_stack_bwd_kernel``); g is
+    rounded to x's dtype first.  ``lengths`` gets no gradient."""
+    mm = _mm(x.dtype)
+    _, xs, ps = _layers_plain(x.float(), w_in, b_in, w_out, b_out, num_heads, mm, lengths)
+    g0 = g.to(x.dtype).float()[:, None]
+    dy, grads = _backward_plain(g0, xs, ps, w_in, b_in, w_out, num_heads, mm)
+    return (dy.to(x.dtype), *grads)
 
 
 def _examples_per_block(h: int, d: int, nh: int) -> int:
@@ -161,14 +248,14 @@ def _examples_per_block(h: int, d: int, nh: int) -> int:
     return epb
 
 
-def _check(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads) -> None:
-    if hist_emb.device.type != "cuda":
-        raise ValueError(f"unsupported device {hist_emb.device}")
-    if hist_emb.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"history must be bf16 or f32, got {hist_emb.dtype}")
-    b, h, d = hist_emb.shape
+def _check(x, w_in, b_in, w_out, b_out, num_heads) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"history must be bf16 or f32, got {x.dtype}")
+    _, _, d = x.shape
     num_layers = w_in.shape[0]
-    if d % num_heads or pe.shape != (h, d) or w_in.shape != (num_layers, d, 3 * d):
+    if d % num_heads or w_in.shape != (num_layers, d, 3 * d):
         raise ValueError("encoder shapes do not agree")
     if b_in.shape != (num_layers, 3 * d) or w_out.shape != (num_layers, d, d) \
             or b_out.shape != (num_layers, d):
@@ -179,29 +266,47 @@ def _f32(t: torch.Tensor, dev) -> torch.Tensor:
     return t.detach().to(device=dev, dtype=torch.float32).contiguous()
 
 
-def _launch_forward(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads, res: bool):
-    _check(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads)
-    b, h, d = hist_emb.shape
+def _lens(lengths: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The lengths as the kernels take them: int32 [B] on x's device."""
+    b = x.shape[0]
+    if lengths.shape != (b,):
+        raise ValueError(f"lengths must be [{b}], got {tuple(lengths.shape)}")
+    return lengths.detach().to(device=x.device, dtype=torch.int32).contiguous()
+
+
+def _pe(pe: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The PE as the kernels take it: f32 [H, D] on x's device."""
+    if pe.shape != x.shape[1:]:
+        raise ValueError("encoder shapes do not agree")
+    return _f32(pe, x.device)
+
+
+def _launch_forward(name, x, side, w_in, b_in, w_out, b_out, num_heads, *,
+                    stack: bool = False, res: bool = False):
+    """Launch forward kernel ``name``: B1, B5 (``res``: with the residuals)
+    or B8 (``stack``: a [B, D] output).  ``side`` is the prepared PE
+    (``_pe``) or, with ``stack``, the lengths (``_lens``)."""
+    _check(x, w_in, b_in, w_out, b_out, num_heads)
+    b, h, d = x.shape
     num_layers = w_in.shape[0]
     epb = _examples_per_block(h, d, num_heads)
-    dev = hist_emb.device
-    x = hist_emb.detach().contiguous()
-    pe_, wi, bi, wo, bo = (_f32(t, dev) for t in (pe, w_in, b_in, w_out, b_out))
-    y = torch.empty((b, 2, d), dtype=hist_emb.dtype, device=dev)
-    new = lambda *shape: torch.empty(shape, dtype=hist_emb.dtype, device=dev)
+    dev = x.device
+    x = x.detach().contiguous()
+    wi, bi, wo, bo = (_f32(t, dev) for t in (w_in, b_in, w_out, b_out))
+    y = torch.empty((b, d) if stack else (b, 2, d), dtype=x.dtype, device=dev)
+    new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=dev)
     xs = new(num_layers, b, h, d) if res else None
     ps = new(num_layers - 1, b, num_heads, h, h) if res and num_layers > 1 else None
     p0 = new(b, num_heads, h) if res else None
     if b == 0:
         return (y, xs, ps, p0) if res else y
     lib = _lib.library()
-    args = [x.data_ptr(), pe_.data_ptr(), wi.data_ptr(), bi.data_ptr(),
+    args = [x.data_ptr(), side.data_ptr(), wi.data_ptr(), bi.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), y.data_ptr()]
     if res:
         args += [xs.data_ptr(), 0 if ps is None else ps.data_ptr(), p0.data_ptr()]
-    args += [b, h, d, num_heads, num_layers, int(hist_emb.dtype == torch.bfloat16),
+    args += [b, h, d, num_heads, num_layers, int(x.dtype == torch.bfloat16),
              epb, _lib.stream_ptr(x)]
-    name = "fused_history_encoder_res" if res else "fused_history_encoder"
     err = getattr(lib, "tt_" + name)(*args)
     _lib.check(err, name)
     _lib.launches[name] += 1
@@ -215,7 +320,25 @@ def fused_history_encoder_res(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads)
         return fused_history_encoder_res_plain(
             hist_emb, pe, w_in, b_in, w_out, b_out, num_heads
         )
-    return _launch_forward(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads, True)
+    return _launch_forward("fused_history_encoder_res", hist_emb, _pe(pe, hist_emb),
+                           w_in, b_in, w_out, b_out, num_heads, res=True)
+
+
+def _encoder_forward(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads):
+    """B1, or its plain version for a CPU tensor."""
+    if hist_emb.device.type == "cpu":
+        return fused_history_encoder_plain(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads)
+    return _launch_forward("fused_history_encoder", hist_emb, _pe(pe, hist_emb),
+                           w_in, b_in, w_out, b_out, num_heads)
+
+
+def fused_attn_stack_fwd(x, lengths, w_in, b_in, w_out, b_out, num_heads):
+    """[B, H, D] -> [B, D]; see ``fused_attn_stack_fwd_plain``.  A CPU
+    tensor takes the plain version; a CUDA tensor launches kernel B8."""
+    if x.device.type == "cpu":
+        return fused_attn_stack_fwd_plain(x, lengths, w_in, b_in, w_out, b_out, num_heads)
+    return _launch_forward("fused_attn_stack", x, _lens(lengths, x), w_in, b_in, w_out,
+                           b_out, num_heads, stack=True)
 
 
 def _bwd_smem_bytes(h: int, d: int, nh: int) -> int:
@@ -225,12 +348,60 @@ def _bwd_smem_bytes(h: int, d: int, nh: int) -> int:
                 + 4 * h * d + h * (d3 + 1) + 2 * nh * h * h)
 
 
+def _check_bwd_smem(h: int, d: int, nh: int) -> None:
+    if _bwd_smem_bytes(h, d, nh) > _SMEM_LIMIT:
+        raise ValueError(
+            f"history encoder backward of H={h}, D={d}, NH={nh} does not "
+            "fit the kernel's shared memory"
+        )
+
+
 def _bwd_grid(b: int, device) -> tuple[int, int]:
-    """(blocks, examples per block) of the B6 launch: at most one block per
-    SM, each owning a contiguous run of examples."""
+    """(blocks, examples per block) of a backward launch: at most one block
+    per SM, each owning a contiguous run of examples."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     epb = -(-b // min(b, sms))
     return -(-b // epb), epb
+
+
+def _launch_backward(name, inputs, b, h, d, num_heads, num_layers, dtype, dev,
+                     with_pe: bool, res_floats: int):
+    """Launch backward ``name`` (B6, B7 or B9) over at most one block per SM,
+    then the reduce that sums the per-block partial grads in block order
+    (counted as ``name_reduce``).  ``inputs`` are the kernel's leading
+    pointer arguments; ``res_floats`` > 0 gives the recomputing kernels
+    their f32 scratch [B, res_floats].  Returns (dx, dw_in, db_in, dw_out,
+    db_out[, dpe])."""
+    # flat dW_in, db_in, dW_out, db_out and, with the PE, dPE
+    sizes = [num_layers * d * 3 * d, num_layers * 3 * d, num_layers * d * d, num_layers * d]
+    sizes += [h * d] if with_pe else []
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    dx = torch.empty((b, h, d), dtype=dtype, device=dev)
+    if b == 0:
+        grads.zero_()
+    else:
+        blocks, epb = _bwd_grid(b, dev)
+        ws = torch.empty((blocks, grads.numel()), dtype=torch.float32, device=dev)
+        dy = torch.empty((b, h, d), dtype=torch.float32, device=dev)
+        res = torch.empty((b, res_floats), dtype=torch.float32, device=dev) if res_floats else None
+        stream = _lib.stream_ptr(dx)
+        lib = _lib.library()
+        err = getattr(lib, "tt_" + name)(
+            *inputs, dx.data_ptr(), *([res.data_ptr()] if res_floats else []),
+            dy.data_ptr(), ws.data_ptr(), b, h, d, num_heads, num_layers,
+            int(dtype == torch.bfloat16), epb, stream,
+        )
+        _lib.check(err, name)
+        _lib.launches[name] += 1
+        err = lib.tt_fused_history_encoder_bwd_reduce(
+            ws.data_ptr(), grads.data_ptr(), blocks, grads.numel(), stream
+        )
+        _lib.check(err, name + "_reduce")
+        _lib.launches[name + "_reduce"] += 1
+    parts = torch.split(grads, sizes)
+    shapes = [(num_layers, d, 3 * d), (num_layers, 3 * d), (num_layers, d, d),
+              (num_layers, d), (h, d)]
+    return (dx, *(t.view(shape) for t, shape in zip(parts, shapes)))
 
 
 def fused_history_encoder_bwd(g, xs, ps, p0, w_in, b_in, w_out, num_heads):
@@ -251,67 +422,104 @@ def fused_history_encoder_bwd(g, xs, ps, p0, w_in, b_in, w_out, num_heads):
     if w_in.shape != (num_layers, d, 3 * d) or b_in.shape != (num_layers, 3 * d) \
             or w_out.shape != (num_layers, d, d):
         raise ValueError("encoder weight shapes do not agree")
-    if _bwd_smem_bytes(h, d, num_heads) > _SMEM_LIMIT:
-        raise ValueError(
-            f"history encoder backward of H={h}, D={d}, NH={num_heads} does not "
-            "fit the kernel's shared memory"
-        )
+    _check_bwd_smem(h, d, num_heads)
     dev = xs.device
-    dtype = xs.dtype
     wi, bi, wo = (_f32(t, dev) for t in (w_in, b_in, w_out))
-    g = g.detach().to(dtype).contiguous()
+    g = g.detach().to(xs.dtype).contiguous()
     xs, p0 = xs.contiguous(), p0.contiguous()
     ps = None if ps is None else ps.contiguous()
-    sizes = [num_layers * d * 3 * d, num_layers * 3 * d, num_layers * d * d, num_layers * d, h * d]
-    grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    dx = torch.empty((b, h, d), dtype=dtype, device=dev)
-    if b > 0:
-        blocks, epb = _bwd_grid(b, dev)
-        ws = torch.empty((blocks, grads.numel()), dtype=torch.float32, device=dev)
-        dy = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-        lib = _lib.library()
-        stream = _lib.stream_ptr(xs)
-        err = lib.tt_fused_history_encoder_bwd(
-            g.data_ptr(), xs.data_ptr(), 0 if ps is None else ps.data_ptr(),
-            p0.data_ptr(), wi.data_ptr(), bi.data_ptr(), wo.data_ptr(), dx.data_ptr(),
-            dy.data_ptr(), ws.data_ptr(), b, h, d, num_heads, num_layers,
-            int(dtype == torch.bfloat16), epb, stream,
+    inputs = [g.data_ptr(), xs.data_ptr(), 0 if ps is None else ps.data_ptr(), p0.data_ptr(),
+              wi.data_ptr(), bi.data_ptr(), wo.data_ptr()]
+    dx, dwi, dbi, dwo, dbo, dpe = _launch_backward(
+        "fused_history_encoder_bwd", inputs, b, h, d, num_heads, num_layers, xs.dtype, dev,
+        True, 0,
+    )
+    return dx, dpe, dwi, dbi, dwo, dbo
+
+
+def _launch_recompute_bwd(name, g, x, side, w_in, b_in, w_out, b_out, num_heads, *,
+                          enc: bool):
+    """Launch recomputing backward ``name``: B7 (``enc``: ``side`` the
+    prepared PE, g [B, 2, D]) or B9 (``side`` the prepared lengths, g
+    [B, D]).  Returns (dx, dw_in, db_in, dw_out, db_out[, dpe])."""
+    _check(x, w_in, b_in, w_out, b_out, num_heads)
+    b, h, d = x.shape
+    num_layers = w_in.shape[0]
+    if g.shape != ((b, 2, d) if enc else (b, d)):
+        raise ValueError(f"cotangent of shape {tuple(g.shape)} does not fit x {tuple(x.shape)}")
+    _check_bwd_smem(h, d, num_heads)
+    dev = x.device
+    x = x.detach().contiguous()
+    g = g.detach().to(x.dtype).contiguous()
+    wi, bi, wo, bo = (_f32(t, dev) for t in (w_in, b_in, w_out, b_out))
+    inputs = [g.data_ptr(), x.data_ptr(), side.data_ptr(), wi.data_ptr(), bi.data_ptr(),
+              wo.data_ptr(), bo.data_ptr()]
+    # the rebuilt residuals of an example: its layers' inputs and the full
+    # and thin layers' probabilities
+    res_floats = num_layers * h * d + (num_layers - 1) * num_heads * h * h + num_heads * h
+    return _launch_backward(name, inputs, b, h, d, num_heads, num_layers, x.dtype, dev,
+                            enc, res_floats)
+
+
+def fused_history_encoder_bwd_recompute(g, hist_emb, pe, w_in, b_in, w_out, b_out, num_heads):
+    """(dx, dpe, dw_in, db_in, dw_out, db_out); see
+    ``fused_history_encoder_bwd_recompute_plain``.  A CPU tensor takes the
+    plain version; a CUDA tensor launches kernel B7 and its reduce."""
+    if hist_emb.device.type == "cpu":
+        return fused_history_encoder_bwd_recompute_plain(
+            g, hist_emb, pe, w_in, b_in, w_out, b_out, num_heads
         )
-        _lib.check(err, "fused_history_encoder_bwd")
-        _lib.launches["fused_history_encoder_bwd"] += 1
-        err = lib.tt_fused_history_encoder_bwd_reduce(
-            ws.data_ptr(), grads.data_ptr(), blocks, grads.numel(), stream
-        )
-        _lib.check(err, "fused_history_encoder_bwd_reduce")
-        _lib.launches["fused_history_encoder_bwd_reduce"] += 1
-    else:
-        grads.zero_()
-    dwi, dbi, dwo, dbo, dpe = torch.split(grads, sizes)
-    return (dx, dpe.view(h, d), dwi.view(num_layers, d, 3 * d),
-            dbi.view(num_layers, 3 * d), dwo.view(num_layers, d, d),
-            dbo.view(num_layers, d))
+    dx, dwi, dbi, dwo, dbo, dpe = _launch_recompute_bwd(
+        "fused_history_encoder_bwd_recompute", g, hist_emb, _pe(pe, hist_emb), w_in, b_in,
+        w_out, b_out, num_heads, enc=True,
+    )
+    return dx, dpe, dwi, dbi, dwo, dbo
+
+
+def fused_attn_stack_bwd(g, x, lengths, w_in, b_in, w_out, b_out, num_heads):
+    """(dx, dw_in, db_in, dw_out, db_out); see ``fused_attn_stack_bwd_plain``.
+    A CPU tensor takes the plain version; a CUDA tensor launches kernel B9
+    and its reduce."""
+    if x.device.type == "cpu":
+        return fused_attn_stack_bwd_plain(g, x, lengths, w_in, b_in, w_out, b_out, num_heads)
+    return _launch_recompute_bwd(
+        "fused_attn_stack_bwd", g, x, _lens(lengths, x), w_in, b_in, w_out, b_out,
+        num_heads, enc=False,
+    )
+
+
+def _input_grads(grads, ctx) -> list:
+    """Each input's grad in its dtype (``ctx.dtypes``), None where autograd
+    wants none."""
+    return [g.to(dt) if need and g is not None else None
+            for g, dt, need in zip(grads, ctx.dtypes, ctx.needs_input_grad)]
 
 
 class _FusedHistoryEncoder(torch.autograd.Function):
-    """B5 forward, B6 backward (the JAX custom VJP with _RESIDUAL_BWD)."""
+    """The JAX custom VJP of ``fused_history_encoder``: B5 forward and B6
+    backward, or, with ``_RESIDUAL_BWD`` False when the forward ran, B1
+    forward and B7 backward."""
 
     @staticmethod
     def forward(ctx, hist_emb, pe, w_in, b_in, w_out, b_out, num_heads):
-        y, xs, ps, p0 = fused_history_encoder_res(
-            hist_emb, pe, w_in, b_in, w_out, b_out, num_heads
-        )
-        ctx.save_for_backward(xs, ps, p0, w_in, b_in, w_out)
+        args = (hist_emb, pe, w_in, b_in, w_out, b_out)
         ctx.num_heads = num_heads
-        ctx.dtypes = [t.dtype for t in (hist_emb, pe, w_in, b_in, w_out, b_out)]
+        ctx.residual = _RESIDUAL_BWD
+        ctx.dtypes = [t.dtype for t in args]
+        if not ctx.residual:
+            ctx.save_for_backward(*args)
+            return _encoder_forward(*args, num_heads)
+        y, xs, ps, p0 = fused_history_encoder_res(*args, num_heads)
+        ctx.save_for_backward(xs, ps, p0, w_in, b_in, w_out)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        xs, ps, p0, w_in, b_in, w_out = ctx.saved_tensors
-        grads = fused_history_encoder_bwd(g, xs, ps, p0, w_in, b_in, w_out, ctx.num_heads)
-        out = [gr.to(dt) if need else None
-               for gr, dt, need in zip(grads, ctx.dtypes, ctx.needs_input_grad)]
-        return (*out, None)
+        if ctx.residual:
+            grads = fused_history_encoder_bwd(g, *ctx.saved_tensors, ctx.num_heads)
+        else:
+            grads = fused_history_encoder_bwd_recompute(g, *ctx.saved_tensors, ctx.num_heads)
+        return (*_input_grads(grads, ctx), None)
 
 
 def fused_history_encoder(
@@ -325,11 +533,44 @@ def fused_history_encoder(
 ) -> torch.Tensor:
     """[B, H, D] -> [B, 2, D]; see ``fused_history_encoder_plain``.  When a
     gradient is wanted (grad mode on and an input requires grad) it runs the
-    ``autograd.Function`` of B5 and B6; otherwise B1.  A CPU tensor takes
-    the plain versions; a CUDA tensor launches the kernels."""
+    ``autograd.Function`` (B5 and B6, or B1 and B7); otherwise B1.  A CPU
+    tensor takes the plain versions; a CUDA tensor launches the kernels."""
     args = (hist_emb, pe, w_in, b_in, w_out, b_out)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _FusedHistoryEncoder.apply(*args, num_heads)
-    if hist_emb.device.type == "cpu":
-        return fused_history_encoder_plain(*args, num_heads)
-    return _launch_forward(*args, num_heads, False)
+    return _encoder_forward(*args, num_heads)
+
+
+class _FusedAttnStack(torch.autograd.Function):
+    """The JAX custom VJP of ``fused_attn_stack``: B8 forward, B9 backward
+    (``_stack_vjp_fwd`` / ``_stack_vjp_bwd``); ``lengths`` gets no grad."""
+
+    @staticmethod
+    def forward(ctx, x, lengths, w_in, b_in, w_out, b_out, num_heads):
+        ctx.num_heads = num_heads
+        ctx.dtypes = [t.dtype for t in (x, lengths, w_in, b_in, w_out, b_out)]
+        ctx.save_for_backward(x, lengths, w_in, b_in, w_out, b_out)
+        return fused_attn_stack_fwd(x, lengths, w_in, b_in, w_out, b_out, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx, *dw = fused_attn_stack_bwd(g, *ctx.saved_tensors, ctx.num_heads)
+        return (*_input_grads([dx, None, *dw], ctx), None)
+
+
+def fused_attn_stack(
+    x: torch.Tensor,  # [B, H, D]: PE already added, rows past the length zeroed
+    lengths: torch.Tensor,  # [B] int valid-history counts (>= 1)
+    w_in: torch.Tensor,  # [L, D, 3D]
+    b_in: torch.Tensor,  # [L, 3D]
+    w_out: torch.Tensor,  # [L, D, D]
+    b_out: torch.Tensor,  # [L, D]
+    num_heads: int,
+) -> torch.Tensor:
+    """[B, H, D] -> [B, D]: row 0 of the length-masked attention stack (see
+    ``fused_attn_stack_fwd_plain``).  When a gradient is wanted it runs the
+    ``autograd.Function`` (B8 then B9); otherwise B8."""
+    args = (x, w_in, b_in, w_out, b_out)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedAttnStack.apply(x, lengths, w_in, b_in, w_out, b_out, num_heads)
+    return fused_attn_stack_fwd(x, lengths, w_in, b_in, w_out, b_out, num_heads)
