@@ -52,7 +52,24 @@ Phases, in the order they run; any failure exits non-zero:
      version on the step's own tensors; 3 warm-up and 20 timed steps
      launch B8, B9 and the CE kernels once each and none of the
      fixed-length encoder kernels; three steps under torch.profiler; grads
-     against a CPU copy at B=256.
+     against a CPU copy at B=256;
+  5. large tables: scripts/bench_tables.py's configuration (the flagship
+     with 2^22-row user and item tables, stored 128-lane packed).  The row
+     scatter-add (B18) is held against its plain version at the lookups of
+     the legs below and on a stream where id 0 holds about half the ids
+     (exactly, on rows of small integers), and timed against F.embedding's
+     gradient at 2^16-2^22 rows; the in-place row write (B19) exactly at
+     the lazy step's six write-backs on its own ids.  From one seed, the
+     first lazy step is held against the first dense step on every
+     parameter and table moment.  Three legs, each 2 or 3 warm-up and 10
+     timed steps plus three under the profiler: train-4M-packed (dense
+     Adam, B18 three times a step through the packed lookups),
+     train-4M-lazy (lazy_table_adam: B19 six times a step, no B18) and
+     train-1M-plain (2^20-row plain tables, B18 three times a step inside
+     the scatter window).  Each leg then runs one step twice from one
+     state, through the kernels and on the plain route, and the tables and
+     moments must agree.  Last, train_loss and its grads at 2^18 packed
+     rows and B=256 on the card against a CPU copy.
 
 Prints one JSON line of per-kernel numbers, then, last, the ok line.  It
 imports nothing of JAX or of the JAX package.
@@ -82,6 +99,12 @@ TRAIN_ROWS = 65536
 TRAIN_BATCH = 4096
 TRAIN_STEPS = 20  # timed training steps
 CHECK_BATCH = 256  # card-against-CPU gradient check
+TABLE_ROWS = 1 << 22  # scripts/bench_tables.py --rows 4194304: packed tables
+TABLE_ROWS_1M = 1 << 20  # scripts/bench_checkpoint.py's tables: plain, in the scatter window
+PACK_MIN_ROWS = 1 << 22  # TrainConfig's default pack_tables_min_rows
+TABLE_STEPS = 10  # timed steps of each large-table leg
+CHECK_ROWS = 1 << 18  # large-table card-against-CPU check: the scatter window's lower edge
+WINDOW_ROWS = (1 << 16, 1 << 18, 1 << 20, 1 << 22)  # B18 against F.embedding's gradient
 BF16_TOL = 1e-2  # tests/test_torch_train_step.py's bf16 tolerance
 
 
@@ -397,25 +420,15 @@ def trace_steps(torch, step, state, data, idx, label: str):
     return state
 
 
-def phase_train(torch, args, smi, dev, entry, entries, failures):
-    from two_tower_models_tpu_torch.config import (
-        Debias, HistoryEncoderConfig, ModelConfig, TrainConfig,
-    )
-    from two_tower_models_tpu_torch.models import two_tower as tt
-    from two_tower_models_tpu_torch.models.history_encoder import (
-        sinusoidal_positional_encoding,
-    )
-    from two_tower_models_tpu_torch.ops import fused_encoder as fe
-    from two_tower_models_tpu_torch.ops import fused_softmax as fs
-    from two_tower_models_tpu_torch.training.data import SyntheticRecData, gather_batch
-    from two_tower_models_tpu_torch.training.state import create_train_state
-    from two_tower_models_tpu_torch.training.step import make_train_step
+def flagship_cfg(rows: int):
+    """bench.py's _bench_cfg, copied, with ``rows``-row user and item
+    tables; at 2^22 rows it is scripts/bench_tables.py's configuration."""
+    from two_tower_models_tpu_torch.config import Debias, HistoryEncoderConfig, ModelConfig
 
-    # bench.py's _bench_cfg, copied
-    cfg = ModelConfig(
-        user_id_hash_size=TRAIN_ROWS,
+    return ModelConfig(
+        user_id_hash_size=rows,
         user_id_embedding_dim=64,
-        item_id_hash_size=TRAIN_ROWS,
+        item_id_hash_size=rows,
         item_id_embedding_dim=64,
         user_features_size=16,
         item_features_size=16,
@@ -426,25 +439,49 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
         compute_dtype="bfloat16",
         fused_loss=True,
     )
+
+
+def fixed_batch(torch, gen, dev, cfg, b: int):
+    """One fixed batch of b rows for ``cfg`` with __graft_entry__._make_batch's
+    shapes: ids uniform over the tables, positions over the position table."""
+    from two_tower_models_tpu_torch.training.data import SyntheticRecData
+
+    randint = lambda hi, *shape: torch.randint(0, hi, shape, generator=gen, device=dev)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    return SyntheticRecData(
+        user_ids=randint(cfg.user_id_hash_size, b),
+        user_features=randn(b, cfg.user_features_size),
+        user_history=randint(cfg.item_id_hash_size, b, cfg.history_len),
+        item_ids=randint(cfg.item_id_hash_size, b),
+        item_features=randn(b, cfg.item_features_size),
+        positions=randint(cfg.position_table_size, b),
+        labels=torch.bernoulli(torch.full((b, cfg.num_tasks), 0.5, device=dev), generator=gen),
+        catalog_ids=torch.arange(4, device=dev),
+        catalog_features=torch.zeros(4, cfg.item_features_size, device=dev),
+    )
+
+
+def phase_train(torch, args, smi, dev, entry, entries, failures):
+    from two_tower_models_tpu_torch.config import TrainConfig
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.models.history_encoder import (
+        sinusoidal_positional_encoding,
+    )
+    from two_tower_models_tpu_torch.ops import fused_encoder as fe
+    from two_tower_models_tpu_torch.ops import fused_softmax as fs
+    from two_tower_models_tpu_torch.training.data import gather_batch
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import make_train_step
+
+    cfg = flagship_cfg(TRAIN_ROWS)
     train_cfg = TrainConfig(batch_size=TRAIN_BATCH, learning_rate=1e-3)
     b, d, h, nh, nl = TRAIN_BATCH, 64, HIST, 4, 3
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 1)
     state = create_train_state(gen, cfg, train_cfg, device=dev)
     model = state.params
-    randint = lambda hi, *shape: torch.randint(0, hi, shape, generator=gen, device=dev)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
-    data = SyntheticRecData(  # __graft_entry__._make_batch's shapes
-        user_ids=randint(TRAIN_ROWS, b),
-        user_features=randn(b, 16),
-        user_history=randint(TRAIN_ROWS, b, h),
-        item_ids=randint(TRAIN_ROWS, b),
-        item_features=randn(b, 16),
-        positions=randint(cfg.position_table_size, b),
-        labels=torch.bernoulli(torch.full((b, 3), 0.5, device=dev), generator=gen),
-        catalog_ids=torch.arange(4, device=dev),
-        catalog_features=torch.zeros(4, 16, device=dev),
-    )
+    data = fixed_batch(torch, gen, dev, cfg, b)
     idx = torch.arange(b, device=dev)
     batch = gather_batch(data, idx)
 
@@ -571,7 +608,7 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
     expect = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1,
               "fused_history_encoder_bwd_reduce": 1, "fused_in_batch_ce": 1,
               "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1, "fused_history_encoder": 0,
-              "fused_history_encoder_bwd_recompute": 0}
+              "fused_history_encoder_bwd_recompute": 0, "rows_scatter_add": 0, "rows_write": 0}
     check_launches(counts, expect, TRAIN_STEPS, failures, "train")
     for name, per in expect.items():
         if name in entries and per:
@@ -701,6 +738,7 @@ def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, fa
         "fused_in_batch_ce": 1, "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1,
         "fused_history_encoder": 0, "fused_history_encoder_res": 0,
         "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
+        "rows_scatter_add": 0, "rows_write": 0,
     }, TRAIN_STEPS, failures, "train varlen")
     entries["fused_attn_stack_bwd"]["launches"] = counts.get("fused_attn_stack_bwd", 0)
     entries["fused_attn_stack_bwd"]["reduce_launches"] = counts.get(
@@ -717,6 +755,316 @@ def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, fa
     )
     state = trace_steps(torch, step, state, data, idx, "train varlen")
     grads_vs_cpu(torch, model, cfg, data, idx, failures, "train varlen")
+
+
+def count_syncs(torch, step, state, data, idx):
+    """One step under CUDA's sync debug mode: (state, the number of
+    operations that made the host wait for the stream)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught, torch.enable_grad():
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, _ = step(state, data, idx)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return state, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def table_leg(torch, label, step, state, data, idx, warm, expect, smi, failures):
+    """``warm`` warm-up steps, then TABLE_STEPS timed steps with the launch
+    counts zeroed around them (``expect``: launches per step), one step
+    counting its host syncs, then three steps under the profiler.  Returns
+    (state, ms/step, counts)."""
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics, _, _, _ = run_steps(torch, step, state, data, idx, warm)
+    state, timed, ms_step, host_ms, counts = run_steps(torch, step, state, data, idx, TABLE_STEPS)
+    state, syncs = count_syncs(torch, step, state, data, idx)
+    metrics += timed
+    print(f"launches on the {label} path ({TABLE_STEPS} steps): {json.dumps(counts)}", flush=True)
+    check_launches(counts, expect, TABLE_STEPS, failures, label)
+    if not finite(torch, metrics):
+        failures.append(f"{label} metrics not finite")
+    b = idx.shape[0]
+    print(
+        f"{label} on {torch.cuda.get_device_name(0)} ({smi}): {TABLE_STEPS} steps of B={b}: "
+        f"ms/step {ms_step:.3f}, examples/s {b / ms_step * 1e3:.0f}; host wall "
+        f"{host_ms:.3f} ms/step; loss first {float(metrics[0]['loss']):.5f} last "
+        f"{float(metrics[-1]['loss']):.5f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; host syncs in a step {syncs}",
+        flush=True,
+    )
+    return trace_steps(torch, step, state, data, idx, label), ms_step, counts
+
+
+def table_tensors(state):
+    """{name: tensor} of the id tables and their Adam moments."""
+    from two_tower_models_tpu_torch.training.sparse_tables import SPARSE_TABLE_KEYS
+
+    opt = state.opt_state
+    out = {}
+    for name in SPARSE_TABLE_KEYS:
+        out[name] = getattr(state.params, name).detach()
+        for m in ("mu", "nu"):
+            out[f"{m}.{name}"] = (opt.tables[m] if hasattr(opt, "tables") else getattr(opt, m))[name]
+    return out
+
+
+def route_check(torch, label, step, state, data, idx, failures):
+    """One step from one state twice: through the kernels, and on the plain
+    route (the scatter kernel disabled, B19 swapped for its plain version).
+    The updated tables and moments agree at 1e-5 of each one's scale (the
+    table gradients are f32 sums in other orders).  Returns the state."""
+    from unittest import mock
+
+    from two_tower_models_tpu_torch.nn.layers import disable_scatter_kernel
+    from two_tower_models_tpu_torch.ops import _lib
+    from two_tower_models_tpu_torch.ops import rows_write as rw
+    from two_tower_models_tpu_torch.training import sparse_tables
+
+    twin = copy.deepcopy(state)
+    with torch.enable_grad():
+        state, _ = step(state, data, idx)
+        before = dict(_lib.launches)
+        with disable_scatter_kernel(), mock.patch.object(
+                sparse_tables, "rows_write", rw.rows_write_reference):
+            twin, _ = step(twin, data, idx)
+    plain_launches = sum(_lib.launches[k] - before.get(k, 0) for k in ("rows_scatter_add", "rows_write"))
+    got, want = table_tensors(state), table_tensors(twin)
+    worst = 0.0
+    for name in got:
+        ok, err = scaled_close(got[name], want[name], 1e-5)
+        worst = max(worst, err)
+        if not ok:
+            failures.append(f"{label} kernel vs plain route: {name}")
+    if plain_launches:
+        failures.append(f"{label} plain route launched {plain_launches} kernels")
+    print(f"{label}: one step through the kernels vs the plain route, tables and moments: "
+          f"max_abs_err {worst:.3g} (tol 1e-5 of each one's scale); kernels launched on the "
+          f"plain route: {plain_launches}", flush=True)
+    del twin
+    torch.cuda.empty_cache()
+    return state
+
+
+def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
+    """Phase 5: large tables, scripts/bench_tables.py's configuration."""
+    import dataclasses
+
+    from two_tower_models_tpu_torch.config import TrainConfig
+    from two_tower_models_tpu_torch.nn.packed_table import is_packed
+    from two_tower_models_tpu_torch.ops import _lib
+    from two_tower_models_tpu_torch.ops import rows_write as rw
+    from two_tower_models_tpu_torch.ops import scatter_add as sa
+    from two_tower_models_tpu_torch.training.data import gather_batch
+    from two_tower_models_tpu_torch.training.sparse_tables import SPARSE_TABLE_KEYS, build_minibatch
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import make_train_step
+
+    b, d = TRAIN_BATCH, 64
+    cfg = flagship_cfg(TABLE_ROWS)
+    dense_cfg = TrainConfig(batch_size=b, learning_rate=1e-3, pack_tables_min_rows=PACK_MIN_ROWS)
+    lazy_cfg = dataclasses.replace(dense_cfg, lazy_table_adam=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 5)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    data = fixed_batch(torch, gen, dev, cfg, b)
+    idx = torch.arange(b, device=dev)
+    batch = gather_batch(data, idx)
+    # one seed, one set of weights: the dense and the lazy states
+    st_dense = create_train_state(args.seed + 6, cfg, dense_cfg, device=dev)
+    st_lazy = create_train_state(args.seed + 6, cfg, lazy_cfg, device=dev)
+    if not all(is_packed(getattr(st.params, n), d) for st in (st_dense, st_lazy)
+               for n in SPARSE_TABLE_KEYS):
+        failures.append("tables of 2^22 rows not packed")
+
+    # -- 5a: B18 at the lookups of the packed and the 1M legs --
+    lookups = {"user": batch.user_id.reshape(-1), "item": batch.item_id.reshape(-1),
+               "history": batch.user_history.reshape(-1)}
+    cot = {k: randn(ids.numel(), d) for k, ids in lookups.items()}
+    errs, oks = [], []
+    for rows in (TABLE_ROWS, TABLE_ROWS_1M):
+        for k, ids in lookups.items():
+            got = sa.rows_scatter_add(ids % rows, cot[k], rows)
+            ok, err = close(got, sa.rows_scatter_add_reference(ids % rows, cot[k], rows), 1e-5, 1e-6)
+            oks.append(ok)
+            errs.append(err)
+            del got
+    # the variable-length cell's history stream: id 0 past each length,
+    # about half of the ids; rows of small integers, whose sums are exact
+    n_var = b * HIST
+    lens = torch.randint(1, HIST + 1, (b,), generator=gen, device=dev)
+    skew = torch.randint(0, TRAIN_ROWS, (b, HIST), generator=gen, device=dev)
+    skew = torch.where(torch.arange(HIST, device=dev)[None, :] < lens[:, None], skew, 0).reshape(-1)
+    grid = torch.randint(-2, 3, (n_var, d), generator=gen, device=dev).float()
+    got = sa.rows_scatter_add(skew, grid, TRAIN_ROWS)
+    exact = torch.equal(got, sa.rows_scatter_add_reference(skew, grid, TRAIN_ROWS))
+    repeat = torch.equal(got, sa.rows_scatter_add(skew, grid, TRAIN_ROWS))
+    print(f"scatter-add vs plain at the legs' lookups: max_abs_err {max(errs):.3g} (rtol 1e-5, "
+          f"atol 1e-6); skewed stream (id 0 {float((skew == 0).float().mean()):.3f} of "
+          f"{n_var}): exact={exact}, bit-equal on repeat={repeat}", flush=True)
+    emb_bwd = lambda g, ids, rows: torch.ops.aten.embedding_dense_backward(g, ids, rows, -1, False)
+    entry(
+        "rows_scatter_add", "two_tower_models_tpu_torch/csrc/scatter_add.cu",
+        "two_tower_models_tpu/ops/pallas/scatter_add.py:130", all(oks) and exact and repeat,
+        max(errs),
+        time_ms(torch, lambda: [sa.rows_scatter_add(i, cot[k], TABLE_ROWS) for k, i in lookups.items()]),
+        time_ms(torch, lambda: [sa.rows_scatter_add_reference(i, cot[k], TABLE_ROWS)
+                                for k, i in lookups.items()], 3),
+        sum(TABLE_ROWS * d * 4 + i.numel() * (d * 4 + 8) for i in lookups.values()),
+        sum(i.numel() * d for i in lookups.values()), F32_FLOPS,
+        time_ms(torch, lambda: [emb_bwd(cot[k], i, TABLE_ROWS) for k, i in lookups.items()], 3),
+    )
+    ms_1m = time_ms(torch, lambda: [sa.rows_scatter_add(i % TABLE_ROWS_1M, cot[k], TABLE_ROWS_1M)
+                                    for k, i in lookups.items()])
+    sort_ms = time_ms(torch, lambda: sa.sort_stream(lookups["history"], TABLE_ROWS))
+    # the kernel alone (chunk and fill launches) on streams sorted beforehand
+    streams = {k: sa.sort_stream(i, TABLE_ROWS) for k, i in lookups.items()}
+    kernel_ms = time_ms(torch, lambda: [sa.scatter_sorted(*streams[k], cot[k], TABLE_ROWS)
+                                        for k in lookups])
+    del streams
+    print(f"scatter-add: the three lookups of a 1M-plain step {ms_1m:.4f} ms; the stable sort "
+          f"of the history lookup's {lookups['history'].numel()} ids alone {sort_ms:.4f} ms; "
+          f"the 4M-packed step's three launches alone on sorted streams {kernel_ms:.4f} ms "
+          f"(bound {entries['rows_scatter_add']['bound_ms']:.4f} ms, the wrapper "
+          f"{entries['rows_scatter_add']['ms']:.4f} ms)", flush=True)
+    entries["rows_scatter_add"]["ms_1m_plain"] = ms_1m
+    entries["rows_scatter_add"]["history_sort_ms"] = sort_ms
+    entries["rows_scatter_add"]["kernel_ms"] = kernel_ms
+    entries["rows_scatter_add"]["note"] = (
+        "times are the three lookups of one 4M-packed step (user, item, history), the "
+        "wrapper's stable sort included; kernel_ms is the chunk and fill launches alone "
+        "on streams sorted beforehand; plain_ms is zeros + index_add_, library_ms "
+        "aten.embedding_dense_backward")
+
+    # B18 against F.embedding's gradient, over table sizes at the legs' N
+    n_win = b * HIST + b  # the 4M-lazy item minitable: history and item ids
+    window = {}
+    for rows in WINDOW_ROWS:
+        ids = torch.randint(0, rows, (n_win,), generator=gen, device=dev)
+        g = randn(n_win, d)
+        window[str(rows)] = {
+            "b18_ms": time_ms(torch, lambda: sa.rows_scatter_add(ids, g, rows)),
+            "embedding_backward_ms": time_ms(torch, lambda: emb_bwd(g, ids, rows)),
+            "index_add_ms": time_ms(torch, lambda: sa.rows_scatter_add_reference(ids, g, rows)),
+        }
+    window["skewed"] = {
+        "b18_ms": time_ms(torch, lambda: sa.rows_scatter_add(skew, grid, TRAIN_ROWS)),
+        "embedding_backward_ms": time_ms(torch, lambda: emb_bwd(grid, skew, TRAIN_ROWS)),
+        "index_add_ms": time_ms(torch, lambda: sa.rows_scatter_add_reference(skew, grid, TRAIN_ROWS)),
+    }
+    entries["rows_scatter_add"]["window_ms"] = window
+    print(f"scatter-add window on {torch.cuda.get_device_name(0)} ({smi}), N={n_win} uniform "
+          f"ids (skewed: N={n_var}, V={TRAIN_ROWS}), D={d}: {json.dumps(window)}", flush=True)
+    del cot, got, grid
+    torch.cuda.empty_cache()
+
+    # -- 5a: B19 at the 4M-lazy write-back, on the step's own ids --
+    _, _, meta = build_minibatch(cfg, st_lazy.params, batch)
+    arrays = table_tensors(st_lazy)
+    writes, lib_args, exact, n_live = [], [], True, 0
+    for name in SPARSE_TABLE_KEYS:
+        s, dup = meta[name]
+        plan = rw.lane_block_plan(s, dup, 128 // d)
+        for key in (name, f"mu.{name}", f"nu.{name}"):
+            w = (arrays[key].clone(), plan[0], plan[1], rw.merge_rows(plan, s, randn(s.numel(), d)))
+            exact &= torch.equal(rw.rows_write(w[0].clone(), *w[1:], d),
+                                 rw.rows_write_reference(w[0].clone(), *w[1:], d))
+            live = (w[2] != 0).nonzero()[:, 0]
+            m = ((w[2][live][:, None] >> (torch.arange(128, device=dev) // d)) & 1).float()
+            lib_args.append((w[0], w[1][live].long(), w[0][w[1][live]] * (1 - m) + w[3][live] * m))
+            n_live += live.numel()
+            writes.append(w)
+    print(f"row write vs plain at the 4M-lazy write-back (6 writes, {n_live} live slots of "
+          f"{sum(w[1].numel() for w in writes)}): exact={exact}", flush=True)
+    entry(
+        "rows_write", "two_tower_models_tpu_torch/csrc/rows_write.cu",
+        "two_tower_models_tpu/ops/pallas/rows_write.py:150", exact, 0.0 if exact else float("nan"),
+        time_ms(torch, lambda: [rw.rows_write(*w, d) for w in writes]),
+        time_ms(torch, lambda: [rw.rows_write_reference(*w, d) for w in writes], 3),
+        3 * n_live * 128 * 4 + sum(w[1].numel() * 8 for w in writes), 0, F32_FLOPS,
+        time_ms(torch, lambda: [dst.index_copy_(0, i, v) for dst, i, v in lib_args]),
+    )
+    entries["rows_write"]["note"] = (
+        "times are the six write-backs of one 4M-lazy step (table, mu, nu of both tables); "
+        "library_ms is index_copy_ of the blended live rows")
+    del writes, lib_args, meta, arrays
+    torch.cuda.empty_cache()
+
+    # -- first lazy step against the first dense step, from zero moments --
+    step_dense, step_lazy = make_train_step(cfg, dense_cfg), make_train_step(cfg, lazy_cfg)
+    with torch.enable_grad():
+        st_dense, _ = step_dense(st_dense, data, idx)
+        st_lazy, _ = step_lazy(st_lazy, data, idx)
+    got, want = table_tensors(st_lazy), table_tensors(st_dense)
+    got.update((n, p.detach()) for n, p in st_lazy.params.named_parameters())
+    want.update((n, p.detach()) for n, p in st_dense.params.named_parameters())
+    worst, bad = 0.0, []
+    for name in want:
+        ok, err = close(got[name], want[name], 1e-5, 1e-7)
+        worst = max(worst, err)
+        if not ok:
+            bad.append(name)
+    print(f"tables 4M: first lazy step vs first dense step, every parameter and table moment: "
+          f"max_abs_err {worst:.3g} (rtol 1e-5, atol 1e-7); mismatched {bad}", flush=True)
+    if bad:
+        failures.append(f"first lazy step vs dense: {bad}")
+    del got, want
+
+    # -- 5b, 5c: the two 4M legs --
+    five = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1, "fused_in_batch_ce": 1,
+            "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1}
+    st_dense, ms_packed, counts = table_leg(
+        torch, "train-4M-packed", step_dense, st_dense, data, idx, 2,
+        {**five, "rows_scatter_add": 3, "rows_write": 0}, smi, failures)
+    entries["rows_scatter_add"]["launches"] = counts.get("rows_scatter_add", 0)
+    b18 = entries["rows_scatter_add"]["ms"]
+    print(f"train-4M-packed: B18's three launches alone {b18:.3f} ms ({b18 / ms_packed * 100:.1f}% "
+          f"of the step)", flush=True)
+    route_check(torch, "train-4M-packed", step_dense, st_dense, data, idx, failures)
+    del st_dense
+    torch.cuda.empty_cache()
+    st_lazy, ms_lazy, counts = table_leg(
+        torch, "train-4M-lazy", step_lazy, st_lazy, data, idx, 2,
+        {**five, "rows_scatter_add": 0, "rows_write": 6}, smi, failures)
+    entries["rows_write"]["launches"] = counts.get("rows_write", 0)
+    b19 = entries["rows_write"]["ms"]
+    print(f"train-4M-lazy: B19's six launches alone {b19:.3f} ms ({b19 / ms_lazy * 100:.1f}% of "
+          f"the step)", flush=True)
+    route_check(torch, "train-4M-lazy", step_lazy, st_lazy, data, idx, failures)
+    del st_lazy
+    torch.cuda.empty_cache()
+
+    # -- 5d: 1M rows, plain storage, B18 inside the window --
+    cfg1 = flagship_cfg(TABLE_ROWS_1M)
+    st = create_train_state(args.seed + 7, cfg1, dense_cfg, device=dev)
+    if any(is_packed(getattr(st.params, n), d) for n in SPARSE_TABLE_KEYS):
+        failures.append("tables of 2^20 rows packed")
+    data1 = fixed_batch(torch, gen, dev, cfg1, b)
+    step1 = make_train_step(cfg1, dense_cfg)
+    st, ms_1m_step, counts = table_leg(torch, "train-1M-plain", step1, st, data1, idx, 3,
+                              {**five, "rows_scatter_add": 3, "rows_write": 0}, smi, failures)
+    entries["rows_scatter_add"]["launches_1m_plain"] = counts.get("rows_scatter_add", 0)
+    print(f"train-1M-plain: B18's three launches alone {ms_1m:.3f} ms ({ms_1m / ms_1m_step * 100:.1f}% "
+          f"of the step)", flush=True)
+    route_check(torch, "train-1M-plain", step1, st, data1, idx, failures)
+    del st
+    torch.cuda.empty_cache()
+
+    # -- card against CPU at the window's lower edge, packed --
+    cfg_c = flagship_cfg(CHECK_ROWS)
+    st = create_train_state(args.seed + 8, cfg_c, dataclasses.replace(
+        dense_cfg, pack_tables_min_rows=CHECK_ROWS), device=dev)
+    if not is_packed(st.params.item_id_table, d):
+        failures.append("tables of 2^18 rows not packed at pack_tables_min_rows 2^18")
+    before = _lib.launches["rows_scatter_add"]
+    grads_vs_cpu(torch, st.params, cfg_c, fixed_batch(torch, gen, dev, cfg_c, b), idx,
+                 failures, "tables 2^18 packed")
+    if _lib.launches["rows_scatter_add"] - before != 3:
+        failures.append("tables 2^18 packed: B18 not launched three times on the card")
+    del st
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -939,6 +1287,10 @@ def main() -> int:
     train_cfgs = phase_train(torch, args, smi, dev, entry, entries, failures)
     torch.cuda.empty_cache()
     phase_train_varlen(torch, args, smi, dev, *train_cfgs, entry, entries, failures)
+    torch.cuda.empty_cache()
+
+    # ---- phase 5: large tables -------------------------------------------
+    phase_tables(torch, args, smi, dev, entry, entries, failures)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     if failures:
         _fail(", ".join(failures))

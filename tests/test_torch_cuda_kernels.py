@@ -19,7 +19,8 @@ of each output's largest magnitude, since a bf16 rounding point that flips
 by one ulp between two sum orders carries into the sums over the batch;
 selections exactly.  The length-masked stack (B8) as the residual forward,
 its backward (B9) and the recompute encoder backward (B7) as the encoder
-backward.
+backward.  The row scatter-add (B18) at 1e-5 (f32 sums in another order),
+and exactly on sums of ones; the in-place row write (B19) exactly.
 """
 
 import math
@@ -32,6 +33,8 @@ from two_tower_models_tpu_torch.ops import _lib
 from two_tower_models_tpu_torch.ops import fused_encoder as fe
 from two_tower_models_tpu_torch.ops import fused_softmax as fs
 from two_tower_models_tpu_torch.ops import mips_topk as mt
+from two_tower_models_tpu_torch.ops import rows_write as rw
+from two_tower_models_tpu_torch.ops import scatter_add as rsa
 from two_tower_models_tpu_torch.retrieval.mips import mips_topk
 
 pytestmark = pytest.mark.cuda
@@ -530,3 +533,147 @@ def test_stack_wrappers_reject_what_the_kernels_do_not_take(dev):
         fe.fused_attn_stack_bwd(g[:, None].expand(8, 2, 32), x, lens, *w, 4)
     with pytest.raises(ValueError):
         fe.fused_history_encoder_bwd_recompute(g, x, torch.zeros(8, 32, device=dev), *w, 4)
+
+
+_SCATTER_SHAPES = [
+    (300, 33, 777), (512, 64, 100), (64, 128, 4096), (2048, 64, 0), (1000, 3, 5000),
+    (1 << 18, 64, 135168),
+]
+
+
+@pytest.mark.parametrize("v,d,n", _SCATTER_SHAPES)
+def test_rows_scatter_add_kernel_matches_plain(dev, v, d, n):
+    """B18 against its plain version (sums in another order: 1e-5) at
+    unaligned V and D, no updates, dense collisions and the history lookup
+    of a 2^18-row table; every output row written."""
+    r = np.random.default_rng(v + n)
+    ids = torch.from_numpy(r.integers(0, v, n)).to(dev)
+    rows = _randn(v + d, n, d, dev=dev)
+    before = _lib.launches["rows_scatter_add"]
+    got = rsa.rows_scatter_add(ids, rows, v)
+    assert _lib.launches["rows_scatter_add"] == before + 1
+    assert got.shape == (v, d) and got.dtype == torch.float32
+    _assert_close(got, rsa.rows_scatter_add_reference(ids, rows, v), 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("n", [1000, 100_000])
+def test_rows_scatter_add_kernel_sums_ones_exactly(dev, n):
+    """Every update on one row: a run across many chunks sums exactly."""
+    ids = torch.full((n,), 7, dtype=torch.int32, device=dev)
+    got = rsa.rows_scatter_add(ids, torch.ones(n, 64, device=dev), 300)
+    assert bool((got[7] == n).all()) and float(got.abs().sum()) == n * 64
+
+
+def test_rows_scatter_add_kernel_skewed_stream_is_exact_and_deterministic(dev):
+    """Half of N on id 0 (the padding of variable-length histories), on rows
+    of small integers, whose sums are exact in any order: equal to the plain
+    version, and bit-equal from call to call.  (On normal rows the 65k-term
+    sum of id 0 differs between two summation orders by ~1e-5 of itself.)"""
+    n, v, d = 131072, 65536, 64
+    r = np.random.default_rng(11)
+    ids = r.integers(0, v, n)
+    ids[r.random(n) < 0.5] = 0
+    ids = torch.from_numpy(ids).to(dev)
+    rows = _grid(12, n, d, dev=dev)
+    got = rsa.rows_scatter_add(ids, rows, v)
+    assert torch.equal(got, rsa.rows_scatter_add_reference(ids, rows, v))
+    assert torch.equal(got, rsa.rows_scatter_add(ids, rows, v))
+
+
+def test_rows_scatter_add_kernel_drops_out_of_range_ids(dev):
+    v, d = 1000, 64
+    ids = torch.tensor([-5, 0, 999, 1000, 3, -1, 5000, 3, (1 << 31) - 1], device=dev)
+    rows = _randn(13, ids.numel(), d, dev=dev)
+    got = rsa.rows_scatter_add(ids, rows, v)
+    _assert_close(got, rsa.rows_scatter_add_reference(ids, rows, v), 1e-6, 1e-6)
+    others = torch.ones(v, dtype=torch.bool, device=dev)
+    others[[0, 3, 999]] = False
+    assert not bool(got[others].any())
+
+
+@pytest.mark.parametrize("route", ["packed", "plain"])
+def test_lookup_gradient_routes_launch_b18(dev, route):
+    """A training lookup of a 2^18-row table, packed (rows_p * P = 2^18) or
+    plain (inside the window), launches B18 once in its backward and gives
+    the gradient of the plain route; below the window it launches none."""
+    from two_tower_models_tpu_torch.nn import layers, packed_table
+
+    v, d = 1 << 18, 32
+    table = _randn(14, v, d, dev=dev)
+    leaf = torch.nn.Parameter(packed_table.pack_table(table) if route == "packed" else table.clone())
+    ids = torch.from_numpy(np.random.default_rng(15).integers(0, v, (512, 8))).to(dev)
+    g = _randn(16, 512, 8, d, dev=dev)
+    grads = []
+    for kernel in (True, False):
+        leaf.grad = None
+        before = _lib.launches["rows_scatter_add"]
+        if kernel:
+            (packed_table.table_lookup(leaf, ids, d) * g).sum().backward()
+        else:
+            with layers.disable_scatter_kernel():
+                (packed_table.table_lookup(leaf, ids, d) * g).sum().backward()
+        assert _lib.launches["rows_scatter_add"] == before + int(kernel)
+        grads.append(leaf.grad.clone())
+    _assert_close(grads[0], grads[1], 1e-5, 1e-5)
+    small = torch.nn.Parameter(table[: 1 << 16].clone())
+    before = _lib.launches["rows_scatter_add"]
+    (layers.embedding_lookup(small, ids % (1 << 16)) * g).sum().backward()
+    assert _lib.launches["rows_scatter_add"] == before
+
+
+def _write_case(pack, n_logical, vocab, seed, dev):
+    """A lazy-Adam write-back stream for a packed [vocab / P, 128] table:
+    sorted logical ids with duplicates, merged into physical rows."""
+    d = 128 // pack
+    r = np.random.default_rng(seed)
+    ids = np.sort(r.integers(0, vocab, n_logical))
+    s = torch.from_numpy(ids).to(dev)
+    dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), s[1:] == s[:-1]])
+    rows = _randn(seed + 1, n_logical, d, dev=dev)
+    pids, bits, vals = rw.merge_lane_blocks(s, dup, rows, pack)
+    dst = _randn(seed + 2, vocab // pack, 128, dev=dev)
+    return dst, pids, bits, vals, d
+
+
+@pytest.mark.parametrize("pack,n,vocab", [(2, 135168, 1 << 20), (4, 4096, 4096), (2, 50_000, 4096)])
+def test_rows_write_kernel_matches_plain(dev, pack, n, vocab):
+    """B19 in place against its plain version, exactly: P = 2 and 4, sparse
+    and dense id sets (many slots sharing each physical row)."""
+    dst, pids, bits, vals, d = _write_case(pack, n, vocab, pack + n, dev)
+    want = rw.rows_write_reference(dst.clone(), pids, bits, vals, d)
+    got = dst.clone()
+    before = _lib.launches["rows_write"]
+    assert rw.rows_write(got, pids, bits, vals, d) is got
+    assert _lib.launches["rows_write"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_rows_write_kernel_dead_slots_and_no_updates(dev):
+    dst = _randn(17, 200, 128, dev=dev)
+    big = (1 << 31) - 1
+    ids = torch.tensor([5, 5, 60, big, -1], dtype=torch.int32, device=dev)
+    bits = torch.tensor([1, 0, 3, 1, 1], dtype=torch.int32, device=dev)
+    vals = torch.ones(5, 128, device=dev)
+    got = rw.rows_write(dst.clone(), ids, bits, vals, 64)
+    assert torch.equal(got, rw.rows_write_reference(dst.clone(), ids, bits, vals, 64))
+    assert torch.equal(got[5, :64], torch.ones(64, device=dev)) and torch.equal(got[5, 64:], dst[5, 64:])
+    none = rw.rows_write(dst.clone(), ids, torch.zeros_like(bits), vals, 64)
+    assert torch.equal(none, dst)
+
+
+def test_rows_write_kernel_propagates_nan_in_live_lanes(dev):
+    """A NaN in a live lane's new value, and in an old value under a live
+    lane, comes out NaN as in the blend old * (1 - m) + new * m."""
+    dst = _randn(18, 64, 128, dev=dev)
+    dst[3, 5] = float("nan")  # live lane of slot 0: old NaN * 0 is NaN
+    dst[9, 100] = float("nan")  # dead lane of slot 1: kept as it is
+    ids = torch.tensor([3, 9], dtype=torch.int32, device=dev)
+    bits = torch.tensor([0b01, 0b01], dtype=torch.int32, device=dev)
+    vals = _randn(19, 2, 128, dev=dev)
+    vals[1, 7] = float("nan")
+    got = rw.rows_write(dst.clone(), ids, bits, vals, 64)
+    want = rw.rows_write_reference(dst.clone(), ids, bits, vals, 64)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert bool(got[3, 5].isnan()) and bool(got[9, 7].isnan()) and bool(got[9, 100].isnan())
+    fin = ~want.isnan()
+    assert torch.equal(got[fin], want[fin])

@@ -6,7 +6,8 @@ keeps JAX's [in, out] weight layout, so the bridge is a flatten on one
 side and an unflatten on the other.  The pytree travels as numpy arrays in
 nested dicts and lists, exactly as ``init_params`` builds it; nothing here
 imports JAX.  optax's Adam moments have the params' structure and cross
-the same way (``adam_state_from_jax`` / ``adam_state_to_jax``).
+the same way (``adam_state_from_jax`` / ``adam_state_to_jax``), and so does the
+lazy-Adam state (``lazy_state_from_jax`` / ``lazy_state_to_jax``).
 """
 
 from __future__ import annotations
@@ -15,10 +16,13 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from two_tower_models_tpu_torch.config import ModelConfig, resolve_device
 from two_tower_models_tpu_torch.models.two_tower import TwoTowerModel
-from two_tower_models_tpu_torch.training.state import AdamState
+from two_tower_models_tpu_torch.nn.packed_table import packed_shape
+from two_tower_models_tpu_torch.training.sparse_tables import SPARSE_TABLE_KEYS
+from two_tower_models_tpu_torch.training.state import AdamState, LazyAdamState
 
 
 def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -42,8 +46,10 @@ def flatten(tree) -> Dict[str, np.ndarray]:
 
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> TwoTowerModel:
     """JAX params pytree (numpy leaves) -> a ``TwoTowerModel`` on
-    ``device`` holding the same values.  Raises on any missing, extra or
-    misshapen leaf."""
+    ``device`` holding the same values.  An id table may come in its
+    128-lane-packed shape (``packed_shape(vocab, dim)``, as
+    ``maybe_pack_tables`` leaves it) and stays packed.  Raises on any
+    missing, extra or misshapen leaf."""
     dev = resolve_device(device)
     flat = flatten(np_tree)
     model = TwoTowerModel(cfg, dev)
@@ -54,6 +60,14 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> TwoTowerModel:
             f"params do not match the config: missing {sorted(missing)}, "
             f"unexpected {sorted(extra)}"
         )
+    for name, vocab, dim in (
+        ("user_id_table", cfg.user_id_hash_size, cfg.user_id_embedding_dim),
+        ("item_id_table", cfg.item_id_hash_size, cfg.item_id_embedding_dim),
+    ):
+        shape = packed_shape(vocab, dim)
+        if tuple(flat[name].shape) == shape != (vocab, dim):
+            setattr(model, name, nn.Parameter(own[name].new_empty(shape)))
+    own = dict(model.named_parameters())
     with torch.no_grad():
         for name, p in own.items():
             src = flat[name]
@@ -63,29 +77,53 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> TwoTowerModel:
     return model
 
 
-def adam_state_from_jax(count, mu_tree, nu_tree, model: TwoTowerModel) -> AdamState:
+def _moments(tree, own: Dict[str, torch.Tensor], dtype=None) -> Dict[str, torch.Tensor]:
+    flat = flatten(tree)
+    if set(flat) != set(own):
+        raise KeyError(f"moments do not match the params: {sorted(set(flat) ^ set(own))}")
+    out = {}
+    for n, p in own.items():
+        if tuple(flat[n].shape) != tuple(p.shape):
+            raise ValueError(f"moment {n}: shape {flat[n].shape}, expected {tuple(p.shape)}")
+        out[n] = torch.from_numpy(np.array(flat[n], copy=True)).to(device=p.device, dtype=dtype or p.dtype)
+    return out
+
+
+def adam_state_from_jax(count, mu_tree, nu_tree, model: TwoTowerModel, exclude=()) -> AdamState:
     """optax's Adam state (``count`` and the ``mu`` and ``nu`` pytrees, as
-    numpy) -> the port's ``AdamState`` for ``model``, on its device."""
-    own = dict(model.named_parameters())
-    dev = model.item_id_table.device
-    moments = []
-    for tree in (mu_tree, nu_tree):
-        flat = flatten(tree)
-        if set(flat) != set(own):
-            raise KeyError(f"moments do not match the params: {sorted(set(flat) ^ set(own))}")
-        moments.append({n: torch.from_numpy(np.array(flat[n], copy=True)).to(
-            device=dev, dtype=p.dtype) for n, p in own.items()})
-    count_t = torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=dev)
-    return AdamState(count_t, *moments)
+    numpy) -> the port's ``AdamState`` for ``model``'s parameters but those
+    named in ``exclude``, on its device."""
+    own = {n: p for n, p in model.named_parameters() if n not in exclude}
+    count_t = torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                           device=model.item_id_table.device)
+    return AdamState(count_t, _moments(mu_tree, own), _moments(nu_tree, own))
+
+
+def _tree(tensors: Dict[str, torch.Tensor]):
+    return _unflatten({n: t.detach().cpu().numpy().copy() for n, t in tensors.items()})
 
 
 def adam_state_to_jax(state: AdamState):
     """The inverse: (count, mu pytree, nu pytree) as numpy."""
-    return (
-        np.asarray(state.count.item(), np.int32),
-        _unflatten({n: t.detach().cpu().numpy().copy() for n, t in state.mu.items()}),
-        _unflatten({n: t.detach().cpu().numpy().copy() for n, t in state.nu.items()}),
-    )
+    return np.asarray(state.count.item(), np.int32), _tree(state.mu), _tree(state.nu)
+
+
+def lazy_state_from_jax(np_state, model: TwoTowerModel) -> LazyAdamState:
+    """The JAX package's lazy-Adam opt state as numpy, ``{"dense": (count,
+    mu pytree, nu pytree) of optax's Adam over the dense subtree, "tables":
+    {"mu": {table: array}, "nu": {table: array}}}``, -> the port's
+    ``LazyAdamState`` for ``model``; table moments keep the tables' storage
+    shape (packed or plain) and are f32."""
+    dense = adam_state_from_jax(*np_state["dense"], model, exclude=SPARSE_TABLE_KEYS)
+    tables = {n: p for n, p in model.named_parameters() if n in SPARSE_TABLE_KEYS}
+    return LazyAdamState(dense, {k: _moments(np_state["tables"][k], tables, torch.float32)
+                                 for k in ("mu", "nu")})
+
+
+def lazy_state_to_jax(state: LazyAdamState):
+    """The inverse of ``lazy_state_from_jax``."""
+    return {"dense": adam_state_to_jax(state.dense),
+            "tables": {k: _tree(state.tables[k]) for k in ("mu", "nu")}}
 
 
 def _unflatten(flat: Dict[str, np.ndarray]):

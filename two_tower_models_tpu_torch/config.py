@@ -167,9 +167,10 @@ class DataConfig:
 class TrainConfig:
     """Training-loop configuration, field for field the JAX package's
     ``TrainConfig`` (its comments say what each knob does there).  The port
-    trains through ``training.step.make_train_step``; of the optional paths
-    it raises on ``lazy_table_adam``, ``fused_adam``, ``streaming_logq`` and
-    on tables large enough to pack (``training.state``)."""
+    trains through ``training.step.make_train_step``, packed tables
+    (``pack_tables``, ``pack_tables_min_rows``) and ``lazy_table_adam``
+    included; of the optional paths it raises on ``fused_adam`` and
+    ``streaming_logq`` (``training.state``)."""
 
     batch_size: int = 32
     num_epochs: int = 2

@@ -44,8 +44,10 @@ def _cached_pe(seq_len: int, d_model: int) -> np.ndarray:
 
 
 def sinusoidal_positional_encoding(seq_len: int, d_model: int, device=None) -> torch.Tensor:
-    """Flipped sinusoidal PE, [H, D] f32."""
-    return torch.tensor(_cached_pe(seq_len, d_model), device=device)
+    """Flipped sinusoidal PE, [H, D] f32.  Copied to the device without
+    blocking: a blocking copy from host memory synchronises the stream,
+    which would stall every step that calls it."""
+    return torch.tensor(_cached_pe(seq_len, d_model)).to(device, non_blocking=True)
 
 
 def per_example_positional_encoding(
@@ -54,7 +56,7 @@ def per_example_positional_encoding(
     """[B] lengths -> [B, H, D]: position p of an example of length L gets
     the raw PE at L-1-p (the flip at the example's own length); positions
     past L get zeros."""
-    raw = torch.tensor(_cached_pe_raw(seq_len, d_model), device=lengths.device)
+    raw = torch.tensor(_cached_pe_raw(seq_len, d_model)).to(lengths.device, non_blocking=True)
     pos = torch.arange(seq_len, device=lengths.device)
     idx = (lengths[:, None] - 1 - pos[None, :]).clamp(0, seq_len - 1)
     pe = raw[idx]

@@ -37,8 +37,8 @@ from two_tower_models_tpu_torch.nn.layers import (
     embedding_lookup,
     linear_apply,
     mlp_apply,
-    table_lookup,
 )
+from two_tower_models_tpu_torch.nn.packed_table import table_lookup
 from two_tower_models_tpu_torch.ops.fused_softmax import fused_in_batch_ce
 
 
@@ -189,8 +189,10 @@ def compute_item_embeddings(
 
 def _clip_min(x: torch.Tensor, lo: float) -> torch.Tensor:
     """``jnp.clip(x, min=lo)`` with JAX's gradient: half to each side at a
-    tie (``torch.clamp_min`` would pass all of it to ``x``)."""
-    return torch.maximum(x, torch.tensor(lo, dtype=x.dtype, device=x.device))
+    tie (``torch.clamp_min`` would pass all of it to ``x``).  The bound is
+    filled on the device: a tensor copied from the host would synchronise
+    the stream."""
+    return torch.maximum(x, x.new_full((), lo))
 
 
 def debias_net_user_value(
@@ -235,7 +237,7 @@ def _in_batch_ce(scores: torch.Tensor) -> torch.Tensor:
 
 def _net_user_value(cfg: ModelConfig, labels: torch.Tensor) -> torch.Tensor:
     """nuv = labels @ user_value_weights over the first T tasks, [B]."""
-    w = torch.tensor(cfg.user_value_weights, dtype=torch.float32, device=labels.device)
+    w = torch.tensor(cfg.user_value_weights, dtype=torch.float32).to(labels.device, non_blocking=True)
     return labels[:, : cfg.num_tasks].float() @ w
 
 

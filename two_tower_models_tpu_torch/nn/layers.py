@@ -14,6 +14,7 @@ order differs from JAX.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -85,24 +86,81 @@ def embedding_init(table: torch.Tensor, generator: torch.Generator) -> None:
         table.normal_(generator=generator)
 
 
-def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+# The table sizes whose lookup gradient goes through the update-count
+# scatter kernel (B18, ops.scatter_add) instead of F.embedding's gradient:
+# the JAX package's window, chosen on its TPU (the H100's own answer is in
+# PERF.md).  Packed tables take the kernel from the lower edge up, with no
+# upper edge (``capped=False``, nn.packed_table).
+_SCATTER_KERNEL_MIN_ROWS = 1 << 18
+_SCATTER_KERNEL_MAX_ROWS = 1 << 22
+
+_scatter_kernel_enabled = True
+
+
+def _in_scatter_window(vocab: int, capped: bool = True) -> bool:
+    """Whether a table of ``vocab`` rows takes the scatter kernel: at least
+    ``_SCATTER_KERNEL_MIN_ROWS``, and below ``_SCATTER_KERNEL_MAX_ROWS``
+    when ``capped``."""
+    return _SCATTER_KERNEL_MIN_ROWS <= vocab and (not capped or vocab < _SCATTER_KERNEL_MAX_ROWS)
+
+
+@contextlib.contextmanager
+def disable_scatter_kernel():
+    """Inside, every lookup gradient takes the plain scatter-add
+    (``rows_scatter_add_reference``), on the card too."""
+    global _scatter_kernel_enabled
+    prev = _scatter_kernel_enabled
+    _scatter_kernel_enabled = False
+    try:
+        yield
+    finally:
+        _scatter_kernel_enabled = prev
+
+
+def scatter_add_rows(ids: torch.Tensor, rows: torch.Tensor, vocab: int,
+                     capped: bool = True) -> torch.Tensor:
+    """out[v] = sum of rows[n] over ids[n] == v, f32 [vocab, D]; ids outside
+    [0, vocab) dropped.  Inside the window (``_in_scatter_window``) and with
+    the kernel enabled, ``rows_scatter_add`` (B18 on the card), else the
+    plain scatter-add."""
+    from two_tower_models_tpu_torch.ops.scatter_add import (
+        rows_scatter_add,
+        rows_scatter_add_reference,
+    )
+
+    ids, rows = ids.reshape(-1), rows.reshape(-1, rows.shape[-1])
+    if _scatter_kernel_enabled and _in_scatter_window(vocab, capped):
+        return rows_scatter_add(ids, rows, vocab)
+    return rows_scatter_add_reference(ids, rows, vocab)
+
+
+class _Lookup(torch.autograd.Function):
+    """``table[ids]`` whose gradient is ``scatter_add_rows``; it keeps only
+    the ids for the backward, not the table."""
+
+    @staticmethod
+    def forward(ctx, table, ids, capped):
+        ctx.save_for_backward(ids)
+        ctx.vocab, ctx.capped = table.shape[0], capped
+        return torch.nn.functional.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return scatter_add_rows(ids, g, ctx.vocab, ctx.capped).to(g.dtype), None, None
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, capped: bool = True) -> torch.Tensor:
     """Rows ``table[ids]``; ``ids`` of any shape, values in [0, V).
 
-    Through ``F.embedding`` rather than indexing: the two gather alike, but
-    the gradient of an index is an accumulating ``index_put_``, which on
-    CUDA sums each id's repeats one after another.  A batch of
-    variable-length histories repeats the padding id 0 about B*H/2 times,
-    and that serial sum took 44 ms of a 69 ms training step on an H100;
-    the embedding gradient splits a long run of one id into segments."""
+    Inside the scatter window (``_in_scatter_window(V, capped)``) the
+    gradient is ``scatter_add_rows`` (B18 on the card).  Below it, through
+    ``F.embedding`` rather than indexing: the two gather alike, but the
+    gradient of an index is an accumulating ``index_put_``, which on CUDA
+    sums each id's repeats one after another.  A batch of variable-length
+    histories repeats the padding id 0 about B*H/2 times, and that serial
+    sum took 44 ms of a 69 ms training step on an H100; the embedding
+    gradient splits a long run of one id into segments."""
+    if _in_scatter_window(table.shape[0], capped) and torch.is_grad_enabled() and table.requires_grad:
+        return _Lookup.apply(table, ids.long(), capped)
     return torch.nn.functional.embedding(ids.long(), table)
-
-
-def table_lookup(table: torch.Tensor, ids: torch.Tensor, dim: int) -> torch.Tensor:
-    """Plain [V, dim] tables only: the JAX package's 128-lane packed storage
-    is not ported yet (ROADMAP.md, queue A, "Large tables")."""
-    if table.shape[-1] != dim:
-        raise NotImplementedError(
-            "packed embedding tables are not ported yet "
-            "(ROADMAP.md, queue A, 'Large tables')"
-        )
-    return embedding_lookup(table, ids)

@@ -56,6 +56,8 @@ _SIGNATURES = {
     "tt_fused_attn_stack_bwd": [_P] * 11 + [_I] * 7 + [_P],
     "tt_in_batch_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tt_in_batch_ce_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tt_rows_scatter_add": [_P] * 5 + [_I] * 3 + [_P],
+    "tt_rows_write": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 

@@ -6,18 +6,22 @@ torch in optax's order, with ``optax.clip_by_global_norm`` ahead of it when
 ``TrainConfig.grad_clip_norm`` is set; ``torch.optim.Adam`` folds the bias
 corrections in elsewhere.  The update is in place on the parameters and
 the moments: the port keeps one copy of each, where JAX returns new arrays.
+Large id tables are stored 128-lane packed (``maybe_pack_tables``,
+``nn.packed_table``); with ``TrainConfig.lazy_table_adam`` the tables keep
+their moments outside ``Adam`` (``LazyAdamState``, ``training.sparse_tables``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import torch
+from torch import nn
 
 from two_tower_models_tpu_torch.config import ModelConfig, TrainConfig
 from two_tower_models_tpu_torch.models.two_tower import TwoTowerModel, init_params
-
-_LANES = 128  # the JAX package packs tables of dim | 128 into 128-lane rows
+from two_tower_models_tpu_torch.nn.packed_table import pack_factor, pack_table, packed_shape
+from two_tower_models_tpu_torch.training.sparse_tables import SPARSE_TABLE_KEYS, init_table_moments
 
 
 def _not_ported(what: str, item: str):
@@ -33,13 +37,22 @@ class AdamState(NamedTuple):
     nu: Dict[str, torch.Tensor]
 
 
+class LazyAdamState(NamedTuple):
+    """The lazy-Adam opt state, the JAX package's ``{"dense": ...,
+    "tables": ...}``: Adam over the dense leaves, and f32 ``mu``/``nu`` of
+    each id table in its storage shape (``tables["mu"][name]``)."""
+
+    dense: AdamState
+    tables: Dict[str, Dict[str, torch.Tensor]]
+
+
 class TrainState(NamedTuple):
     """The JAX package's ``TrainState`` without its RNG key and logQ
     estimator, which only the unported mixed-negative paths use."""
 
     step: torch.Tensor  # int32 scalar
     params: TwoTowerModel
-    opt_state: AdamState
+    opt_state: Union[AdamState, LazyAdamState]
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -62,8 +75,9 @@ class Adam:
         self.learning_rate = learning_rate
         self.clip_norm = clip_norm
 
-    def init(self, params: TwoTowerModel) -> AdamState:
-        named = dict(params.named_parameters())
+    def init(self, params: TwoTowerModel, exclude=()) -> AdamState:
+        """Zero moments for every parameter but those named in ``exclude``."""
+        named = {n: p for n, p in params.named_parameters() if n not in exclude}
         zeros = lambda: {n: torch.zeros_like(p, memory_format=torch.contiguous_format)
                          for n, p in named.items()}
         dev = params.item_id_table.device
@@ -72,7 +86,8 @@ class Adam:
     @torch.no_grad()
     def update(self, params: TwoTowerModel, grads: Dict[str, torch.Tensor],
                state: AdamState) -> AdamState:
-        """One step, in place on ``params`` and the moments of ``state``."""
+        """One step over the parameters ``state`` holds moments for, in place
+        on ``params`` and the moments of ``state``."""
         names = list(state.mu)
         ps = [dict(params.named_parameters())[n] for n in names]
         g = [grads[n] for n in names]
@@ -89,8 +104,8 @@ class Adam:
         torch._foreach_addcmul_(nu, g, g, value=1 - self.b2)
         count = state.count + 1
         t = count.float()
-        bc1 = 1 - torch.tensor(self.b1, device=t.device) ** t
-        bc2 = 1 - torch.tensor(self.b2, device=t.device) ** t
+        bc1 = 1 - self.b1 ** t  # a host scalar: a host tensor would sync the stream
+        bc2 = 1 - self.b2 ** t
         den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
         torch._foreach_add_(den, self.eps)
         upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
@@ -99,31 +114,63 @@ class Adam:
 
 
 def make_optimizer(train_cfg: TrainConfig) -> Adam:
-    """Adam, with global-norm clipping ahead of it when configured."""
+    """Adam, with global-norm clipping ahead of it when configured; raises
+    where the JAX package does, and on the unported fused Adam."""
+    clip = train_cfg.grad_clip_norm
+    if clip and train_cfg.fused_adam:
+        raise ValueError(
+            "grad_clip_norm is incompatible with fused_adam (the kernel "
+            "hardcodes plain-Adam semantics)"
+        )
+    if clip and train_cfg.lazy_table_adam:
+        raise NotImplementedError(
+            "grad_clip_norm with lazy_table_adam would clip on the dense "
+            "subtree's norm only (table grads live outside the optimizer) — "
+            "use the dense path"
+        )
     if train_cfg.fused_adam:
         raise _not_ported("fused_adam (the one-pass Adam kernel, B20)", "queue B, B20")
-    if train_cfg.lazy_table_adam:
-        raise _not_ported("lazy_table_adam", "queue A, Large tables")
-    return Adam(train_cfg.learning_rate, train_cfg.grad_clip_norm or None)
+    return Adam(train_cfg.learning_rate, clip or None)
 
 
-def _check_unpacked(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
+def maybe_pack_tables(params: TwoTowerModel, model_cfg: ModelConfig,
+                      train_cfg: TrainConfig, model_shards: int = 1) -> TwoTowerModel:
+    """Swap each id table of at least ``pack_tables_min_rows`` rows whose
+    dim divides 128 to 128-lane-packed storage (``nn.packed_table``), in
+    place on the model: the parameter is replaced, under the same name.
+    Numerics-neutral; the model dispatches on the table's shape.  A table
+    packs only if its physical rows split evenly over ``model_shards``
+    (1 in the port, which has one device)."""
     if not train_cfg.pack_tables:
-        return
-    for vocab, dim in ((model_cfg.user_id_hash_size, model_cfg.user_id_embedding_dim),
-                       (model_cfg.item_id_hash_size, model_cfg.item_id_embedding_dim)):
-        if vocab >= train_cfg.pack_tables_min_rows and dim < _LANES and _LANES % dim == 0:
-            raise _not_ported(f"packed storage of a {vocab}-row table", "queue A, Large tables")
+        return params
+    for name, vocab, dim in (
+        ("user_id_table", model_cfg.user_id_hash_size, model_cfg.user_id_embedding_dim),
+        ("item_id_table", model_cfg.item_id_hash_size, model_cfg.item_id_embedding_dim),
+    ):
+        if vocab >= train_cfg.pack_tables_min_rows and pack_factor(dim) > 1:
+            if packed_shape(vocab, dim)[0] % model_shards:
+                continue  # would not row-shard evenly; keep plain storage
+            table = getattr(params, name)
+            setattr(params, name, nn.Parameter(pack_table(table.detach()),
+                                               requires_grad=table.requires_grad))
+    return params
 
 
 def create_train_state(seed, model_cfg: ModelConfig, train_cfg: TrainConfig,
                        device="cuda") -> TrainState:
     """Fresh params from ``seed`` (an int or a ``torch.Generator`` on
-    ``device``) and a zero Adam state."""
+    ``device``), packed where ``maybe_pack_tables`` says
+    (``TrainConfig.pack_tables=False`` keeps plain [V, D] tables), and a
+    zero optimizer state: ``AdamState``, or with ``lazy_table_adam`` a
+    ``LazyAdamState`` whose table moments take the tables' storage shape."""
     if train_cfg.streaming_logq:
         raise _not_ported("streaming_logq", "queue A, Mixed negatives and logQ")
-    _check_unpacked(model_cfg, train_cfg)
     tx = make_optimizer(train_cfg)
-    params = init_params(seed, model_cfg, device=device)
+    params = maybe_pack_tables(init_params(seed, model_cfg, device=device), model_cfg, train_cfg)
+    if train_cfg.lazy_table_adam:
+        opt_state = LazyAdamState(tx.init(params, exclude=SPARSE_TABLE_KEYS),
+                                  init_table_moments(params))
+    else:
+        opt_state = tx.init(params)
     step = torch.zeros((), dtype=torch.int32, device=params.item_id_table.device)
-    return TrainState(step=step, params=params, opt_state=tx.init(params))
+    return TrainState(step=step, params=params, opt_state=opt_state)

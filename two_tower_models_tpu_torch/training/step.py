@@ -1,9 +1,9 @@
 """The train step: gather the batch, loss, gradients, Adam.
 
-Port of ``make_train_step`` of ``two_tower_models_tpu/training/step.py``
-(the dense path).  PyTorch runs eagerly, so the step is a plain function.
-Its metrics stay device tensors: nothing in a step waits for the device,
-and the caller reads them when it logs.
+Port of ``make_train_step`` and ``_make_lazy_table_step`` of
+``two_tower_models_tpu/training/step.py``.  PyTorch runs eagerly, so the
+step is a plain function.  Its metrics stay device tensors: nothing in a
+step waits for the device, and the caller reads them when it logs.
 """
 
 from __future__ import annotations
@@ -15,7 +15,13 @@ import torch
 from two_tower_models_tpu_torch.config import ModelConfig, TrainConfig, resolve_kernel_flags
 from two_tower_models_tpu_torch.models.two_tower import train_loss
 from two_tower_models_tpu_torch.training.data import SyntheticRecData, gather_batch
+from two_tower_models_tpu_torch.training.sparse_tables import (
+    SPARSE_TABLE_KEYS,
+    apply_sparse_adam,
+    build_minibatch,
+)
 from two_tower_models_tpu_torch.training.state import (
+    LazyAdamState,
     TrainState,
     _not_ported,
     global_norm,
@@ -25,29 +31,37 @@ from two_tower_models_tpu_torch.training.state import (
 Step = Callable[[TrainState, SyntheticRecData, torch.Tensor], Tuple[TrainState, Dict[str, torch.Tensor]]]
 
 
+def _grads(loss, leaves):
+    """d loss / d leaf for each leaf, zeros for the leaves it does not reach."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+
+
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Step:
     """``step(state, data, idx) -> (state, metrics)``: one Adam step on the
     batch of rows ``idx`` [B], in place on ``state.params`` and its moments.
     Metrics: ``loss``, ``softmax_ce``, ``debias_aux_loss``, ``nuv_mean`` and
     ``grad_norm`` (of the gradients before clipping).  With
-    ``steps_per_dispatch = K > 1``, ``idx`` is [K, B]: K steps in a row,
-    metrics averaged over them."""
+    ``lazy_table_adam`` the tables take lazy Adam on their touched rows
+    (``_make_lazy_table_step``).  With ``steps_per_dispatch = K > 1``,
+    ``idx`` is [K, B]: K steps in a row, metrics averaged over them."""
     if model_cfg.mixed_negatives or model_cfg.logq_correction:
         raise _not_ported("mixed negatives and the logQ correction",
                           "queue A, Mixed negatives and logQ")
+    if train_cfg.lazy_table_adam:
+        if train_cfg.fused_adam:
+            raise ValueError("lazy_table_adam and fused_adam are exclusive")
+        if model_cfg.user_embedding_arm != "table":
+            raise NotImplementedError(
+                "lazy_table_adam swaps the id tables for per-batch minitables; "
+                "custom user_embedding_arm implementations cannot assume that — "
+                "use the dense path"
+            )
     tx = make_optimizer(train_cfg)
-
-    def step(state: TrainState, data: SyntheticRecData, idx: torch.Tensor):
-        params = state.params
-        cfg = resolve_kernel_flags(model_cfg, params.item_id_table.device)
-        loss, metrics = train_loss(params, cfg, gather_batch(data, idx))
-        names, ps = zip(*params.named_parameters())
-        grads = torch.autograd.grad(loss, ps, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(ps, grads)]
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads)
-        opt_state = tx.update(params, dict(zip(names, grads)), state.opt_state)
-        return state._replace(step=state.step + 1, opt_state=opt_state), metrics
+    if train_cfg.lazy_table_adam:
+        step = _make_lazy_table_step(model_cfg, tx, train_cfg)
+    else:
+        step = _make_dense_step(model_cfg, tx)
 
     if train_cfg.steps_per_dispatch <= 1:
         return step
@@ -60,3 +74,49 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Step:
         return state, {k: torch.stack([m[k] for m in stacked]).mean(0) for k in stacked[0]}
 
     return multi_step
+
+
+def _make_dense_step(model_cfg: ModelConfig, tx) -> Step:
+    def step(state: TrainState, data: SyntheticRecData, idx: torch.Tensor):
+        params = state.params
+        cfg = resolve_kernel_flags(model_cfg, params.item_id_table.device)
+        loss, metrics = train_loss(params, cfg, gather_batch(data, idx))
+        names, ps = zip(*params.named_parameters())
+        grads = _grads(loss, ps)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm(grads)
+        opt_state = tx.update(params, dict(zip(names, grads)), state.opt_state)
+        return state._replace(step=state.step + 1, opt_state=opt_state), metrics
+
+    return step
+
+
+def _make_lazy_table_step(model_cfg: ModelConfig, tx, train_cfg: TrainConfig) -> Step:
+    """Row-sparse table step (``training.sparse_tables``): the loss is
+    differentiated against per-batch minitables of the touched rows, Adam
+    updates the dense leaves, and lazy Adam writes the touched table rows in
+    place, so the table update costs O(touched rows) whatever the table
+    size."""
+
+    def step(state: TrainState, data: SyntheticRecData, idx: torch.Tensor):
+        params = state.params
+        cfg = resolve_kernel_flags(model_cfg, params.item_id_table.device)
+        params2, batch2, meta = build_minibatch(cfg, params, gather_batch(data, idx))
+        minis = [params2._tables[n].requires_grad_() for n in SPARSE_TABLE_KEYS]
+        loss, metrics = train_loss(params2, cfg, batch2)
+        names, ps = zip(*((n, p) for n, p in params.named_parameters()
+                          if n not in SPARSE_TABLE_KEYS))
+        grads = _grads(loss, [*ps, *minis])
+        g_dense, g_minis = grads[:len(ps)], grads[len(ps):]
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm(grads)
+        dense = tx.update(params, dict(zip(names, g_dense)), state.opt_state.dense)
+        t = state.step + 1
+        moments = state.opt_state.tables
+        for name, mini, g in zip(SPARSE_TABLE_KEYS, minis, g_minis):
+            s, dup = meta[name]
+            apply_sparse_adam(getattr(params, name), moments["mu"][name], moments["nu"][name],
+                              mini.detach(), g, s, dup, t, train_cfg)
+        return TrainState(step=t, params=params, opt_state=LazyAdamState(dense, moments)), metrics
+
+    return step
