@@ -69,7 +69,24 @@ Phases, in the order they run; any failure exits non-zero:
      the scatter window).  Each leg then runs one step twice from one
      state, through the kernels and on the plain route, and the tables and
      moments must agree.  Last, train_loss and its grads at 2^18 packed
-     rows and B=256 on the card against a CPU copy.
+     rows and B=256 on the card against a CPU copy;
+  6. the per-layer attention tier (HistoryEncoderConfig fused_kernel=True,
+     fused_encoder=False: each attention layer in one kernel, B13 forward,
+     B14 backward).  6a: B13 and B14 against their plain versions on layer
+     0's tensors of the serving batch (with and without lengths) and of
+     the training batch, bf16 and f32, B14 twice (bit-equal), each timed
+     beside its plain version, its bound and F.multi_head_attention_forward
+     (B14: that call's autograd backward).  6b: phase 3's configuration and
+     seed on this tier through from_params / warmup / query, ten batches
+     with full histories (serve-1M-exact-layer) and ten with lengths
+     uniform in [1, 32] (-varlen), launch counts as in phase 3 with three
+     B13 a batch and no B1 or B8, indices and user embeddings checked as
+     there.  6c: phase 4's configuration on this tier, 3 warm-up and 20
+     timed steps on the fixed batch (train-65k-layer) and on
+     make_synthetic_data's variable-length histories (-varlen): three B13,
+     three B14 and three reduces a step, the CE kernels once, none of B1
+     and B5-B9; three steps under the profiler and train_loss's grads at
+     B=256 against a CPU copy for each; the step beside phase 4's.
 
 Prints one JSON line of per-kernel numbers, then, last, the ok line.  It
 imports nothing of JAX or of the JAX package.
@@ -341,6 +358,7 @@ def serve_leg(torch, label, engine, model, cpu_model, cfg, batches, expect, own,
         f"host wall {wall * 1e3 / len(batches):.3f} ms/batch",
         flush=True,
     )
+    return counts, ms_batch
 
 
 def phase_serve_varlen(torch, args, gen, smi, dev, cfg, model, cpu_model, engine, w,
@@ -438,6 +456,26 @@ def flagship_cfg(rows: int):
         debias=Debias.BOTH,
         compute_dtype="bfloat16",
         fused_loss=True,
+    )
+
+
+def serve_cfg():
+    """The exact leg of scripts/bench_serving.py (phase 3's configuration)."""
+    from two_tower_models_tpu_torch.config import Debias, HistoryEncoderConfig, ModelConfig
+
+    return ModelConfig(
+        user_id_hash_size=65536,
+        user_id_embedding_dim=64,
+        item_id_hash_size=CORPUS,
+        item_id_embedding_dim=64,
+        user_features_size=16,
+        item_features_size=16,
+        user_value_weights=(1.0, 0.5, 0.25),
+        history_len=HIST,
+        history_encoder=HistoryEncoderConfig(fused_encoder=True),
+        debias=Debias.BOTH,
+        compute_dtype="bfloat16",
+        num_items=TOPK,
     )
 
 
@@ -665,7 +703,7 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
 
     # -- train_loss and its gradients, card against a CPU copy --
     grads_vs_cpu(torch, model, cfg, data, idx, failures, "train")
-    return cfg, train_cfg  # phase 4b trains the same configuration
+    return cfg, train_cfg, b6_ms  # phase 4b trains the same configuration
 
 
 def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, failures) -> None:
@@ -1066,6 +1104,249 @@ def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
     del st
     torch.cuda.empty_cache()
 
+def layer_flops(h: int, n: int, d: int) -> int:
+    """Operations of one attention layer on one example of h rows of which
+    the first n are valid keys: q and the output projection for every row,
+    k and v for the valid rows, scores and P.V over the valid keys (the
+    other keys' scores are masked and need not be computed)."""
+    return 2 * h * d * d + 4 * n * d * d + 4 * h * n * d + 2 * h * d * d
+
+
+def layer_vjp_flops(h: int, d: int) -> int:
+    """What B14 must do on one example of h rows (all keys valid): the
+    forward less its output projection (6hd^2 + 4h^2d), then dW_out and do
+    (2hd^2 each), dp, dv, dq and dk (2h^2d each), dW_in and dx (6hd^2 each)."""
+    return 6 * h * d * d + 4 * h * h * d + 16 * h * d * d + 8 * h * h * d
+
+
+def layer_cfg(cfg):
+    """``cfg`` with its history encoder on the per-layer tier."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, history_encoder=dataclasses.replace(
+        cfg.history_encoder, fused_kernel=True, fused_encoder=False))
+
+
+def layer_input(torch, model, hist, lens):
+    """Layer 0's input on the per-layer tier, in bf16: the embedded history
+    plus the PE (zeroed and with the PE at each length under ``lens``)."""
+    from two_tower_models_tpu_torch.models.history_encoder import (
+        sinusoidal_positional_encoding,
+    )
+
+    if lens is not None:
+        return stack_input(torch, model, hist, lens).to(torch.bfloat16)
+    emb = model.item_id_table.detach()[hist]
+    return (emb + sinusoidal_positional_encoding(HIST, emb.shape[-1], emb.device)).to(torch.bfloat16)
+
+
+def mha_library(torch, x, lens, w, nh):
+    """One PyTorch call computing the layer (``F.multi_head_attention_forward``,
+    bf16, keys past each length masked), seq-first, and its inputs."""
+    F = torch.nn.functional
+    xs = x.transpose(0, 1).contiguous()
+    wb = [w[0].T.contiguous().bfloat16(), w[1].bfloat16(), w[2].T.contiguous().bfloat16(),
+          w[3].bfloat16()]
+    kpm = None if lens is None else (
+        torch.arange(x.shape[1], device=x.device)[None, :] >= lens[:, None])
+    return lambda xq, ws: F.multi_head_attention_forward(
+        xq, xq, xq, x.shape[2], nh, ws[0], ws[1], None, None, False, 0.0, ws[2], ws[3],
+        training=False, key_padding_mask=kpm, need_weights=False)[0], xs, wb
+
+
+def layer_checks(torch, label, x, lens, g, w, nh):
+    """B13 (and, with a cotangent ``g``, B14) against their plain versions
+    on one layer's tensors, bf16 and f32: (ok, max_abs_err of the bf16
+    outputs, a line of what was measured)."""
+    from two_tower_models_tpu_torch.ops import fused_mha as fm
+
+    y, plain = fm.fused_mha_fwd(x, lens, *w, nh), fm.fused_mha_layer_plain(x, lens, *w, nh)
+    steps = bf16_ulps(torch, y, plain)
+    ok32, _ = scaled_close(fm.fused_mha_fwd(x.float(), lens, *w, nh),
+                           fm.fused_mha_layer_plain(x.float(), lens, *w, nh), 1e-4)
+    ok, err = 0 <= steps <= 1 and ok32, close(y, plain, 0.0, 0.0)[1]
+    line = f"{label}: B13 bf16 steps from plain {steps}, f32 ok={ok32} (tol 1e-4 of scale)"
+    if g is not None:
+        got = fm.fused_mha_bwd(g, x, lens, *w, nh)
+        want = fm.fused_mha_layer_bwd_plain(g, x, lens, *w, nh)
+        again = fm.fused_mha_bwd(g, x, lens, *w, nh)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        keys = [torch.where(v < 0, -(v & 0x7FFF), v)
+                for v in (t.contiguous().view(torch.int16).int() for t in (got[0], want[0]))]
+        far = float(((keys[0] - keys[1]).abs() > 1).float().mean())
+        ok_dx, err = scaled_close(got[0], want[0], 1e-2)
+        grads = [scaled_close(a, e, 3e-3) for a, e in zip(got[1:], want[1:])]
+        ok32 = all(scaled_close(a, e, 1e-4)[0] for a, e in zip(
+            fm.fused_mha_bwd(g.float(), x.float(), lens, *w, nh),
+            fm.fused_mha_layer_bwd_plain(g.float(), x.float(), lens, *w, nh)))
+        ok = ok and repeat and ok_dx and far <= 5e-3 and all(k for k, _ in grads) and ok32
+        line += (f"; B14 dx: {far:.2e} of values beyond one bf16 step (tol 5e-3), max_abs_err "
+                 f"{err:.3g} (tol 1e-2 of scale); weight grads max_abs_err "
+                 f"{[float(f'{e:.3g}') for _, e in grads]} (tol 3e-3 of scale); f32 ok={ok32} "
+                 f"(tol 1e-4 of scale); bit-equal on repeat={repeat}")
+    print(line, flush=True)
+    return ok, err
+
+
+def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms) -> None:
+    """Phase 6: the per-layer attention tier (HistoryEncoderConfig with
+    fused_kernel=True, fused_encoder=False) at the cells' full width."""
+    from two_tower_models_tpu_torch.config import DataConfig, TrainConfig
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.ops import fused_mha as fm
+    from two_tower_models_tpu_torch.serving import RetrievalEngine
+    from two_tower_models_tpu_torch.training.data import gather_batch, make_synthetic_data
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import make_train_step
+
+    nh, nl, d, b = 4, 3, 64, BATCH
+    src = "two_tower_models_tpu_torch/csrc/fused_mha.cu"
+    w_layer = lambda model: [getattr(getattr(model.history_encoder.attn_layers[0], p), a).detach()
+                             for p, a in (("in_proj", "w"), ("in_proj", "b"), ("out_proj", "w"),
+                                          ("out_proj", "b"))]
+    w_bytes = (4 * d * d + 4 * d) * 4
+
+    # -- 6a, 6b: serving.  phase 3's configuration and seed on the per-layer tier
+    cfg = layer_cfg(serve_cfg())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    model = tt.init_params(gen, cfg, device=dev)
+    catalog_ids = torch.arange(CORPUS, device=dev)
+    catalog_feats = torch.randn(CORPUS, 16, generator=gen, device=dev)
+    engine = RetrievalEngine.from_params(model, cfg, catalog_ids, catalog_feats, device=dev)
+    engine.warmup(BATCH)
+    batches = [(torch.randint(0, cfg.user_id_hash_size, (b,), generator=gen, device=dev),
+                torch.randn(b, 16, generator=gen, device=dev),
+                torch.randint(0, CORPUS, (b, HIST), generator=gen, device=dev), None)
+               for _ in range(args.batches)]
+    engine.warmup(BATCH, variable_history=True)
+    var_batches = []
+    for _ in range(args.batches):
+        lens = torch.randint(1, HIST + 1, (b,), generator=gen, device=dev)
+        hist = torch.randint(0, CORPUS, (b, HIST), generator=gen, device=dev)
+        hist = torch.where(torch.arange(HIST, device=dev)[None, :] < lens[:, None], hist, 0)
+        var_batches.append((torch.randint(0, cfg.user_id_hash_size, (b,), generator=gen, device=dev),
+                            torch.randn(b, 16, generator=gen, device=dev), hist, lens))
+    w = w_layer(model)
+    x = layer_input(torch, model, batches[0][2], None)
+    ok, err = layer_checks(torch, "layer serve", x, None, None, w, nh)
+    lens = var_batches[0][3]
+    xv = layer_input(torch, model, var_batches[0][2], lens)
+    ok_v, err_v = layer_checks(torch, "layer serve varlen", xv, lens, None, w, nh)
+    lib, xs, wb = mha_library(torch, x, None, w, nh)
+    lib_v, xs_v, _ = mha_library(torch, xv, lens, w, nh)
+    entry(
+        "fused_mha_fwd", src, "two_tower_models_tpu/ops/pallas/fused_mha.py:297", ok and ok_v,
+        max(err, err_v),
+        time_ms(torch, lambda: fm.fused_mha_fwd(x, None, *w, nh)),
+        time_ms(torch, lambda: fm.fused_mha_layer_plain(x, None, *w, nh)),
+        2 * b * HIST * d * 2 + w_bytes, b * layer_flops(HIST, HIST, d), BF16_FLOPS,
+        time_ms(torch, lambda: lib(xs, wb)),
+    )
+    e13 = entries["fused_mha_fwd"]
+    e13["varlen_ms"] = time_ms(torch, lambda: fm.fused_mha_fwd(xv, lens, *w, nh))
+    e13["varlen_plain_ms"] = time_ms(torch, lambda: fm.fused_mha_layer_plain(xv, lens, *w, nh))
+    e13["varlen_bound_ms"] = bound(2 * b * HIST * d * 2 + w_bytes + b * 4, sum(
+        layer_flops(HIST, n, d) for n in lens.tolist()), BF16_FLOPS)[0]
+    e13["varlen_library_ms"] = time_ms(torch, lambda: lib_v(xs_v, wb))
+    del xs, xs_v
+    cpu_model = copy.deepcopy(model).cpu()
+    others = {"fused_history_encoder": 0, "fused_attn_stack": 0, "tile_max_scores": 1,
+              "select_topk": 2, "gather_rescore": 1}
+    legs = {}
+    for label, bts in (("serve-1M-exact-layer", batches), ("serve-1M-exact-layer-varlen", var_batches)):
+        counts, legs[label] = serve_leg(torch, label, engine, model, cpu_model, cfg, bts,
+                                        {"fused_mha_fwd": nl, **others}, [], entries, failures, smi)
+        e13[f"launches_{label}"] = counts.get("fused_mha_fwd", 0)
+    e13["launches"] = e13["launches_serve-1M-exact-layer"]
+    del engine, model, cpu_model, batches, var_batches, catalog_feats
+    torch.cuda.empty_cache()
+
+    # -- 6a, 6c: training.  phase 4's configuration on the per-layer tier
+    cfg = layer_cfg(flagship_cfg(TRAIN_ROWS))
+    bt = TRAIN_BATCH
+    train_cfg = TrainConfig(batch_size=bt, learning_rate=1e-3)
+    gen.manual_seed(args.seed + 9)
+    state = create_train_state(gen, cfg, train_cfg, device=dev)
+    data = fixed_batch(torch, gen, dev, cfg, bt)
+    idx = torch.arange(bt, device=dev)
+    w = w_layer(state.params)
+    x = layer_input(torch, state.params, gather_batch(data, idx).user_history, None)
+    g = (torch.randn(bt, HIST, d, generator=gen, device=dev) / bt).to(torch.bfloat16)
+    ok, err = layer_checks(torch, "layer train", x, None, g, w, nh)
+    lib, xs, wb = mha_library(torch, x, None, w, nh)
+    with torch.enable_grad():
+        xl = xs.detach().requires_grad_()
+        wl = [t.detach().requires_grad_() for t in wb]
+        out = lib(xl, wl)
+        gl = g.transpose(0, 1).contiguous()
+        lib_bwd = lambda: torch.autograd.grad(out, [xl, *wl], gl, retain_graph=True)
+        lib_bwd_ms = time_ms(torch, lib_bwd)
+    del out, xl, wl
+    grads_bytes = (4 * d * d + 4 * d) * 4
+    e13["train_ms"] = time_ms(torch, lambda: fm.fused_mha_fwd(x, None, *w, nh))
+    e13["train_plain_ms"] = time_ms(torch, lambda: fm.fused_mha_layer_plain(x, None, *w, nh))
+    e13["train_bound_ms"] = bound(2 * bt * HIST * d * 2 + w_bytes,
+                                  bt * layer_flops(HIST, HIST, d), BF16_FLOPS)[0]
+    e13["train_library_ms"] = time_ms(torch, lambda: lib(xs, wb))
+    entry(
+        "fused_mha_bwd", src, "two_tower_models_tpu/ops/pallas/fused_mha.py:369", ok, err,
+        time_ms(torch, lambda: fm.fused_mha_bwd(g, x, None, *w, nh)),
+        time_ms(torch, lambda: fm.fused_mha_layer_bwd_plain(g, x, None, *w, nh)),
+        3 * bt * HIST * d * 2 + (4 * d * d + 3 * d) * 4 + grads_bytes,
+        bt * layer_vjp_flops(HIST, d), BF16_FLOPS, lib_bwd_ms,
+    )
+    entries["fused_mha_bwd"]["note"] = (
+        "ms includes the second launch that sums the per-block weight grads; library_ms is "
+        "the autograd backward of F.multi_head_attention_forward (bf16)")
+    e13["note"] = (
+        "ms, plain_ms, bound_ms, library_ms at the serving batch (B=1024), varlen_* there "
+        "with lengths (bound counting valid keys only), train_* at the training batch "
+        "(B=4096); library_ms is F.multi_head_attention_forward (bf16)")
+    del xs, x, g
+    torch.cuda.empty_cache()
+
+    expect = {"fused_mha_fwd": nl, "fused_mha_bwd": nl, "fused_mha_bwd_reduce": nl,
+              "fused_in_batch_ce": 1, "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1,
+              "fused_history_encoder": 0, "fused_history_encoder_res": 0,
+              "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
+              "fused_attn_stack": 0, "fused_attn_stack_bwd": 0, "rows_scatter_add": 0,
+              "rows_write": 0}
+    var_data = make_synthetic_data(DataConfig(
+        num_samples=bt, num_users=TRAIN_ROWS, num_items=TRAIN_ROWS, feature_dim=16,
+        history_len=HIST, num_tasks=3, max_position=cfg.position_table_size,
+        seed=args.seed, variable_history=True,
+    ), device=dev)
+    step = make_train_step(cfg, train_cfg)
+    for label, dat in (("train-65k-layer", data), ("train-65k-layer-varlen", var_data)):
+        state, metrics, _, _, _ = run_steps(torch, step, state, dat, idx, 3)
+        state, timed, ms_step, host_ms, counts = run_steps(torch, step, state, dat, idx,
+                                                           TRAIN_STEPS)
+        metrics += timed
+        legs[label] = ms_step
+        print(f"launches on the {label} path ({TRAIN_STEPS} steps): {json.dumps(counts)}",
+              flush=True)
+        check_launches(counts, expect, TRAIN_STEPS, failures, label)
+        for name in ("fused_mha_fwd", "fused_mha_bwd"):
+            entries[name][f"launches_{label}"] = counts.get(name, 0)
+        entries["fused_mha_bwd"][f"reduce_launches_{label}"] = counts.get("fused_mha_bwd_reduce", 0)
+        if not finite(torch, metrics):
+            failures.append(f"{label} metrics not finite")
+        kern = nl * (e13["train_ms"] + entries["fused_mha_bwd"]["ms"])
+        print(
+            f"{label} on {torch.cuda.get_device_name(0)} ({smi}): {TRAIN_STEPS} steps of B={bt}: "
+            f"ms/step {ms_step:.3f}, examples/s {bt / ms_step * 1e3:.0f}; host wall "
+            f"{host_ms:.3f} ms/step; loss first {float(metrics[0]['loss']):.5f} last "
+            f"{float(metrics[-1]['loss']):.5f}; three B13 and three B14 alone {kern:.3f} ms "
+            f"({kern / ms_step * 100:.1f}% of the step)", flush=True)
+        state = trace_steps(torch, step, state, dat, idx, label)
+        grads_vs_cpu(torch, state.params, cfg, dat, idx, failures, label)
+    entries["fused_mha_bwd"]["launches"] = entries["fused_mha_bwd"]["launches_train-65k-layer"]
+    print(f"per-layer tier on {torch.cuda.get_device_name(0)} ({smi}): "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in legs.items())
+          + f"; phase 4's B5+B6 step {b56_ms[0]:.3f}, {b56_ms[1]:.3f} ms: the per-layer step "
+          f"{legs['train-65k-layer'] / b56_ms[0]:.2f}x", flush=True)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1079,9 +1360,6 @@ def main() -> int:
         print("no CUDA device: this smoke run needs a GPU", file=sys.stderr)
         return 2
     try:
-        from two_tower_models_tpu_torch.config import (
-            Debias, HistoryEncoderConfig, ModelConfig,
-        )
         from two_tower_models_tpu_torch.models import two_tower as tt
         from two_tower_models_tpu_torch.models.history_encoder import (
             sinusoidal_positional_encoding,
@@ -1114,20 +1392,7 @@ def main() -> int:
     dev = torch.device(DEVICE)
 
     # ---- set-up: full-width model, catalog, engine ---------------------
-    cfg = ModelConfig(
-        user_id_hash_size=65536,
-        user_id_embedding_dim=64,
-        item_id_hash_size=CORPUS,
-        item_id_embedding_dim=64,
-        user_features_size=16,
-        item_features_size=16,
-        user_value_weights=(1.0, 0.5, 0.25),
-        history_len=HIST,
-        history_encoder=HistoryEncoderConfig(fused_encoder=True),
-        debias=Debias.BOTH,
-        compute_dtype="bfloat16",
-        num_items=TOPK,
-    )
+    cfg = serve_cfg()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -1284,13 +1549,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 4 (and 4c): train; phase 4b: train variable lengths -------
-    train_cfgs = phase_train(torch, args, smi, dev, entry, entries, failures)
+    train_cfg4, train_cfg, b56_ms = phase_train(torch, args, smi, dev, entry, entries, failures)
     torch.cuda.empty_cache()
-    phase_train_varlen(torch, args, smi, dev, *train_cfgs, entry, entries, failures)
+    phase_train_varlen(torch, args, smi, dev, train_cfg4, train_cfg, entry, entries, failures)
     torch.cuda.empty_cache()
 
     # ---- phase 5: large tables -------------------------------------------
     phase_tables(torch, args, smi, dev, entry, entries, failures)
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the per-layer attention tier ---------------------------
+    phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     if failures:
         _fail(", ".join(failures))

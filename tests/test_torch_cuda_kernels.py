@@ -29,8 +29,11 @@ import numpy as np
 import pytest
 import torch
 
+from two_tower_models_tpu_torch.config import HistoryEncoderConfig
+from two_tower_models_tpu_torch.models import history_encoder as he
 from two_tower_models_tpu_torch.ops import _lib
 from two_tower_models_tpu_torch.ops import fused_encoder as fe
+from two_tower_models_tpu_torch.ops import fused_mha as fm
 from two_tower_models_tpu_torch.ops import fused_softmax as fs
 from two_tower_models_tpu_torch.ops import mips_topk as mt
 from two_tower_models_tpu_torch.ops import rows_write as rw
@@ -677,3 +680,147 @@ def test_rows_write_kernel_propagates_nan_in_live_lanes(dev):
     assert bool(got[3, 5].isnan()) and bool(got[9, 7].isnan()) and bool(got[9, 100].isnan())
     fin = ~want.isnan()
     assert torch.equal(got[fin], want[fin])
+
+
+def _mha_case(b, h, d, nh, dtype, dev, seed, lens_kind):
+    """One attention layer's input, lengths (None, a mix covering H and 1,
+    or 1 everywhere), weights with non-zero biases and a cotangent on every
+    row."""
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    lim_in, lim_out = math.sqrt(6.0 / (4 * d)), math.sqrt(6.0 / (2 * d))
+    x = t(r.normal(size=(b, h, d))).to(dtype)
+    w = (t(r.uniform(-lim_in, lim_in, (d, 3 * d))), t(r.uniform(-0.1, 0.1, 3 * d)),
+         t(r.uniform(-lim_out, lim_out, (d, d))), t(r.uniform(-0.1, 0.1, d)))
+    lens = {"none": None, "mix": r.integers(1, h + 1, size=b), "ones": np.ones(b)}[lens_kind]
+    if lens_kind == "mix":
+        lens[: min(b, 2)] = [h, 1][: min(b, 2)]
+    lens = None if lens is None else torch.from_numpy(lens.astype(np.int32)).to(dev)
+    g = t(r.normal(size=(b, h, d)) * 0.1).to(dtype)
+    return x, lens, w, g
+
+
+def _mha_close(got, want, kind):
+    """f32 at 1e-4 of the scale; bf16 y within one bf16 step; bf16 dx within
+    one step but where a rounding flipped upstream (at most 0.5% of the
+    values, each within 1e-2 of the scale); the f32 weight grads of bf16
+    inputs at 3e-3 of their scale."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.float32:
+        _scaled_close(got, want, 3e-3 if kind == "grad_bf16" else 1e-4)
+    elif kind == "y":
+        assert _bf16_ulps(got, want) <= 1
+    else:
+        keys = [torch.where(v < 0, -(v & 0x7FFF), v)
+                for v in (t.contiguous().view(torch.int16).int() for t in (got, want))]
+        assert float(((keys[0] - keys[1]).abs() > 1).float().mean()) <= 5e-3
+        _scaled_close(got, want, 1e-2)
+
+
+# B = 1; B not a multiple of the examples per block (which come from B and
+# the SM count); H = 1 and H = 10; one head; D = 128 with 8 heads (the
+# weights then stay in device memory); H = 40, above a warp's 32 lanes
+_MHA_SHAPES = [
+    (1, 32, 64, 4, "mix"), (1001, 32, 64, 4, "mix"), (333, 10, 64, 1, "none"),
+    (37, 1, 64, 4, "none"), (64, 12, 32, 2, "ones"), (19, 16, 128, 8, "mix"),
+    (9, 40, 64, 4, "none"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,d,nh,lens_kind", _MHA_SHAPES)
+def test_mha_fwd_kernel_matches_plain(dev, dtype, b, h, d, nh, lens_kind):
+    """B13 against its plain version: every row of y [B, H, D]."""
+    x, lens, w, _ = _mha_case(b, h, d, nh, dtype, dev, b + h, lens_kind)
+    before = _lib.launches["fused_mha_fwd"]
+    got = fm.fused_mha_fwd(x, lens, *w, nh)
+    assert _lib.launches["fused_mha_fwd"] == before + 1
+    _mha_close(got, fm.fused_mha_layer_plain(x, lens, *w, nh), "y")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,d,nh,lens_kind", _MHA_SHAPES)
+def test_mha_bwd_kernel_matches_plain(dev, dtype, b, h, d, nh, lens_kind):
+    """B14 and its reduce against the plain version: dx and the four
+    weight grads."""
+    x, lens, w, g = _mha_case(b, h, d, nh, dtype, dev, b + h + 1, lens_kind)
+    before = dict(_lib.launches)
+    got = fm.fused_mha_bwd(g, x, lens, *w, nh)
+    for name in ("fused_mha_bwd", "fused_mha_bwd_reduce"):
+        assert _lib.launches[name] == before.get(name, 0) + 1
+    want = fm.fused_mha_layer_bwd_plain(g, x, lens, *w, nh)
+    _mha_close(got[0], want[0], "dx")
+    for a, e in zip(got[1:], want[1:]):
+        _mha_close(a, e, "grad" if dtype == torch.float32 else "grad_bf16")
+
+
+def test_mha_bwd_is_deterministic(dev):
+    """Two runs of B14 on the same inputs give bit-equal dx and weight
+    grads: the per-block partials are summed in block order, no atomics."""
+    x, lens, w, g = _mha_case(4096, 32, 64, 4, torch.bfloat16, dev, 7, "mix")
+    runs = [fm.fused_mha_bwd(g, x, lens, *w, 4) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mha_autograd_matches_plain_route(dev, dtype):
+    """fused_mha_layer with grad wanted on the card (B13 then B14 and its
+    reduce) gives the output and grads of the plain route on the CPU.  The
+    CPU's exp is not the card's, so a bf16 rounding of p can flip between
+    the two and carry into y: y is held as dx is (``_mha_close``)."""
+    x, lens, w, g = _mha_case(129, 32, 64, 4, dtype, dev, 8, "mix")
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        leaves = [t.to(device).clone().requires_grad_() for t in (x, *w)]
+        before = dict(_lib.launches)
+        y = fm.fused_mha_layer(*leaves, 4, lengths=lens.to(device))
+        y.backward(g.to(device))
+        if device.type == "cuda":
+            for name in ("fused_mha_fwd", "fused_mha_bwd", "fused_mha_bwd_reduce"):
+                assert _lib.launches[name] == before.get(name, 0) + 1
+        outs.append([y.detach().cpu(), *(t.grad.cpu() for t in leaves)])
+    (yk, *gk), (yp, *gp) = outs
+    _mha_close(yk, yp, "dx")
+    _mha_close(gk[0], gp[0], "dx")
+    for a, e in zip(gk[1:], gp[1:]):
+        _mha_close(a, e, "grad" if dtype == torch.float32 else "grad_bf16")
+
+
+def test_layer_tier_launches_only_b13_and_b14(dev):
+    """history_encoder_apply on the per-layer tier, forward and backward:
+    one B13 and one B14 (with its reduce) per layer, none of B1 and B5-B9;
+    under inference_mode B13 alone, with and without lengths."""
+
+    cfg = HistoryEncoderConfig(num_heads=4, num_layers=3, fused_kernel=True, fused_encoder=False)
+    enc = he.HistoryEncoder(64, cfg, device=dev)
+    enc.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    x = _randn(9, 16, 32, 64, dev=dev)
+    lens = torch.randint(1, 33, (16,), device=dev)
+    others = ["fused_history_encoder", "fused_history_encoder_res", "fused_history_encoder_bwd",
+              "fused_history_encoder_bwd_recompute", "fused_attn_stack", "fused_attn_stack_bwd"]
+    for lengths in (None, lens):
+        _lib.reset_launch_counts()
+        y = he.history_encoder_apply(enc, x.clone().requires_grad_(), cfg, torch.bfloat16, lengths)
+        y.sum().backward()
+        with torch.inference_mode():
+            he.history_encoder_apply(enc, x, cfg, torch.bfloat16, lengths)
+        counts = dict(_lib.launches)
+        assert counts.get("fused_mha_fwd") == 6 and counts.get("fused_mha_bwd") == 3
+        assert counts.get("fused_mha_bwd_reduce") == 3
+        assert not any(counts.get(n) for n in others)
+
+
+def test_mha_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """A layer whose working set does not fit in shared memory, an f16
+    input, and weights of the wrong shape raise; nothing falls back."""
+    x, _, w, g = _mha_case(2, 256, 64, 4, torch.bfloat16, dev, 9, "none")
+    with pytest.raises(ValueError, match="shared memory"):
+        fm.fused_mha_fwd(x, None, *w, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        fm.fused_mha_bwd(g, x, None, *w, 4)
+    x, _, w, g = _mha_case(2, 8, 64, 4, torch.float32, dev, 10, "none")
+    with pytest.raises(TypeError):
+        fm.fused_mha_fwd(x.half(), None, *w, 4)
+    with pytest.raises(ValueError, match="shapes"):
+        fm.fused_mha_fwd(x, None, w[0][:, :96], *w[1:], 4)

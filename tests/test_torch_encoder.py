@@ -146,8 +146,47 @@ def test_positional_encoding_of_short_histories_matches_jax(seq_len):
 
 
 def test_encoder_kernel_rejects_unported_layer_kernels():
-    _, _, tcfg, enc = _encoders(32, 2, 1, seed=9)
-    x = torch.zeros(2, 4, 32)
-    for flag in ("fused_kernel", "blockwise_kernel"):
-        with pytest.raises(NotImplementedError, match="queue B"):
-            the.history_encoder_apply(enc, x, dataclasses.replace(tcfg, **{flag: True}))
+    """The per-layer tiers without the whole-encoder kernel.  The name is
+    from when neither was ported and both raised: fused_kernel (each layer
+    in one kernel, its plain version here) now runs and equals JAX's output
+    at 1e-5, with and without lengths; blockwise_kernel still raises,
+    naming ROADMAP.md's queue B."""
+    jcfg, jparams, tcfg, enc = _encoders(32, 2, 1, seed=9, fused_encoder=False)
+    r = np.random.default_rng(10)
+    x = r.normal(size=(3, 4, 32)).astype(np.float32)
+    lengths = np.asarray([4, 1, 2], np.int32)
+    for lens in (None, lengths):
+        want = jhe.history_encoder_apply(
+            jparams, jnp.asarray(x), dataclasses.replace(jcfg, fused_kernel=True),
+            lengths=None if lens is None else jnp.asarray(lens),
+        )
+        got = the.history_encoder_apply(
+            enc, torch.from_numpy(x), dataclasses.replace(tcfg, fused_kernel=True),
+            lengths=None if lens is None else torch.from_numpy(lens),
+        )
+        _close(got.detach(), want, 1e-5)
+        with pytest.raises(NotImplementedError, match="queue B, B15-B17"):
+            the.history_encoder_apply(
+                enc, torch.from_numpy(x), dataclasses.replace(tcfg, blockwise_kernel=True),
+                lengths=None if lens is None else torch.from_numpy(lens),
+            )
+
+
+@pytest.mark.parametrize("flag", ["fused_kernel", "blockwise_kernel"])
+@pytest.mark.parametrize("with_lens", [False, True], ids=["full", "lens"])
+def test_fused_encoder_wins_over_layer_flags(flag, with_lens):
+    """fused_encoder=True runs the whole-encoder kernel whatever the
+    per-layer flags say, as the JAX history_encoder_apply checks it first
+    (the port raised on either flag before): the [B, 2, D] encoding equals
+    JAX's at 1e-5, under blockwise_kernel too."""
+    b, h, d = 8, 8, 32
+    jcfg, jparams, tcfg, enc = _encoders(d, 2, 2, seed=33, fused_encoder=True, **{flag: True})
+    r = np.random.default_rng(34)
+    x = r.normal(size=(b, h, d)).astype(np.float32)
+    lens = r.integers(1, h + 1, size=(b,)).astype(np.int32) if with_lens else None
+    want = jhe.history_encoder_apply(jparams, jnp.asarray(x), jcfg,
+                                     lengths=None if lens is None else jnp.asarray(lens))
+    got = the.history_encoder_apply(enc, torch.from_numpy(x), tcfg,
+                                    lengths=None if lens is None else torch.from_numpy(lens))
+    assert got.shape == (b, 2, d)
+    _close(got.detach(), want, 1e-5)

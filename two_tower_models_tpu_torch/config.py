@@ -37,8 +37,10 @@ class HistoryEncoderConfig:
     num_heads: int = 4
     num_layers: int = 3
     use_positional_encoding: bool = True
-    # Per-layer and blockwise attention kernels of the JAX package; not
-    # ported yet (ROADMAP.md, queue B).  The port raises when either is set.
+    # Per-layer attention tiers, read when fused_encoder is off: each layer
+    # in one kernel (fused_kernel, ops.fused_mha), or blockwise
+    # (blockwise_kernel; not ported yet, ROADMAP.md queue B: mha_apply
+    # raises).  Either turns the AUTO fused_encoder off.
     blockwise_kernel: bool = False
     fused_kernel: bool = False
     # Whole-encoder kernel (ops.fused_encoder).  None = AUTO: on iff the

@@ -2,11 +2,15 @@
 
 Port of ``two_tower_models_tpu/models/history_encoder.py``.  Given an
 embedded history [B, H, DI], newest item at row 0, the output is
-(row 0 after the attention stack, mean-pool of the input).  With
-``fused_encoder`` the whole stack runs in one kernel
-(``ops.fused_encoder``): ``fused_history_encoder`` for full histories,
-``fused_attn_stack`` under per-example ``lengths``; otherwise the dense
-``mha_apply`` layers run.
+(row 0 after the attention stack, mean-pool of the input).  The tiers, in
+the JAX package's order: with ``fused_encoder`` the whole stack runs in one
+kernel (``ops.fused_encoder``): ``fused_history_encoder`` for full
+histories, ``fused_attn_stack`` under per-example ``lengths``; otherwise
+``mha_apply`` runs layer by layer, each layer in one kernel with
+``fused_kernel`` (``ops.fused_mha``, B13 and B14), blockwise with
+``blockwise_kernel`` (not ported: ``mha_apply`` raises), else dense.  The
+PE, the zeroing past each length and the f32 mean-pool stay outside the
+kernels.
 """
 
 from __future__ import annotations
@@ -89,11 +93,6 @@ def history_encoder_apply(
     """Returns [B, 2, DI]: (post-attention newest item, mean-pool).  An
     unresolved ``fused_encoder`` (None) reads as False, as in the JAX
     package; entry points resolve it first (config.resolve_kernel_flags)."""
-    if cfg.fused_kernel or cfg.blockwise_kernel:
-        raise NotImplementedError(
-            "the per-layer and blockwise attention kernels are not ported yet "
-            "(ROADMAP.md, queue B)"
-        )
     b, h, d = history_emb.shape
     layers = encoder.attn_layers
     stacked = lambda: [
@@ -120,7 +119,9 @@ def history_encoder_apply(
             ).to(history_emb.dtype)
             return torch.stack([y0, mean_pooled], dim=1)
         for layer in layers:
-            x = mha_apply(layer, x, cfg.num_heads, compute_dtype, lengths=lengths)
+            x = mha_apply(layer, x, cfg.num_heads, compute_dtype,
+                          blockwise=cfg.blockwise_kernel, fused=cfg.fused_kernel,
+                          lengths=lengths)
         return torch.stack([x[:, 0, :], mean_pooled], dim=1)
 
     if cfg.fused_encoder:
@@ -139,5 +140,6 @@ def history_encoder_apply(
     if cfg.use_positional_encoding:
         x = x + sinusoidal_positional_encoding(h, d, x.device).to(x.dtype)[None]
     for layer in layers:
-        x = mha_apply(layer, x, cfg.num_heads, compute_dtype)
+        x = mha_apply(layer, x, cfg.num_heads, compute_dtype,
+                      blockwise=cfg.blockwise_kernel, fused=cfg.fused_kernel)
     return torch.stack([x[:, 0, :], mean_pooled], dim=1)

@@ -1,8 +1,10 @@
-"""Multi-head self-attention, dense (the JAX package's ``mha_apply`` dense
-branch): fused QKV projection, per-head softmax attention, output
-projection, batch-major [B, H, D].  It is the plain reference for the
-encoder: the whole-encoder kernel (ops.fused_encoder) rounds at other points
-and is held against its own plain version.
+"""Multi-head self-attention (the JAX package's ``mha_apply``): fused QKV
+projection, per-head softmax attention, output projection, batch-major
+[B, H, D].  The dense branch is the plain reference for the encoder; the
+``fused`` branch runs the whole layer in one kernel
+(``ops.fused_mha.fused_mha_layer``, B13 and B14), which rounds at other
+points and is held against its own plain version.  The ``blockwise``
+branch (B15-B17) is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from two_tower_models_tpu_torch.nn.layers import Linear, linear_apply
+from two_tower_models_tpu_torch.ops.fused_mha import fused_mha_layer
 
 
 class MultiheadAttention(nn.Module):
@@ -43,9 +46,25 @@ def mha_apply(
     x: torch.Tensor,  # [B, H, D]
     num_heads: int,
     compute_dtype=None,
+    blockwise: bool = False,
+    fused: bool = False,
     lengths: torch.Tensor | None = None,  # [B] valid lengths; keys past it masked
 ) -> torch.Tensor:
-    """Self-attention (q = k = v = x), [B, H, D] -> [B, H, D] f32."""
+    """Self-attention (q = k = v = x), [B, H, D] -> [B, H, D]: f32 on the
+    dense branch; in x's dtype with ``fused``, which casts x to the compute
+    dtype, runs ``fused_mha_layer`` and casts its output back.  Query rows
+    past an example's length are computed with their keys masked."""
+    if fused:
+        y = fused_mha_layer(
+            x if compute_dtype is None else x.to(compute_dtype),
+            layer.in_proj.w, layer.in_proj.b, layer.out_proj.w, layer.out_proj.b,
+            num_heads, lengths=lengths,
+        )
+        return y.to(x.dtype)
+    if blockwise:
+        raise NotImplementedError(
+            "the blockwise attention kernels are not ported yet (ROADMAP.md, queue B, B15-B17)"
+        )
     b, h, d = x.shape
     hd = d // num_heads
     qkv = linear_apply(layer.in_proj, x, compute_dtype)  # [B, H, 3D] f32

@@ -58,42 +58,56 @@ def _mm(dtype):
     return torch.bfloat16 if dtype == torch.bfloat16 else None
 
 
-def _layers_plain(x, w_in, b_in, w_out, b_out, num_heads, mm, lengths=None):
-    """The attention layers on an f32 input x [B, H, D], the last one thin
-    (query row 0 only).  With ``lengths`` [B], key kj of example b is valid
-    iff kj < lengths[b]: an invalid score is -1e30 after the scale, before
-    the per-head max.  Returns (the last layer's row 0 [B, D] f32, each
-    layer's input [B, H, D] f32, each layer's probabilities [B, NH, nq, H]
-    f32 and unrounded, nq = 1 in the last layer).  Operands round to ``mm``
-    where the Pallas kernels round them."""
+def _key_invalid(lengths, h: int, device):
+    """[B, 1, 1, H] mask of the keys past each example's length (a key kj
+    of example b is valid iff kj < lengths[b])."""
+    pos = torch.arange(h, device=device)
+    return (pos[None, :] >= lengths.to(device)[:, None])[:, None, None, :]
+
+
+def _attn_layer_plain(x, w_in, b_in, w_out, b_out, num_heads, mm, invalid=None, nq=None):
+    """One attention layer on an f32 input x [B, H, D], query rows [:nq]
+    (all by default).  ``invalid`` (``_key_invalid``) masks keys: an
+    invalid score is -1e30 after the scale, before the per-head max.
+    Returns (the layer's output [B, nq, D] f32, its probabilities
+    [B, NH, nq, H] f32 and unrounded).  Operands round to ``mm`` where the
+    Pallas kernels round them."""
     b, h, d = x.shape
     nh, hd = num_heads, d // num_heads
     scale = 1.0 / math.sqrt(hd)
+    qkv = round_to(x, mm) @ round_to(w_in, mm) + b_in.float()
+    q, k, v = (round_to(t, mm) for t in qkv.split(d, dim=-1))
+    q = q[:, :nq]
+    nq = q.shape[1]
+    qh = q.reshape(b, nq, nh, hd).transpose(1, 2)  # [B, NH, nq, hd]
+    kh = k.reshape(b, h, nh, hd).transpose(1, 2)
+    vh = v.reshape(b, h, nh, hd).transpose(1, 2)
+    s = (qh @ kh.transpose(-1, -2)) * scale  # [B, NH, nq, H]
+    if invalid is not None:
+        s = s.masked_fill(invalid, _NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))  # per-head max
+    denom = round_to(e, mm).sum(dim=-1, keepdim=True)
+    p = e / denom.clamp_min(1e-30)
+    out = (round_to(p, mm) @ vh).transpose(1, 2).reshape(b, nq, d)
+    return round_to(out, mm) @ round_to(w_out, mm) + b_out.float(), p
+
+
+def _layers_plain(x, w_in, b_in, w_out, b_out, num_heads, mm, lengths=None):
+    """The attention layers on an f32 input x [B, H, D], the last one thin
+    (query row 0 only), each an ``_attn_layer_plain``; with ``lengths``
+    [B], keys past each length are masked.  Returns (the last layer's row 0
+    [B, D] f32, each layer's input [B, H, D] f32, each layer's
+    probabilities [B, NH, nq, H] f32 and unrounded, nq = 1 in the last
+    layer)."""
     num_layers = w_in.shape[0]
-    invalid = None
-    if lengths is not None:
-        pos = torch.arange(h, device=x.device)
-        invalid = (pos[None, :] >= lengths.to(x.device)[:, None])[:, None, None, :]
+    invalid = None if lengths is None else _key_invalid(lengths, x.shape[1], x.device)
     xs, ps = [], []
     for l in range(num_layers):
         xs.append(x)
-        qkv = round_to(x, mm) @ round_to(w_in[l], mm) + b_in[l].float()
-        q, k, v = (round_to(t, mm) for t in qkv.split(d, dim=-1))
-        if l == num_layers - 1:  # only query row 0 is consumed downstream
-            q = q[:, :1]
-        nq = q.shape[1]
-        qh = q.reshape(b, nq, nh, hd).transpose(1, 2)  # [B, NH, nq, hd]
-        kh = k.reshape(b, h, nh, hd).transpose(1, 2)
-        vh = v.reshape(b, h, nh, hd).transpose(1, 2)
-        s = (qh @ kh.transpose(-1, -2)) * scale  # [B, NH, nq, H]
-        if invalid is not None:
-            s = s.masked_fill(invalid, _NEG_INF)
-        e = torch.exp(s - s.amax(dim=-1, keepdim=True))  # per-head max
-        denom = round_to(e, mm).sum(dim=-1, keepdim=True)
-        p = e / denom.clamp_min(1e-30)
+        nq = 1 if l == num_layers - 1 else None  # only row 0 is consumed downstream
+        x, p = _attn_layer_plain(x, w_in[l], b_in[l], w_out[l], b_out[l], num_heads, mm,
+                                 invalid, nq)
         ps.append(p)
-        out = (round_to(p, mm) @ vh).transpose(1, 2).reshape(b, nq, d)
-        x = round_to(out, mm) @ round_to(w_out[l], mm) + b_out[l].float()
     return x[:, 0], xs, ps
 
 
@@ -132,9 +146,9 @@ def fused_history_encoder_res_plain(hist_emb, pe, w_in, b_in, w_out, b_out, num_
 
 def _backward_plain(dy, xs, ps, w_in, b_in, w_out, num_heads, mm):
     """The layers' backward, last to first, with the rounding points of
-    ``_layer_bwd`` / ``_thin_bwd``: from ``dy`` [B, 1, D], the f32
-    cotangent of the last layer's row 0, each layer's input ``xs[l]`` and
-    probabilities ``ps[l]`` [B, NH, nq, H].  g2, do, dp * p, ds and dqkv are
+    ``_layer_bwd`` / ``_thin_bwd``: from ``dy`` [B, nq, D], the f32
+    cotangent of the last layer's nq output rows (row 0 of a thin layer),
+    each layer's input ``xs[l]`` and probabilities ``ps[l]`` [B, NH, nq, H].  g2, do, dp * p, ds and dqkv are
     rounded before their products; p is rounded where it is a P.V operand
     and used as given in dp * p and ds; db_out sums the unrounded dy and
     db_in the rounded dqkv; the thin last layer has dq at row 0 only.

@@ -1,0 +1,234 @@
+"""One multi-head self-attention layer in one kernel: forward and its
+recompute backward (the per-layer attention tier).
+
+Port of ``two_tower_models_tpu/ops/pallas/fused_mha.py``:
+
+- B13, ``_fwd_kernel`` (``pallas_call`` at :297): ``fused_mha_fwd``, the
+  whole layer (QKV projection, per-head softmax attention with a key mask,
+  output projection) for every query row (``csrc/fused_mha.cu``);
+- B14, ``_bwd_kernel`` (:369), the custom VJP's backward: ``fused_mha_bwd``,
+  which recomputes the layer's forward per example and writes dx and
+  per-block weight-grad partials, plus a second launch that sums the
+  partials in block order (same file).
+
+``fused_mha_layer`` runs B13 alone when no gradient is wanted and the
+``autograd.Function`` (B13 then B14) when one is, as the JAX primal /
+``_vjp_fwd`` split does.  Each kernel has a plain PyTorch version with the
+Pallas kernel's rounding points (``ops.fused_encoder._attn_layer_plain``
+and ``_backward_plain``, which the whole-encoder kernels share): the CPU
+path, and the reference the kernel is held against on the card.  The
+output rounds to x's dtype at every layer, and every query row is
+computed, so it is held against ``fused_mha_layer`` itself, not against
+the whole-encoder kernels.
+
+The Pallas ``tile_b`` (and the backward's halving of it) is a VMEM limit of
+the TPU and has no counterpart: the CUDA launchers size their grids from B
+and the SM count.  Keys past an example's length (``lens``) are masked;
+``lens`` None means every key is valid, which is what the JAX default of
+H per example computes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from two_tower_models_tpu_torch.ops import _lib
+from two_tower_models_tpu_torch.ops.fused_encoder import (
+    _SMEM_LIMIT,
+    _attn_layer_plain,
+    _backward_plain,
+    _bwd_grid,
+    _f32,
+    _input_grads,
+    _key_invalid,
+    _lens,
+    _mm,
+)
+
+
+def fused_mha_layer_plain(
+    x: torch.Tensor,  # [B, H, D] bf16 or f32
+    lens: torch.Tensor | None,  # [B] valid keys per example in [1, H], or None (all)
+    w_in: torch.Tensor,  # [D, 3D]
+    b_in: torch.Tensor,  # [3D]
+    w_out: torch.Tensor,  # [D, D]
+    b_out: torch.Tensor,  # [D]
+    num_heads: int,
+) -> torch.Tensor:
+    """B13's function, ``_fwd_kernel`` with ``_attend``: [B, H, D] -> [B, H, D]
+    in x's dtype.  Under bf16 x, x and W_in round to bf16; q, k and v round
+    after the f32 bias add; the softmax denominator sums the bf16-rounded
+    exponentials in f32; p rounds before P.V, the attention output before
+    W_out (rounded too); y adds b_out in f32 and is written in x's dtype."""
+    invalid = None if lens is None else _key_invalid(lens, x.shape[1], x.device)
+    y, _ = _attn_layer_plain(x.float(), w_in, b_in, w_out, b_out, num_heads, _mm(x.dtype),
+                             invalid)
+    return y.to(x.dtype)
+
+
+def fused_mha_layer_bwd_plain(g, x, lens, w_in, b_in, w_out, b_out, num_heads):
+    """B14's function, ``_bwd_kernel`` and ``_vjp_bwd``: from the cotangent
+    g [B, H, D] of the layer's output (rounded to x's dtype first), (dx
+    [B, H, D] in x's dtype, dw_in, db_in, dw_out, db_out) with the weight
+    grads f32 and summed over the batch.  The forward is recomputed with its
+    f32 probabilities, used unrounded in dp * p and ds; db_out sums the
+    rounded g and db_in the rounded dqkv (``_backward_plain``)."""
+    mm = _mm(x.dtype)
+    xf = x.float()
+    invalid = None if lens is None else _key_invalid(lens, x.shape[1], x.device)
+    _, p = _attn_layer_plain(xf, w_in, b_in, w_out, b_out, num_heads, mm, invalid)
+    dx, grads = _backward_plain(g.to(x.dtype).float(), [xf], [p], w_in[None], b_in[None],
+                                w_out[None], num_heads, mm)
+    return (dx.to(x.dtype), *(t[0] for t in grads))
+
+
+def _fwd_smem_bytes(h: int, d: int, nh: int, wsm: bool) -> int:
+    """Shared memory of B13 (csrc/fused_mha.cu, fwd_smem_floats): with
+    ``wsm`` the weights [D, 3D], [3D], [D, D], [D]; always one example's
+    qkv [H, 3D+1] and its round(x) / scores [max(H*D, NH*H*H)]."""
+    w = d * 3 * d + 3 * d + d * d + d if wsm else 0
+    return 4 * (w + h * (3 * d + 1) + max(h * d, nh * h * h))
+
+
+def _bwd_smem_bytes(h: int, d: int, nh: int, wsm: bool) -> int:
+    """Shared memory of B14 (csrc/fused_mha.cu, bwd_smem_floats): with
+    ``wsm`` the weights W_in [D, 3D+1], b_in, W_out [D, D+1] and the four
+    grad accumulators; always one example's x, do, dy [H, D] each, qkv
+    [H, 3D+1], probabilities and scores [NH, H, H] each."""
+    w = d * (3 * d + 1) + 3 * d + d * (d + 1) + d * 3 * d + 3 * d + d * d + d if wsm else 0
+    return 4 * (w + 3 * h * d + h * (3 * d + 1) + 2 * nh * h * h)
+
+
+def _weights_in_smem(smem_bytes, what: str, h: int, d: int, nh: int) -> bool:
+    """True if the weights (and a backward's grad accumulators) fit in
+    shared memory beside one example's working set; False if only the
+    working set does (the kernel then reads the weights from device memory
+    and accumulates the grads in its workspace slice); raises if neither."""
+    for wsm in (True, False):
+        if smem_bytes(h, d, nh, wsm) <= _SMEM_LIMIT:
+            return wsm
+    raise ValueError(
+        f"attention layer {what} of H={h}, D={d}, NH={nh} does not fit the kernel's "
+        "shared memory"
+    )
+
+
+def _check(x, w_in, b_in, w_out, b_out, num_heads) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be bf16 or f32, got {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, H, D], got {tuple(x.shape)}")
+    d = x.shape[2]
+    if d % num_heads or w_in.shape != (d, 3 * d) or b_in.shape != (3 * d,) \
+            or w_out.shape != (d, d) or b_out.shape != (d,):
+        raise ValueError("attention layer shapes do not agree")
+
+
+def fused_mha_fwd(x, lens, w_in, b_in, w_out, b_out, num_heads):
+    """[B, H, D] -> [B, H, D]; see ``fused_mha_layer_plain``.  A CPU tensor
+    takes the plain version; a CUDA tensor launches kernel B13."""
+    if x.device.type == "cpu":
+        return fused_mha_layer_plain(x, lens, w_in, b_in, w_out, b_out, num_heads)
+    _check(x, w_in, b_in, w_out, b_out, num_heads)
+    b, h, d = x.shape
+    wsm = _weights_in_smem(_fwd_smem_bytes, "forward", h, d, num_heads)
+    dev = x.device
+    x = x.detach().contiguous()
+    lens = None if lens is None else _lens(lens, x)
+    wi, bi, wo, bo = (_f32(t, dev) for t in (w_in, b_in, w_out, b_out))
+    y = torch.empty_like(x)
+    if b == 0:
+        return y
+    err = _lib.library().tt_fused_mha_fwd(
+        x.data_ptr(), 0 if lens is None else lens.data_ptr(), wi.data_ptr(), bi.data_ptr(),
+        wo.data_ptr(), bo.data_ptr(), y.data_ptr(), b, h, d, num_heads,
+        int(x.dtype == torch.bfloat16), int(wsm), _lib.stream_ptr(x),
+    )
+    _lib.check(err, "fused_mha_fwd")
+    _lib.launches["fused_mha_fwd"] += 1
+    return y
+
+
+def fused_mha_bwd(g, x, lens, w_in, b_in, w_out, b_out, num_heads):
+    """(dx, dw_in, db_in, dw_out, db_out); see ``fused_mha_layer_bwd_plain``.
+    A CPU tensor takes the plain version; a CUDA tensor launches kernel B14
+    over at most one block per SM, then the reduce that sums the per-block
+    partial grads in block order (counted as ``fused_mha_bwd_reduce``)."""
+    if x.device.type == "cpu":
+        return fused_mha_layer_bwd_plain(g, x, lens, w_in, b_in, w_out, b_out, num_heads)
+    _check(x, w_in, b_in, w_out, b_out, num_heads)
+    b, h, d = x.shape
+    if g.shape != x.shape:
+        raise ValueError(f"cotangent of shape {tuple(g.shape)} does not fit x {tuple(x.shape)}")
+    wsm = _weights_in_smem(_bwd_smem_bytes, "backward", h, d, num_heads)
+    dev = x.device
+    x = x.detach().contiguous()
+    g = g.detach().to(x.dtype).contiguous()
+    lens = None if lens is None else _lens(lens, x)
+    wi, bi, wo = (_f32(t, dev) for t in (w_in, b_in, w_out))
+    sizes = [d * 3 * d, 3 * d, d * d, d]  # flat dW_in, db_in, dW_out, db_out
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    if b == 0:
+        grads.zero_()
+    else:
+        blocks, epb = _bwd_grid(b, dev)
+        ws = torch.empty((blocks, grads.numel()), dtype=torch.float32, device=dev)
+        stream = _lib.stream_ptr(x)
+        lib = _lib.library()
+        err = lib.tt_fused_mha_bwd(
+            g.data_ptr(), x.data_ptr(), 0 if lens is None else lens.data_ptr(), wi.data_ptr(),
+            bi.data_ptr(), wo.data_ptr(), dx.data_ptr(), ws.data_ptr(), b, h, d, num_heads,
+            int(x.dtype == torch.bfloat16), int(wsm), epb, stream,
+        )
+        _lib.check(err, "fused_mha_bwd")
+        _lib.launches["fused_mha_bwd"] += 1
+        err = lib.tt_fused_mha_bwd_reduce(ws.data_ptr(), grads.data_ptr(), blocks,
+                                          grads.numel(), stream)
+        _lib.check(err, "fused_mha_bwd_reduce")
+        _lib.launches["fused_mha_bwd_reduce"] += 1
+    dwi, dbi, dwo, dbo = torch.split(grads, sizes)
+    return dx, dwi.view(d, 3 * d), dbi, dwo.view(d, d), dbo
+
+
+class _FusedMHALayer(torch.autograd.Function):
+    """The JAX custom VJP of ``fused_mha_layer``: B13 forward, saving x,
+    lens and the weights (``_vjp_fwd``); B14 backward (``_vjp_bwd``).
+    ``lens`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, lens, w_in, b_in, w_out, b_out, num_heads):
+        args = (x, lens, w_in, b_in, w_out, b_out)
+        ctx.num_heads = num_heads
+        ctx.dtypes = [None if t is None else t.dtype for t in args]
+        ctx.save_for_backward(*args)
+        return fused_mha_fwd(*args, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx, *dw = fused_mha_bwd(g, *ctx.saved_tensors, ctx.num_heads)
+        return (*_input_grads([dx, None, *dw], ctx), None)
+
+
+def fused_mha_layer(
+    x: torch.Tensor,  # [B, H, D] bf16 or f32
+    w_in: torch.Tensor,  # [D, 3D]
+    b_in: torch.Tensor,  # [3D]
+    w_out: torch.Tensor,  # [D, D]
+    b_out: torch.Tensor,  # [D]
+    num_heads: int,
+    lengths: torch.Tensor | None = None,  # [B] valid key counts
+) -> torch.Tensor:
+    """The whole attention layer, [B, H, D] -> [B, H, D] in x's dtype (see
+    ``fused_mha_layer_plain``).  ``lengths`` are clipped to [1, H]; keys at
+    or past an example's length are masked, and its query rows there are
+    computed all the same (rows the encoder never reads).  When a gradient
+    is wanted it runs the ``autograd.Function`` (B13 then B14); otherwise
+    B13."""
+    lens = None if lengths is None else lengths.clamp(1, x.shape[1])
+    args = (x, w_in, b_in, w_out, b_out)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedMHALayer.apply(x, lens, w_in, b_in, w_out, b_out, num_heads)
+    return fused_mha_fwd(x, lens, w_in, b_in, w_out, b_out, num_heads)
