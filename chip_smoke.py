@@ -87,6 +87,34 @@ Phases, in the order they run; any failure exits non-zero:
      three B14 and three reduces a step, the CE kernels once, none of B1
      and B5-B9; three steps under the profiler and train_loss's grads at
      B=256 against a CPU copy for each; the step beside phase 4's.
+  7. the blockwise attention tier (HistoryEncoderConfig blockwise_kernel=True,
+     fused_encoder=False: each layer's attention through B15, and B16 and B17
+     for the gradient, between plain projections).  7a: B15 against its plain
+     version on layer 0's folded q, k, v of the serving batch (with and without
+     lengths) and of the training batch, B16 and B17 there twice (bit-equal),
+     and a long-history leg at N=4, H=4096 with and without lengths, whose
+     peak memory of forward and backward must stay under a quarter of the
+     plain dense autograd's; each timed beside its plain version, its bound
+     and F.scaled_dot_product_attention (B16, B17: its autograd backward).
+     7b: phase 3's configuration and seed on this tier, ten batches with full
+     histories (serve-1M-exact-blockwise) and ten with lengths (-varlen):
+     three B15 a batch, none of B1, B8 or B13, indices and user embeddings
+     checked as in phase 3.  7c: phase 4's configuration on this tier, 3
+     warm-up and 20 timed steps on the fixed batch (train-65k-blockwise) and
+     on make_synthetic_data's variable-length histories (-varlen): three
+     each of B15, B16 and B17 a step, the CE kernels once, none of B1, B5-B9,
+     B13 or B14; a trace and card-vs-CPU grads each; the legs beside phases 4
+     and 6;
+  8. fused Adam (TrainConfig fused_adam=True) on phase 5's train-4M-packed:
+     B20 against its plain version on the state's leaves of 2^16 elements or
+     more (the two packed tables), bit for bit over three steps, timed beside
+     torch.optim.Adam(fused=True); one step through B20 against one through
+     Adam from one state (tables and moments within 1e-6 of their scale);
+     the leg train-4M-packed-fusedadam (2 warm-up and 10 timed steps, one B20
+     launch a step per such leaf, a trace) beside train-4M-packed.
+
+Phase 2 also holds B2 and the exact pipeline on an integer-grid corpus whose
+scores hold +-inf and NaN of both signs (nonfinite_check).
 
 Prints one JSON line of per-kernel numbers, then, last, the ok line.  It
 imports nothing of JAX or of the JAX package.
@@ -123,6 +151,7 @@ TABLE_STEPS = 10  # timed steps of each large-table leg
 CHECK_ROWS = 1 << 18  # large-table card-against-CPU check: the scatter window's lower edge
 WINDOW_ROWS = (1 << 16, 1 << 18, 1 << 20, 1 << 22)  # B18 against F.embedding's gradient
 BF16_TOL = 1e-2  # tests/test_torch_train_step.py's bf16 tolerance
+LONG_N, LONG_H = 4, 4096  # scripts/tpu_kernel_parity.py:275-293's long history (Dh 16)
 
 
 def _fail(msg: str) -> None:
@@ -1055,7 +1084,7 @@ def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
             "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1}
     st_dense, ms_packed, counts = table_leg(
         torch, "train-4M-packed", step_dense, st_dense, data, idx, 2,
-        {**five, "rows_scatter_add": 3, "rows_write": 0}, smi, failures)
+        {**five, "rows_scatter_add": 3, "rows_write": 0, "fused_adam": 0}, smi, failures)
     entries["rows_scatter_add"]["launches"] = counts.get("rows_scatter_add", 0)
     b18 = entries["rows_scatter_add"]["ms"]
     print(f"train-4M-packed: B18's three launches alone {b18:.3f} ms ({b18 / ms_packed * 100:.1f}% "
@@ -1103,6 +1132,7 @@ def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
         failures.append("tables 2^18 packed: B18 not launched three times on the card")
     del st
     torch.cuda.empty_cache()
+    return ms_packed
 
 def layer_flops(h: int, n: int, d: int) -> int:
     """Operations of one attention layer on one example of h rows of which
@@ -1346,6 +1376,462 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms) -> None
           + "; ".join(f"{k} {v:.3f} ms" for k, v in legs.items())
           + f"; phase 4's B5+B6 step {b56_ms[0]:.3f}, {b56_ms[1]:.3f} ms: the per-layer step "
           f"{legs['train-65k-layer'] / b56_ms[0]:.2f}x", flush=True)
+    return legs
+
+
+def blockwise_cfg(cfg):
+    """``cfg`` with its history encoder on the blockwise tier."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, history_encoder=dataclasses.replace(
+        cfg.history_encoder, blockwise_kernel=True, fused_encoder=False))
+
+
+def folded_qkv(torch, model, hist, lens, nh, cd):
+    """Layer 0's q, k, v on the blockwise tier as mha_apply hands them to
+    blockwise_self_attention: the embedded history plus the PE (zeroed past
+    each length, the PE at each length, under ``lens``), projected in the
+    compute dtype to f32 and folded to [B * nh, H, hd], n = b * nh + head;
+    and the lengths repeated per head."""
+    from two_tower_models_tpu_torch.models.history_encoder import (
+        sinusoidal_positional_encoding,
+    )
+    from two_tower_models_tpu_torch.nn.layers import linear_apply
+
+    if lens is None:
+        emb = model.item_id_table.detach()[hist]
+        x = emb + sinusoidal_positional_encoding(HIST, emb.shape[-1], emb.device)
+    else:
+        x = stack_input(torch, model, hist, lens)
+    b, h, d = x.shape
+    qkv = linear_apply(model.history_encoder.attn_layers[0].in_proj, x, cd)
+    fold = [t.reshape(b, h, nh, d // nh).transpose(1, 2).reshape(b * nh, h, d // nh).contiguous()
+            for t in qkv.split(d, dim=-1)]
+    return fold, None if lens is None else lens.repeat_interleave(nh).int()
+
+
+def attn_counts(n, h, dh, lens):
+    """(bytes of one [N, H, Dh] f32 tensor, bytes of one [N, H] one,
+    multiply-adds of one [H, valid keys, Dh] product) for the blockwise
+    kernels' bounds: B15 does two such products (q kᵀ and P·V), B16 three
+    and B17 four, at two operations a multiply-add."""
+    keys = n * h if lens is None else int(lens.sum())
+    return n * h * dh * 4, n * h * 4, h * keys * dh
+
+
+def attn_lib(torch, q, k, v, lens):
+    """F.scaled_dot_product_attention in f32 with a boolean key mask: the
+    one PyTorch call computing B15's output (a yardstick; the port never
+    calls it)."""
+    F = torch.nn.functional
+    mask = None if lens is None else (
+        torch.arange(q.shape[1], device=q.device)[None, None, :] < lens[:, None, None])
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def attn_checks(torch, label, q, k, v, lens, g):
+    """B15 (and, with a cotangent ``g``, B16 and B17, twice) against their
+    plain versions: out and lse within rtol 1e-4 and atol 1e-5 of each
+    output's scale, the grads within 1e-4 of each one's scale or of one
+    |do| |v| term; masked keys' dk and dv exactly 0.  Returns (ok,
+    max_abs_err of out, of the grads)."""
+    from two_tower_models_tpu_torch.ops import history_attention as ha
+
+    n, h, _ = q.shape
+    lk = torch.full((n,), h, dtype=torch.int32, device=q.device) if lens is None else lens
+    out, lse = ha.blockwise_attn_fwd(q, k, v, lk)
+    want = ha.blockwise_attn_fwd_plain(q, k, v, lk)
+    checks = [close(a, e, 1e-4, 1e-5 * float(e.abs().max())) for a, e in zip((out, lse), want)]
+    ok, err, gerr = all(c for c, _ in checks), checks[0][1], 0.0
+    line = f"{label}: B15 out, lse max_abs_err {[float(f'{e:.3g}') for _, e in checks]}"
+    if g is not None:
+        delta = (g * want[0]).sum(-1)
+        args = (q, k, v, g, want[1], delta, lk)
+        runs = [(ha.blockwise_attn_dq(*args), *ha.blockwise_attn_dkv(*args)) for _ in range(2)]
+        repeat = all(torch.equal(a, b) for a, b in zip(*runs))
+        term = float(g.abs().max() * v.abs().max())
+        gchecks = [close(a, e, 0.0, 1e-4 * max(float(e.abs().max()), term))
+                   for a, e in zip(runs[0], ha.blockwise_attn_bwd_plain(*args))]
+        masked = torch.arange(h, device=q.device)[None, :] >= lk[:, None]
+        zero = bool((runs[0][1][masked] == 0).all()) and bool((runs[0][2][masked] == 0).all())
+        gerr = max(e for _, e in gchecks)
+        ok = ok and repeat and zero and all(c for c, _ in gchecks)
+        line += (f"; B16, B17 dq, dk, dv max_abs_err {[float(f'{e:.3g}') for _, e in gchecks]} "
+                 f"(tol 1e-4 of scale); masked keys zero={zero}; bit-equal on repeat={repeat}")
+    print(line + f"; ok={ok}", flush=True)
+    return ok, err, gerr
+
+
+def attn_memory(torch, q, k, v, lens, g):
+    """Peak device memory above the inputs of forward + backward through
+    autograd: the blockwise tier (B15, B16, B17) and the plain dense
+    version ([N, H, H] scores and probabilities kept for the backward)."""
+    from two_tower_models_tpu_torch.ops import history_attention as ha
+
+    peaks = []
+    for fn in (lambda a, b, c: ha.blockwise_self_attention(a, b, c, lengths=lens),
+               lambda a, b, c: ha.blockwise_attn_fwd_plain(a, b, c, lens)[0]):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.enable_grad():
+            torch.autograd.grad(fn(*leaves), leaves, g)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        del leaves
+    return peaks
+
+
+def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, layer_legs) -> None:
+    """Phase 7: the blockwise attention tier (HistoryEncoderConfig with
+    blockwise_kernel=True, fused_encoder=False) at the cells' full width,
+    and the long-history leg of its kernels."""
+    from two_tower_models_tpu_torch.config import DataConfig, TrainConfig
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.ops import history_attention as ha
+    from two_tower_models_tpu_torch.serving import RetrievalEngine
+    from two_tower_models_tpu_torch.training.data import gather_batch, make_synthetic_data
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import make_train_step
+
+    nh, nl, d, b = 4, 3, 64, BATCH
+    dh = d // nh
+    src = "two_tower_models_tpu_torch/csrc/history_attention.cu"
+    rep = "two_tower_models_tpu/ops/pallas/history_attention.py:"
+    cd = torch.bfloat16
+
+    # -- 7a, 7b: serving.  phase 3's configuration and seed on the blockwise tier
+    cfg = blockwise_cfg(serve_cfg())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    model = tt.init_params(gen, cfg, device=dev)
+    catalog_ids = torch.arange(CORPUS, device=dev)
+    catalog_feats = torch.randn(CORPUS, 16, generator=gen, device=dev)
+    engine = RetrievalEngine.from_params(model, cfg, catalog_ids, catalog_feats, device=dev)
+    engine.warmup(BATCH)
+    batches = [(torch.randint(0, cfg.user_id_hash_size, (b,), generator=gen, device=dev),
+                torch.randn(b, 16, generator=gen, device=dev),
+                torch.randint(0, CORPUS, (b, HIST), generator=gen, device=dev), None)
+               for _ in range(args.batches)]
+    engine.warmup(BATCH, variable_history=True)
+    var_batches = []
+    for _ in range(args.batches):
+        lens = torch.randint(1, HIST + 1, (b,), generator=gen, device=dev)
+        hist = torch.randint(0, CORPUS, (b, HIST), generator=gen, device=dev)
+        hist = torch.where(torch.arange(HIST, device=dev)[None, :] < lens[:, None], hist, 0)
+        var_batches.append((torch.randint(0, cfg.user_id_hash_size, (b,), generator=gen, device=dev),
+                            torch.randn(b, 16, generator=gen, device=dev), hist, lens))
+    (q, k, v), _ = folded_qkv(torch, model, batches[0][2], None, nh, cd)
+    (qv, kv, vv), lv = folded_qkv(torch, model, var_batches[0][2], var_batches[0][3], nh, cd)
+    ok, err, _ = attn_checks(torch, "blockwise serve", q, k, v, None, None)
+    ok_v, err_v, _ = attn_checks(torch, "blockwise serve varlen", qv, kv, vv, lv, None)
+    full = torch.full((q.shape[0],), HIST, dtype=torch.int32, device=dev)
+    row_b, lse_b, fl = attn_counts(q.shape[0], HIST, dh, None)
+    entry(
+        "blockwise_attn_fwd", src, rep + "144", ok and ok_v, max(err, err_v),
+        time_ms(torch, lambda: ha.blockwise_attn_fwd(q, k, v, full)),
+        time_ms(torch, lambda: ha.blockwise_attn_fwd_plain(q, k, v, full)),
+        4 * row_b + lse_b, 4 * fl, F32_FLOPS, time_ms(torch, attn_lib(torch, q, k, v, None)),
+    )
+    e15 = entries["blockwise_attn_fwd"]
+    row_b, lse_b, fl = attn_counts(qv.shape[0], HIST, dh, lv)
+    e15["varlen_ms"] = time_ms(torch, lambda: ha.blockwise_attn_fwd(qv, kv, vv, lv))
+    e15["varlen_plain_ms"] = time_ms(torch, lambda: ha.blockwise_attn_fwd_plain(qv, kv, vv, lv))
+    e15["varlen_bound_ms"] = bound(4 * row_b + lse_b + lv.numel() * 4, 4 * fl, F32_FLOPS)[0]
+    e15["varlen_library_ms"] = time_ms(torch, attn_lib(torch, qv, kv, vv, lv))
+    del q, k, v, qv, kv, vv
+    cpu_model = copy.deepcopy(model).cpu()
+    others = {"fused_history_encoder": 0, "fused_attn_stack": 0, "fused_mha_fwd": 0,
+              "tile_max_scores": 1, "select_topk": 2, "gather_rescore": 1}
+    legs = {}
+    for label, bts in (("serve-1M-exact-blockwise", batches),
+                       ("serve-1M-exact-blockwise-varlen", var_batches)):
+        counts, legs[label] = serve_leg(torch, label, engine, model, cpu_model, cfg, bts,
+                                        {"blockwise_attn_fwd": nl, **others}, [], entries,
+                                        failures, smi)
+        e15[f"launches_{label}"] = counts.get("blockwise_attn_fwd", 0)
+    e15["launches"] = e15["launches_serve-1M-exact-blockwise"]
+    del engine, model, cpu_model, batches, var_batches, catalog_feats
+    torch.cuda.empty_cache()
+
+    # -- 7a: the training batch's layer 0, and the long-history leg --
+    cfg = blockwise_cfg(flagship_cfg(TRAIN_ROWS))
+    bt = TRAIN_BATCH
+    train_cfg = TrainConfig(batch_size=bt, learning_rate=1e-3)
+    gen.manual_seed(args.seed + 10)
+    state = create_train_state(gen, cfg, train_cfg, device=dev)
+    data = fixed_batch(torch, gen, dev, cfg, bt)
+    idx = torch.arange(bt, device=dev)
+    (q, k, v), _ = folded_qkv(torch, state.params, gather_batch(data, idx).user_history, None,
+                              nh, cd)
+    g = torch.randn(q.shape, generator=gen, device=dev) / bt
+    ok, err, gerr = attn_checks(torch, "blockwise train", q, k, v, None, g)
+    full = torch.full((q.shape[0],), HIST, dtype=torch.int32, device=dev)
+    out, lse = ha.blockwise_attn_fwd(q, k, v, full)
+    delta = (g * out).sum(-1)
+    bargs = (q, k, v, g, lse, delta, full)
+    lib = attn_lib(torch, q, k, v, None)
+    with torch.enable_grad():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        lib_out = attn_lib(torch, *leaves, None)()
+        lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True))
+    del lib_out, leaves
+    row_b, lse_b, fl = attn_counts(q.shape[0], HIST, dh, None)
+    e15["train_ms"] = time_ms(torch, lambda: ha.blockwise_attn_fwd(q, k, v, full))
+    e15["train_plain_ms"] = time_ms(torch, lambda: ha.blockwise_attn_fwd_plain(q, k, v, full))
+    e15["train_bound_ms"] = bound(4 * row_b + lse_b, 4 * fl, F32_FLOPS)[0]
+    e15["train_library_ms"] = time_ms(torch, lib)
+    plain_bwd_ms = time_ms(torch, lambda: ha.blockwise_attn_bwd_plain(*bargs))
+    entry("blockwise_attn_dq", src, rep + "277", ok, gerr,
+          time_ms(torch, lambda: ha.blockwise_attn_dq(*bargs)), plain_bwd_ms,
+          5 * row_b + 2 * lse_b, 6 * fl, F32_FLOPS, lib_bwd_ms)
+    entry("blockwise_attn_dkv", src, rep + "295", ok, gerr,
+          time_ms(torch, lambda: ha.blockwise_attn_dkv(*bargs)), plain_bwd_ms,
+          6 * row_b + 2 * lse_b, 8 * fl, F32_FLOPS, lib_bwd_ms)
+    for name in ("blockwise_attn_dq", "blockwise_attn_dkv"):
+        entries[name]["note"] = (
+            "at the training batch's layer 0 (N=16384, H=32, Dh=16); plain_ms is the plain "
+            "backward (dq, dk and dv together); library_ms the autograd backward of "
+            "F.scaled_dot_product_attention (f32), for B16 and B17 together; long_* at N=4, "
+            "H=4096")
+    e15["note"] = (
+        "ms, plain_ms, bound_ms, library_ms at the serving batch's layer 0 (N=4096, H=32, "
+        "Dh=16), varlen_* there with lengths (bound counting valid keys only), train_* at the "
+        "training batch (N=16384), long_* at N=4, H=4096 (long_varlen_*: lengths uniform in "
+        "[1, 4096]); library_ms is F.scaled_dot_product_attention (f32, boolean key mask)")
+    del q, k, v, g, out, lse, delta, bargs, lib
+    torch.cuda.empty_cache()
+
+    long_ok, mem = True, {}
+    for tag, lens in (("long", None),
+                      ("long_varlen", torch.randint(1, LONG_H + 1, (LONG_N,), generator=gen,
+                                                    device=dev, dtype=torch.int32))):
+        q, k, v, g = (torch.randn(LONG_N, LONG_H, dh, generator=gen, device=dev) for _ in range(4))
+        ok_l, _, _ = attn_checks(torch, f"blockwise {tag} (N={LONG_N}, H={LONG_H})", q, k, v,
+                                 lens, g)
+        lk = torch.full((LONG_N,), LONG_H, dtype=torch.int32, device=dev) if lens is None else lens
+        out, lse = ha.blockwise_attn_fwd(q, k, v, lk)
+        bargs = (q, k, v, g, lse, (g * out).sum(-1), lk)
+        row_b, lse_b, fl = attn_counts(LONG_N, LONG_H, dh, lens)
+        lib = attn_lib(torch, q, k, v, lens)
+        for name, fn, plain, nbytes, nfl in (
+            ("blockwise_attn_fwd", lambda: ha.blockwise_attn_fwd(q, k, v, lk),
+             lambda: ha.blockwise_attn_fwd_plain(q, k, v, lk), 4 * row_b + lse_b, 4 * fl),
+            ("blockwise_attn_dq", lambda: ha.blockwise_attn_dq(*bargs),
+             lambda: ha.blockwise_attn_bwd_plain(*bargs), 5 * row_b + 2 * lse_b, 6 * fl),
+            ("blockwise_attn_dkv", lambda: ha.blockwise_attn_dkv(*bargs),
+             lambda: ha.blockwise_attn_bwd_plain(*bargs), 6 * row_b + 2 * lse_b, 8 * fl),
+        ):
+            e = entries[name]
+            e[f"{tag}_ms"] = time_ms(torch, fn)
+            e[f"{tag}_plain_ms"] = time_ms(torch, plain, 3)
+            e[f"{tag}_bound_ms"], e[f"{tag}_bound_by"] = bound(nbytes, nfl, F32_FLOPS)
+        e15[f"{tag}_library_ms"] = time_ms(torch, lib, 3)
+        with torch.enable_grad():
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            lib_out = attn_lib(torch, *leaves, lens)()
+            lib_bwd = time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, g,
+                                                                 retain_graph=True), 3)
+        del lib_out, leaves
+        for name in ("blockwise_attn_dq", "blockwise_attn_dkv"):
+            entries[name][f"{tag}_library_ms"] = lib_bwd
+        peaks = attn_memory(torch, q, k, v, lk, g)
+        mem[tag] = peaks
+        long_ok &= ok_l and peaks[0] < peaks[1] / 4
+        print(f"blockwise {tag}: peak memory of forward + backward above the inputs: blockwise "
+              f"{peaks[0] / 2**20:.2f} MiB, plain dense {peaks[1] / 2**20:.2f} MiB "
+              f"({peaks[0] / peaks[1]:.4f}, needs < 0.25); B15 {e15[f'{tag}_ms']:.4f} ms, "
+              f"B16 {entries['blockwise_attn_dq'][f'{tag}_ms']:.4f} ms, B17 "
+              f"{entries['blockwise_attn_dkv'][f'{tag}_ms']:.4f} ms", flush=True)
+        del q, k, v, g, out, lse, bargs, lib
+        torch.cuda.empty_cache()
+    e15["long_memory_bytes"] = mem
+    if not long_ok:
+        failures.append("blockwise long history")
+
+    # -- 7c: training.  phase 4's configuration on the blockwise tier
+    expect = {"blockwise_attn_fwd": nl, "blockwise_attn_dq": nl, "blockwise_attn_dkv": nl,
+              "fused_in_batch_ce": 1, "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1,
+              "fused_history_encoder": 0, "fused_history_encoder_res": 0,
+              "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
+              "fused_attn_stack": 0, "fused_attn_stack_bwd": 0, "fused_mha_fwd": 0,
+              "fused_mha_bwd": 0, "rows_scatter_add": 0, "rows_write": 0, "fused_adam": 0}
+    var_data = make_synthetic_data(DataConfig(
+        num_samples=bt, num_users=TRAIN_ROWS, num_items=TRAIN_ROWS, feature_dim=16,
+        history_len=HIST, num_tasks=3, max_position=cfg.position_table_size,
+        seed=args.seed, variable_history=True,
+    ), device=dev)
+    step = make_train_step(cfg, train_cfg)
+    for label, dat in (("train-65k-blockwise", data), ("train-65k-blockwise-varlen", var_data)):
+        state, metrics, _, _, _ = run_steps(torch, step, state, dat, idx, 3)
+        state, timed, ms_step, host_ms, counts = run_steps(torch, step, state, dat, idx,
+                                                           TRAIN_STEPS)
+        state, syncs = count_syncs(torch, step, state, dat, idx)
+        metrics += timed
+        legs[label] = ms_step
+        print(f"launches on the {label} path ({TRAIN_STEPS} steps): {json.dumps(counts)}",
+              flush=True)
+        check_launches(counts, expect, TRAIN_STEPS, failures, label)
+        for name in ("blockwise_attn_fwd", "blockwise_attn_dq", "blockwise_attn_dkv"):
+            entries[name][f"launches_{label}"] = counts.get(name, 0)
+        if not finite(torch, metrics):
+            failures.append(f"{label} metrics not finite")
+        kern = nl * (e15["train_ms"] + entries["blockwise_attn_dq"]["ms"]
+                     + entries["blockwise_attn_dkv"]["ms"])
+        print(
+            f"{label} on {torch.cuda.get_device_name(0)} ({smi}): {TRAIN_STEPS} steps of B={bt}: "
+            f"ms/step {ms_step:.3f}, examples/s {bt / ms_step * 1e3:.0f}; host wall "
+            f"{host_ms:.3f} ms/step; loss first {float(metrics[0]['loss']):.5f} last "
+            f"{float(metrics[-1]['loss']):.5f}; three each of B15, B16, B17 alone {kern:.3f} ms "
+            f"({kern / ms_step * 100:.1f}% of the step); host syncs in a step {syncs}", flush=True)
+        state = trace_steps(torch, step, state, dat, idx, label)
+        grads_vs_cpu(torch, state.params, cfg, dat, idx, failures, label)
+    for name in ("blockwise_attn_dq", "blockwise_attn_dkv"):
+        entries[name]["launches"] = entries[name]["launches_train-65k-blockwise"]
+    print(f"blockwise tier on {torch.cuda.get_device_name(0)} ({smi}): "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in legs.items())
+          + f"; phase 4's B5+B6 step {b56_ms[0]:.3f}, {b56_ms[1]:.3f} ms; phase 6: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in layer_legs.items()), flush=True)
+    del state, data, var_data
+    torch.cuda.empty_cache()
+
+
+def phase_fused_adam(torch, args, smi, dev, entry, entries, failures, ms_packed) -> None:
+    """Phase 8: one-pass fused Adam (B20) on scripts/bench_tables.py's
+    configuration (train-4M-packed with TrainConfig(fused_adam=True))."""
+    import dataclasses
+
+    from two_tower_models_tpu_torch.config import TrainConfig
+    from two_tower_models_tpu_torch.ops import fused_adam as fa
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import make_train_step
+
+    b = TRAIN_BATCH
+    cfg = flagship_cfg(TABLE_ROWS)
+    dense_cfg = TrainConfig(batch_size=b, learning_rate=1e-3, pack_tables_min_rows=PACK_MIN_ROWS)
+    fused_cfg = dataclasses.replace(dense_cfg, fused_adam=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 11)
+    data = fixed_batch(torch, gen, dev, cfg, b)
+    idx = torch.arange(b, device=dev)
+    st_fused = create_train_state(args.seed + 12, cfg, fused_cfg, device=dev)
+    big = [(n, p) for n, p in st_fused.params.named_parameters()
+           if p.numel() >= fa._MIN_KERNEL_ELEMS]
+    print(f"fused Adam: leaves of >= {fa._MIN_KERNEL_ELEMS} elements (one B20 launch a step "
+          f"each): {[(n, tuple(p.shape)) for n, p in big]}", flush=True)
+
+    # -- 8a: B20 against its plain version on the real leaves, 3 steps --
+    exact, err, bytes_, elems = True, 0.0, 0, 0
+    for name, p in big:
+        g = torch.randn(p.shape, generator=gen, device=dev) * 1e-2
+        m0 = torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+        v0 = m0.square() * 2
+        runs = [[p.detach().clone(), m0.clone(), v0.clone()] for _ in range(2)]
+        for t in (1, 2, 3):
+            c = fa.bias_corrections(torch.tensor(t, dtype=torch.int32, device=dev))
+            fa.fused_adam_leaf(*runs[0], g, c, 1e-3)
+            fa.fused_adam_leaf_plain(*runs[1], g, c, 1e-3)
+        for a, e in zip(*runs):
+            exact &= torch.equal(a, e)
+            err = max(err, close(a, e, 0.0, 0.0)[1])
+        elems += p.numel()
+        bytes_ += p.numel() * (2 * p.element_size() + 4 * 4 + g.element_size())
+        del runs, g, m0, v0
+        torch.cuda.empty_cache()
+    print(f"fused Adam vs plain on the 4M-packed leaves, 3 steps: p, m, v bit-equal={exact}",
+          flush=True)
+    c = fa.bias_corrections(torch.tensor(4, dtype=torch.int32, device=dev))
+    leaves = [(p.detach().clone(), torch.zeros_like(p), torch.zeros_like(p),
+               torch.randn(p.shape, generator=gen, device=dev) * 1e-2) for _, p in big]
+    one_pass = lambda: [fa.fused_adam_leaf(pp, m, v, g, c, 1e-3) for pp, m, v, g in leaves]
+    tp = [torch.nn.Parameter(pp.clone()) for pp, _, _, _ in leaves]
+    for t, (_, _, _, g) in zip(tp, leaves):
+        t.grad = g
+    lib_opt = torch.optim.Adam(tp, lr=1e-3, fused=True)
+    entry(
+        "fused_adam", "two_tower_models_tpu_torch/csrc/fused_adam.cu",
+        "two_tower_models_tpu/ops/pallas/fused_adam.py:84", exact, err,
+        time_ms(torch, one_pass),
+        time_ms(torch, lambda: [fa.fused_adam_leaf_plain(pp, m, v, g, c, 1e-3)
+                                for pp, m, v, g in leaves], 3),
+        bytes_, 14 * elems, F32_FLOPS, time_ms(torch, lib_opt.step, 3),
+    )
+    entries["fused_adam"]["note"] = (
+        "times are one step's launches over the leaves of >= 2^16 elements of a 4M-packed state "
+        "(the two packed id tables); library_ms is torch.optim.Adam(fused=True).step() on "
+        "copies of them")
+    del leaves, tp, lib_opt
+    torch.cuda.empty_cache()
+
+    # -- 8b: one step from one state through B20 and through Adam --
+    st_adam = create_train_state(args.seed + 12, cfg, dense_cfg, device=dev)
+    with torch.enable_grad():
+        st_fused, _ = make_train_step(cfg, fused_cfg)(st_fused, data, idx)
+        st_adam, _ = make_train_step(cfg, dense_cfg)(st_adam, data, idx)
+    got, want = table_tensors(st_fused), table_tensors(st_adam)
+    worst, bad = 0.0, []
+    for name in want:
+        ok, e = scaled_close(got[name], want[name], 1e-6)
+        worst = max(worst, e)
+        if not ok:
+            bad.append(name)
+    print(f"train-4M-packed: one step through B20 vs through Adam from one state, tables and "
+          f"moments: max_abs_err {worst:.3g} (tol 1e-6 of each one's scale); mismatched {bad}",
+          flush=True)
+    if bad:
+        failures.append(f"fused Adam step vs Adam: {bad}")
+    del st_adam, got, want
+    torch.cuda.empty_cache()
+
+    # -- 8c: the leg --
+    five = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1, "fused_in_batch_ce": 1,
+            "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1}
+    step = make_train_step(cfg, fused_cfg)
+    st_fused, ms, counts = table_leg(
+        torch, "train-4M-packed-fusedadam", step, st_fused, data, idx, 2,
+        {**five, "rows_scatter_add": 3, "rows_write": 0, "fused_adam": len(big)}, smi, failures)
+    entries["fused_adam"]["launches"] = counts.get("fused_adam", 0)
+    b20 = entries["fused_adam"]["ms"]
+    print(f"train-4M-packed-fusedadam on {torch.cuda.get_device_name(0)} ({smi}): {ms:.3f} "
+          f"ms/step against train-4M-packed's {ms_packed:.3f} (phase 5, this run); B20's "
+          f"{len(big)} launches alone {b20:.3f} ms ({b20 / ms * 100:.1f}% of the step)", flush=True)
+    del st_fused
+    torch.cuda.empty_cache()
+
+
+def nonfinite_check(torch, dev) -> bool:
+    """Phase 2's input for the tile max's total order: an integer-grid
+    corpus (every finite score exact) with rows that score +-inf and NaN
+    (+inf in a column half the queries zero, so 0 * inf; -inf rows; a -NaN
+    row and a +NaN row).  B2 must equal its plain version bit for bit (as
+    int32 keys), and the exact pipeline's indices topk_ordered on the dense
+    scores."""
+    from two_tower_models_tpu_torch.ops import mips_topk as mt
+    from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact, topk_ordered
+
+    b, c, d = 256, 1 << 18, 64
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    corpus = torch.randint(-2, 3, (c, d), generator=gen, device=dev).float()
+    query = torch.randint(-2, 3, (b, d), generator=gen, device=dev).float()
+    query[: b // 2, 0] = 0
+    corpus[torch.arange(0, 300, device=dev) * mt.TILE + 5, 0] = float("inf")
+    corpus[torch.arange(300, 400, device=dev) * mt.TILE + 7, 1] = float("-inf")
+    bits = corpus.view(torch.int32)
+    bits[3, 2] = -(1 << 22)  # 0xFFC00000, a negative NaN
+    bits[77_777, 5] = 0x7FC00000  # a positive NaN
+    got = mt.tile_max_scores(query, corpus, mt.TILE, c)
+    tile_exact = torch.equal(mt.f32_keys(got), mt.f32_keys(mt.tile_max_scores_plain(
+        query, corpus, mt.TILE, c)))
+    scores = query @ corpus.T
+    idx, _, _ = mips_topk_exact(corpus, query, TOPK)
+    pipe_exact = torch.equal(idx, topk_ordered(scores, TOPK)[1])
+    print(f"tile max on non-finite scores ({int(scores.isnan().sum())} NaN, "
+          f"{int(scores.isinf().sum())} inf of {scores.numel()}): B2 vs plain bit-equal="
+          f"{tile_exact}; pipeline indices vs topk_ordered on the dense scores equal={pipe_exact}",
+          flush=True)
+    return tile_exact and pipe_exact
 
 
 def main() -> int:
@@ -1463,6 +1949,7 @@ def main() -> int:
     mp = mt.tile_max_scores_plain(q, corpus, mt.TILE, c)
     scale = float(mp.abs().max())
     ok, err = close(mk, mp, 1e-5, 1e-5 * scale)
+    ok = nonfinite_check(torch, dev) and ok
     entry(
         "tile_max_scores", "two_tower_models_tpu_torch/csrc/tile_max.cu",
         "two_tower_models_tpu/ops/pallas/mips_topk.py:112", ok, err,
@@ -1555,11 +2042,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 5: large tables -------------------------------------------
-    phase_tables(torch, args, smi, dev, entry, entries, failures)
+    ms_packed = phase_tables(torch, args, smi, dev, entry, entries, failures)
     torch.cuda.empty_cache()
 
     # ---- phase 6: the per-layer attention tier ---------------------------
-    phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms)
+    layer_legs = phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms)
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: the blockwise attention tier ---------------------------
+    phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, layer_legs)
+
+    # ---- phase 8: fused Adam ---------------------------------------------
+    phase_fused_adam(torch, args, smi, dev, entry, entries, failures, ms_packed)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     if failures:
         _fail(", ".join(failures))

@@ -35,6 +35,7 @@ from two_tower_models_tpu_torch.ops import _lib
 from two_tower_models_tpu_torch.ops import fused_encoder as fe
 from two_tower_models_tpu_torch.ops import fused_mha as fm
 from two_tower_models_tpu_torch.ops import fused_softmax as fs
+from two_tower_models_tpu_torch.ops import history_attention as ha
 from two_tower_models_tpu_torch.ops import mips_topk as mt
 from two_tower_models_tpu_torch.ops import rows_write as rw
 from two_tower_models_tpu_torch.ops import scatter_add as rsa
@@ -824,3 +825,183 @@ def test_mha_wrappers_reject_what_the_kernels_do_not_take(dev):
         fm.fused_mha_fwd(x.half(), None, *w, 4)
     with pytest.raises(ValueError, match="shapes"):
         fm.fused_mha_fwd(x, None, w[0][:, :96], *w[1:], 4)
+
+
+def _attn_case(n, h, dh, dev, seed, lens_kind, mag=1.0):
+    """q, k, v, a cotangent [N, H, Dh] f32 and lengths int32 [N] (all H,
+    uniform with 1 and H among them, or all 1)."""
+    r = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy((r.normal(size=(n, h, dh)) * s).astype(np.float32)).to(dev)
+                  for s in (mag, mag, 1.0, 1.0))
+    lens = {"full": np.full(n, h), "mix": r.integers(1, h + 1, size=n), "ones": np.ones(n)}[lens_kind]
+    if lens_kind == "mix":
+        lens[: min(n, 2)] = [h, 1][: min(n, 2)]
+    return q, k, v, g, torch.from_numpy(lens.astype(np.int32)).to(dev)
+
+
+def _attn_bwd_inputs(q, k, v, g, lens):
+    out, lse = ha.blockwise_attn_fwd_plain(q, k, v, lens)
+    return (q, k, v, g, lse, (g * out).sum(-1), lens)
+
+
+# the flagship fold (N = B * 4 heads, H = 32, Dh = 16); H = 1; H = 33 and
+# 200, not multiples of a warp's 32 rows; several tiles (384); Dh 32 and 64
+_ATTN_SHAPES = [
+    (4096, 32, 16, "mix"), (37, 1, 16, "full"), (9, 33, 16, "mix"), (3, 200, 32, "mix"),
+    (2, 384, 64, "mix"), (5, 64, 64, "ones"), (6, 130, 16, "full"),
+]
+
+
+@pytest.mark.parametrize("n,h,dh,lens_kind", _ATTN_SHAPES)
+def test_blockwise_attn_fwd_kernel_matches_plain(dev, n, h, dh, lens_kind):
+    """B15 against its plain version: out on every row (rows past a length
+    too) and the lse, f32 sums in another order (rtol 1e-4, atol 1e-5, the
+    JAX package's tolerance for the blockwise kernel)."""
+    q, k, v, _, lens = _attn_case(n, h, dh, dev, n + h, lens_kind)
+    before = _lib.launches["blockwise_attn_fwd"]
+    out, lse = ha.blockwise_attn_fwd(q, k, v, lens)
+    assert _lib.launches["blockwise_attn_fwd"] == before + 1
+    want_out, want_lse = ha.blockwise_attn_fwd_plain(q, k, v, lens)
+    _assert_close(out, want_out, 1e-4, 1e-5)
+    _assert_close(lse, want_lse, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("n,h,dh,lens_kind", _ATTN_SHAPES)
+def test_blockwise_attn_bwd_kernels_match_plain(dev, n, h, dh, lens_kind):
+    """B16 and B17 against the plain backward, within 1e-4 of each grad's
+    scale, or of the size of one term |do| |v| where the exact grad is 0
+    (H = 1: one key takes all the probability, so dq = dk = 0); masked keys
+    get dk = dv = 0 exactly."""
+    args = _attn_bwd_inputs(*_attn_case(n, h, dh, dev, n + h + 1, lens_kind))
+    dq = ha.blockwise_attn_dq(*args)
+    dk, dv = ha.blockwise_attn_dkv(*args)
+    term = float(args[3].abs().max() * args[2].abs().max())
+    for got, want in zip((dq, dk, dv), ha.blockwise_attn_bwd_plain(*args)):
+        _scaled_close(got, want, 1e-4, floor=term)
+    masked = torch.arange(h, device=dev)[None, :] >= args[-1][:, None]
+    assert bool((dk[masked] == 0).all()) and bool((dv[masked] == 0).all())
+
+
+def test_blockwise_attn_kernels_are_deterministic_and_stable(dev):
+    """Two runs give bit-equal outputs and grads (no atomics); scores of
+    some thousands (q and k at 30 sigma) stay finite, as the JAX package's
+    extreme-score test asks, masked keys included (exp(s - lse) of a masked
+    key overflows there)."""
+    args = _attn_case(64, 256, 16, dev, 11, "mix", mag=30.0)
+    q, k, v, g, lens = args
+    runs = [(*ha.blockwise_attn_fwd(q, k, v, lens), ha.blockwise_attn_dq(*_attn_bwd_inputs(*args)),
+             *ha.blockwise_attn_dkv(*_attn_bwd_inputs(*args))) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b) and bool(a.isfinite().all())
+    _assert_close(runs[0][0], ha.blockwise_attn_fwd_plain(q, k, v, lens)[0], 1e-3, 1e-4)
+
+
+def test_blockwise_autograd_matches_plain_route(dev):
+    """blockwise_self_attention with grad wanted on the card (B15, then B16
+    and B17) against the CPU route, bf16 inputs cast to f32 and back."""
+    q, k, v, g, lens = _attn_case(50, 40, 32, dev, 12, "mix")
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        leaves = [t.to(device).bfloat16().requires_grad_() for t in (q, k, v)]
+        before = dict(_lib.launches)
+        y = ha.blockwise_self_attention(*leaves, lengths=lens.to(device) + 5)  # clipped to H
+        y.backward(g.to(device).bfloat16())
+        if device.type == "cuda":
+            for name in ("blockwise_attn_fwd", "blockwise_attn_dq", "blockwise_attn_dkv"):
+                assert _lib.launches[name] == before.get(name, 0) + 1
+        assert y.dtype == torch.bfloat16 and all(t.grad.dtype == torch.bfloat16 for t in leaves)
+        outs.append([y.detach().float().cpu(), *(t.grad.float().cpu() for t in leaves)])
+    for a, e in zip(*outs):
+        _scaled_close(a, e, 1e-2)  # one bf16 rounding of out and grads
+
+
+def test_blockwise_tier_launches_b15_b16_b17(dev):
+    """history_encoder_apply on the blockwise tier, forward and backward:
+    one B15, B16 and B17 per layer, none of B1, B5-B9, B13, B14; under
+    inference_mode B15 alone, with and without lengths."""
+    cfg = HistoryEncoderConfig(num_heads=4, num_layers=3, blockwise_kernel=True,
+                               fused_encoder=False)
+    enc = he.HistoryEncoder(64, cfg, device=dev)
+    enc.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    x = _randn(13, 16, 32, 64, dev=dev)
+    lens = torch.randint(1, 33, (16,), device=dev)
+    others = ["fused_history_encoder", "fused_history_encoder_res", "fused_history_encoder_bwd",
+              "fused_history_encoder_bwd_recompute", "fused_attn_stack", "fused_attn_stack_bwd",
+              "fused_mha_fwd", "fused_mha_bwd"]
+    for lengths in (None, lens):
+        _lib.reset_launch_counts()
+        y = he.history_encoder_apply(enc, x.clone().requires_grad_(), cfg, torch.bfloat16, lengths)
+        y.sum().backward()
+        with torch.inference_mode():
+            he.history_encoder_apply(enc, x, cfg, torch.bfloat16, lengths)
+        counts = dict(_lib.launches)
+        assert counts.get("blockwise_attn_fwd") == 6
+        assert counts.get("blockwise_attn_dq") == 3 and counts.get("blockwise_attn_dkv") == 3
+        assert not any(counts.get(n) for n in others)
+
+
+def test_blockwise_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """A head dim the kernels are not built for, bf16 tensors (the public
+    function casts them; the wrappers do not) and lengths of the wrong
+    type raise; nothing falls back."""
+    q, k, v, _, lens = _attn_case(2, 8, 16, dev, 13, "mix")
+    with pytest.raises(ValueError, match="Dh"):
+        ha.blockwise_attn_fwd(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                              v[..., :8].contiguous(), lens)
+    with pytest.raises(TypeError):
+        ha.blockwise_attn_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), lens)
+    with pytest.raises(ValueError, match="lengths"):
+        ha.blockwise_attn_fwd(q, k, v, lens.long())
+
+
+@pytest.mark.parametrize("shape,p_dtype,g_dtype,offset", [
+    ((1 << 16,), torch.float32, torch.float32, 0), ((1025, 130), torch.float32, torch.float32, 0),
+    ((4099,), torch.float32, torch.float32, 1), ((777, 33), torch.bfloat16, torch.float32, 0),
+    ((2048, 64), torch.float32, torch.bfloat16, 0), ((3, 5), torch.bfloat16, torch.bfloat16, 0),
+])
+def test_fused_adam_kernel_matches_plain_bit_for_bit(dev, shape, p_dtype, g_dtype, offset):
+    """B20 against its plain version over three steps: p, m and v bit-equal
+    (every operation rounded on its own on both sides).  Leaves that are
+    not a multiple of 4 (the scalar tail), a leaf at an odd offset (no
+    16-byte loads), a bf16 leaf and a bf16 gradient."""
+    from two_tower_models_tpu_torch.ops import fused_adam as fa
+
+    r = np.random.default_rng(sum(shape))
+    numel = int(np.prod(shape))
+    mk = lambda s, dt: torch.from_numpy((r.normal(size=numel + offset) * s).astype(np.float32)).to(
+        dev).to(dt)[offset:].view(shape)
+    p, m, v = mk(1.0, p_dtype), mk(1e-3, torch.float32), mk(1e-3, torch.float32).square()
+    states = [[t.clone() for t in (p, m, v)] for _ in range(2)]
+    for step in range(1, 4):
+        g = mk(0.1, g_dtype)
+        c = fa.bias_corrections(torch.tensor(step, dtype=torch.int32, device=dev))
+        before = _lib.launches["fused_adam"]
+        fa.fused_adam_leaf(*states[0], g, c, 1e-3)
+        assert _lib.launches["fused_adam"] == before + 1
+        fa.fused_adam_leaf_plain(*states[1], g, c, 1e-3)
+        for a, b in zip(*states):
+            assert torch.equal(a, b)
+
+
+def test_tile_max_orders_non_finite_scores_like_plain(dev):
+    """B2 on rows that score +-inf and NaN (+inf rows against a zeroed query
+    column give 0 * inf; a -NaN row; a +NaN row): equal to its plain
+    version bit for bit, and the pipeline's indices equal the dense top-k's
+    (integer-grid inputs: every finite sum is exact)."""
+    r = np.random.default_rng(14)
+    b, c, d, k = 64, 1 << 16, 64, 100
+    corpus = r.integers(-2, 3, size=(c, d)).astype(np.float32)
+    query = r.integers(-2, 3, size=(b, d)).astype(np.float32)
+    query[: b // 2, 0] = 0
+    corpus[np.arange(0, 150) * 128 + 5, 0] = np.inf
+    corpus[np.arange(150, 200) * 128 + 7, 1] = -np.inf
+    corpus[3, 2], corpus[77_777 % c, 5] = -np.nan, np.nan
+    cq, qq = torch.from_numpy(corpus).to(dev), torch.from_numpy(query).to(dev)
+    got = mt.tile_max_scores(qq, cq, mt.TILE, c)
+    want = mt.tile_max_scores_plain(qq, cq, mt.TILE, c)
+    assert torch.equal(mt.f32_keys(got), mt.f32_keys(want))
+    idx, _, _ = mips_topk(cq, qq, k)
+    from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact
+
+    got_idx, _, _ = mips_topk_exact(cq, qq, k)
+    assert torch.equal(got_idx, idx)

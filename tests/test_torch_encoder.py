@@ -147,29 +147,25 @@ def test_positional_encoding_of_short_histories_matches_jax(seq_len):
 
 def test_encoder_kernel_rejects_unported_layer_kernels():
     """The per-layer tiers without the whole-encoder kernel.  The name is
-    from when neither was ported and both raised: fused_kernel (each layer
-    in one kernel, its plain version here) now runs and equals JAX's output
-    at 1e-5, with and without lengths; blockwise_kernel still raises,
-    naming ROADMAP.md's queue B."""
+    from when neither was ported and both raised; both run now:
+    fused_kernel (each layer in one kernel) and blockwise_kernel (each
+    layer's attention blockwise), their plain versions here, equal JAX's
+    output at 1e-5, with and without lengths."""
     jcfg, jparams, tcfg, enc = _encoders(32, 2, 1, seed=9, fused_encoder=False)
     r = np.random.default_rng(10)
     x = r.normal(size=(3, 4, 32)).astype(np.float32)
     lengths = np.asarray([4, 1, 2], np.int32)
-    for lens in (None, lengths):
-        want = jhe.history_encoder_apply(
-            jparams, jnp.asarray(x), dataclasses.replace(jcfg, fused_kernel=True),
-            lengths=None if lens is None else jnp.asarray(lens),
-        )
-        got = the.history_encoder_apply(
-            enc, torch.from_numpy(x), dataclasses.replace(tcfg, fused_kernel=True),
-            lengths=None if lens is None else torch.from_numpy(lens),
-        )
-        _close(got.detach(), want, 1e-5)
-        with pytest.raises(NotImplementedError, match="queue B, B15-B17"):
-            the.history_encoder_apply(
-                enc, torch.from_numpy(x), dataclasses.replace(tcfg, blockwise_kernel=True),
+    for flag in ("fused_kernel", "blockwise_kernel"):
+        for lens in (None, lengths):
+            want = jhe.history_encoder_apply(
+                jparams, jnp.asarray(x), dataclasses.replace(jcfg, **{flag: True}),
+                lengths=None if lens is None else jnp.asarray(lens),
+            )
+            got = the.history_encoder_apply(
+                enc, torch.from_numpy(x), dataclasses.replace(tcfg, **{flag: True}),
                 lengths=None if lens is None else torch.from_numpy(lens),
             )
+            _close(got.detach(), want, 1e-5)
 
 
 @pytest.mark.parametrize("flag", ["fused_kernel", "blockwise_kernel"])

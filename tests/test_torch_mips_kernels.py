@@ -56,6 +56,36 @@ def test_tile_max_propagates_nan_like_pallas():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("case", ["inf-times-zero", "pos-nan-row", "neg-nan-row"])
+def test_exact_pipeline_matches_dense_on_non_finite_scores(case):
+    """The exact pipeline on scores that hold NaN, held against the JAX
+    package's dense mips_topk (lax.top_k: -NaN ranks below -inf, +NaN above
+    +inf): indices exactly, scores bit for bit.  inf-times-zero: rows with
+    +inf in a column every query zeroes score 0 * inf, a -NaN on x86, in six
+    tiles; the tile max took it as +NaN and those tiles crowded the true
+    top rows out.  Integer-grid inputs, so every finite sum is exact."""
+    from two_tower_models_tpu.retrieval.mips import mips_topk as jax_mips_topk
+    from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact
+
+    b, c, d, k = 4, 2048, 16, 3
+    r = np.random.default_rng(11)
+    corpus = r.integers(-2, 3, size=(c, d)).astype(np.float32)
+    query = r.integers(-2, 3, size=(b, d)).astype(np.float32)
+    if case == "inf-times-zero":
+        query[:, 0] = 0
+        corpus[np.arange(6) * 128 + 5, 0] = np.inf
+    elif case == "pos-nan-row":
+        corpus[700, 3] = np.nan
+        corpus[np.arange(6) * 128 + 9, 1] = -np.inf
+    else:
+        corpus[700, 3] = -np.nan
+        corpus[np.arange(6) * 128 + 9, 1] = np.inf
+    idx, scores, _ = mips_topk_exact(torch.from_numpy(corpus), torch.from_numpy(query), k)
+    widx, wscores, _ = jax_mips_topk(jnp.asarray(corpus), jnp.asarray(query), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(widx))
+    np.testing.assert_array_equal(scores.numpy().view(np.int32), np.asarray(wscores).view(np.int32))
+
+
 @pytest.mark.parametrize("d", [32, 64])
 def test_gather_rescore_matches_pallas(d):
     c, b, k, tile = 4096, 16, 5, 128

@@ -38,9 +38,11 @@ class HistoryEncoderConfig:
     num_layers: int = 3
     use_positional_encoding: bool = True
     # Per-layer attention tiers, read when fused_encoder is off: each layer
-    # in one kernel (fused_kernel, ops.fused_mha), or blockwise
-    # (blockwise_kernel; not ported yet, ROADMAP.md queue B: mha_apply
-    # raises).  Either turns the AUTO fused_encoder off.
+    # in one kernel (fused_kernel, ops.fused_mha), or its attention
+    # blockwise, O(H) memory in both directions (blockwise_kernel,
+    # ops.history_attention: for histories whose [H, H] probabilities do
+    # not fit).  fused_kernel wins when both are set.  Either turns the
+    # AUTO fused_encoder off.
     blockwise_kernel: bool = False
     fused_kernel: bool = False
     # Whole-encoder kernel (ops.fused_encoder).  None = AUTO: on iff the

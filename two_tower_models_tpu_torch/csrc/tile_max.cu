@@ -25,6 +25,15 @@ constexpr int THREADS = 256;  // 16 query groups x 16 row groups
 constexpr int TPB = 8;     // corpus tiles per block
 constexpr int CS = TILE + 1;  // padded row stride of the transposed tile
 
+// The monotone int32 key of an f32 (f32_keys of ops/mips_topk.py) and back.
+__device__ __forceinline__ int key_of(float x) {
+  int b = __float_as_int(x);
+  return b < 0 ? (b ^ 0x7fffffff) : b;
+}
+__device__ __forceinline__ float value_of(int k) {
+  return __int_as_float(k < 0 ? (k ^ 0x7fffffff) : k);
+}
+
 __global__ void __launch_bounds__(THREADS)
 tile_max_kernel(const float* __restrict__ q, const float* __restrict__ c,
                 float* __restrict__ m, int B, int C, int D, int valid, int NT) {
@@ -63,27 +72,29 @@ tile_max_kernel(const float* __restrict__ q, const float* __restrict__ c,
     float acc[RQ][RC];
     tt::dot_block<RQ, RC>(acc, qs + tq * RQ, 1, TQ, cs + tr, 16, CS, D);
 
-    // max that propagates NaN, as the plain amax and the Pallas jnp.max do
-    auto nan_max = [](float a, float b) { return (a > b || a != a) ? a : b; };
-    float best[RQ];
+    // max in the select's total order (the int32 key of f32_keys, not
+    // clamped, so the max maps back to its own bits): -NaN below -inf,
+    // +NaN above +inf, as the plain version takes it.  A tile's key is then
+    // at least every row's key, whatever the scores hold.
+    int best[RQ];
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
-      best[i] = -INFINITY;
+      best[i] = key_of(-INFINITY);
 #pragma unroll
       for (int j = 0; j < RC; ++j) {
         long long row = (long long)row0 + tr + 16 * j;
-        best[i] = nan_max(row < lim ? acc[i][j] : -INFINITY, best[i]);
+        if (row < lim) best[i] = max(best[i], key_of(acc[i][j]));
       }
       // the 16 row groups of one query group are 16 consecutive lanes
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
-        best[i] = nan_max(__shfl_xor_sync(0xffffffffu, best[i], off), best[i]);
+        best[i] = max(best[i], __shfl_xor_sync(0xffffffffu, best[i], off));
     }
     if (tr == 0) {
 #pragma unroll
       for (int i = 0; i < RQ; ++i) {
         int b = q0 + tq * RQ + i;
-        if (b < B) m[(size_t)b * NT + t] = best[i];
+        if (b < B) m[(size_t)b * NT + t] = value_of(best[i]);
       }
     }
   }

@@ -8,7 +8,7 @@ kernel (``ops.fused_encoder``): ``fused_history_encoder`` for full
 histories, ``fused_attn_stack`` under per-example ``lengths``; otherwise
 ``mha_apply`` runs layer by layer, each layer in one kernel with
 ``fused_kernel`` (``ops.fused_mha``, B13 and B14), blockwise with
-``blockwise_kernel`` (not ported: ``mha_apply`` raises), else dense.  The
+``blockwise_kernel`` (``ops.history_attention``, B15-B17), else dense.  The
 PE, the zeroing past each length and the f32 mean-pool stay outside the
 kernels.
 """

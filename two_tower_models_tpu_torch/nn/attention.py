@@ -4,7 +4,9 @@ projection, per-head softmax attention, output projection, batch-major
 ``fused`` branch runs the whole layer in one kernel
 (``ops.fused_mha.fused_mha_layer``, B13 and B14), which rounds at other
 points and is held against its own plain version.  The ``blockwise``
-branch (B15-B17) is not ported yet.
+branch folds the heads into the leading axis and runs
+``ops.history_attention.blockwise_self_attention`` (B15 forward; B16, B17
+backward) between the same projections as the dense branch.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from torch import nn
 
 from two_tower_models_tpu_torch.nn.layers import Linear, linear_apply
 from two_tower_models_tpu_torch.ops.fused_mha import fused_mha_layer
+from two_tower_models_tpu_torch.ops.history_attention import blockwise_self_attention
 
 
 class MultiheadAttention(nn.Module):
@@ -51,9 +54,10 @@ def mha_apply(
     lengths: torch.Tensor | None = None,  # [B] valid lengths; keys past it masked
 ) -> torch.Tensor:
     """Self-attention (q = k = v = x), [B, H, D] -> [B, H, D]: f32 on the
-    dense branch; in x's dtype with ``fused``, which casts x to the compute
-    dtype, runs ``fused_mha_layer`` and casts its output back.  Query rows
-    past an example's length are computed with their keys masked."""
+    dense and blockwise branches; in x's dtype with ``fused``, which casts x
+    to the compute dtype, runs ``fused_mha_layer`` and casts its output
+    back (``fused`` is read first, as in the JAX package).  Query rows past
+    an example's length are computed with their keys masked."""
     if fused:
         y = fused_mha_layer(
             x if compute_dtype is None else x.to(compute_dtype),
@@ -61,10 +65,6 @@ def mha_apply(
             num_heads, lengths=lengths,
         )
         return y.to(x.dtype)
-    if blockwise:
-        raise NotImplementedError(
-            "the blockwise attention kernels are not ported yet (ROADMAP.md, queue B, B15-B17)"
-        )
     b, h, d = x.shape
     hd = d // num_heads
     qkv = linear_apply(layer.in_proj, x, compute_dtype)  # [B, H, 3D] f32
@@ -74,10 +74,18 @@ def mha_apply(
         return t.reshape(b, h, num_heads, hd).transpose(1, 2)
 
     q, k, v = heads(q), heads(k), heads(v)
-    scores = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(hd))  # [B, nh, H, H]
-    if lengths is not None:
-        key_valid = torch.arange(h, device=x.device)[None, :] < lengths[:, None]
-        scores = scores.masked_fill(~key_valid[:, None, None, :], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    out = (probs @ v).transpose(1, 2).reshape(b, h, d).to(x.dtype)
+    if blockwise:
+        # heads fold into the leading axis as n = b * nh + head, the lengths
+        # repeated per head in that order (jnp.repeat)
+        fold = lambda t: t.reshape(b * num_heads, h, hd)
+        lens = None if lengths is None else lengths.repeat_interleave(num_heads)
+        out = blockwise_self_attention(fold(q), fold(k), fold(v), lengths=lens)
+        out = out.reshape(b, num_heads, h, hd)
+    else:
+        scores = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(hd))  # [B, nh, H, H]
+        if lengths is not None:
+            key_valid = torch.arange(h, device=x.device)[None, :] < lengths[:, None]
+            scores = scores.masked_fill(~key_valid[:, None, None, :], float("-inf"))
+        out = torch.softmax(scores, dim=-1) @ v  # [B, nh, H, hd]
+    out = out.transpose(1, 2).reshape(b, h, d).to(x.dtype)
     return linear_apply(layer.out_proj, out, compute_dtype)

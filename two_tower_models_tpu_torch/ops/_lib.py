@@ -42,7 +42,8 @@ build_seconds: float | None = None  # wall time of the build this process ran
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: every entry takes its pointers, ints and the stream last.
+_F = ctypes.c_float
+# C signatures: every entry takes its pointers, floats, ints and the stream last.
 _SIGNATURES = {
     "tt_fused_history_encoder": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "tt_tile_max_scores": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -61,6 +62,10 @@ _SIGNATURES = {
     "tt_fused_mha_fwd": [_P] * 7 + [_I] * 6 + [_P],
     "tt_fused_mha_bwd": [_P] * 8 + [_I] * 7 + [_P],
     "tt_fused_mha_bwd_reduce": [_P, _P, _I, _I, _P],
+    "tt_blockwise_attn_fwd": [_P] * 6 + [_I] * 3 + [_P],
+    "tt_blockwise_attn_dq": [_P] * 8 + [_I] * 3 + [_P],
+    "tt_blockwise_attn_dkv": [_P] * 9 + [_I] * 3 + [_P],
+    "tt_fused_adam": [_P] * 5 + [_F] * 6 + [_I] * 3 + [ctypes.c_longlong, _P],
 }
 
 

@@ -1,0 +1,201 @@
+"""Blockwise (flash) self-attention over the user-history axis: the
+forward and its two-kernel backward (the blockwise attention tier).
+
+Port of ``two_tower_models_tpu/ops/pallas/history_attention.py``:
+
+- B15, ``_attn_kernel`` (``pallas_call`` at :144): ``blockwise_attn_fwd``,
+  softmax(q kᵀ / √Dh) v with an online softmax over key tiles, keys at or
+  past each leading index's length scored −1e30, and the per-row
+  lse = m + log l saved for the backward (``csrc/history_attention.cu``);
+- B16, ``_dq_kernel`` (:277): ``blockwise_attn_dq``;
+- B17, ``_dkv_kernel`` (:295): ``blockwise_attn_dkv``.
+
+``_BlockwiseAttention`` is the ``_blockwise_core`` custom VJP: the forward
+saves q, k, v, the lengths, the output and the lse, never the [H, H]
+probabilities; the backward takes delta = rowsum(do ∘ out) in f32 outside
+the kernels, then B16 and B17 recompute the probabilities tile by tile.
+Memory is O(H) per row in both directions.  ``blockwise_self_attention``
+runs B15 alone when no gradient is wanted.
+
+Layout [N, H, Dh], the heads folded into N (``nn.attention.mha_apply``);
+lse and delta are [N, H] f32 (the TPU's [N, 1, H] padding is a layout of
+its lanes).  The TPU's ``q_tile``/``kv_tile`` and its padding of Dh to 128
+lanes are Mosaic tiling, not semantics: the CUDA kernels pick their own
+tiles and take Dh in {16, 32, 64}.  Each kernel has a plain PyTorch
+version beside it (dense, the [N, H, H] scores materialised): the CPU
+path, and the reference the kernel is held against on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from two_tower_models_tpu_torch.ops import _lib
+
+_NEG_INF = -1e30  # a masked key's score (the Pallas kernels' _NEG_INF)
+HEAD_DIMS = (16, 32, 64)  # the head dims the CUDA kernels are built for
+
+
+def _scale(dh: int) -> float:
+    return 1.0 / (dh**0.5)
+
+
+def _masked_scores(q, k, lens) -> torch.Tensor:
+    """s = q kᵀ · scale [N, H, H], keys at or past ``lens`` at −1e30."""
+    h = q.shape[1]
+    s = (q @ k.transpose(1, 2)) * _scale(q.shape[2])
+    invalid = torch.arange(h, device=q.device)[None, :] >= lens[:, None].to(q.device)
+    return s.masked_fill(invalid[:, None, :], _NEG_INF)
+
+
+def blockwise_attn_fwd_plain(q, k, v, lens):
+    """B15's function on f32 [N, H, Dh] q, k, v and [N] lengths in [1, H]:
+    (out [N, H, Dh], lse [N, H]), both f32, with out = Σ p v / l over the
+    valid keys and lse = m + log l."""
+    s = _masked_scores(q, k, lens)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return (p @ v) / l, (m + torch.log(l))[..., 0]
+
+
+def blockwise_attn_bwd_plain(q, k, v, do, lse, delta, lens):
+    """B16's and B17's function: (dq, dk, dv), f32 [N, H, Dh], from the
+    output cotangent ``do``, the forward's ``lse`` and delta = rowsum(do ∘
+    out) [N, H].  p = exp(s − lse), ds = p (do·v − delta); dq = scale Σ ds k,
+    dk = scale Σ dsᵀ q, dv = Σ pᵀ do.  Masked keys get dk = dv = 0."""
+    p = torch.exp(_masked_scores(q, k, lens) - lse[..., None])
+    ds = p * (do @ v.transpose(1, 2) - delta[..., None])
+    scale = _scale(q.shape[2])
+    return (ds @ k) * scale, (ds.transpose(1, 2) @ q) * scale, p.transpose(1, 2) @ do
+
+
+def attention_reference(q, k, v):
+    """Dense reference for parity tests (no lengths): softmax(q kᵀ / √Dh) v
+    in f32, cast to q's dtype."""
+    s = (q.float() @ k.float().transpose(1, 2)) * _scale(q.shape[-1])
+    return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
+
+
+def _check(name: str, lens: torch.Tensor, full, rows=()) -> None:
+    """``full``: [N, H, Dh] tensors (q first); ``rows``: [N, H] ones."""
+    q = full[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dim() != 3 or q.shape[2] not in HEAD_DIMS:
+        raise ValueError(f"{name}: takes [N, H, Dh] with Dh in {HEAD_DIMS}, got {tuple(q.shape)}")
+    for want, ts in ((q.shape, full), (q.shape[:2], rows)):
+        for t in ts:
+            if t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
+                raise TypeError(f"{name}: takes contiguous f32 tensors on one device")
+            if t.shape != want:
+                raise ValueError(f"{name}: shape {tuple(t.shape)} where {tuple(want)} is due")
+    if lens.shape != q.shape[:1] or lens.dtype != torch.int32 or lens.device != q.device:
+        raise ValueError(f"{name}: lengths must be int32 [{q.shape[0]}] on {q.device}")
+
+
+def blockwise_attn_fwd(q, k, v, lens):
+    """(out, lse); see ``blockwise_attn_fwd_plain``.  A CPU tensor takes
+    the plain version; a CUDA tensor launches kernel B15."""
+    if q.device.type == "cpu":
+        return blockwise_attn_fwd_plain(q, k, v, lens)
+    _check("blockwise_attn_fwd", lens, (q, k, v))
+    n, h, dh = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((n, h), dtype=torch.float32, device=q.device)
+    if n and h:
+        err = _lib.library().tt_blockwise_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), n, h, dh, _lib.stream_ptr(q),
+        )
+        _lib.check(err, "blockwise_attn_fwd")
+        _lib.launches["blockwise_attn_fwd"] += 1
+    return out, lse
+
+
+def blockwise_attn_dq(q, k, v, do, lse, delta, lens):
+    """dq; see ``blockwise_attn_bwd_plain``.  A CPU tensor takes the plain
+    version; a CUDA tensor launches kernel B16."""
+    if q.device.type == "cpu":
+        return blockwise_attn_bwd_plain(q, k, v, do, lse, delta, lens)[0]
+    _check("blockwise_attn_dq", lens, (q, k, v, do), (lse, delta))
+    n, h, dh = q.shape
+    dq = torch.empty_like(q)
+    if n and h:
+        err = _lib.library().tt_blockwise_attn_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), lens.data_ptr(), dq.data_ptr(), n, h, dh, _lib.stream_ptr(q),
+        )
+        _lib.check(err, "blockwise_attn_dq")
+        _lib.launches["blockwise_attn_dq"] += 1
+    return dq
+
+
+def blockwise_attn_dkv(q, k, v, do, lse, delta, lens):
+    """(dk, dv); see ``blockwise_attn_bwd_plain``.  A CPU tensor takes the
+    plain version; a CUDA tensor launches kernel B17."""
+    if q.device.type == "cpu":
+        return blockwise_attn_bwd_plain(q, k, v, do, lse, delta, lens)[1:]
+    _check("blockwise_attn_dkv", lens, (q, k, v, do), (lse, delta))
+    n, h, dh = q.shape
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    if n and h:
+        err = _lib.library().tt_blockwise_attn_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), lens.data_ptr(), dk.data_ptr(), dv.data_ptr(), n, h, dh,
+            _lib.stream_ptr(q),
+        )
+        _lib.check(err, "blockwise_attn_dkv")
+        _lib.launches["blockwise_attn_dkv"] += 1
+    return dk, dv
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().float().contiguous()
+
+
+class _BlockwiseAttention(torch.autograd.Function):
+    """The JAX ``_blockwise_core`` custom VJP: B15 forward, saving q, k, v
+    (as f32), the lengths, the output (in q's dtype) and the lse; B16 and
+    B17 backward, their f32 grads cast to each input's dtype.  The lengths
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lens):
+        q32, k32, v32 = _f32(q), _f32(k), _f32(v)
+        out, lse = blockwise_attn_fwd(q32, k32, v32, lens)
+        out = out.to(q.dtype)
+        ctx.dtypes = (q.dtype, k.dtype, v.dtype)
+        ctx.save_for_backward(q32, k32, v32, lens, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, lens, out, lse = ctx.saved_tensors
+        do = _f32(g)
+        delta = (do * out.float()).sum(-1)  # [N, H] f32, outside the kernels
+        dq = blockwise_attn_dq(q, k, v, do, lse, delta, lens)
+        dk, dv = blockwise_attn_dkv(q, k, v, do, lse, delta, lens)
+        return (*(t.to(dt) for t, dt in zip((dq, dk, dv), ctx.dtypes)), None)
+
+
+def blockwise_self_attention(
+    q: torch.Tensor,  # [N, H, Dh]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor | None = None,  # optional [N] valid key counts
+) -> torch.Tensor:
+    """softmax(q kᵀ / √Dh) v per leading index, computed in f32 and cast to
+    q's dtype; keys at or past ``lengths`` (clipped to [1, H]; H when None)
+    are masked, and the query rows there are computed all the same.  When a
+    gradient is wanted it runs the ``autograd.Function`` (B15, then B16 and
+    B17); otherwise B15."""
+    n, h, _ = q.shape
+    lens = (
+        torch.full((n,), h, dtype=torch.int32, device=q.device)
+        if lengths is None
+        else lengths.to(device=q.device, dtype=torch.int32).clamp(1, h).contiguous()
+    )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _BlockwiseAttention.apply(q, k, v, lens)
+    return blockwise_attn_fwd(_f32(q), _f32(k), _f32(v), lens)[0].to(q.dtype)

@@ -70,7 +70,10 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def tile_max_scores_plain(query, corpus, tile, valid_count) -> torch.Tensor:
     """m[b, t] = max over tile t's rows r < min(valid_count, C) of
-    <query_b, corpus_r> (-inf where none), [B, ceil(C / tile)] f32."""
+    <query_b, corpus_r> (-inf where none), [B, ceil(C / tile)] f32.  The max
+    is taken in the select's total order (``f32_keys``: -NaN below -inf,
+    +NaN above +inf), so a tile's key is at least each of its rows' keys
+    whatever the scores hold, and the pipeline stays exact."""
     b, c = query.shape[0], corpus.shape[0]
     n_tiles = -(-c // tile)
     q = query.float()
@@ -82,8 +85,8 @@ def tile_max_scores_plain(query, corpus, tile, valid_count) -> torch.Tensor:
         row = torch.arange(r0, r0 + nr, device=q.device)
         s = torch.nn.functional.pad(s, (0, nr - s.shape[1]))
         s = s.masked_fill((row >= min(valid_count, c))[None, :], float("-inf"))
-        out.append(s.reshape(b, nr // tile, tile).amax(dim=-1))
-    return torch.cat(out, dim=1)
+        out.append(f32_keys(s).reshape(b, nr // tile, tile).amax(dim=-1))
+    return keys_f32(torch.cat(out, dim=1))
 
 
 def tile_max_scores(

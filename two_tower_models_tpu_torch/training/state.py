@@ -4,8 +4,10 @@ Port of ``two_tower_models_tpu/training/state.py``.  ``Adam`` is
 ``optax.adam`` (``scale_by_adam`` then the learning rate), written in plain
 torch in optax's order, with ``optax.clip_by_global_norm`` ahead of it when
 ``TrainConfig.grad_clip_norm`` is set; ``torch.optim.Adam`` folds the bias
-corrections in elsewhere.  The update is in place on the parameters and
-the moments: the port keeps one copy of each, where JAX returns new arrays.
+corrections in elsewhere.  With ``TrainConfig.fused_adam`` the same
+update runs one pass per leaf (``FusedAdam``, ``ops.fused_adam``).  The
+update is in place on the parameters and the moments: the port keeps one
+copy of each, where JAX returns new arrays.
 Large id tables are stored 128-lane packed (``maybe_pack_tables``,
 ``nn.packed_table``); with ``TrainConfig.lazy_table_adam`` the tables keep
 their moments outside ``Adam`` (``LazyAdamState``, ``training.sparse_tables``).
@@ -21,6 +23,7 @@ from torch import nn
 from two_tower_models_tpu_torch.config import ModelConfig, TrainConfig
 from two_tower_models_tpu_torch.models.two_tower import TwoTowerModel, init_params
 from two_tower_models_tpu_torch.nn.packed_table import pack_factor, pack_table, packed_shape
+from two_tower_models_tpu_torch.ops.fused_adam import fused_adam_step
 from two_tower_models_tpu_torch.training.sparse_tables import SPARSE_TABLE_KEYS, init_table_moments
 
 
@@ -113,9 +116,21 @@ class Adam:
         return AdamState(count, state.mu, state.nu)
 
 
+class FusedAdam(Adam):
+    """``TrainConfig(fused_adam=True)``: the same Adam and the same
+    ``AdamState``, each leaf updated in one pass (``ops.fused_adam``, B20 for
+    leaves of 2^16 elements or more), with the bias corrections multiplied
+    in as reciprocals, as the JAX package's ``fused_adam_step`` does.  No
+    clipping: ``make_optimizer`` refuses it with ``grad_clip_norm``."""
+
+    def update(self, params: TwoTowerModel, grads: Dict[str, torch.Tensor],
+               state: AdamState) -> AdamState:
+        return fused_adam_step(dict(params.named_parameters()), grads, state, self.learning_rate)
+
+
 def make_optimizer(train_cfg: TrainConfig) -> Adam:
-    """Adam, with global-norm clipping ahead of it when configured; raises
-    where the JAX package does, and on the unported fused Adam."""
+    """Adam, with global-norm clipping ahead of it when configured, or
+    ``FusedAdam`` with ``fused_adam``; raises where the JAX package does."""
     clip = train_cfg.grad_clip_norm
     if clip and train_cfg.fused_adam:
         raise ValueError(
@@ -129,7 +144,7 @@ def make_optimizer(train_cfg: TrainConfig) -> Adam:
             "use the dense path"
         )
     if train_cfg.fused_adam:
-        raise _not_ported("fused_adam (the one-pass Adam kernel, B20)", "queue B, B20")
+        return FusedAdam(train_cfg.learning_rate)
     return Adam(train_cfg.learning_rate, clip or None)
 
 
