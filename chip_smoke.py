@@ -7,7 +7,9 @@ Phases, in the order they run; any failure exits non-zero:
 
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, and the build of the CUDA kernels from csrc/ (nvcc, on
-     first use; cached under two_tower_models_tpu_torch/_build/);
+     first use; cached under two_tower_models_tpu_torch/_build/); beside the
+     build, nvcc -Xptxas -v on csrc/fused_softmax.cu for the CE backward's
+     registers, stack and spills (a spill fails the run);
   2. kernels: each of the four kernels of the serving path is held against
      its plain PyTorch version on the card, on the tensors the serving path
      gives it, and timed beside that plain version, a one-call PyTorch
@@ -32,9 +34,10 @@ Phases, in the order they run; any failure exits non-zero:
      copied: 65,536-row user and item tables, D=64, 16 features, T=3,
      H=32, 3-layer 4-head bf16 encoder, Debias.BOTH, fused loss; B=4096,
      Adam at lr 1e-3), weights and one fixed batch random from --seed.
-     The five training kernels (encoder residual forward and backward,
-     in-batch CE forward and its two backward kernels) are held against
-     their plain versions on the step's own tensors and timed.  Then 3
+     The training kernels (encoder residual forward and backward, in-batch
+     CE forward, and the CE backward that writes dU and dI in one pass over
+     the score tiles, bit-equal on repeat) are held against their plain
+     versions on the step's own tensors and timed.  Then 3
      warm-up and 20 timed steps through make_train_step; launch
      counters are zeroed around the timed steps and must show one launch
      per step of each training kernel (and of the backward's reduce) and
@@ -157,6 +160,27 @@ LONG_N, LONG_H = 4, 4096  # scripts/tpu_kernel_parity.py:275-293's long history 
 def _fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     raise SystemExit(1)
+
+
+def ptxas_report(log: str, kernels) -> list:
+    """Print each kernel's registers, stack and spills from nvcc -Xptxas -v
+    output; returns the kernels that spill."""
+    lines, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = next((k for k in kernels if k in line), None)
+        elif cur and ("Used" in line or "spill" in line):
+            lines.setdefault(cur, []).append(line.replace("ptxas info    :", "").strip())
+    # dynamic shared memory of ce_bwd_kernel: bwd::SMEM_FLOATS in csrc/fused_softmax.cu
+    smem = {"ce_bwd_kernel": 4 * (128 * 68 + 2 * 64 * 68 + 128 * 72 + 2 * 128), "ce_bwd_reduce": 0}
+    spills = []
+    for k in kernels:
+        got = lines.get(k, [])
+        print(f"ptxas {k}: {'; '.join(got) or 'no report'}; dynamic shared memory "
+              f"{smem.get(k, 0)} bytes a block", flush=True)
+        if not got or any(" 0 bytes spill stores" not in ln for ln in got if "spill" in ln):
+            spills.append(k)
+    return spills
 
 
 def time_ms(torch, fn, iters: int = 10) -> float:
@@ -572,25 +596,32 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
         time_ms(torch, lambda: fs.in_batch_ce_fwd_plain(u, it)),
         2 * b * d * 4 + 2 * b * 4, 2 * b * b * d, F32_FLOPS, time_ms(torch, ce_lib),
     )
+    # B11 and B12: one pass over the score tiles writes both gradients
     term = float(g_ce.abs().max()) * max(float(u.abs().max()), float(it.abs().max()))
-    sm = lambda: torch.softmax(u @ it.T, 1) * g_ce[:, None]
-    for name, kern, plain, other, lib, src in (
-        ("in_batch_ce_bwd_du", fs.in_batch_ce_bwd_du, fs.in_batch_ce_bwd_du_plain, it,
-         lambda: sm() @ it - g_ce[:, None] * it, ":228"),
-        ("in_batch_ce_bwd_di", fs.in_batch_ce_bwd_di, fs.in_batch_ce_bwd_di_plain, u,
-         lambda: sm().T @ u - g_ce[:, None] * u, ":246"),
-    ):
-        got, want = kern(u, it, lse_k, g_ce), plain(u, it, lse_p, g_ce)
-        ok, err = close(got, want, 0.0, 1e-5 * max(float(want.abs().max()), term))
-        entry(
-            name, "two_tower_models_tpu_torch/csrc/fused_softmax.cu",
-            "two_tower_models_tpu/ops/pallas/fused_softmax.py" + src, ok, err,
-            time_ms(torch, lambda: kern(u, it, lse_k, g_ce)),
-            time_ms(torch, lambda: plain(u, it, lse_k, g_ce)),
-            2 * b * d * 4 + 2 * b * 4 + b * d * 4, 4 * b * b * d, F32_FLOPS,
-            time_ms(torch, lib),
-        )
-    del ce_p, lse_p
+    (du_k, di_k), (du_p, di_p) = (fs.in_batch_ce_bwd(u, it, lse_k, g_ce),
+                                  fs.in_batch_ce_bwd_plain(u, it, lse_p, g_ce))
+    checks = [close(got, want, 0.0, 1e-5 * max(float(want.abs().max()), term))
+              for got, want in ((du_k, du_p), (di_k, di_p))]
+    du_2, di_2 = fs.in_batch_ce_bwd(u, it, lse_k, g_ce)
+    repeat = torch.equal(du_k, du_2) and torch.equal(di_k, di_2)
+    print(f"CE backward (dU, dI) vs plain: max_abs_err {[float(f'{e:.3g}') for _, e in checks]} "
+          f"(tol 1e-5 of scale); bit-equal on repeat={repeat}", flush=True)
+
+    def ce_bwd_lib():  # one softmax, both gradients
+        sm = torch.softmax(u @ it.T, 1) * g_ce[:, None]
+        return sm @ it - g_ce[:, None] * it, sm.T @ u - g_ce[:, None] * u
+
+    entry(
+        "in_batch_ce_bwd", "two_tower_models_tpu_torch/csrc/fused_softmax.cu",
+        "two_tower_models_tpu/ops/pallas/fused_softmax.py:228 and :246",
+        all(ok for ok, _ in checks) and repeat, max(err for _, err in checks),
+        time_ms(torch, lambda: fs.in_batch_ce_bwd(u, it, lse_k, g_ce)),
+        time_ms(torch, lambda: fs.in_batch_ce_bwd_plain(u, it, lse_k, g_ce)),
+        4 * b * d * 4 + 2 * b * 4, 6 * b * b * d, F32_FLOPS, time_ms(torch, ce_bwd_lib),
+    )
+    entries["in_batch_ce_bwd"]["note"] = (
+        "B11 (dU) and B12 (dI) in one kernel; ms includes the launch that sums its partial slices")
+    del ce_p, lse_p, du_k, di_k, du_p, di_p, du_2, di_2
 
     layers = model.history_encoder.attn_layers
     w = [torch.stack([getattr(getattr(l, p), a) for l in layers]).detach()
@@ -674,7 +705,7 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
     print(f"launches on the training path ({TRAIN_STEPS} steps): {json.dumps(counts)}", flush=True)
     expect = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1,
               "fused_history_encoder_bwd_reduce": 1, "fused_in_batch_ce": 1,
-              "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1, "fused_history_encoder": 0,
+              "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1, "fused_history_encoder": 0,
               "fused_history_encoder_bwd_recompute": 0, "rows_scatter_add": 0, "rows_write": 0}
     check_launches(counts, expect, TRAIN_STEPS, failures, "train")
     for name, per in expect.items():
@@ -682,6 +713,7 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
             entries[name]["launches"] = counts.get(name, 0)
     entries["fused_history_encoder_bwd"]["reduce_launches"] = counts.get(
         "fused_history_encoder_bwd_reduce", 0)
+    entries["in_batch_ce_bwd"]["reduce_launches"] = counts.get("in_batch_ce_bwd_reduce", 0)
     first, last = metrics[0], metrics[-1]
     if not finite(torch, metrics):
         failures.append("train metrics not finite")
@@ -691,7 +723,7 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
         f"ms/step {ms_step:.3f}, examples/s {b / ms_step * 1e3:.0f}; host wall "
         f"{host_ms:.3f} ms/step; loss first {float(first['loss']):.5f} "
         f"last {float(last['loss']):.5f}; softmax_ce first {float(first['softmax_ce']):.5f} "
-        f"last {float(last['softmax_ce']):.5f}; five kernels alone {kernel_ms:.3f} ms "
+        f"last {float(last['softmax_ce']):.5f}; the training kernels alone {kernel_ms:.3f} ms "
         f"({kernel_ms / ms_step * 100:.1f}% of the step)",
         flush=True,
     )
@@ -802,7 +834,7 @@ def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, fa
           flush=True)
     check_launches(counts, {
         "fused_attn_stack": 1, "fused_attn_stack_bwd": 1, "fused_attn_stack_bwd_reduce": 1,
-        "fused_in_batch_ce": 1, "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1,
+        "fused_in_batch_ce": 1, "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1,
         "fused_history_encoder": 0, "fused_history_encoder_res": 0,
         "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
         "rows_scatter_add": 0, "rows_write": 0,
@@ -1081,7 +1113,7 @@ def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
 
     # -- 5b, 5c: the two 4M legs --
     five = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1, "fused_in_batch_ce": 1,
-            "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1}
+            "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1}
     st_dense, ms_packed, counts = table_leg(
         torch, "train-4M-packed", step_dense, st_dense, data, idx, 2,
         {**five, "rows_scatter_add": 3, "rows_write": 0, "fused_adam": 0}, smi, failures)
@@ -1337,7 +1369,7 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms) -> None
     torch.cuda.empty_cache()
 
     expect = {"fused_mha_fwd": nl, "fused_mha_bwd": nl, "fused_mha_bwd_reduce": nl,
-              "fused_in_batch_ce": 1, "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1,
+              "fused_in_batch_ce": 1, "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1,
               "fused_history_encoder": 0, "fused_history_encoder_res": 0,
               "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
               "fused_attn_stack": 0, "fused_attn_stack_bwd": 0, "rows_scatter_add": 0,
@@ -1652,7 +1684,7 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
 
     # -- 7c: training.  phase 4's configuration on the blockwise tier
     expect = {"blockwise_attn_fwd": nl, "blockwise_attn_dq": nl, "blockwise_attn_dkv": nl,
-              "fused_in_batch_ce": 1, "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1,
+              "fused_in_batch_ce": 1, "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1,
               "fused_history_encoder": 0, "fused_history_encoder_res": 0,
               "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
               "fused_attn_stack": 0, "fused_attn_stack_bwd": 0, "fused_mha_fwd": 0,
@@ -1786,7 +1818,7 @@ def phase_fused_adam(torch, args, smi, dev, entry, entries, failures, ms_packed)
 
     # -- 8c: the leg --
     five = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1, "fused_in_batch_ce": 1,
-            "in_batch_ce_bwd_du": 1, "in_batch_ce_bwd_di": 1}
+            "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1}
     step = make_train_step(cfg, fused_cfg)
     st_fused, ms, counts = table_leg(
         torch, "train-4M-packed-fusedadam", step, st_fused, data, idx, 2,
@@ -1866,7 +1898,13 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
+    _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    ptxas = subprocess.Popen(  # beside the build, which it does not slow by much
+        [_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(_lib.CSRC / "fused_softmax.cu"),
+         "-o", str(_lib.BUILD_DIR / "ptxas_fused_softmax.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _lib.library()
+    ptxas_log = ptxas.communicate(timeout=600)[0]
     print(smi, flush=True)
     print(
         f"env: torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1875,6 +1913,7 @@ def main() -> int:
         f"(load {time.perf_counter() - t0:.1f} s)",
         flush=True,
     )
+    spills = ptxas_report(ptxas_log, ("ce_bwd_kernel", "ce_bwd_reduce"))
     dev = torch.device(DEVICE)
 
     # ---- set-up: full-width model, catalog, engine ---------------------
@@ -1912,7 +1951,7 @@ def main() -> int:
     x_bf16 = x_f32.to(torch.bfloat16)
     nh, nl, d, b, c = 4, 3, 64, BATCH, CORPUS
     nt = c // mt.TILE
-    entries, failures = {}, []
+    entries, failures = {}, [f"ptxas: {n} spills or gave no report" for n in spills]
 
     def entry(name, source, replaces, ok, err, ms, plain_ms, bytes_, flops, rate, library_ms):
         bms, by = bound(bytes_, flops, rate)

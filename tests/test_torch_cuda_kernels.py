@@ -11,7 +11,8 @@ conftest:
 
 Tolerances: tile-max and rescore scores are f32 sums in another order than
 cuBLAS's (rtol 1e-5); the CE kernels the same, relative to each output's
-largest magnitude; the encoder forward at 1e-4 (f32) and 3e-2 (bf16, three
+largest magnitude (or to one g p x term, where the exact gradient may be
+0), and the CE backward bit-equal on a repeated call (no atomics); the encoder forward at 1e-4 (f32) and 3e-2 (bf16, three
 layers of bf16 rounding); the residual forward's output and stored
 residuals at 1e-4 (f32) and within one bf16 step of each value (bf16: it
 rounds where the plain version does); the encoder backward at 1e-4 (f32) and 3e-2 (bf16)
@@ -230,21 +231,41 @@ _CE_SHAPES = [(1, 1, 64, True), (100, 100, 64, True), (4096, 4096, 64, True),
 
 @pytest.mark.parametrize("b,c,d,diag", _CE_SHAPES)
 def test_ce_kernels_match_plain(dev, b, c, d, diag):
-    """B10, B11 and B12: B not a multiple of the 32-row tile, C != B with
-    D = 65 (the logQ route's width), B = 1."""
+    """B10, and B11 with B12 in one backward pass plus its reduce: B not a
+    multiple of the 128-row tile, C != B with D = 65 (the logQ route's
+    width, two output slices), B = 1, D = 7."""
     u, i = _randn(20, b, d, dev=dev) * 0.3, _randn(21, c, d, dev=dev) * 0.3
     g = _randn(22, b, dev=dev)
     before = dict(_lib.launches)
     ce, lse = fs.in_batch_ce_fwd(u, i, diag)
-    du = fs.in_batch_ce_bwd_du(u, i, lse, g, diag)
-    di = fs.in_batch_ce_bwd_di(u, i, lse, g, diag)
-    for name in ("fused_in_batch_ce", "in_batch_ce_bwd_du", "in_batch_ce_bwd_di"):
+    du, di = fs.in_batch_ce_bwd(u, i, lse, g, diag)
+    for name in ("fused_in_batch_ce", "in_batch_ce_bwd", "in_batch_ce_bwd_reduce"):
         assert _lib.launches[name] == before.get(name, 0) + 1
     ce_p, lse_p = fs.in_batch_ce_fwd_plain(u, i, diag)
     _scaled_close(ce, ce_p, 1e-5)
     _scaled_close(lse, lse_p, 1e-5)
-    _scaled_close(du, fs.in_batch_ce_bwd_du_plain(u, i, lse_p, g, diag), 1e-5, _term(g, i))
-    _scaled_close(di, fs.in_batch_ce_bwd_di_plain(u, i, lse_p, g, diag), 1e-5, _term(g, u))
+    du_p, di_p = fs.in_batch_ce_bwd_plain(u, i, lse_p, g, diag)
+    _scaled_close(du, du_p, 1e-5, _term(g, i))
+    _scaled_close(di, di_p, 1e-5, _term(g, u))
+
+
+@pytest.mark.parametrize("b,c,d,diag", _CE_SHAPES)
+def test_ce_bwd_bit_equal_on_repeat_and_alone(dev, b, c, d, diag):
+    """No atomics: a repeated call gives the same bits.  dU or dI asked for
+    alone (one launch and one reduce each) equals the combined call's."""
+    u, i = _randn(40, b, d, dev=dev) * 0.3, _randn(41, c, d, dev=dev) * 0.3
+    g = _randn(42, b, dev=dev)
+    _, lse = fs.in_batch_ce_fwd(u, i, diag)
+    du, di = fs.in_batch_ce_bwd(u, i, lse, g, diag)
+    du2, di2 = fs.in_batch_ce_bwd(u, i, lse, g, diag)
+    assert torch.equal(du, du2) and torch.equal(di, di2)
+    for want_du in (True, False):
+        before = dict(_lib.launches)
+        got = fs.in_batch_ce_bwd(u, i, lse, g, diag, want_du, not want_du)
+        for name in ("in_batch_ce_bwd", "in_batch_ce_bwd_reduce"):
+            assert _lib.launches[name] == before.get(name, 0) + 1
+        assert (got[1] is None) if want_du else (got[0] is None)
+        assert torch.equal(got[0], du) if want_du else torch.equal(got[1], di)
 
 
 def test_ce_kernels_propagate_nan_like_plain(dev):
@@ -259,13 +280,16 @@ def test_ce_kernels_propagate_nan_like_plain(dev):
     _scaled_close(ce, ce_p, 1e-5)
     _scaled_close(lse, lse_p, 1e-5)
     assert bool(ce[17].isnan()) and int(ce.isnan().sum()) == 1
-    _scaled_close(fs.in_batch_ce_bwd_du(u, i, lse, g), fs.in_batch_ce_bwd_du_plain(u, i, lse_p, g),
-                  1e-5, _term(g, i))
-    _scaled_close(fs.in_batch_ce_bwd_di(u, i, lse, g), fs.in_batch_ce_bwd_di_plain(u, i, lse_p, g),
-                  1e-5, _term(g, u))
+    du, di = fs.in_batch_ce_bwd(u, i, lse, g)
+    du_p, di_p = fs.in_batch_ce_bwd_plain(u, i, lse_p, g)
+    _scaled_close(du, du_p, 1e-5, _term(g, i))
+    _scaled_close(di, di_p, 1e-5, _term(g, u))
+    assert int(du.isnan().any(1).sum()) == 1 and bool(di.isnan().all())
 
 
 def test_ce_autograd_matches_plain_route(dev):
+    """The two autograd Functions on the card against the CPU route; each
+    backward is one launch of the fused kernel and one of its reduce."""
     u, i = _randn(26, 300, 64, dev=dev) * 0.3, _randn(27, 300, 64, dev=dev) * 0.3
     w = _randn(28, 300, dev=dev)
     grads = []
@@ -273,7 +297,11 @@ def test_ce_autograd_matches_plain_route(dev):
         x, y = x.clone().requires_grad_(), y.clone().requires_grad_()
         ce, _ = fs.fused_in_batch_ce(x, y)
         lse = fs.fused_lse(x, y)
+        before = dict(_lib.launches)
         ((ce * w.to(x.device)).sum() + lse.sum()).backward()
+        if x.device.type == "cuda":
+            for name in ("in_batch_ce_bwd", "in_batch_ce_bwd_reduce"):
+                assert _lib.launches[name] == before.get(name, 0) + 2
         grads.append((x.grad, y.grad))
     for got, want in zip(grads[0], grads[1]):
         _scaled_close(got, want, 1e-5)
@@ -287,6 +315,11 @@ def test_ce_wrappers_reject_what_the_kernels_do_not_take(dev):
         fs.in_batch_ce_fwd(u, i[:5])
     with pytest.raises(ValueError):
         fs.in_batch_ce_fwd(u, i[:, :32], with_diag=False)
+    _, lse = fs.in_batch_ce_fwd(u, i)
+    with pytest.raises(ValueError):
+        fs.in_batch_ce_bwd(u, i, lse, lse, want_du=False, want_di=False)
+    with pytest.raises(ValueError):
+        fs.in_batch_ce_bwd(u, i, lse[:4], lse)
 
 
 def _encoder_inputs(b, h, d, nh, nl, dtype, dev, seed):

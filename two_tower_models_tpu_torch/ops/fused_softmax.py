@@ -3,9 +3,10 @@
 Port of ``two_tower_models_tpu/ops/pallas/fused_softmax.py``:
 ``fused_in_batch_ce`` (ce, lse with diagonal positives) and ``fused_lse``
 (the rectangular row logsumexp), each an ``autograd.Function`` whose
-forward is kernel B10 and whose backward is kernels B11 (dU) and B12 (dI),
-all in ``csrc/fused_softmax.cu``; the source's note says what bounds them
-on the H100.  The plain versions below compute the same functions with the
+forward is kernel B10 and whose backward is one kernel for both B11 (dU)
+and B12 (dI), which computes each tile of scores once, plus the launch
+that sums its partial slices, all in ``csrc/fused_softmax.cu``; the
+source's note says what bounds them on the H100.  The plain versions below compute the same functions with the
 [B, C] matrix materialised: the CPU path, and the reference the kernels are
 held against on the card.
 
@@ -16,7 +17,8 @@ As in the JAX package, the backward reads only the cotangent of ``ce``
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,6 +60,50 @@ def in_batch_ce_bwd_di_plain(u, i, lse, g, with_diag: bool = True) -> torch.Tens
     return di
 
 
+def in_batch_ce_bwd_plain(
+    u, i, lse, g, with_diag: bool = True, want_du: bool = True, want_di: bool = True
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(dU [B, D] or None, dI [C, D] or None) f32: the gradients asked for."""
+    du = in_batch_ce_bwd_du_plain(u, i, lse, g, with_diag) if want_du else None
+    di = in_batch_ce_bwd_di_plain(u, i, lse, g, with_diag) if want_di else None
+    return du, di
+
+
+# The backward kernel's tiles (csrc/fused_softmax.cu, namespace bwd): 128
+# rows of U by 64 rows of I, output slices of 64 d, two blocks per SM (105
+# KB of shared memory each).
+BWD_ROWS, BWD_COLS, BWD_DSLICE, BWD_BLOCKS_PER_SM = 128, 64, 64, 2
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_plan(b: int, c: int, d: int, sms: int) -> Tuple[int, int, int]:
+    """(G_r, G_c, slices): the backward's grid.  The cdiv(B, 128) row tiles
+    are split evenly over G_r row groups and the cdiv(C, 64) column tiles
+    over G_c column groups (``bwd_tiles``); block (rb, cb) walks every tile
+    pair of its two groups, once for each of the cdiv(D, 64) output slices.
+    G_r x G_c is at most the blocks that fit on the card at once, as square
+    as the tiles allow, so one wave of equal blocks fills the card (16 x 16
+    on 132 SMs at B = C = 4096).  The workspace is [G_c, B, D] for dU's
+    partial sums and [G_r, C, D] for dI's: with K = slots // isqrt(slots)
+    (16 on 132 SMs), at most (K B + slots 128) D and (K C + slots 64) D
+    floats, linear in B + C."""
+    n_rt, n_ct = _cdiv(b, BWD_ROWS), _cdiv(c, BWD_COLS)
+    slots = max(1, sms * BWD_BLOCKS_PER_SM)
+    g_r = min(n_rt, math.isqrt(slots))
+    g_c = min(n_ct, slots // g_r)
+    g_r = min(n_rt, slots // g_c)
+    return g_r, g_c, _cdiv(d, BWD_DSLICE)
+
+
+def bwd_tiles(n_tiles: int, groups: int, k: int) -> range:
+    """The tiles of group k when n_tiles are split evenly over groups, as
+    ce_bwd_kernel splits them."""
+    return range(k * n_tiles // groups, (k + 1) * n_tiles // groups)
+
+
 def _check(u: torch.Tensor, i: torch.Tensor, with_diag: bool) -> None:
     if u.device.type != "cuda" or i.device != u.device:
         raise ValueError(f"the CE kernels take CUDA tensors on one device, got {u.device}, {i.device}")
@@ -67,6 +113,10 @@ def _check(u: torch.Tensor, i: torch.Tensor, with_diag: bool) -> None:
         raise ValueError(f"embeddings must be [B, D] and [C, D], got {tuple(u.shape)}, {tuple(i.shape)}")
     if with_diag and u.shape[0] != i.shape[0]:
         raise ValueError("diagonal positives need as many items as users")
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def in_batch_ce_fwd(u: torch.Tensor, i: torch.Tensor, with_diag: bool = True):
@@ -88,34 +138,46 @@ def in_batch_ce_fwd(u: torch.Tensor, i: torch.Tensor, with_diag: bool = True):
     return ce, lse
 
 
-def _bwd(u, i, lse, g, with_diag: bool, which: int, name: str) -> torch.Tensor:
+def in_batch_ce_bwd(
+    u, i, lse, g, with_diag: bool = True, want_du: bool = True, want_di: bool = True
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(dU or None, dI or None); see ``in_batch_ce_bwd_plain``.  A CPU
+    tensor takes the plain version; CUDA tensors launch the backward kernel
+    (B11 and B12 in one pass over the score tiles, counted as
+    ``in_batch_ce_bwd``) on ``bwd_plan``'s grid, then the reduce that sums
+    its partial slices in slice order (``in_batch_ce_bwd_reduce``)."""
+    if u.device.type == "cpu":
+        return in_batch_ce_bwd_plain(u, i, lse, g, with_diag, want_du, want_di)
     _check(u, i, with_diag)
+    if not (want_du or want_di):
+        raise ValueError("the CE backward needs dU, dI or both asked for")
+    if lse.shape != (u.shape[0],) or g.shape != (u.shape[0],) or lse.device != u.device \
+            or g.device != u.device:
+        raise ValueError(f"lse and g must be [B] on {u.device}, got {tuple(lse.shape)} on "
+                         f"{lse.device}, {tuple(g.shape)} on {g.device}")
     u, i = u.contiguous(), i.contiguous()
     lse = lse.to(torch.float32).contiguous()
     g = g.to(torch.float32).contiguous()
-    b, d = u.shape
-    out = torch.empty((i.shape[0] if which else b, d), dtype=torch.float32, device=u.device)
-    err = _lib.library().tt_in_batch_ce_bwd(
-        u.data_ptr(), i.data_ptr(), lse.data_ptr(), g.data_ptr(), out.data_ptr(),
-        b, i.shape[0], d, int(with_diag), which, _lib.stream_ptr(u),
+    (b, d), c = u.shape, i.shape[0]
+    g_r, g_c, _ = bwd_plan(b, c, d, _sm_count(u.device))
+    empty = lambda want, *shape: torch.empty(shape, dtype=torch.float32, device=u.device) if want else None
+    ws_du, ws_di = empty(want_du, g_c, b, d), empty(want_di, g_r, c, d)
+    du, di = empty(want_du, b, d), empty(want_di, c, d)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib, stream = _lib.library(), _lib.stream_ptr(u)
+    err = lib.tt_in_batch_ce_bwd(
+        u.data_ptr(), i.data_ptr(), lse.data_ptr(), g.data_ptr(), ptr(ws_du), ptr(ws_di),
+        b, c, d, g_r, g_c, stream,
     )
-    _lib.check(err, name)
-    _lib.launches[name] += 1
-    return out
-
-
-def in_batch_ce_bwd_du(u, i, lse, g, with_diag: bool = True) -> torch.Tensor:
-    """dU; see ``in_batch_ce_bwd_du_plain``.  CUDA tensors launch B11."""
-    if u.device.type == "cpu":
-        return in_batch_ce_bwd_du_plain(u, i, lse, g, with_diag)
-    return _bwd(u, i, lse, g, with_diag, 0, "in_batch_ce_bwd_du")
-
-
-def in_batch_ce_bwd_di(u, i, lse, g, with_diag: bool = True) -> torch.Tensor:
-    """dI; see ``in_batch_ce_bwd_di_plain``.  CUDA tensors launch B12."""
-    if u.device.type == "cpu":
-        return in_batch_ce_bwd_di_plain(u, i, lse, g, with_diag)
-    return _bwd(u, i, lse, g, with_diag, 1, "in_batch_ce_bwd_di")
+    _lib.check(err, "in_batch_ce_bwd")
+    _lib.launches["in_batch_ce_bwd"] += 1
+    err = lib.tt_in_batch_ce_bwd_reduce(
+        ptr(ws_du), ptr(ws_di), u.data_ptr(), i.data_ptr(), g.data_ptr(), ptr(du), ptr(di),
+        b, c, d, g_r, g_c, int(with_diag), stream,
+    )
+    _lib.check(err, "in_batch_ce_bwd_reduce")
+    _lib.launches["in_batch_ce_bwd_reduce"] += 1
+    return du, di
 
 
 class _InBatchCE(torch.autograd.Function):
@@ -130,12 +192,8 @@ class _InBatchCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_ce, _g_lse):
         u, i, lse = ctx.saved_tensors
-        du = di = None
-        if ctx.needs_input_grad[0]:
-            du = in_batch_ce_bwd_du(u, i, lse, g_ce, ctx.with_diag).to(u.dtype)
-        if ctx.needs_input_grad[1]:
-            di = in_batch_ce_bwd_di(u, i, lse, g_ce, ctx.with_diag).to(i.dtype)
-        return du, di, None
+        du, di = in_batch_ce_bwd(u, i, lse, g_ce, ctx.with_diag, *ctx.needs_input_grad[:2])
+        return (None if du is None else du.to(u.dtype)), (None if di is None else di.to(i.dtype)), None
 
 
 def fused_in_batch_ce(u: torch.Tensor, i: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
