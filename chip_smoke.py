@@ -8,8 +8,10 @@ Phases, in the order they run; any failure exits non-zero:
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, and the build of the CUDA kernels from csrc/ (nvcc, on
      first use; cached under two_tower_models_tpu_torch/_build/); beside the
-     build, nvcc -Xptxas -v on csrc/fused_softmax.cu for the CE backward's
-     registers, stack and spills (a spill fails the run);
+     build, nvcc -Xptxas -v on csrc/fused_softmax.cu and csrc/fused_mha.cu
+     for the registers, stack and spills of the CE backward and of B13's
+     tensor-core kernel (each instance, by key bands), and their shared
+     memory (a spill fails the run);
   2. kernels: each of the four kernels of the serving path is held against
      its plain PyTorch version on the card, on the tensors the serving path
      gives it, and timed beside that plain version, a one-call PyTorch
@@ -77,17 +79,26 @@ Phases, in the order they run; any failure exits non-zero:
      fused_encoder=False: each attention layer in one kernel, B13 forward,
      B14 backward).  6a: B13 and B14 against their plain versions on layer
      0's tensors of the serving batch (with and without lengths) and of
-     the training batch, bf16 and f32, B14 twice (bit-equal), each timed
-     beside its plain version, its bound and F.multi_head_attention_forward
-     (B14: that call's autograd backward).  6b: phase 3's configuration and
+     the training batch, bf16 and f32, B13 (bf16: the tensor-core kernel)
+     and B14 twice (bit-equal), each timed beside its plain version, its
+     bound and F.multi_head_attention_forward (B14: that call's autograd
+     backward).  The tensor-core kernel sums in f32 in its own order, so
+     its bf16 y is held as B14's dx is, and against the layer with f64
+     sums it may have at most 1.5 times the plain version's values beyond
+     one bf16 step; B13's FMA kernel, called through its launcher on the
+     same bf16 inputs, is held within one step of the plain version and
+     timed beside it.
+     6b: phase 3's configuration and
      seed on this tier through from_params / warmup / query, ten batches
      with full histories (serve-1M-exact-layer) and ten with lengths
      uniform in [1, 32] (-varlen), launch counts as in phase 3 with three
-     B13 a batch and no B1 or B8, indices and user embeddings checked as
+     B13 a batch, all on the tensor cores, and no B1 or B8, indices and
+     user embeddings checked as
      there.  6c: phase 4's configuration on this tier, 3 warm-up and 20
      timed steps on the fixed batch (train-65k-layer) and on
-     make_synthetic_data's variable-length histories (-varlen): three B13,
-     three B14 and three reduces a step, the CE kernels once, none of B1
+     make_synthetic_data's variable-length histories (-varlen): three B13
+     (on the tensor cores), three B14 and three reduces a step, the CE
+     kernels once, none of B1
      and B5-B9; three steps under the profiler and train_loss's grads at
      B=256 against a CPU copy for each; the step beside phase 4's.
   7. the blockwise attention tier (HistoryEncoderConfig blockwise_kernel=True,
@@ -162,24 +173,30 @@ def _fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def ptxas_report(log: str, kernels) -> list:
+def ptxas_report(log: str, kernels, smem: dict) -> list:
     """Print each kernel's registers, stack and spills from nvcc -Xptxas -v
-    output; returns the kernels that spill."""
+    output, a template instance as ``name<n>`` (n its int argument), beside
+    the dynamic shared memory ``smem`` gives by that printed name; returns
+    the kernels that spill or gave no report."""
+    import re
+
     lines, cur = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             cur = next((k for k in kernels if k in line), None)
+            arg = re.search(r"ILi(\d+)E", line)
+            if cur:
+                cur += f"<{arg.group(1)}>" if arg else ""
+                lines.setdefault(cur, [])
         elif cur and ("Used" in line or "spill" in line):
-            lines.setdefault(cur, []).append(line.replace("ptxas info    :", "").strip())
-    # dynamic shared memory of ce_bwd_kernel: bwd::SMEM_FLOATS in csrc/fused_softmax.cu
-    smem = {"ce_bwd_kernel": 4 * (128 * 68 + 2 * 64 * 68 + 128 * 72 + 2 * 128), "ce_bwd_reduce": 0}
-    spills = []
-    for k in kernels:
-        got = lines.get(k, [])
-        print(f"ptxas {k}: {'; '.join(got) or 'no report'}; dynamic shared memory "
-              f"{smem.get(k, 0)} bytes a block", flush=True)
+            lines[cur].append(line.replace("ptxas info    :", "").strip())
+    spills = [k for k in kernels if not any(n.split("<")[0] == k for n in lines)]
+    for name, got in sorted(lines.items()):
+        print(f"ptxas {name}: {'; '.join(got) or 'no report'}; dynamic shared memory "
+              + (f"{smem[name]} bytes a block" if name in smem else "set by the launch plan"),
+              flush=True)
         if not got or any(" 0 bytes spill stores" not in ln for ln in got if "spill" in ln):
-            spills.append(k)
+            spills.append(name)
     return spills
 
 
@@ -197,6 +214,21 @@ def time_ms(torch, fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, kernel: str, iters: int = 20) -> float:
+    """Mean device time of one launch of the kernel whose name holds
+    ``kernel``, from torch.profiler over ``iters`` calls of ``fn``: the
+    kernel alone, where time_ms also counts the host's dispatch, which at
+    a small batch takes longer than the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if kernel in e.name]
+    return sum(e.device_time for e in ev) / max(len(ev), 1) / 1e3
+
+
 def bound(bytes_: float, flops: float, flops_rate: float):
     t_bytes, t_ops = bytes_ / HBM_BPS * 1e3, flops / flops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -212,17 +244,26 @@ def close(a, b, rtol: float, atol: float) -> tuple[bool, float]:
     return ok, float(err.max()) if err.numel() else 0.0
 
 
+def bf16_steps(torch, a, b):
+    """Distance between two bf16 tensors value by value, in steps of the
+    bf16 number line (0 = bit-equal up to the sign of zero)."""
+    keys = [torch.where(v < 0, -(v & 0x7FFF), v)
+            for v in (t.contiguous().view(torch.int16).int() for t in (a, b))]
+    return (keys[0] - keys[1]).abs()
+
+
 def bf16_ulps(torch, a, b) -> int:
     """Largest distance between two bf16 tensors in steps of the bf16
-    number line (0 = bit-equal up to the sign of zero); -1 if their NaNs
-    are not in the same places."""
+    number line; -1 if their NaNs are not in the same places."""
     if not torch.equal(a.isnan(), b.isnan()):
         return -1
-    keys = []
-    for t in (a, b):
-        bits = t.contiguous().view(torch.int16).int()
-        keys.append(torch.where(bits < 0, -(bits & 0x7FFF), bits)[~t.isnan()])
-    return int((keys[0] - keys[1]).abs().max()) if keys[0].numel() else 0
+    steps = bf16_steps(torch, a, b)[~a.isnan()]
+    return int(steps.max()) if steps.numel() else 0
+
+
+def bf16_far(torch, a, b) -> int:
+    """Values of two bf16 tensors more than one bf16 step apart."""
+    return int((bf16_steps(torch, a, b) > 1).sum())
 
 
 def enc_flops(n: int, d: int, nl: int) -> int:
@@ -1219,23 +1260,38 @@ def mha_library(torch, x, lens, w, nh):
 def layer_checks(torch, label, x, lens, g, w, nh):
     """B13 (and, with a cotangent ``g``, B14) against their plain versions
     on one layer's tensors, bf16 and f32: (ok, max_abs_err of the bf16
-    outputs, a line of what was measured)."""
+    outputs, a line of what was measured).  B13's tensor-core kernel sums
+    in f32 in another order than the plain version, so a bf16 rounding
+    upstream of y can flip: y is held as B14's dx is (at most 0.5% of the
+    values beyond one bf16 step, all within 1e-2 of scale), and against the
+    layer with f64 sums it may have at most 1.5 times as many values beyond
+    one step as the plain version has.  The FMA kernel sums in the plain
+    version's order: within one step."""
     from two_tower_models_tpu_torch.ops import fused_mha as fm
 
     y, plain = fm.fused_mha_fwd(x, lens, *w, nh), fm.fused_mha_layer_plain(x, lens, *w, nh)
-    steps = bf16_ulps(torch, y, plain)
+    route = fm._fwd_route(x.dtype, *x.shape[1:], nh)
+    steps, far = bf16_ulps(torch, y, plain), bf16_far(torch, y, plain)
+    ok_y, err = scaled_close(y, plain, 1e-2)
+    ref = fm.fused_mha_layer_f64_sums(x, lens, *w, nh)
+    far64 = [bf16_far(torch, t, ref) for t in (y, plain)]
+    rep13 = torch.equal(y, fm.fused_mha_fwd(x, lens, *w, nh))
+    fma_steps = bf16_ulps(torch, fm._launch_fwd_fma(*fm._fwd_inputs(x, lens, *w), nh), plain)
     ok32, _ = scaled_close(fm.fused_mha_fwd(x.float(), lens, *w, nh),
                            fm.fused_mha_layer_plain(x.float(), lens, *w, nh), 1e-4)
-    ok, err = 0 <= steps <= 1 and ok32, close(y, plain, 0.0, 0.0)[1]
-    line = f"{label}: B13 bf16 steps from plain {steps}, f32 ok={ok32} (tol 1e-4 of scale)"
+    ok = (route == "tc" and ok_y and far <= 5e-3 * y.numel() and far64[0] <= 1.5 * far64[1]
+          and rep13 and 0 <= fma_steps <= 1 and ok32)
+    line = (f"{label}: B13 bf16 ({route} route) vs plain: {far} of {y.numel()} values beyond "
+            f"one bf16 step (tol 0.5%), most {steps} steps, max_abs_err {err:.3g} (tol 1e-2 of "
+            f"scale); beyond one step from f64 sums: kernel {far64[0]}, plain {far64[1]} (tol "
+            f"1.5x); bit-equal on repeat={rep13}; the FMA kernel {fma_steps} steps from plain; "
+            f"f32 ok={ok32} (tol 1e-4 of scale)")
     if g is not None:
         got = fm.fused_mha_bwd(g, x, lens, *w, nh)
         want = fm.fused_mha_layer_bwd_plain(g, x, lens, *w, nh)
         again = fm.fused_mha_bwd(g, x, lens, *w, nh)
         repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-        keys = [torch.where(v < 0, -(v & 0x7FFF), v)
-                for v in (t.contiguous().view(torch.int16).int() for t in (got[0], want[0]))]
-        far = float(((keys[0] - keys[1]).abs() > 1).float().mean())
+        far = bf16_far(torch, got[0], want[0]) / got[0].numel()
         ok_dx, err = scaled_close(got[0], want[0], 1e-2)
         grads = [scaled_close(a, e, 3e-3) for a, e in zip(got[1:], want[1:])]
         ok32 = all(scaled_close(a, e, 1e-4)[0] for a, e in zip(
@@ -1306,11 +1362,26 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms) -> None
         time_ms(torch, lambda: lib(xs, wb)),
     )
     e13 = entries["fused_mha_fwd"]
+    fma = lambda xx, ll: fm._launch_fwd_fma(*fm._fwd_inputs(xx, ll, *w), nh)
+    e13["route"] = fm._fwd_route(x.dtype, HIST, d, nh)
+    e13["fma_ms"] = time_ms(torch, lambda: fma(x, None))
+    e13["fma_varlen_ms"] = time_ms(torch, lambda: fma(xv, lens))
     e13["varlen_ms"] = time_ms(torch, lambda: fm.fused_mha_fwd(xv, lens, *w, nh))
     e13["varlen_plain_ms"] = time_ms(torch, lambda: fm.fused_mha_layer_plain(xv, lens, *w, nh))
     e13["varlen_bound_ms"] = bound(2 * b * HIST * d * 2 + w_bytes + b * 4, sum(
         layer_flops(HIST, n, d) for n in lens.tolist()), BF16_FLOPS)[0]
     e13["varlen_library_ms"] = time_ms(torch, lambda: lib_v(xs_v, wb))
+    for key, xx, ll in (("", x, None), ("varlen_", xv, lens)):
+        e13[f"{key}device_ms"] = device_ms(torch, lambda: fm.fused_mha_fwd(xx, ll, *w, nh),
+                                           "mha_fwd_tc_kernel")
+        e13[f"fma_{key}device_ms"] = device_ms(torch, lambda: fma(xx, ll), "mha_fwd_kernel")
+    print(f"B13 at B={b} on {torch.cuda.get_device_name(0)} ({smi}): route {e13['route']} "
+          f"{e13['ms']:.4f} ms, with lengths {e13['varlen_ms']:.4f} (device time "
+          f"{e13['device_ms']:.4f}, {e13['varlen_device_ms']:.4f}); the FMA kernel "
+          f"{e13['fma_ms']:.4f}, {e13['fma_varlen_ms']:.4f} (device {e13['fma_device_ms']:.4f}, "
+          f"{e13['fma_varlen_device_ms']:.4f}); library {e13['library_ms']:.4f}, "
+          f"{e13['varlen_library_ms']:.4f}; bound {e13['bound_ms']:.4f}, "
+          f"{e13['varlen_bound_ms']:.4f}", flush=True)
     del xs, xs_v
     cpu_model = copy.deepcopy(model).cpu()
     others = {"fused_history_encoder": 0, "fused_attn_stack": 0, "tile_max_scores": 1,
@@ -1318,8 +1389,10 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms) -> None
     legs = {}
     for label, bts in (("serve-1M-exact-layer", batches), ("serve-1M-exact-layer-varlen", var_batches)):
         counts, legs[label] = serve_leg(torch, label, engine, model, cpu_model, cfg, bts,
-                                        {"fused_mha_fwd": nl, **others}, [], entries, failures, smi)
+                                        {"fused_mha_fwd": nl, "fused_mha_fwd_tc": nl, **others},
+                                        [], entries, failures, smi)
         e13[f"launches_{label}"] = counts.get("fused_mha_fwd", 0)
+        e13[f"launches_tc_{label}"] = counts.get("fused_mha_fwd_tc", 0)
     e13["launches"] = e13["launches_serve-1M-exact-layer"]
     del engine, model, cpu_model, batches, var_batches, catalog_feats
     torch.cuda.empty_cache()
@@ -1351,6 +1424,15 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms) -> None
     e13["train_bound_ms"] = bound(2 * bt * HIST * d * 2 + w_bytes,
                                   bt * layer_flops(HIST, HIST, d), BF16_FLOPS)[0]
     e13["train_library_ms"] = time_ms(torch, lambda: lib(xs, wb))
+    e13["train_fma_ms"] = time_ms(torch, lambda: fma(x, None))
+    e13["train_device_ms"] = device_ms(torch, lambda: fm.fused_mha_fwd(x, None, *w, nh),
+                                       "mha_fwd_tc_kernel")
+    e13["train_fma_device_ms"] = device_ms(torch, lambda: fma(x, None), "mha_fwd_kernel")
+    print(f"B13 at B={bt} on {torch.cuda.get_device_name(0)} ({smi}): route "
+          f"{fm._fwd_route(x.dtype, HIST, d, nh)} {e13['train_ms']:.4f} ms (device time "
+          f"{e13['train_device_ms']:.4f}); the FMA kernel {e13['train_fma_ms']:.4f} (device "
+          f"{e13['train_fma_device_ms']:.4f}); library {e13['train_library_ms']:.4f}; bound "
+          f"{e13['train_bound_ms']:.4f}", flush=True)
     entry(
         "fused_mha_bwd", src, "two_tower_models_tpu/ops/pallas/fused_mha.py:369", ok, err,
         time_ms(torch, lambda: fm.fused_mha_bwd(g, x, None, *w, nh)),
@@ -1364,11 +1446,14 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms) -> None
     e13["note"] = (
         "ms, plain_ms, bound_ms, library_ms at the serving batch (B=1024), varlen_* there "
         "with lengths (bound counting valid keys only), train_* at the training batch "
-        "(B=4096); library_ms is F.multi_head_attention_forward (bf16)")
+        "(B=4096); library_ms is F.multi_head_attention_forward (bf16); route is the kernel "
+        "fused_mha_fwd takes there (tc: the tensor cores), *fma_ms the FMA kernel on the "
+        "same inputs; *device_ms one launch's device time from torch.profiler")
     del xs, x, g
     torch.cuda.empty_cache()
 
-    expect = {"fused_mha_fwd": nl, "fused_mha_bwd": nl, "fused_mha_bwd_reduce": nl,
+    expect = {"fused_mha_fwd": nl, "fused_mha_fwd_tc": nl, "fused_mha_bwd": nl,
+              "fused_mha_bwd_reduce": nl,
               "fused_in_batch_ce": 1, "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1,
               "fused_history_encoder": 0, "fused_history_encoder_res": 0,
               "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
@@ -1391,6 +1476,7 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms) -> None
         check_launches(counts, expect, TRAIN_STEPS, failures, label)
         for name in ("fused_mha_fwd", "fused_mha_bwd"):
             entries[name][f"launches_{label}"] = counts.get(name, 0)
+        e13[f"launches_tc_{label}"] = counts.get("fused_mha_fwd_tc", 0)
         entries["fused_mha_bwd"][f"reduce_launches_{label}"] = counts.get("fused_mha_bwd_reduce", 0)
         if not finite(torch, metrics):
             failures.append(f"{label} metrics not finite")
@@ -1899,12 +1985,13 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    ptxas = subprocess.Popen(  # beside the build, which it does not slow by much
-        [_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(_lib.CSRC / "fused_softmax.cu"),
-         "-o", str(_lib.BUILD_DIR / "ptxas_fused_softmax.o")],
+    ptxas = [subprocess.Popen(  # beside the build, which they do not slow by much
+        [_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(_lib.CSRC / f"{src}.cu"),
+         "-o", str(_lib.BUILD_DIR / f"ptxas_{src}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in ("fused_softmax", "fused_mha")]
     _lib.library()
-    ptxas_log = ptxas.communicate(timeout=600)[0]
+    ptxas_log = "\n".join(p.communicate(timeout=600)[0] for p in ptxas)
     print(smi, flush=True)
     print(
         f"env: torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1913,7 +2000,16 @@ def main() -> int:
         f"(load {time.perf_counter() - t0:.1f} s)",
         flush=True,
     )
-    spills = ptxas_report(ptxas_log, ("ce_bwd_kernel", "ce_bwd_reduce"))
+    from two_tower_models_tpu_torch.ops import fused_mha as fm
+
+    ept = fm._fwd_tc_tile(HIST, 64)
+    spills = ptxas_report(ptxas_log, ["ce_bwd_kernel", "ce_bwd_reduce", "mha_fwd_tc_kernel"], {
+        # bwd::SMEM_FLOATS in csrc/fused_softmax.cu
+        "ce_bwd_kernel": 4 * (128 * 68 + 2 * 64 * 68 + 128 * 72 + 2 * 128),
+        "ce_bwd_reduce": 0,
+        # the instance of the cells' H = 32 (two key bands), D = 64
+        f"mha_fwd_tc_kernel<{HIST // 16}>": fm._fwd_tc_smem_bytes(HIST, 64, ept),
+    })
     dev = torch.device(DEVICE)
 
     # ---- set-up: full-width model, catalog, engine ---------------------

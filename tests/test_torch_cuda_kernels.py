@@ -360,15 +360,20 @@ def test_encoder_res_kernel_matches_plain(dev, dtype, b, h, d, nh, nl):
                 assert _bf16_ulps(a, e) <= 1
 
 
+def _bf16_steps(a, b):
+    """Distance between two bf16 tensors value by value, in steps of the
+    bf16 number line (0 = bit-equal up to the sign of zero)."""
+    keys = [torch.where(v < 0, -(v & 0x7FFF), v)
+            for v in (t.contiguous().view(torch.int16).int() for t in (a, b))]
+    return (keys[0] - keys[1]).abs()
+
+
 def _bf16_ulps(a, b):
     """Largest distance between two bf16 tensors in steps of the bf16
-    number line (0 = bit-equal up to the sign of zero); NaNs must coincide."""
+    number line; NaNs must coincide."""
     assert torch.equal(a.isnan(), b.isnan())
-    keys = []
-    for t in (a, b):
-        bits = t.contiguous().view(torch.int16).int()
-        keys.append(torch.where(bits < 0, -(bits & 0x7FFF), bits)[~t.isnan()])
-    return int((keys[0] - keys[1]).abs().max()) if keys[0].numel() else 0
+    steps = _bf16_steps(a, b)[~a.isnan()]
+    return int(steps.max()) if steps.numel() else 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -745,31 +750,96 @@ def _mha_close(got, want, kind):
     elif kind == "y":
         assert _bf16_ulps(got, want) <= 1
     else:
-        keys = [torch.where(v < 0, -(v & 0x7FFF), v)
-                for v in (t.contiguous().view(torch.int16).int() for t in (got, want))]
-        assert float(((keys[0] - keys[1]).abs() > 1).float().mean()) <= 5e-3
+        assert float((_bf16_steps(got, want) > 1).float().mean()) <= 5e-3
         _scaled_close(got, want, 1e-2)
 
 
 # B = 1; B not a multiple of the examples per block (which come from B and
 # the SM count); H = 1 and H = 10; one head; D = 128 with 8 heads (the
-# weights then stay in device memory); H = 40, above a warp's 32 lanes
+# weights then stay in device memory); H = 40, above a warp's 32 lanes.
+# In bf16 those take B13's tensor-core kernel (H = 1, 10, 12 and 40 padded
+# to 16, 16, 16 and 48 rows), as does H = 64, its longest; the last two
+# take its FMA kernel (head width 8; H = 72, above the tensor-core
+# kernel's 64)
 _MHA_SHAPES = [
     (1, 32, 64, 4, "mix"), (1001, 32, 64, 4, "mix"), (333, 10, 64, 1, "none"),
     (37, 1, 64, 4, "none"), (64, 12, 32, 2, "ones"), (19, 16, 128, 8, "mix"),
-    (9, 40, 64, 4, "none"),
+    (9, 40, 64, 4, "none"), (5, 64, 64, 4, "mix"), (21, 24, 32, 4, "mix"),
+    (7, 72, 32, 2, "mix"),
 ]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,h,d,nh,lens_kind", _MHA_SHAPES)
 def test_mha_fwd_kernel_matches_plain(dev, dtype, b, h, d, nh, lens_kind):
-    """B13 against its plain version: every row of y [B, H, D]."""
+    """B13 against its plain version: every row of y [B, H, D].  The FMA
+    kernel (``mha_fwd_kernel``), launched at every shape through its
+    launcher, sums in the plain version's order: bf16 y within one step.
+    ``fused_mha_fwd`` takes the tensor cores for bf16 with a head width of
+    16 or more, D a multiple of 32 and H <= 64 (the test asserts which
+    route it took), the FMA kernel otherwise.  The tensor cores sum in f32
+    in their own order, so a bf16 rounding upstream of y (q, k, v, p, the
+    attention output) can flip: their y is held as dx is.  x padded with
+    zero rows to Hp = round_up(H, 16), lengths clipped to H, gives the same
+    rows < H bit for bit (the padded rows and keys of the kernel's tiles).
+    Against the layer with f64 sums y has at most 1.5 times as many values
+    beyond one step as the plain version has.  That count comes in clumps
+    (one flipped rounding moves a whole row of y), so it is taken on 2^23
+    values of the same H, D, heads and kind of lengths, at least B rows."""
     x, lens, w, _ = _mha_case(b, h, d, nh, dtype, dev, b + h, lens_kind)
-    before = _lib.launches["fused_mha_fwd"]
+    tc = dtype == torch.bfloat16 and h <= 64 and d % 32 == 0 and (d // nh) % 16 == 0
+    before = dict(_lib.launches)
     got = fm.fused_mha_fwd(x, lens, *w, nh)
-    assert _lib.launches["fused_mha_fwd"] == before + 1
-    _mha_close(got, fm.fused_mha_layer_plain(x, lens, *w, nh), "y")
+    assert _lib.launches["fused_mha_fwd"] == before.get("fused_mha_fwd", 0) + 1
+    assert _lib.launches["fused_mha_fwd_tc"] == before.get("fused_mha_fwd_tc", 0) + tc
+    plain = fm.fused_mha_layer_plain(x, lens, *w, nh)
+    _mha_close(fm._launch_fwd_fma(*fm._fwd_inputs(x, lens, *w), nh), plain, "y")
+    if not tc:
+        _mha_close(got, plain, "y")
+        return
+    _mha_close(got, plain, "dx")
+    hp = -(-h // 16) * 16
+    if hp != h:
+        xp = torch.zeros(b, hp, d, dtype=dtype, device=dev)
+        xp[:, :h] = x
+        lp = torch.full((b,), h, dtype=torch.int32, device=dev) if lens is None else lens
+        assert torch.equal(fm.fused_mha_fwd(xp, lp, *w, nh)[:, :h], got)
+    x, lens, w, _ = _mha_case(max(b, -(-(1 << 23) // (h * d))), h, d, nh, dtype, dev, b + h,
+                              lens_kind)
+    ref = fm.fused_mha_layer_f64_sums(x, lens, *w, nh)
+    far = [int((_bf16_steps(t, ref) > 1).sum())
+           for t in (fm.fused_mha_fwd(x, lens, *w, nh), fm.fused_mha_layer_plain(x, lens, *w, nh))]
+    assert far[0] <= 1.5 * far[1], far
+
+
+@pytest.mark.parametrize("lens_kind", ["none", "mix"])
+@pytest.mark.parametrize("b", [1024, 4096])
+def test_mha_fwd_tc_kernel_at_the_cells(dev, b, lens_kind):
+    """B13's tensor-core kernel at the per-layer cells' shape (H = 32, D =
+    64, 4 heads, bf16; the serving and the training batch): held against
+    the plain version as dx is (``test_mha_fwd_kernel_matches_plain``);
+    against the layer with f64 sums, no more values beyond one bf16 step
+    than 1.5 times the plain version's own (both sum in f32, each in its
+    order; 0.9-1.0 times on an H100); bit-equal on repeat; x and
+    the weights at addresses that are not 16-byte aligned give the same y."""
+    x, lens, w, _ = _mha_case(b, 32, 64, 4, torch.bfloat16, dev, b + 5, lens_kind)
+    before = _lib.launches["fused_mha_fwd_tc"]
+    got = fm.fused_mha_fwd(x, lens, *w, 4)
+    again = fm.fused_mha_fwd(x, lens, *w, 4)
+    assert _lib.launches["fused_mha_fwd_tc"] == before + 2
+    plain = fm.fused_mha_layer_plain(x, lens, *w, 4)
+    _mha_close(got, plain, "dx")
+    ref = fm.fused_mha_layer_f64_sums(x, lens, *w, 4)
+    far = [int((_bf16_steps(t, ref) > 1).sum()) for t in (got, plain)]
+    assert far[0] <= 1.5 * far[1]
+    assert torch.equal(got, again)
+    def odd(t):  # a copy at an address 16-byte aligned no more
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return o.copy_(t)
+
+    xo, wio, woo = odd(x), odd(w[0]), odd(w[2])
+    assert all(t.data_ptr() % 16 for t in (xo, wio, woo))
+    assert torch.equal(fm.fused_mha_fwd(xo, lens, wio, w[1], woo, w[3], 4), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -841,6 +911,7 @@ def test_layer_tier_launches_only_b13_and_b14(dev):
             he.history_encoder_apply(enc, x, cfg, torch.bfloat16, lengths)
         counts = dict(_lib.launches)
         assert counts.get("fused_mha_fwd") == 6 and counts.get("fused_mha_bwd") == 3
+        assert counts.get("fused_mha_fwd_tc") == 6  # every B13 on the tensor cores
         assert counts.get("fused_mha_bwd_reduce") == 3
         assert not any(counts.get(n) for n in others)
 

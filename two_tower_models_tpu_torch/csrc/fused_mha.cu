@@ -44,10 +44,57 @@
 // (and, in B14, those of W_in and W_out 3D+1 and D+1), so the loops whose
 // threads walk down a column (scores k[kj], dp v[kj], dx = dqkv @ W_in^T,
 // do = g2 @ W_out^T) read 32 banks, not one.
+//
+// B13 on the tensor cores (mha_fwd_tc_kernel) replaces the same
+// _fwd_kernel (pallas_call at :297) for bf16 x with D a multiple of 32,
+// the head width a multiple of 16 and Hp = round_up(H, 16) <= 64;
+// ops/fused_mha.py:_fwd_route sends every other case (f32, head width 8,
+// other widths, longer histories) to mha_fwd_kernel above.  The Pallas
+// kernel's dots are bf16 x bf16 with f32 accumulation, which is what
+// mma.sync m16n8k16 computes, so every product of the layer runs on it at
+// the rounding points listed above.
+// Bound on the H100: bytes (at B = 4096, H = 32, D = 64 x in and y out are
+// 33.5 MB, 0.0100 ms at 3.35 TB/s; the 5.4 GFLOP take 0.0055 ms at the
+// bf16 tensor-core rate).  Design:
+// - a tile is E examples of Hp rows each (E * Hp = 128 rows at H = 32:
+//   E = 4; the Pallas kernel pads H to 16 for bf16 too).  Padded rows are
+//   loaded as zeros and never written; a padded key scores -inf, so its
+//   p is exactly 0 whatever len is.  The grid is at most the blocks
+//   resident at once (the wrapper's plan: two per SM at the cell's
+//   shape), each walking its tiles in a persistent loop;
+// - round(W_in) [D][3D] and round(W_out) [D][D] are staged as bf16 once
+//   per block, b_in and b_out as f32.  Every bf16 row in shared memory is
+//   padded by 16 bytes, so the eight rows an ldmatrix reads fall in eight
+//   distinct bank groups;
+// - x [E*Hp][D] goes to shared memory with cp.async.  One buffer: it is
+//   dead once the QKV projection has read it, so the next tile's x is
+//   loaded into it then, behind the attention and the output projection
+//   (a second buffer would cost 18 KB and the second block per SM);
+// - QKV projection [E*Hp, D] x [D, 3D]: each warp owns 32 x 32 tiles; the
+//   epilogue adds b_in in f32 and stores q | k | v as bf16.  Each k16
+//   step of a projection is summed on its own and added to the running
+//   f32 sum in one rounded add: mma.sync adds its products into the
+//   accumulator it is given without rounding to nearest, and over D = 64
+//   steps of that y had 1.7 times the plain version's values beyond one
+//   bf16 step from f64 sums (1.9 times at D = 128; an H100), where the
+//   rounded add gives 0.9-1.0 times;
+// - attention: a warp takes one (example, head, 16-query band) at a time.
+//   S = Q_h K_h^T [16, Hp] over the head width stays in registers (scaled,
+//   then -1e30 at keys >= len); the row max and the sum of round(e) are
+//   taken across the quad of lanes that share a row; p = e / max(den,
+//   1e-30) is rounded and packed from the S accumulators straight into
+//   the A operand of P.V (the m16n8 C layout is the k16 A layout), and
+//   round(P.V_h) goes over q's slot;
+// - output projection [E*Hp, D] x [D, D]: the epilogue adds b_out in f32
+//   and stages y as bf16 in k's slot, dead by then, and the block writes
+//   the rows < H of each example with 16-byte stores.
+// Four barriers a tile (the FMA kernel has six an example); no atomics and
+// a fixed order of every sum, so y is the same on every run.
 
 #include <algorithm>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -365,6 +412,286 @@ __global__ void reduce_kernel(const float* __restrict__ ws, float* __restrict__ 
   out[k] = acc;
 }
 
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int THREADS = 256;  // eight warps; two blocks per SM at the cell's shape
+constexpr int WARPS = THREADS / 32;
+constexpr int PAD = 8;        // bf16 of padding per shared row (16 bytes)
+constexpr int TILE_ROWS = 128;  // the most rows a tile holds (ops/fused_mha.py:_TC_ROWS)
+
+// C [rows, N] = A [rows, K] . B [K, N], A and B bf16 in shared memory by
+// row (strides sa, sb), K a multiple of 16, rows of 32, N of 8 * NT (NT
+// even).  Each warp owns 32 x (8 NT) tiles of C; each k16 step is added
+// to the f32 sums rounded to nearest (tt::mma_bf16_add); epi(r, c, v0, v1)
+// takes the sums at (r, c) and (r, c + 1).
+template <int NT, class Epi>
+__device__ __forceinline__ void warp_gemm(int rows, int N, int K, const bf16* A, int sa,
+                                          const bf16* Bm, int sb, Epi epi) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nt = N / (8 * NT);
+  for (int item = warp; item < (rows / 32) * nt; item += WARPS) {
+    const int r0 = (item / nt) * 32, n0 = (item % nt) * 8 * NT;
+    float acc[2][NT][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
+#pragma unroll 1  // unrolled, the rounded adds' temporaries spill
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        tt::ldmatrix_x4<false>(a[i], A + (r0 + 16 * i + lane % 16) * sa + k0 + (lane / 16) * 8);
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        unsigned b[4];
+        tt::ldmatrix_x4<true>(
+            b, Bm + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * sb + n0 + 16 * j + (lane / 16) * 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          tt::mma_bf16_add(acc[i][2 * j], a[i], b[0], b[1]);
+          tt::mma_bf16_add(acc[i][2 * j + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int r = r0 + 16 * i + g, c = n0 + 8 * j + 2 * t;
+        epi(r, c, acc[i][j][0], acc[i][j][1]);
+        epi(r + 8, c, acc[i][j][2], acc[i][j][3]);
+      }
+  }
+}
+
+// x rows of tile `tile` (E examples of Hp rows) into X [E*Hp][D+PAD] with
+// cp.async; rows past H and examples past B become zeros.
+__device__ __forceinline__ void load_x(bf16* X, const bf16* x, int tile, int E, int Hp, int H,
+                                       int D, int B) {
+  const int cpr = D / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < E * Hp * cpr; i += THREADS) {
+    const int r = i / cpr, c = i - r * cpr;
+    const int ex = tile * E + r / Hp, hi = r % Hp;
+    const bool ok = ex < B && hi < H;
+    tt::cp_async16(X + r * (D + PAD) + c * 8, ok ? x + ((size_t)ex * H + hi) * D + c * 8 : x,
+                   ok ? 16 : 0);
+  }
+}
+
+// The sum of round(e) over one row of a lane quad's S accumulators (row g:
+// co = 0, row g + 8: co = 2), in the order of the FMA kernel's softmax: a
+// lane per key kj < 32 holds round(e_kj) + round(e_kj+32), then a butterfly
+// over the 32 lanes at offsets 16, 8, 4, 2, 1.  Key 8j + 2 q4 + c sits at
+// s[j][co + c], so offsets 16 and 8 pair j's of one lane, 4 and 2 pair
+// lanes (shuffles), and 1 pairs c.  Padded keys hold e = 0 and add exactly
+// nothing, so the result is the FMA kernel's bit for bit.
+template <int HPB>
+__device__ __forceinline__ float row_den(const float (&s)[2 * HPB][4], int co) {
+  float a[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      a[j][c] = j < 2 * HPB ? tt::round_bf16(s[j][co + c]) : 0.0f;
+      if (j + 4 < 2 * HPB) a[j][c] += tt::round_bf16(s[j + 4][co + c]);
+    }
+  float u[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    u[c] = (a[0][c] + a[2][c]) + (a[1][c] + a[3][c]);
+    u[c] += __shfl_xor_sync(0xffffffffu, u[c], 2);
+    u[c] += __shfl_xor_sync(0xffffffffu, u[c], 1);
+  }
+  return u[0] + u[1];
+}
+
+// HPB = Hp / 16: the key bands of one example, and the S accumulators a
+// lane holds (8 HPB floats).
+template <int HPB>
+__global__ void __launch_bounds__(THREADS, 2)
+mha_fwd_tc_kernel(const bf16* __restrict__ x, const int* __restrict__ lens,
+                  const float* __restrict__ w_in, const float* __restrict__ b_in,
+                  const float* __restrict__ w_out, const float* __restrict__ b_out,
+                  bf16* __restrict__ y, int B, int H, int D, int NH, int E, float scale) {
+  constexpr int Hp = 16 * HPB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D3 = 3 * D, hd = D / NH, rows = E * Hp;
+  const int SWI = D3 + PAD, SWO = D + PAD, SX = D + PAD, SQ = D3 + PAD;
+  bf16* Wi = (bf16*)smem_raw;              // [D][SWI] round(W_in)
+  bf16* Wo = Wi + D * SWI;                 // [D][SWO] round(W_out)
+  bf16* X = Wo + D * SWO;                  // [rows][SX] x of the tile
+  bf16* QKV = X + rows * SX;               // [rows][SQ] q | k | v; attention out over q, y over k
+  float* bi = (float*)(QKV + rows * SQ);   // [3D]
+  float* bo = bi + D3;                     // [D]
+  __shared__ int sl[TILE_ROWS / 16];  // the tile's lengths
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32, g = lane / 4, q4 = lane % 4;
+  const int tiles = (B + E - 1) / E;
+  // thread t < E holds the length of example t of the next tile in len_next,
+  // loaded beside that tile's x so its latency hides behind the compute
+  auto tile_len = [&](int tile) {
+    const int ex = tile * E + t;
+    return t < E && lens && ex < B ? lens[ex] : H;
+  };
+
+  int len_next = tile_len(blockIdx.x);
+  if ((int)blockIdx.x < tiles) load_x(X, x, blockIdx.x, E, Hp, H, D, B);
+  tt::cp_commit();
+  // the weights as bf16, 16 bytes a load (rows of 3D and D floats, both
+  // multiples of 4; the wrapper passes 16-byte aligned weights)
+  for (int i = t; i < D * D3 / 4; i += THREADS) {
+    const float4 v = ((const float4*)w_in)[i];
+    *(uint2*)(Wi + (4 * i / D3) * SWI + 4 * i % D3) =
+        make_uint2(tt::pack_bf16x2(v.x, v.y), tt::pack_bf16x2(v.z, v.w));
+  }
+  for (int i = t; i < D * D / 4; i += THREADS) {
+    const float4 v = ((const float4*)w_out)[i];
+    *(uint2*)(Wo + (4 * i / D) * SWO + 4 * i % D) =
+        make_uint2(tt::pack_bf16x2(v.x, v.y), tt::pack_bf16x2(v.z, v.w));
+  }
+  for (int i = t; i < D3; i += THREADS) bi[i] = b_in[i];
+  for (int i = t; i < D; i += THREADS) bo[i] = b_out[i];
+
+  for (int tile = blockIdx.x; tile < tiles; tile += (int)gridDim.x) {
+    if (t < E) sl[t] = len_next;
+    tt::cp_wait<0>();
+    __syncthreads();  // x landed, lengths and weights staged, the previous tile's y written out
+    warp_gemm<4>(rows, D3, D, X, SX, Wi, SWI, [&](int r, int c, float v0, float v1) {
+      *(unsigned*)(QKV + r * SQ + c) = tt::pack_bf16x2(v0 + bi[c], v1 + bi[c + 1]);
+    });
+    __syncthreads();  // qkv complete; x is dead
+    if (tile + (int)gridDim.x < tiles) {
+      load_x(X, x, tile + gridDim.x, E, Hp, H, D, B);
+      len_next = tile_len(tile + gridDim.x);
+    }
+    tt::cp_commit();
+
+    // attention, a warp per (example, head, band of 16 queries)
+    for (int u = warp; u < E * NH * HPB; u += WARPS) {
+      const int e = u / (NH * HPB), h = (u / HPB) % NH, qb = u % HPB;
+      const int ex = tile * E + e;
+      if (ex >= B) continue;
+      const int len = sl[e];
+      const bf16* Qb = QKV + (e * Hp + qb * 16) * SQ + h * hd;
+      const bf16* Kb = QKV + e * Hp * SQ + D + h * hd;
+      const bf16* Vb = Kb + D;
+      float s[2 * HPB][4];
+#pragma unroll
+      for (int j = 0; j < 2 * HPB; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] = 0.0f;
+      for (int c0 = 0; c0 < hd; c0 += 16) {
+        unsigned a[4];
+        tt::ldmatrix_x4<false>(a, Qb + (lane % 16) * SQ + c0 + (lane / 16) * 8);
+#pragma unroll
+        for (int jp = 0; jp < HPB; ++jp) {
+          unsigned b[4];  // K_h [key][c] by row is B = K_h^T in the col layout
+          tt::ldmatrix_x4<false>(
+              b, Kb + (jp * 16 + lane % 8 + (lane / 16) * 8) * SQ + c0 + ((lane / 8) % 2) * 8);
+          tt::mma_bf16(s[2 * jp], a, b[0], b[1]);
+          tt::mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
+        }
+      }
+      // rows g (s[.][0..1]) and g + 8 (s[.][2..3]); keys 8j + 2q4 + {0, 1}.
+      // A key >= len scores -1e30 as in the FMA kernel; a padded key (>= H)
+      // -inf, so it adds exactly 0 to the row whatever len is.
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 2 * HPB; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = 8 * j + 2 * q4 + (c & 1);
+          s[j][c] = key >= H ? -INFINITY : key < len ? s[j][c] * scale : -1e30f;
+          if (c < 2) m0 = fmaxf(m0, s[j][c]);
+          else m1 = fmaxf(m1, s[j][c]);
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+      }
+#pragma unroll
+      for (int j = 0; j < 2 * HPB; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] = expf(s[j][c] - (c < 2 ? m0 : m1));
+      const float d0 = fmaxf(row_den<HPB>(s, 0), 1e-30f);
+      const float d1 = fmaxf(row_den<HPB>(s, 2), 1e-30f);
+      // p = e / den.  A masked key's e is 0, and IEEE division takes its slow
+      // path for a 0 numerator: a lane with e = 0 skips the division and
+      // takes 0, the same value.  Dividing 1 there and selecting 0 made B13
+      // with lengths a third slower on an H100; the branch costs about 5%
+      // without lengths
+      auto pdiv = [](float e, float den) { return e == 0.0f ? 0.0f : e / den; };
+      unsigned pa[HPB][4];  // round(p) as the A operand of P.V, key band kk
+#pragma unroll
+      for (int kk = 0; kk < HPB; ++kk) {
+        pa[kk][0] = tt::pack_bf16x2(pdiv(s[2 * kk][0], d0), pdiv(s[2 * kk][1], d0));
+        pa[kk][1] = tt::pack_bf16x2(pdiv(s[2 * kk][2], d1), pdiv(s[2 * kk][3], d1));
+        pa[kk][2] = tt::pack_bf16x2(pdiv(s[2 * kk + 1][0], d0), pdiv(s[2 * kk + 1][1], d0));
+        pa[kk][3] = tt::pack_bf16x2(pdiv(s[2 * kk + 1][2], d1), pdiv(s[2 * kk + 1][3], d1));
+      }
+      bf16* Ob = QKV + (e * Hp + qb * 16) * SQ + h * hd;  // over q: this warp's own rows and columns
+      for (int c0 = 0; c0 < hd; c0 += 16) {
+        float o[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+        for (int kk = 0; kk < HPB; ++kk) {
+          unsigned b[4];  // V_h [key][c] by row: B [K][N], transposed on load
+          tt::ldmatrix_x4<true>(
+              b, Vb + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * SQ + c0 + (lane / 16) * 8);
+          tt::mma_bf16(o[0], pa[kk], b[0], b[1]);
+          tt::mma_bf16(o[1], pa[kk], b[2], b[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          *(unsigned*)(Ob + g * SQ + c0 + 8 * j + 2 * q4) = tt::pack_bf16x2(o[j][0], o[j][1]);
+          *(unsigned*)(Ob + (g + 8) * SQ + c0 + 8 * j + 2 * q4) = tt::pack_bf16x2(o[j][2], o[j][3]);
+        }
+      }
+    }
+    __syncthreads();  // the attention output is complete; k and v are dead
+
+    warp_gemm<2>(rows, D, D, QKV, SQ, Wo, SWO, [&](int r, int c, float v0, float v1) {
+      *(unsigned*)(QKV + r * SQ + D + c) = tt::pack_bf16x2(v0 + bo[c], v1 + bo[c + 1]);
+    });
+    __syncthreads();  // y staged
+    const int cpr = D / 8;
+    for (int i = t; i < rows * cpr; i += THREADS) {
+      const int r = i / cpr, c = i - r * cpr;
+      const int ex = tile * E + r / Hp, hi = r % Hp;
+      if (ex < B && hi < H)
+        *(uint4*)(y + ((size_t)ex * H + hi) * D + c * 8) = *(const uint4*)(QKV + r * SQ + D + c * 8);
+    }
+  }
+  tt::cp_wait<0>();
+}
+
+// Shared memory of one block in bytes (ops/fused_mha.py:_fwd_tc_smem_bytes).
+size_t smem_bytes(int rows, int D) {
+  return 2 * ((size_t)D * (3 * D + PAD) + (size_t)D * (D + PAD) + (size_t)rows * (D + PAD) +
+              (size_t)rows * (3 * D + PAD)) +
+         16 * (size_t)D;
+}
+
+template <int HPB>
+int launch(const void* x, const void* lens, const void* w_in, const void* b_in,
+           const void* w_out, const void* b_out, void* y, int B, int H, int D, int NH, int E,
+           int grid, float scale, void* stream) {
+  const size_t smem = smem_bytes(E * 16 * HPB, D);
+  cudaError_t err = cudaFuncSetAttribute(mha_fwd_tc_kernel<HPB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  mha_fwd_tc_kernel<HPB><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const int*)lens, (const float*)w_in, (const float*)b_in,
+      (const float*)w_out, (const float*)b_out, (bf16*)y, B, H, D, NH, E, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 // Shared memory, in floats; ops/fused_mha.py:_fwd_smem_bytes and
 // _bwd_smem_bytes compute the same to choose WSM and to refuse a shape.
 size_t fwd_smem_floats(int H, int D, int NH, bool wsm) {
@@ -435,6 +762,28 @@ extern "C" int tt_fused_mha_fwd(const void* x, const void* lens, const void* w_i
   if (B < 1 || H < 1 || NH < 1 || D % NH != 0) return (int)cudaErrorInvalidValue;
   return wsm ? launch_fwd<true>(x, lens, w_in, b_in, w_out, b_out, y, B, H, D, NH, bf, stream)
              : launch_fwd<false>(x, lens, w_in, b_in, w_out, b_out, y, B, H, D, NH, bf, stream);
+}
+
+// B13 on the tensor cores: x [B, H, D] bf16, lens as tt_fused_mha_fwd,
+// f32 weights -> y [B, H, D] bf16; x, W_in and W_out 16-byte aligned.  D and D / NH
+// multiples of 16, Hp = round_up(H, 16) <= 64; ept examples a tile (ept *
+// Hp a multiple of 32), grid blocks (ops/fused_mha.py:_fwd_tc_plan).
+extern "C" int tt_fused_mha_fwd_tc(const void* x, const void* lens, const void* w_in,
+                                   const void* b_in, const void* w_out, const void* b_out,
+                                   void* y, int B, int H, int D, int NH, int ept, int grid,
+                                   void* stream) {
+  const int hpb = (H + 15) / 16;
+  if (B < 1 || H < 1 || NH < 1 || D % NH != 0 || D % 32 != 0 || (D / NH) % 16 != 0 ||
+      hpb > 4 || ept < 1 || (ept * 16 * hpb) % 32 != 0 || ept * 16 * hpb > tc::TILE_ROWS ||
+      grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const float scale = head_scale(D, NH);
+  switch (hpb) {
+    case 1: return tc::launch<1>(x, lens, w_in, b_in, w_out, b_out, y, B, H, D, NH, ept, grid, scale, stream);
+    case 2: return tc::launch<2>(x, lens, w_in, b_in, w_out, b_out, y, B, H, D, NH, ept, grid, scale, stream);
+    case 3: return tc::launch<3>(x, lens, w_in, b_in, w_out, b_out, y, B, H, D, NH, ept, grid, scale, stream);
+    default: return tc::launch<4>(x, lens, w_in, b_in, w_out, b_out, y, B, H, D, NH, ept, grid, scale, stream);
+  }
 }
 
 // B14: g and x [B, H, D] in x's dtype, lens as B13 -> dx [B, H, D] in x's

@@ -46,6 +46,7 @@
 // Plain f32 FMA on the CUDA cores; 3xTF32 on the tensor cores is later work.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 #include <algorithm>
 
@@ -139,21 +140,9 @@ constexpr int SD = KC + 4;   // U, I row stride: 17 float4s
 constexpr int SP = BN + 8;   // g p row stride
 constexpr int SMEM_FLOATS = BM * SD + 2 * BN * SD + BM * SP + 2 * BM;
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Rows row0 .. row0 + NROWS - 1 of src [n, D], d in [d0, d0 + KC), into
@@ -167,7 +156,7 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int row0, in
       const int r = e / (KC / 4), q = (e % (KC / 4)) * 4;
       const int row = row0 + r, d = d0 + q;
       const bool ok = row < n && d < D;
-      cp_async16(dst + r * SD + q, ok ? src + (size_t)row * D + d : src, ok ? 16 : 0);
+      tt::cp_async16(dst + r * SD + q, ok ? src + (size_t)row * D + d : src, ok ? 16 : 0);
     }
   } else {
     for (int e = threadIdx.x; e < NROWS * KC; e += NT) {
@@ -266,7 +255,7 @@ ce_bwd_kernel(const float* __restrict__ U, const float* __restrict__ I,
     if (nkc == 1) {
       stage<BM>(us, U, r0, B, D, 0, vec);
       stage<BN>(is, I, ct0 * BN, C, D, 0, vec);
-      cp_commit();
+      tt::cp_commit();
     }
     float acc_u[8][8];
 #pragma unroll
@@ -284,10 +273,10 @@ ce_bwd_kernel(const float* __restrict__ U, const float* __restrict__ I,
       if (nkc == 1) {
         if (ct + 1 < ct1) {  // stage the next column tile while this one is computed
           stage<BN>(is + (buf ^ 1) * BN * SD, I, c0 + BN, C, D, 0, vec);
-          cp_commit();
-          cp_wait<1>();
+          tt::cp_commit();
+          tt::cp_wait<1>();
         } else {
-          cp_wait<0>();
+          tt::cp_wait<0>();
         }
         __syncthreads();
         scores(s, us, ib, tx, ty, (min(D, KC) + 3) & ~3);
@@ -297,8 +286,8 @@ ce_bwd_kernel(const float* __restrict__ U, const float* __restrict__ I,
           __syncthreads();
           stage<BM>(us, U, r0, B, D, kc * KC, vec);
           stage<BN>(ib, I, c0, C, D, kc * KC, vec);
-          cp_commit();
-          cp_wait<0>();
+          tt::cp_commit();
+          tt::cp_wait<0>();
           __syncthreads();
           scores(s, us, ib, tx, ty, (min(D - kc * KC, KC) + 3) & ~3);
         }

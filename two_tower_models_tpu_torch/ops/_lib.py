@@ -61,6 +61,7 @@ _SIGNATURES = {
     "tt_rows_scatter_add": [_P] * 5 + [_I] * 3 + [_P],
     "tt_rows_write": [_P] * 4 + [_I] * 4 + [_P],
     "tt_fused_mha_fwd": [_P] * 7 + [_I] * 6 + [_P],
+    "tt_fused_mha_fwd_tc": [_P] * 7 + [_I] * 6 + [_P],
     "tt_fused_mha_bwd": [_P] * 8 + [_I] * 7 + [_P],
     "tt_fused_mha_bwd_reduce": [_P, _P, _I, _I, _P],
     "tt_blockwise_attn_fwd": [_P] * 6 + [_I] * 3 + [_P],

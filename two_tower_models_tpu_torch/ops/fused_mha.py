@@ -5,7 +5,12 @@ Port of ``two_tower_models_tpu/ops/pallas/fused_mha.py``:
 
 - B13, ``_fwd_kernel`` (``pallas_call`` at :297): ``fused_mha_fwd``, the
   whole layer (QKV projection, per-head softmax attention with a key mask,
-  output projection) for every query row (``csrc/fused_mha.cu``);
+  output projection) for every query row (``csrc/fused_mha.cu``), on one
+  of two kernels chosen by ``_fwd_route`` before the launch: bf16 layers
+  of head width 16, 32, ..., D a multiple of 32 and H up to 64 on the
+  tensor cores (``mha_fwd_tc_kernel``, tiles of several examples), every
+  other layer on the CUDA cores (``mha_fwd_kernel``, one example at a
+  time);
 - B14, ``_bwd_kernel`` (:369), the custom VJP's backward: ``fused_mha_bwd``,
   which recomputes the layer's forward per example and writes dx and
   per-block weight-grad partials, plus a second launch that sums the
@@ -29,6 +34,9 @@ H per example computes.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -66,6 +74,23 @@ def fused_mha_layer_plain(
     return y.to(x.dtype)
 
 
+def fused_mha_layer_f64_sums(x, lens, w_in, b_in, w_out, b_out, num_heads):
+    """B13's function on bf16 x at its bf16 rounding points with every sum
+    taken in f64, as y [B, H, D] bf16: the yardstick against which two f32
+    versions whose sums run in different orders (the plain version and the
+    tensor-core kernel) are both measured."""
+    rb = lambda t: t.to(torch.bfloat16).double()
+    b, h, d = x.shape
+    heads = lambda t: t.reshape(b, h, num_heads, d // num_heads).transpose(1, 2)
+    q, k, v = (heads(rb(t)) for t in (rb(x) @ rb(w_in) + b_in.double()).split(d, -1))
+    s = (q @ k.transpose(-1, -2)) / math.sqrt(d // num_heads)
+    if lens is not None:
+        s = s.masked_fill(_key_invalid(lens, h, x.device), -1e30)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    out = (rb(e / rb(e).sum(-1, keepdim=True)) @ v).transpose(1, 2).reshape(b, h, d)
+    return (rb(out) @ rb(w_out) + b_out.double()).to(torch.bfloat16)
+
+
 def fused_mha_layer_bwd_plain(g, x, lens, w_in, b_in, w_out, b_out, num_heads):
     """B14's function, ``_bwd_kernel`` and ``_vjp_bwd``: from the cotangent
     g [B, H, D] of the layer's output (rounded to x's dtype first), (dx
@@ -99,6 +124,69 @@ def _bwd_smem_bytes(h: int, d: int, nh: int, wsm: bool) -> int:
     return 4 * (w + 3 * h * d + h * (3 * d + 1) + 2 * nh * h * h)
 
 
+_TC_ROWS = 128  # rows a tensor-core tile aims at: E examples of Hp rows
+_TC_MAX_HP = 64  # the longest padded history whose S band fits the kernel's registers
+_TC_BLOCKS_PER_SM = 2  # the tensor-core kernel's __launch_bounds__
+_SM_SMEM = 233472  # bytes of shared memory a Hopper SM holds for its blocks
+_BLOCK_RESERVED = 1024  # of which each resident block takes for itself
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _fwd_tc_smem_bytes(h: int, d: int, ept: int) -> int:
+    """Shared memory of B13's tensor-core kernel (csrc/fused_mha.cu,
+    tc::smem_bytes) with ``ept`` examples a tile: bf16 round(W_in) [D, 3D],
+    round(W_out) [D, D], x [rows, D] and qkv [rows, 3D], each row padded by
+    8 bf16, then f32 b_in and b_out; rows = ept * round_up(H, 16)."""
+    rows = ept * _round_up(h, 16)
+    return 2 * (d * (3 * d + 8) + d * (d + 8) + rows * (d + 8) + rows * (3 * d + 8)) + 16 * d
+
+
+def _fwd_tc_tile(h: int, d: int) -> int | None:
+    """Examples a tensor-core tile holds: as many as make about 128 rows,
+    the rows a multiple of 32 (the projections' warp tiles), fewer where
+    shared memory needs it (D = 128); None if one does not fit."""
+    hp = _round_up(h, 16)
+    step = 1 if hp % 32 == 0 else 2
+    ept = _TC_ROWS // hp // step * step
+    while ept >= step and _fwd_tc_smem_bytes(h, d, ept) > _SMEM_LIMIT:
+        ept -= step
+    return ept if ept >= step else None
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_route(dtype, h: int, d: int, nh: int) -> str:
+    """B13's kernel for a layer, a function of its dtype and shape alone:
+    "tc" (the tensor cores: bf16, D a multiple of 32 (the QKV projection's
+    32-column warp tiles of 3D), the head width a multiple of 16,
+    round_up(H, 16) <= 64, a tile that fits) or "fma" (the CUDA cores:
+    f32, which the Pallas kernel computes in f32 and TF32 would not match;
+    a head width of 8; other widths; longer histories).  Cached, as the
+    plan and the SM count are: the wrapper asks on every launch."""
+    tc = (dtype == torch.bfloat16 and d % nh == 0 and d % 32 == 0 and (d // nh) % 16 == 0
+          and _round_up(h, 16) <= _TC_MAX_HP and _fwd_tc_tile(h, d) is not None)
+    return "tc" if tc else "fma"
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_tc_plan(b: int, h: int, d: int, sms: int) -> tuple[int, int, int, int]:
+    """(examples a tile, rows a tile, shared memory bytes, grid) of a
+    tensor-core launch: the grid is the blocks resident at once (at most
+    two per SM, fewer where shared memory allows fewer), at most one per
+    tile; each block walks its tiles in a persistent loop."""
+    ept = _fwd_tc_tile(h, d)
+    smem = _fwd_tc_smem_bytes(h, d, ept)
+    per_sm = max(1, min(_TC_BLOCKS_PER_SM, _SM_SMEM // (smem + _BLOCK_RESERVED)))
+    return ept, ept * _round_up(h, 16), smem, min(-(-b // ept), per_sm * sms)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _weights_in_smem(smem_bytes, what: str, h: int, d: int, nh: int) -> bool:
     """True if the weights (and a backward's grad accumulators) fit in
     shared memory beside one example's working set; False if only the
@@ -126,28 +214,65 @@ def _check(x, w_in, b_in, w_out, b_out, num_heads) -> None:
         raise ValueError("attention layer shapes do not agree")
 
 
+def _launch_fwd_fma(x, lens, wi, bi, wo, bo, num_heads):
+    """B13 on the CUDA cores (``mha_fwd_kernel``) on the wrapper's prepared
+    inputs: y [B, H, D] in x's dtype.  Counts nothing: ``fused_mha_fwd``
+    does."""
+    b, h, d = x.shape
+    wsm = _weights_in_smem(_fwd_smem_bytes, "forward", h, d, num_heads)
+    y = torch.empty_like(x)
+    if b:
+        err = _lib.library().tt_fused_mha_fwd(
+            x.data_ptr(), 0 if lens is None else lens.data_ptr(), wi.data_ptr(), bi.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), y.data_ptr(), b, h, d, num_heads,
+            int(x.dtype == torch.bfloat16), int(wsm), _lib.stream_ptr(x),
+        )
+        _lib.check(err, "fused_mha_fwd")
+    return y
+
+
+def _launch_fwd_tc(x, lens, wi, bi, wo, bo, num_heads):
+    """B13 on the tensor cores (``mha_fwd_tc_kernel``, bf16 x) on the
+    wrapper's prepared inputs: y [B, H, D] bf16.  Counts nothing."""
+    b, h, d = x.shape
+    # the kernel reads x, W_in and W_out in 16-byte chunks
+    x, wi, wo = (t.clone() if t.data_ptr() % 16 else t for t in (x, wi, wo))
+    y = torch.empty_like(x)
+    if b:
+        ept, _, _, grid = _fwd_tc_plan(b, h, d, _sm_count(x.device.index))
+        err = _lib.library().tt_fused_mha_fwd_tc(
+            x.data_ptr(), 0 if lens is None else lens.data_ptr(), wi.data_ptr(), bi.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), y.data_ptr(), b, h, d, num_heads, ept, grid,
+            _lib.stream_ptr(x),
+        )
+        _lib.check(err, "fused_mha_fwd_tc")
+    return y
+
+
+def _fwd_inputs(x, lens, w_in, b_in, w_out, b_out):
+    """The kernels' operands: x contiguous, lengths int32, f32 weights, all
+    on x's device."""
+    dev = x.device
+    x = x.detach().contiguous()
+    return (x, None if lens is None else _lens(lens, x),
+            *(_f32(t, dev) for t in (w_in, b_in, w_out, b_out)))
+
+
 def fused_mha_fwd(x, lens, w_in, b_in, w_out, b_out, num_heads):
     """[B, H, D] -> [B, H, D]; see ``fused_mha_layer_plain``.  A CPU tensor
-    takes the plain version; a CUDA tensor launches kernel B13."""
+    takes the plain version; a CUDA tensor launches kernel B13 on the route
+    ``_fwd_route`` gives its dtype and shape.  Every launch counts as
+    ``fused_mha_fwd``, one on the tensor cores also as ``fused_mha_fwd_tc``."""
     if x.device.type == "cpu":
         return fused_mha_layer_plain(x, lens, w_in, b_in, w_out, b_out, num_heads)
     _check(x, w_in, b_in, w_out, b_out, num_heads)
-    b, h, d = x.shape
-    wsm = _weights_in_smem(_fwd_smem_bytes, "forward", h, d, num_heads)
-    dev = x.device
-    x = x.detach().contiguous()
-    lens = None if lens is None else _lens(lens, x)
-    wi, bi, wo, bo = (_f32(t, dev) for t in (w_in, b_in, w_out, b_out))
-    y = torch.empty_like(x)
-    if b == 0:
-        return y
-    err = _lib.library().tt_fused_mha_fwd(
-        x.data_ptr(), 0 if lens is None else lens.data_ptr(), wi.data_ptr(), bi.data_ptr(),
-        wo.data_ptr(), bo.data_ptr(), y.data_ptr(), b, h, d, num_heads,
-        int(x.dtype == torch.bfloat16), int(wsm), _lib.stream_ptr(x),
-    )
-    _lib.check(err, "fused_mha_fwd")
-    _lib.launches["fused_mha_fwd"] += 1
+    tc = _fwd_route(x.dtype, x.shape[1], x.shape[2], num_heads) == "tc"
+    y = (_launch_fwd_tc if tc else _launch_fwd_fma)(
+        *_fwd_inputs(x, lens, w_in, b_in, w_out, b_out), num_heads)
+    if x.shape[0]:
+        _lib.launches["fused_mha_fwd"] += 1
+        if tc:
+            _lib.launches["fused_mha_fwd_tc"] += 1
     return y
 
 
