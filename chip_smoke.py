@@ -79,15 +79,18 @@ Phases, in the order they run; any failure exits non-zero:
      fused_encoder=False: each attention layer in one kernel, B13 forward,
      B14 backward).  6a: B13 and B14 against their plain versions on layer
      0's tensors of the serving batch (with and without lengths) and of
-     the training batch, bf16 and f32, B13 (bf16: the tensor-core kernel)
-     and B14 twice (bit-equal), each timed beside its plain version, its
-     bound and F.multi_head_attention_forward (B14: that call's autograd
-     backward).  The tensor-core kernel sums in f32 in its own order, so
-     its bf16 y is held as B14's dx is, and against the layer with f64
-     sums it may have at most 1.5 times the plain version's values beyond
-     one bf16 step; B13's FMA kernel, called through its launcher on the
-     same bf16 inputs, is held within one step of the plain version and
-     timed beside it.
+     the training batch, bf16 and f32, B13 and B14 (bf16: their
+     tensor-core kernels) twice (bit-equal), each timed beside its plain
+     version, its bound and F.multi_head_attention_forward (B14: that
+     call's autograd backward).  The tensor-core kernels sum in f32 in
+     their own order, so B13's bf16 y is held as B14's dx is, and against
+     the layer (and its backward) with f64 sums they may have at most 1.5
+     times the plain version's values beyond one bf16 step (B14's weight
+     grads: 1.5 times its RMS error, or 1e-6 of scale); the FMA kernels,
+     called through their launchers on the same bf16 inputs, are held as
+     before (B13 within one step of the plain version) and timed beside
+     them, B14's with its device time, reduce apart, and phase 1's ptxas
+     line for its tensor-core instance.
      6b: phase 3's configuration and
      seed on this tier through from_params / warmup / query, ten batches
      with full histories (serve-1M-exact-layer) and ten with lengths
@@ -97,10 +100,11 @@ Phases, in the order they run; any failure exits non-zero:
      there.  6c: phase 4's configuration on this tier, 3 warm-up and 20
      timed steps on the fixed batch (train-65k-layer) and on
      make_synthetic_data's variable-length histories (-varlen): three B13
-     (on the tensor cores), three B14 and three reduces a step, the CE
-     kernels once, none of B1
-     and B5-B9; three steps under the profiler and train_loss's grads at
-     B=256 against a CPU copy for each; the step beside phase 4's.
+     and three B14 (all on the tensor cores) and three reduces a step, the
+     CE kernels once, none of B1 and B5-B9; three steps under the profiler
+     (the step's device-busy ms beside ms/step and host ms) and
+     train_loss's grads at B=256 against a CPU copy for each; the step
+     beside phase 4's.
   7. the blockwise attention tier (HistoryEncoderConfig blockwise_kernel=True,
      fused_encoder=False: each layer's attention through B15, and B16 and B17
      for the gradient, between plain projections).  7a: B15 against its plain
@@ -173,20 +177,21 @@ def _fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def ptxas_report(log: str, kernels, smem: dict) -> list:
+def ptxas_report(log: str, kernels, smem: dict) -> tuple[list, dict]:
     """Print each kernel's registers, stack and spills from nvcc -Xptxas -v
-    output, a template instance as ``name<n>`` (n its int argument), beside
-    the dynamic shared memory ``smem`` gives by that printed name; returns
-    the kernels that spill or gave no report."""
+    output, a template instance as ``name<n, ...>`` (its int arguments),
+    beside the dynamic shared memory ``smem`` gives by that printed name;
+    returns (the kernels that spill or gave no report, the report lines by
+    printed name)."""
     import re
 
     lines, cur = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             cur = next((k for k in kernels if k in line), None)
-            arg = re.search(r"ILi(\d+)E", line)
+            args = re.findall(r"Li(\d+)E", line)
             if cur:
-                cur += f"<{arg.group(1)}>" if arg else ""
+                cur += f"<{', '.join(args)}>" if args else ""
                 lines.setdefault(cur, [])
         elif cur and ("Used" in line or "spill" in line):
             lines[cur].append(line.replace("ptxas info    :", "").strip())
@@ -197,7 +202,7 @@ def ptxas_report(log: str, kernels, smem: dict) -> list:
               flush=True)
         if not got or any(" 0 bytes spill stores" not in ln for ln in got if "spill" in ln):
             spills.append(name)
-    return spills
+    return spills, lines
 
 
 def time_ms(torch, fn, iters: int = 10) -> float:
@@ -505,7 +510,8 @@ def phase_serve_varlen(torch, args, gen, smi, dev, cfg, model, cpu_model, engine
 def trace_steps(torch, step, state, data, idx, label: str):
     """Three steps under torch.profiler: device time per kernel (device-side
     events only: kernels and copies, one stream) and the device's busy
-    share of the window.  Returns the state."""
+    share of the window.  Returns (the state, device-busy ms a step, None if
+    the profiler recorded no device time)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -529,7 +535,7 @@ def trace_steps(torch, step, state, data, idx, label: str):
               + "; ".join(f"{k[:48]} {v / 3e3:.3f} ms" for k, v in top), flush=True)
     else:
         print(f"{label} trace: the profiler recorded no device time (not measured)", flush=True)
-    return state
+    return state, busy / 3e3 if busy else None
 
 
 def flagship_cfg(rows: int):
@@ -770,7 +776,7 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
     )
 
     # -- where a step's device time goes: a trace of three steps --
-    state = trace_steps(torch, step, state, data, idx, "train")
+    state, _ = trace_steps(torch, step, state, data, idx, "train")
 
     # -- phase 4c, second half: the step with B1 + B7 (_RESIDUAL_BWD False)
     # beside the B5 + B6 step, in the order B6, B7, B7, B6 --
@@ -893,7 +899,7 @@ def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, fa
         f"loss first {float(first['loss']):.5f} last {float(last['loss']):.5f}",
         flush=True,
     )
-    state = trace_steps(torch, step, state, data, idx, "train varlen")
+    state, _ = trace_steps(torch, step, state, data, idx, "train varlen")
     grads_vs_cpu(torch, model, cfg, data, idx, failures, "train varlen")
 
 
@@ -935,7 +941,7 @@ def table_leg(torch, label, step, state, data, idx, warm, expect, smi, failures)
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; host syncs in a step {syncs}",
         flush=True,
     )
-    return trace_steps(torch, step, state, data, idx, label), ms_step, counts
+    return trace_steps(torch, step, state, data, idx, label)[0], ms_step, counts
 
 
 def table_tensors(state):
@@ -1266,7 +1272,13 @@ def layer_checks(torch, label, x, lens, g, w, nh):
     values beyond one bf16 step, all within 1e-2 of scale), and against the
     layer with f64 sums it may have at most 1.5 times as many values beyond
     one step as the plain version has.  The FMA kernel sums in the plain
-    version's order: within one step."""
+    version's order: within one step.  B14 (the tensor-core kernel for
+    bf16) and its FMA kernel, launched through its launcher on the same
+    inputs: dx as above, the weight grads within 3e-3 of scale; the
+    tensor-core kernel's dx no more values beyond one step from the
+    backward with f64 sums than 1.5 times the plain version's, each weight
+    grad's RMS error from f64 sums at most 1.5 times the plain version's
+    (or 1e-6 of scale), and bit-equal on repeat."""
     from two_tower_models_tpu_torch.ops import fused_mha as fm
 
     y, plain = fm.fused_mha_fwd(x, lens, *w, nh), fm.fused_mha_layer_plain(x, lens, *w, nh)
@@ -1290,25 +1302,48 @@ def layer_checks(torch, label, x, lens, g, w, nh):
         got = fm.fused_mha_bwd(g, x, lens, *w, nh)
         want = fm.fused_mha_layer_bwd_plain(g, x, lens, *w, nh)
         again = fm.fused_mha_bwd(g, x, lens, *w, nh)
+        route = fm._bwd_route(x.dtype, *x.shape[1:], nh)
         repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-        far = bf16_far(torch, got[0], want[0]) / got[0].numel()
-        ok_dx, err = scaled_close(got[0], want[0], 1e-2)
-        grads = [scaled_close(a, e, 3e-3) for a, e in zip(got[1:], want[1:])]
+        d = x.shape[2]
+        dx_fma, flat = fm._launch_bwd_fma(*fm._bwd_inputs(g, x, lens, *w[:3]), nh)
+        fma = (dx_fma, *(t.view_as(e) for t, e in zip(
+            torch.split(flat, [d * 3 * d, 3 * d, d * d, d]), want[1:])))
+        line += f"; B14 ({route} route)"
+        for tag, t in (("", got), ("the FMA kernel ", fma)):
+            far = bf16_far(torch, t[0], want[0]) / t[0].numel()
+            ok_dx, err_dx = scaled_close(t[0], want[0], 1e-2)
+            grads = [scaled_close(a, e, 3e-3) for a, e in zip(t[1:], want[1:])]
+            ok = ok and ok_dx and far <= 5e-3 and all(k for k, _ in grads)
+            line += (f"; {tag}dx: {far:.2e} of values beyond one bf16 step (tol 5e-3), "
+                     f"max_abs_err {err_dx:.3g} (tol 1e-2 of scale); weight grads max_abs_err "
+                     f"{[float(f'{e:.3g}') for _, e in grads]} (tol 3e-3 of scale)")
+            if not tag:
+                err = err_dx  # the entry's max_abs_err: B14's dx
+        # against the backward with f64 sums: dx values beyond one bf16 step,
+        # each weight grad's RMS error relative to its scale
+        ref = fm.fused_mha_layer_bwd_f64_sums(g, x, lens, *w, nh)
+        far64 = [bf16_far(torch, t[0], ref[0]) for t in (got, want)]
+        rms = [[float((a.double() - e).pow(2).mean().sqrt() / e.abs().max())
+                for a, e in zip(t[1:], ref[1:])] for t in (got, want)]
+        ok64 = far64[0] <= 1.5 * far64[1] and all(
+            k <= max(1.5 * p, 1e-6) for k, p in zip(*rms))
         ok32 = all(scaled_close(a, e, 1e-4)[0] for a, e in zip(
             fm.fused_mha_bwd(g.float(), x.float(), lens, *w, nh),
             fm.fused_mha_layer_bwd_plain(g.float(), x.float(), lens, *w, nh)))
-        ok = ok and repeat and ok_dx and far <= 5e-3 and all(k for k, _ in grads) and ok32
-        line += (f"; B14 dx: {far:.2e} of values beyond one bf16 step (tol 5e-3), max_abs_err "
-                 f"{err:.3g} (tol 1e-2 of scale); weight grads max_abs_err "
-                 f"{[float(f'{e:.3g}') for _, e in grads]} (tol 3e-3 of scale); f32 ok={ok32} "
+        ok = ok and route == "tc" and repeat and ok64 and ok32
+        line += (f"; beyond one step from f64 sums: kernel {far64[0]}, plain {far64[1]} (tol "
+                 f"1.5x); weight grads' RMS error from f64 sums (of scale) kernel "
+                 f"{[float(f'{v:.3g}') for v in rms[0]]}, plain "
+                 f"{[float(f'{v:.3g}') for v in rms[1]]} (tol 1.5x or 1e-6); f32 ok={ok32} "
                  f"(tol 1e-4 of scale); bit-equal on repeat={repeat}")
     print(line, flush=True)
     return ok, err
 
 
-def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms) -> None:
+def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms, b14_ptxas) -> None:
     """Phase 6: the per-layer attention tier (HistoryEncoderConfig with
-    fused_kernel=True, fused_encoder=False) at the cells' full width."""
+    fused_kernel=True, fused_encoder=False) at the cells' full width;
+    ``b14_ptxas`` is phase 1's report of B14's tensor-core instance there."""
     from two_tower_models_tpu_torch.config import DataConfig, TrainConfig
     from two_tower_models_tpu_torch.models import two_tower as tt
     from two_tower_models_tpu_torch.ops import fused_mha as fm
@@ -1440,9 +1475,25 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms) -> None
         3 * bt * HIST * d * 2 + (4 * d * d + 3 * d) * 4 + grads_bytes,
         bt * layer_vjp_flops(HIST, d), BF16_FLOPS, lib_bwd_ms,
     )
-    entries["fused_mha_bwd"]["note"] = (
-        "ms includes the second launch that sums the per-block weight grads; library_ms is "
-        "the autograd backward of F.multi_head_attention_forward (bf16)")
+    e14 = entries["fused_mha_bwd"]
+    bwd = lambda: fm.fused_mha_bwd(g, x, None, *w, nh)
+    fma14 = lambda: fm._launch_bwd_fma(*fm._bwd_inputs(g, x, None, *w[:3]), nh)
+    e14["route"] = fm._bwd_route(x.dtype, HIST, d, nh)
+    e14["device_ms"] = device_ms(torch, bwd, "mha_bwd_tc_kernel")
+    e14["reduce_device_ms"] = device_ms(torch, bwd, "reduce_kernel")
+    e14["fma_ms"] = time_ms(torch, fma14)
+    e14["fma_device_ms"] = device_ms(torch, fma14, "mha_bwd_kernel")
+    e14["ptxas"] = b14_ptxas
+    e14["note"] = (
+        "ms includes the second launch that sums the per-block weight grads and the host's "
+        "dispatch; device_ms is mha_bwd_tc_kernel's launch alone and reduce_device_ms the "
+        "reduce's (torch.profiler); fma_* the FMA kernel (mha_bwd_kernel) on the same inputs; "
+        "library_ms is the autograd backward of F.multi_head_attention_forward (bf16)")
+    print(f"B14 at B={bt} on {torch.cuda.get_device_name(0)} ({smi}): route {e14['route']} "
+          f"{e14['ms']:.4f} ms (device time {e14['device_ms']:.4f}, its reduce "
+          f"{e14['reduce_device_ms']:.4f}); the FMA kernel {e14['fma_ms']:.4f} (device "
+          f"{e14['fma_device_ms']:.4f}); library {e14['library_ms']:.4f}; bound "
+          f"{e14['bound_ms']:.4f} ({e14['bound_by']}); ptxas {b14_ptxas}", flush=True)
     e13["note"] = (
         "ms, plain_ms, bound_ms, library_ms at the serving batch (B=1024), varlen_* there "
         "with lengths (bound counting valid keys only), train_* at the training batch "
@@ -1453,7 +1504,7 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms) -> None
     torch.cuda.empty_cache()
 
     expect = {"fused_mha_fwd": nl, "fused_mha_fwd_tc": nl, "fused_mha_bwd": nl,
-              "fused_mha_bwd_reduce": nl,
+              "fused_mha_bwd_reduce": nl, "fused_mha_bwd_tc": nl,
               "fused_in_batch_ce": 1, "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1,
               "fused_history_encoder": 0, "fused_history_encoder_res": 0,
               "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
@@ -1477,19 +1528,25 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms) -> None
         for name in ("fused_mha_fwd", "fused_mha_bwd"):
             entries[name][f"launches_{label}"] = counts.get(name, 0)
         e13[f"launches_tc_{label}"] = counts.get("fused_mha_fwd_tc", 0)
-        entries["fused_mha_bwd"][f"reduce_launches_{label}"] = counts.get("fused_mha_bwd_reduce", 0)
+        e14[f"launches_tc_{label}"] = counts.get("fused_mha_bwd_tc", 0)
+        e14[f"reduce_launches_{label}"] = counts.get("fused_mha_bwd_reduce", 0)
         if not finite(torch, metrics):
             failures.append(f"{label} metrics not finite")
-        kern = nl * (e13["train_ms"] + entries["fused_mha_bwd"]["ms"])
+        kern = nl * (e13["train_ms"] + e14["ms"])
         print(
             f"{label} on {torch.cuda.get_device_name(0)} ({smi}): {TRAIN_STEPS} steps of B={bt}: "
             f"ms/step {ms_step:.3f}, examples/s {bt / ms_step * 1e3:.0f}; host wall "
             f"{host_ms:.3f} ms/step; loss first {float(metrics[0]['loss']):.5f} last "
             f"{float(metrics[-1]['loss']):.5f}; three B13 and three B14 alone {kern:.3f} ms "
             f"({kern / ms_step * 100:.1f}% of the step)", flush=True)
-        state = trace_steps(torch, step, state, dat, idx, label)
+        state, busy = trace_steps(torch, step, state, dat, idx, label)
+        print(f"{label} step on {torch.cuda.get_device_name(0)} ({smi}): ms/step {ms_step:.3f}, "
+              f"host wall {host_ms:.3f} ms/step, device busy "
+              + (f"{busy:.3f} ms/step (the trace's three steps)" if busy else "not measured"),
+              flush=True)
+        e14[f"busy_ms_{label}"] = busy
         grads_vs_cpu(torch, state.params, cfg, dat, idx, failures, label)
-    entries["fused_mha_bwd"]["launches"] = entries["fused_mha_bwd"]["launches_train-65k-layer"]
+    e14["launches"] = e14["launches_train-65k-layer"]
     print(f"per-layer tier on {torch.cuda.get_device_name(0)} ({smi}): "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in legs.items())
           + f"; phase 4's B5+B6 step {b56_ms[0]:.3f}, {b56_ms[1]:.3f} ms: the per-layer step "
@@ -1774,7 +1831,8 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
               "fused_history_encoder": 0, "fused_history_encoder_res": 0,
               "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
               "fused_attn_stack": 0, "fused_attn_stack_bwd": 0, "fused_mha_fwd": 0,
-              "fused_mha_bwd": 0, "rows_scatter_add": 0, "rows_write": 0, "fused_adam": 0}
+              "fused_mha_bwd": 0, "fused_mha_bwd_tc": 0, "rows_scatter_add": 0, "rows_write": 0,
+              "fused_adam": 0}
     var_data = make_synthetic_data(DataConfig(
         num_samples=bt, num_users=TRAIN_ROWS, num_items=TRAIN_ROWS, feature_dim=16,
         history_len=HIST, num_tasks=3, max_position=cfg.position_table_size,
@@ -1803,7 +1861,7 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
             f"{host_ms:.3f} ms/step; loss first {float(metrics[0]['loss']):.5f} last "
             f"{float(metrics[-1]['loss']):.5f}; three each of B15, B16, B17 alone {kern:.3f} ms "
             f"({kern / ms_step * 100:.1f}% of the step); host syncs in a step {syncs}", flush=True)
-        state = trace_steps(torch, step, state, dat, idx, label)
+        state, _ = trace_steps(torch, step, state, dat, idx, label)
         grads_vs_cpu(torch, state.params, cfg, dat, idx, failures, label)
     for name in ("blockwise_attn_dq", "blockwise_attn_dkv"):
         entries[name]["launches"] = entries[name]["launches_train-65k-blockwise"]
@@ -2003,13 +2061,15 @@ def main() -> int:
     from two_tower_models_tpu_torch.ops import fused_mha as fm
 
     ept = fm._fwd_tc_tile(HIST, 64)
-    spills = ptxas_report(ptxas_log, ["ce_bwd_kernel", "ce_bwd_reduce", "mha_fwd_tc_kernel"], {
-        # bwd::SMEM_FLOATS in csrc/fused_softmax.cu
-        "ce_bwd_kernel": 4 * (128 * 68 + 2 * 64 * 68 + 128 * 72 + 2 * 128),
-        "ce_bwd_reduce": 0,
-        # the instance of the cells' H = 32 (two key bands), D = 64
-        f"mha_fwd_tc_kernel<{HIST // 16}>": fm._fwd_tc_smem_bytes(HIST, 64, ept),
-    })
+    spills, ptxas_lines = ptxas_report(
+        ptxas_log, ["ce_bwd_kernel", "ce_bwd_reduce", "mha_fwd_tc_kernel", "mha_bwd_tc_kernel"], {
+            # bwd::SMEM_FLOATS in csrc/fused_softmax.cu
+            "ce_bwd_kernel": 4 * (128 * 68 + 2 * 64 * 68 + 128 * 72 + 2 * 128),
+            "ce_bwd_reduce": 0,
+            # the instances of the cells' H = 32 (two key bands), D = 64
+            f"mha_fwd_tc_kernel<{HIST // 16}>": fm._fwd_tc_smem_bytes(HIST, 64, ept),
+            f"mha_bwd_tc_kernel<{HIST // 16}, 64>": fm._bwd_tc_plan(TRAIN_BATCH, HIST, 64, 1)[2],
+        })
     dev = torch.device(DEVICE)
 
     # ---- set-up: full-width model, catalog, engine ---------------------
@@ -2181,7 +2241,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 6: the per-layer attention tier ---------------------------
-    layer_legs = phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms)
+    layer_legs = phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms,
+                             "; ".join(ptxas_lines.get(f"mha_bwd_tc_kernel<{HIST // 16}, 64>", [])))
     torch.cuda.empty_cache()
 
     # ---- phase 7: the blockwise attention tier ---------------------------

@@ -17,9 +17,10 @@ configuration, data and seed; 3 warm-up steps each):
 - ``syncs``: operations of one step that make the host wait for the card
   (CUDA's sync debug mode).
 
-Then B13's wrapper ``fused_mha_fwd`` on layer 0's training input, without
-and with lengths: ``host_ms`` one call onto an idle card (median of 50) and
-``ms`` over 20 calls back to back (CUDA events).
+Then B13's wrapper ``fused_mha_fwd`` and B14's ``fused_mha_bwd`` (with a
+random cotangent) on layer 0's training input, without and with lengths:
+``host_ms`` one call onto an idle card (median of 50) and ``ms`` over 20
+calls back to back (CUDA events).
 
 Prints the card's name and power limit, then one JSON line.  Needs a GPU.
 """
@@ -98,8 +99,12 @@ def main() -> int:
          for p, a in (("in_proj", "w"), ("in_proj", "b"), ("out_proj", "w"), ("out_proj", "b"))]
     x = cs.layer_input(torch, state.params, gather_batch(data, idx).user_history, None)
     lens = torch.randint(1, cs.HIST + 1, (bt,), generator=gen, device=dev)
-    for label, ll in (("b13", None), ("b13_varlen", lens)):
-        call = lambda: fm.fused_mha_fwd(x, ll, *w, 4)  # noqa: E731
+    g = (torch.randn(x.shape, generator=gen, device=dev) / bt).to(x.dtype)
+    for label, ll in (("b13", None), ("b13_varlen", lens), ("b14", None), ("b14_varlen", lens)):
+        if label.startswith("b13"):
+            call = lambda: fm.fused_mha_fwd(x, ll, *w, 4)  # noqa: E731
+        else:
+            call = lambda: fm.fused_mha_bwd(g, x, ll, *w, 4)  # noqa: E731
         out[label] = {"host_ms": idle_host_ms(call, 50), "ms": cs.time_ms(torch, call, 20)}
     print(json.dumps(out), flush=True)
     return 0

@@ -842,20 +842,115 @@ def test_mha_fwd_tc_kernel_at_the_cells(dev, b, lens_kind):
     assert torch.equal(fm.fused_mha_fwd(xo, lens, wio, w[1], woo, w[3], 4), got)
 
 
+def _mha_bwd_vs_f64(got, want, ref, grads: bool = True):
+    """The tensor-core B14 ``got`` against the f64-sum backward ``ref``: dx
+    no more values beyond one bf16 step than 1.5 times the plain ``want``'s;
+    with ``grads``, each weight grad's RMS error relative to its scale at
+    most 1.5 times the plain version's, or 1e-6, whichever is larger."""
+    far = [int((_bf16_steps(t[0], ref[0]) > 1).sum()) for t in (got, want)]
+    rms = [[float((a.double() - e).pow(2).mean().sqrt() / e.abs().max().clamp_min(1e-300))
+            for a, e in zip(t[1:], ref[1:])] for t in (got, want)]
+    assert far[0] <= 1.5 * far[1], far
+    if grads:
+        assert all(k <= max(1.5 * p, 1e-6) for k, p in zip(*rms)), rms
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,h,d,nh,lens_kind", _MHA_SHAPES)
 def test_mha_bwd_kernel_matches_plain(dev, dtype, b, h, d, nh, lens_kind):
     """B14 and its reduce against the plain version: dx and the four
-    weight grads."""
+    weight grads.  The FMA kernel (``mha_bwd_kernel``), launched at every
+    shape through its launcher, and ``fused_mha_bwd``, which takes the
+    tensor cores for bf16 with D 32 or 64, a head width of 16 or more and
+    H <= 64 (the test asserts which route it took), the FMA kernel
+    otherwise.  On the tensor cores x and g padded with zero rows to Hp =
+    round_up(H, 16), lengths clipped to H, give the same dx rows < H and
+    grads bit for bit (the same tiles), and against the backward with f64
+    sums (``_mha_bwd_vs_f64``, on 2^23 values of the same H, D, heads and
+    kind of lengths, at least B rows: the counts come in clumps) dx and the
+    grads are no further than 1.5 times the plain version.  The grads' part
+    is not taken where every length is 1: every query row's output is then
+    v at key 0, so the grads' error from f64 sums is a handful of roundings
+    of v that flip, in the kernel's projection sums or in the plain
+    version's, and its ratio swings either way from seed to seed
+    (``scripts/torch_mha_bwd_f64.py``); dx's count stays."""
     x, lens, w, g = _mha_case(b, h, d, nh, dtype, dev, b + h + 1, lens_kind)
+    tc = fm._bwd_route(dtype, h, d, nh) == "tc"
+    assert tc == (dtype == torch.bfloat16 and d in (32, 64) and (d // nh) % 16 == 0 and h <= 64)
     before = dict(_lib.launches)
     got = fm.fused_mha_bwd(g, x, lens, *w, nh)
     for name in ("fused_mha_bwd", "fused_mha_bwd_reduce"):
         assert _lib.launches[name] == before.get(name, 0) + 1
+    assert _lib.launches["fused_mha_bwd_tc"] == before.get("fused_mha_bwd_tc", 0) + tc
     want = fm.fused_mha_layer_bwd_plain(g, x, lens, *w, nh)
+    kind = "grad" if dtype == torch.float32 else "grad_bf16"
+    dx, grads = fm._launch_bwd_fma(*fm._bwd_inputs(g, x, lens, *w[:3]), nh)
+    for t in (got, (dx, *torch.split(grads, [d * 3 * d, 3 * d, d * d, d]))):
+        _mha_close(t[0], want[0], "dx")
+        for a, e in zip(t[1:], want[1:]):
+            _mha_close(a.reshape(e.shape), e, kind)
+    if not tc:
+        return
+    hp = -(-h // 16) * 16
+    if hp != h:
+        xp, gp = (torch.zeros(b, hp, d, dtype=dtype, device=dev) for _ in range(2))
+        xp[:, :h], gp[:, :h] = x, g
+        lp = torch.full((b,), h, dtype=torch.int32, device=dev) if lens is None else lens
+        padded = fm.fused_mha_bwd(gp, xp, lp, *w, nh)
+        assert torch.equal(padded[0][:, :h], got[0])
+        assert all(torch.equal(a, e) for a, e in zip(padded[1:], got[1:]))
+    x, lens, w, g = _mha_case(max(b, -(-(1 << 23) // (h * d))), h, d, nh, dtype, dev, b + h + 1,
+                              lens_kind)
+    _mha_bwd_vs_f64(fm.fused_mha_bwd(g, x, lens, *w, nh),
+                    fm.fused_mha_layer_bwd_plain(g, x, lens, *w, nh),
+                    fm.fused_mha_layer_bwd_f64_sums(g, x, lens, *w, nh), lens_kind != "ones")
+
+
+@pytest.mark.parametrize("lens_kind", ["none", "mix"])
+@pytest.mark.parametrize("b", [1024, 4096])
+def test_mha_bwd_tc_kernel_at_the_cells(dev, b, lens_kind):
+    """B14's tensor-core kernel at the per-layer cells' shape (H = 32, D =
+    64, 4 heads, bf16): held against the plain version as
+    ``test_mha_bwd_kernel_matches_plain`` holds it; against the backward
+    with f64 sums on 2^23 values (``_mha_bwd_vs_f64``); bit-equal on
+    repeat; the examples padded with zero rows to H = 48 (the next 16-row
+    band, lengths clipped to 32) give the same dx rows bit for bit and the
+    same grads within 1e-5 of scale (the tiles, so the order of the grad
+    sums, change); x, g and the weights at addresses that are not 16-byte
+    aligned give the same results."""
+    x, lens, w, g = _mha_case(b, 32, 64, 4, torch.bfloat16, dev, b + 6, lens_kind)
+    before = _lib.launches["fused_mha_bwd_tc"]
+    got = fm.fused_mha_bwd(g, x, lens, *w, 4)
+    again = fm.fused_mha_bwd(g, x, lens, *w, 4)
+    assert _lib.launches["fused_mha_bwd_tc"] == before + 2
+    assert all(torch.equal(a, e) for a, e in zip(got, again))
+    want = fm.fused_mha_layer_bwd_plain(g, x, lens, *w, 4)
     _mha_close(got[0], want[0], "dx")
     for a, e in zip(got[1:], want[1:]):
-        _mha_close(a, e, "grad" if dtype == torch.float32 else "grad_bf16")
+        _mha_close(a, e, "grad_bf16")
+    xp, gp = (torch.zeros(b, 48, 64, dtype=torch.bfloat16, device=dev) for _ in range(2))
+    xp[:, :32], gp[:, :32] = x, g
+    lp = torch.full((b,), 32, dtype=torch.int32, device=dev) if lens is None else lens
+    padded = fm.fused_mha_bwd(gp, xp, lp, *w, 4)
+    assert torch.equal(padded[0][:, :32], got[0])
+    for a, e in zip(padded[1:], got[1:]):
+        _scaled_close(a, e, 1e-5)
+
+    def odd(t):  # a copy at an address 16-byte aligned no more
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return o.copy_(t)
+
+    go, xo, wio, woo = odd(g), odd(x), odd(w[0]), odd(w[2])
+    assert all(t.data_ptr() % 16 for t in (go, xo, wio, woo))
+    assert all(torch.equal(a, e)
+               for a, e in zip(fm.fused_mha_bwd(go, xo, lens, wio, w[1], woo, w[3], 4), got))
+    if b == 4096:
+        _mha_bwd_vs_f64(got, want, fm.fused_mha_layer_bwd_f64_sums(g, x, lens, *w, 4))
+    else:
+        x, lens, w, g = _mha_case(4096, 32, 64, 4, torch.bfloat16, dev, b + 6, lens_kind)
+        _mha_bwd_vs_f64(fm.fused_mha_bwd(g, x, lens, *w, 4),
+                        fm.fused_mha_layer_bwd_plain(g, x, lens, *w, 4),
+                        fm.fused_mha_layer_bwd_f64_sums(g, x, lens, *w, 4))
 
 
 def test_mha_bwd_is_deterministic(dev):
@@ -913,6 +1008,7 @@ def test_layer_tier_launches_only_b13_and_b14(dev):
         assert counts.get("fused_mha_fwd") == 6 and counts.get("fused_mha_bwd") == 3
         assert counts.get("fused_mha_fwd_tc") == 6  # every B13 on the tensor cores
         assert counts.get("fused_mha_bwd_reduce") == 3
+        assert counts.get("fused_mha_bwd_tc") == 3  # every B14 on the tensor cores
         assert not any(counts.get(n) for n in others)
 
 

@@ -149,3 +149,28 @@ def test_layer_autograd_function_on_cpu(dt):
         assert leaf.grad.dtype == leaf.dtype
         _check(dt, leaf.grad, e, "grad" if i else "dx")
     assert tl.grad is None
+
+
+@pytest.mark.parametrize("with_lens", [False, True], ids=["full", "lens"])
+@pytest.mark.parametrize("h", [1, 10, 32])
+def test_layer_bwd_f64_sums_yardstick(with_lens, h):
+    """``fused_mha_layer_bwd_f64_sums``, the yardstick the card's checks
+    measure B14's plain version and its tensor-core kernel against: B14's
+    function at the same bf16 rounding points with f64 sums, so held as the
+    plain version is (the module docstring's bf16 tolerances) against both
+    jax.vjp of fused_mha_layer and ``fused_mha_layer_bwd_plain``."""
+    b, d, nh = 5, 64, 4
+    x, w, lens, g = _inputs(b, h, d, seed=300 + h)
+    lens = lens if with_lens else None
+    _, vjp = jax.vjp(_jax(lens, nh), jnp.asarray(x).astype(jnp.bfloat16), *map(jnp.asarray, w))
+    want = vjp(jnp.asarray(g).astype(jnp.bfloat16))
+    args = (torch.from_numpy(g), torch.from_numpy(x).to(torch.bfloat16),
+            None if lens is None else torch.from_numpy(lens), *map(torch.from_numpy, w), nh)
+    got = tfm.fused_mha_layer_bwd_f64_sums(*args)
+    plain = tfm.fused_mha_bwd(*args)
+    assert got[0].dtype == torch.bfloat16 and all(t.dtype == torch.float64 for t in got[1:])
+    as_jax = lambda t: jnp.asarray(t.float().numpy()).astype(want[0].dtype if t is plain[0]
+                                                             else jnp.float32)
+    for i, (a, e, p) in enumerate(zip(got, want, plain)):
+        _check("bf16", a, e, "grad" if i else "dx")
+        _check("bf16", a, as_jax(p), "grad" if i else "dx")

@@ -90,6 +90,52 @@
 //   the rows < H of each example with 16-byte stores.
 // Four barriers a tile (the FMA kernel has six an example); no atomics and
 // a fixed order of every sum, so y is the same on every run.
+//
+// B14 on the tensor cores (mha_bwd_tc_kernel) replaces the same _bwd_kernel
+// (pallas_call at :369) for bf16 x with D 32 or 64, the head width a
+// multiple of 16 and Hp <= 64 (ops/fused_mha.py:_bwd_route; every other
+// case, f32 and D = 128 among them, keeps mha_bwd_kernel), at the rounding
+// points listed above, every product on mma.sync m16n8k16.
+// Bound on the H100: operations (at B = 4096, H = 32, D = 64, NH = 4 the
+// recompute backward is 15.0 GFLOP, 0.0152 ms at the bf16 tensor-core
+// rate; g, x and dx are 50 MB, about as long at 3.35 TB/s).  Design:
+// - tiles as B13's: E examples of Hp rows, about 128 rows (E = 4 at the
+//   cells), padded rows zeros and never written, a padded key -inf; the
+//   grid is one block an SM, each walking its tiles in a persistent loop
+//   fixed by the plan, so every sum runs in one order;
+// - round(W_in), round(W_out) staged as bf16 once per block (rows padded
+//   by 16 bytes), b_in as f32; x and g come with cp.async, the next tile's
+//   behind dx;
+// - a tile: q | k | v as B13 computes them and do = round(g2 round(W_out)^T)
+//   (warp_gemm, each k16 step added rounded); then a warp per (example,
+//   head) takes every 16-query band: S in registers, the softmax over the
+//   quad of lanes that share a row (p kept in f32), round(p) packed
+//   straight into P.V's A operand (out = round(P.V_h)), dp = do_h V_h^T,
+//   pdp from quad shuffles in the FMA kernel's order, ds = round(p (dp -
+//   pdp) scale); round(p) and ds go to the warp's bf16 slabs [Hp][Hp + 8].
+//   Then dv = round(round(P)^T do_h) over v, dk = round(dS^T Q_h) over
+//   do_h (dead by then), dq = round(dS K_h) over q, dk over k: P^T and dS^T
+//   through ldmatrix.trans, each head's columns the warp's own, so no
+//   block barrier between heads.  S, dp, P.V, dv, dk and dq are 16-64 deep
+//   and accumulate in place;
+// - the weight grads sum over all of a block's rows (about 1,000 at the
+//   cells): each warp keeps a fixed 16-row slice of dW_in and of dW_out in
+//   registers across the tile loop (12 + 4 m16n8 tiles, 64 floats a lane
+//   at D = 64; 256 at D = 128, which is why D = 128 stays on the FMA
+//   kernel), summing round(x)^T dqkv and out^T g2 a k16 step at a time,
+//   each added rounded (tt::mma_bf16_add: mma.sync's own accumulation is
+//   not round-to-nearest), A^T through ldmatrix.trans; db_in and db_out a
+//   column a thread in f32.  The slices go to ws[block] once, at the end;
+//   reduce_kernel sums the blocks in order (no float atomics);
+// - dx = dqkv round(W_in)^T (depth 3D), staged as bf16 over the attention
+//   output and written with 16-byte stores, rows < H only.
+// Shared memory at the cells 201,472 bytes (W 34 KB; x, g2, do, out 18 KB
+// each; q | k | v 51 KB; eight slabs 41 KB), so one block an SM and 255
+// registers a thread allowed: ptxas gives 199-244 at D = 64 (205 at the
+// cells' Hp = 32) and 154-199 at D = 32, no spills.
+// The accumulators in shared memory instead (65 KB at D = 64) would have
+// needed tiles of 64 rows and a read-modify-write per k16 step.  Five
+// barriers a tile.
 
 #include <algorithm>
 
@@ -422,10 +468,11 @@ constexpr int TILE_ROWS = 128;  // the most rows a tile holds (ops/fused_mha.py:
 
 // C [rows, N] = A [rows, K] . B [K, N], A and B bf16 in shared memory by
 // row (strides sa, sb), K a multiple of 16, rows of 32, N of 8 * NT (NT
-// even).  Each warp owns 32 x (8 NT) tiles of C; each k16 step is added
+// even).  With BNK the shared matrix is B^T [N, K] by row (C = A . Bm^T).
+// Each warp owns 32 x (8 NT) tiles of C; each k16 step is added
 // to the f32 sums rounded to nearest (tt::mma_bf16_add); epi(r, c, v0, v1)
 // takes the sums at (r, c) and (r, c + 1).
-template <int NT, class Epi>
+template <int NT, bool BNK = false, class Epi>
 __device__ __forceinline__ void warp_gemm(int rows, int N, int K, const bf16* A, int sa,
                                           const bf16* Bm, int sb, Epi epi) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -448,8 +495,12 @@ __device__ __forceinline__ void warp_gemm(int rows, int N, int K, const bf16* A,
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
         unsigned b[4];
-        tt::ldmatrix_x4<true>(
-            b, Bm + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * sb + n0 + 16 * j + (lane / 16) * 8);
+        if constexpr (BNK)
+          tt::ldmatrix_x4<false>(
+              b, Bm + (n0 + 16 * j + lane % 8 + (lane / 16) * 8) * sb + k0 + ((lane / 8) % 2) * 8);
+        else
+          tt::ldmatrix_x4<true>(
+              b, Bm + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * sb + n0 + 16 * j + (lane / 16) * 8);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           tt::mma_bf16_add(acc[i][2 * j], a[i], b[0], b[1]);
@@ -690,6 +741,418 @@ int launch(const void* x, const void* lens, const void* w_in, const void* b_in,
   return (int)cudaGetLastError();
 }
 
+// ---- B14 on the tensor cores ----------------------------------------------
+
+// The sum over one row of a lane quad's values f(j, c) (c = 0, 1: the
+// row's two columns of n-tile j) in row_den's order, so in the FMA
+// kernel's: a lane per key kj < 32 holds f at kj and kj + 32, then a
+// butterfly over the 32 lanes at offsets 16, 8, 4, 2, 1.
+template <int HPB, class F>
+__device__ __forceinline__ float row_sum(F f) {
+  float a[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      a[j][c] = j < 2 * HPB ? f(j, c) : 0.0f;
+      if (j + 4 < 2 * HPB) a[j][c] += f(j + 4, c);
+    }
+  float u[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    u[c] = (a[0][c] + a[2][c]) + (a[1][c] + a[3][c]);
+    u[c] += __shfl_xor_sync(0xffffffffu, u[c], 2);
+    u[c] += __shfl_xor_sync(0xffffffffu, u[c], 1);
+  }
+  return u[0] + u[1];
+}
+
+// The two m16n8 accumulators of a 16 x 16 product, rounded to bf16, at dst
+// (row stride ld): rows g and g + 8, columns 8j + 2q4 and the next.
+__device__ __forceinline__ void store_c16(bf16* dst, int ld, const float (&o)[2][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, q4 = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    *(unsigned*)(dst + g * ld + 8 * j + 2 * q4) = tt::pack_bf16x2(o[j][0], o[j][1]);
+    *(unsigned*)(dst + (g + 8) * ld + 8 * j + 2 * q4) = tt::pack_bf16x2(o[j][2], o[j][3]);
+  }
+}
+
+// acc [16, 8 NTT] += A[0 : rows, m0 : m0 + 16]^T . Bm[0 : rows, n0 : n0 + 8 NTT],
+// A and Bm bf16 by row in shared memory (strides sa, sb), rows a multiple
+// of 16: a sum over rows, so A^T is read through ldmatrix.trans.  Each k16
+// step (16 rows) is summed on its own and added rounded (tt::mma_bf16_add).
+template <int NTT>
+__device__ __forceinline__ void warp_gemm_tn(float (&acc)[NTT][4], int rows, const bf16* A,
+                                             int sa, int m0, const bf16* Bm, int sb, int n0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll 1
+  for (int k0 = 0; k0 < rows; k0 += 16) {
+    unsigned a[4];  // a0 (m 0-7, k 0-7), a1 (m 8-15, k 0-7), a2 (m 0-7, k 8-15), a3
+    tt::ldmatrix_x4<true>(a, A + (k0 + lane % 8 + (lane / 16) * 8) * sa + m0 + ((lane / 8) % 2) * 8);
+    const bf16* brow = Bm + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * sb + n0;
+#pragma unroll
+    for (int j = 0; j + 1 < NTT; j += 2) {
+      unsigned b[4];
+      tt::ldmatrix_x4<true>(b, brow + 8 * j + (lane / 16) * 8);
+      tt::mma_bf16_add(acc[j], a, b[0], b[1]);
+      tt::mma_bf16_add(acc[j + 1], a, b[2], b[3]);
+    }
+    if constexpr (NTT % 2 == 1) {
+      unsigned b[2];
+      tt::ldmatrix_x2<true>(b, brow + 8 * (NTT - 1));
+      tt::mma_bf16_add(acc[NTT - 1], a, b[0], b[1]);
+    }
+  }
+}
+
+// Shared memory of one backward block in bytes
+// (ops/fused_mha.py:_bwd_tc_smem_bytes): bf16 round(W_in) [D][3D],
+// round(W_out) [D][D], x, g2, do and the attention output [rows][D] each,
+// q | k | v [rows][3D], each row padded by 8 bf16; min(8, E * D / 16) warp
+// slabs of round(p) and ds [Hp][Hp + 8] each; f32 b_in [3D].
+size_t bwd_smem_bytes(int rows, int Hp, int D) {
+  const size_t slabs = std::min(WARPS, rows / Hp * (D / 16));
+  return 2 * ((size_t)D * (3 * D + PAD) + (size_t)D * (D + PAD) + 4 * (size_t)rows * (D + PAD) +
+              (size_t)rows * (3 * D + PAD) + slabs * 2 * Hp * (Hp + PAD)) +
+         12 * (size_t)D;
+}
+
+// HPB = Hp / 16 as in the forward; D the width (32 or 64), so that each
+// warp's slice of the weight grads has a fixed shape in registers.
+template <int HPB, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+mha_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
+                  const int* __restrict__ lens, const float* __restrict__ w_in,
+                  const float* __restrict__ b_in, const float* __restrict__ w_out,
+                  bf16* __restrict__ dx, float* __restrict__ ws, int B, int H, int NH, int E,
+                  float scale) {
+  constexpr int Hp = 16 * HPB, D3 = 3 * D;
+  constexpr int SWI = D3 + PAD, SWO = D + PAD, SX = D + PAD, SQ = D3 + PAD, SP = Hp + PAD;
+  constexpr int RB = D / 16;                   // 16-row blocks of dW_in and dW_out
+  constexpr int NTI = 3 * D * D / 1024;        // n8 tiles of dW_in a warp owns
+  constexpr int NTO = D * D / 1024;            // and of dW_out
+  constexpr int NTG = D >= 64 ? 4 : 2;         // warp tile width / 8 of the D-wide products
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hd = D / NH, rows = E * Hp;
+  bf16* Wi = (bf16*)smem_raw;         // [D][SWI] round(W_in)
+  bf16* Wo = Wi + D * SWI;            // [D][SWO] round(W_out)
+  bf16* X = Wo + D * SWO;             // [rows][SX] x of the tile
+  bf16* G = X + rows * SX;            // [rows][SX] g2
+  bf16* DO = G + rows * SX;           // [rows][SX] do; dk of each (example, head) after dv
+  bf16* OUT = DO + rows * SX;         // [rows][SX] the attention output; dx staged after
+  bf16* QKV = OUT + rows * SX;        // [rows][SQ] q | k | v, then dq | dk | dv
+  bf16* SL = QKV + rows * SQ;         // [warp][2][Hp][SP] round(p), ds
+  float* bi = (float*)(SL + min(WARPS, E * RB) * 2 * Hp * SP);  // [3D]
+  __shared__ int sl[TILE_ROWS / 16];  // the tile's lengths
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32, gq = lane / 4, q4 = lane % 4;
+  const int tiles = (B + E - 1) / E;
+  auto tile_len = [&](int tile) {
+    const int ex = tile * E + t;
+    return t < E && lens && ex < B ? lens[ex] : H;
+  };
+
+  int len_next = tile_len(blockIdx.x);
+  load_x(X, x, blockIdx.x, E, Hp, H, D, B);  // the plan gives every block a tile
+  load_x(G, g, blockIdx.x, E, Hp, H, D, B);
+  tt::cp_commit();
+  for (int i = t; i < D * D3 / 4; i += THREADS) {
+    const float4 v = ((const float4*)w_in)[i];
+    *(uint2*)(Wi + (4 * i / D3) * SWI + 4 * i % D3) =
+        make_uint2(tt::pack_bf16x2(v.x, v.y), tt::pack_bf16x2(v.z, v.w));
+  }
+  for (int i = t; i < D * D / 4; i += THREADS) {
+    const float4 v = ((const float4*)w_out)[i];
+    *(uint2*)(Wo + (4 * i / D) * SWO + 4 * i % D) =
+        make_uint2(tt::pack_bf16x2(v.x, v.y), tt::pack_bf16x2(v.z, v.w));
+  }
+  for (int i = t; i < D3; i += THREADS) bi[i] = b_in[i];
+
+  // this warp's slice of the weight grads, in registers across the tiles:
+  // rows m0 .. m0 + 15 of dW_in (columns ni0 ..) and of dW_out (no0 ..)
+  const int m0 = 16 * (warp % RB), ni0 = (warp / RB) * 8 * NTI, no0 = (warp / RB) * 8 * NTO;
+  float gi[NTI][4], go[NTO][4];
+#pragma unroll
+  for (int j = 0; j < NTI; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) gi[j][c] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NTO; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) go[j][c] = 0.0f;
+  float gb = 0.0f;  // thread t < 4D: column t of [db_in | db_out]
+
+  for (int tile = blockIdx.x; tile < tiles; tile += (int)gridDim.x) {
+    const int next = tile + (int)gridDim.x;
+    if (t < E) sl[t] = len_next;
+    tt::cp_wait<0>();
+    __syncthreads();  // x and g landed, lengths and weights staged, the previous dx written out
+    warp_gemm<4>(rows, D3, D, X, SX, Wi, SWI, [&](int r, int c, float v0, float v1) {
+      *(unsigned*)(QKV + r * SQ + c) = tt::pack_bf16x2(v0 + bi[c], v1 + bi[c + 1]);
+    });
+    warp_gemm<NTG, true>(rows, D, D, G, SX, Wo, SWO, [&](int r, int c, float v0, float v1) {
+      *(unsigned*)(DO + r * SX + c) = tt::pack_bf16x2(v0, v1);
+    });
+    if (next < tiles) len_next = tile_len(next);
+    __syncthreads();  // q | k | v and do complete
+
+    // attention, a warp per (example, head): every query band, then dv,
+    // dk and dq from the warp's slabs
+    for (int u = warp; u < E * NH; u += WARPS) {
+      const int e = u / NH, h = u - e * NH, len = sl[e];
+      bf16* Qh = QKV + e * Hp * SQ + h * hd;
+      bf16* Kh = Qh + D;
+      bf16* Vh = Qh + 2 * D;
+      bf16* Dh = DO + e * Hp * SX + h * hd;
+      bf16* Oh = OUT + e * Hp * SX + h * hd;
+      bf16* Ps = SL + warp * 2 * Hp * SP;  // round(p) [Hp][SP]
+      bf16* Ss = Ps + Hp * SP;             // ds [Hp][SP]
+      for (int qb = 0; qb < HPB; ++qb) {
+        float s[2 * HPB][4];
+#pragma unroll
+        for (int j = 0; j < 2 * HPB; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[j][c] = 0.0f;
+        for (int c0 = 0; c0 < hd; c0 += 16) {
+          unsigned a[4];
+          tt::ldmatrix_x4<false>(a, Qh + (qb * 16 + lane % 16) * SQ + c0 + (lane / 16) * 8);
+#pragma unroll
+          for (int jp = 0; jp < HPB; ++jp) {
+            unsigned b[4];
+            tt::ldmatrix_x4<false>(
+                b, Kh + (jp * 16 + lane % 8 + (lane / 16) * 8) * SQ + c0 + ((lane / 8) % 2) * 8);
+            tt::mma_bf16(s[2 * jp], a, b[0], b[1]);
+            tt::mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
+          }
+        }
+        // the forward's softmax, as mha_fwd_tc_kernel computes it; p stays f32
+        float m0r = -INFINITY, m1r = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 2 * HPB; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int key = 8 * j + 2 * q4 + (c & 1);
+            s[j][c] = key >= H ? -INFINITY : key < len ? s[j][c] * scale : -1e30f;
+            if (c < 2) m0r = fmaxf(m0r, s[j][c]);
+            else m1r = fmaxf(m1r, s[j][c]);
+          }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          m0r = fmaxf(m0r, __shfl_xor_sync(0xffffffffu, m0r, off));
+          m1r = fmaxf(m1r, __shfl_xor_sync(0xffffffffu, m1r, off));
+        }
+#pragma unroll
+        for (int j = 0; j < 2 * HPB; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[j][c] = expf(s[j][c] - (c < 2 ? m0r : m1r));
+        const float d0 = fmaxf(row_den<HPB>(s, 0), 1e-30f);
+        const float d1 = fmaxf(row_den<HPB>(s, 2), 1e-30f);
+#pragma unroll
+        for (int j = 0; j < 2 * HPB; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float ev = s[j][c];  // a masked key's e is 0: skip the slow division
+            s[j][c] = ev == 0.0f ? 0.0f : ev / (c < 2 ? d0 : d1);
+          }
+        // round(p): P.V's A operand, and its band of the slab for dv
+        unsigned pa[HPB][4];
+#pragma unroll
+        for (int kk = 0; kk < HPB; ++kk) {
+          pa[kk][0] = tt::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+          pa[kk][1] = tt::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+          pa[kk][2] = tt::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          pa[kk][3] = tt::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+          bf16* pr = Ps + (qb * 16 + gq) * SP + 16 * kk + 2 * q4;
+          *(unsigned*)pr = pa[kk][0];
+          *(unsigned*)(pr + 8 * SP) = pa[kk][1];
+          *(unsigned*)(pr + 8) = pa[kk][2];
+          *(unsigned*)(pr + 8 * SP + 8) = pa[kk][3];
+        }
+        // out = round(P.V_h)
+        for (int c0 = 0; c0 < hd; c0 += 16) {
+          float o[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+          for (int kk = 0; kk < HPB; ++kk) {
+            unsigned b[4];
+            tt::ldmatrix_x4<true>(
+                b, Vh + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * SQ + c0 + (lane / 16) * 8);
+            tt::mma_bf16(o[0], pa[kk], b[0], b[1]);
+            tt::mma_bf16(o[1], pa[kk], b[2], b[3]);
+          }
+          store_c16(Oh + qb * 16 * SX + c0, SX, o);
+        }
+        // dp = do_h V_h^T, f32
+        float dp[2 * HPB][4];
+#pragma unroll
+        for (int j = 0; j < 2 * HPB; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dp[j][c] = 0.0f;
+        for (int c0 = 0; c0 < hd; c0 += 16) {
+          unsigned a[4];
+          tt::ldmatrix_x4<false>(a, Dh + (qb * 16 + lane % 16) * SX + c0 + (lane / 16) * 8);
+#pragma unroll
+          for (int jp = 0; jp < HPB; ++jp) {
+            unsigned b[4];
+            tt::ldmatrix_x4<false>(
+                b, Vh + (jp * 16 + lane % 8 + (lane / 16) * 8) * SQ + c0 + ((lane / 8) % 2) * 8);
+            tt::mma_bf16(dp[2 * jp], a, b[0], b[1]);
+            tt::mma_bf16(dp[2 * jp + 1], a, b[2], b[3]);
+          }
+        }
+        // pdp, the row sums of round(dp p); ds = round(p (dp - pdp) scale) to the slab
+        const float r0 = row_sum<HPB>(
+            [&](int j, int c) { return tt::round_bf16(dp[j][c] * s[j][c]); });
+        const float r1 = row_sum<HPB>(
+            [&](int j, int c) { return tt::round_bf16(dp[j][2 + c] * s[j][2 + c]); });
+#pragma unroll
+        for (int j = 0; j < 2 * HPB; ++j) {
+          bf16* sr = Ss + (qb * 16 + gq) * SP + 8 * j + 2 * q4;
+          *(unsigned*)sr = tt::pack_bf16x2(s[j][0] * (dp[j][0] - r0) * scale,
+                                          s[j][1] * (dp[j][1] - r0) * scale);
+          *(unsigned*)(sr + 8 * SP) = tt::pack_bf16x2(s[j][2] * (dp[j][2] - r1) * scale,
+                                                     s[j][3] * (dp[j][3] - r1) * scale);
+        }
+      }
+      __syncwarp();
+      // dv_h = round(round(P)^T do_h) over v's columns (v is dead); P^T and
+      // dS^T are read from the slabs through ldmatrix.trans
+      for (int kb = 0; kb < HPB; ++kb)
+        for (int c0 = 0; c0 < hd; c0 += 16) {
+          float o[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+          for (int qb = 0; qb < HPB; ++qb) {
+            unsigned a[4], b[4];
+            tt::ldmatrix_x4<true>(
+                a, Ps + (qb * 16 + lane % 8 + (lane / 16) * 8) * SP + kb * 16 + ((lane / 8) % 2) * 8);
+            tt::ldmatrix_x4<true>(
+                b, Dh + (qb * 16 + lane % 8 + ((lane / 8) % 2) * 8) * SX + c0 + (lane / 16) * 8);
+            tt::mma_bf16(o[0], a, b[0], b[1]);
+            tt::mma_bf16(o[1], a, b[2], b[3]);
+          }
+          store_c16(Vh + kb * 16 * SQ + c0, SQ, o);
+        }
+      __syncwarp();
+      // dk_h = round(dS^T Q_h) over do_h (dead once dv is taken)
+      for (int kb = 0; kb < HPB; ++kb)
+        for (int c0 = 0; c0 < hd; c0 += 16) {
+          float o[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+          for (int qb = 0; qb < HPB; ++qb) {
+            unsigned a[4], b[4];
+            tt::ldmatrix_x4<true>(
+                a, Ss + (qb * 16 + lane % 8 + (lane / 16) * 8) * SP + kb * 16 + ((lane / 8) % 2) * 8);
+            tt::ldmatrix_x4<true>(
+                b, Qh + (qb * 16 + lane % 8 + ((lane / 8) % 2) * 8) * SQ + c0 + (lane / 16) * 8);
+            tt::mma_bf16(o[0], a, b[0], b[1]);
+            tt::mma_bf16(o[1], a, b[2], b[3]);
+          }
+          store_c16(Dh + kb * 16 * SX + c0, SX, o);
+        }
+      __syncwarp();
+      // dq_h = round(dS K_h) over q's columns (q is dead once dk is taken)
+      for (int qb = 0; qb < HPB; ++qb)
+        for (int c0 = 0; c0 < hd; c0 += 16) {
+          float o[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+          for (int kk = 0; kk < HPB; ++kk) {
+            unsigned a[4], b[4];
+            tt::ldmatrix_x4<false>(a, Ss + (qb * 16 + lane % 16) * SP + kk * 16 + (lane / 16) * 8);
+            tt::ldmatrix_x4<true>(
+                b, Kh + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * SQ + c0 + (lane / 16) * 8);
+            tt::mma_bf16(o[0], a, b[0], b[1]);
+            tt::mma_bf16(o[1], a, b[2], b[3]);
+          }
+          store_c16(Qh + qb * 16 * SQ + c0, SQ, o);
+        }
+      __syncwarp();
+      // dk over k's columns (k is dead once dq is taken)
+      for (int i = lane; i < Hp * hd / 8; i += 32) {
+        const int r = i / (hd / 8), c = 8 * (i - r * (hd / 8));
+        *(uint4*)(Kh + r * SQ + c) = *(const uint4*)(Dh + r * SX + c);
+      }
+      __syncwarp();  // the slabs are free for this warp's next (example, head)
+    }
+    __syncthreads();  // dq | dk | dv and the attention output complete
+
+    // the weight grads: dW_in += round(x)^T dqkv, dW_out += out^T g2 (this
+    // warp's slices), db_in += sum dqkv, db_out += sum g2 (a column a thread)
+    warp_gemm_tn<NTI>(gi, rows, X, SX, m0, QKV, SQ, ni0);
+    warp_gemm_tn<NTO>(go, rows, OUT, SX, m0, G, SX, no0);
+    if (t < 4 * D) {
+      const bf16* col = t < D3 ? QKV + t : G + (t - D3);
+      const int ld = t < D3 ? SQ : SX;
+      float c4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int r = 0; r < rows; r += 4)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c4[i] += __bfloat162float(col[(r + i) * ld]);
+      gb += (c4[0] + c4[1]) + (c4[2] + c4[3]);
+    }
+    __syncthreads();  // x, g2 and the attention output read
+    if (next < tiles) {
+      load_x(X, x, next, E, Hp, H, D, B);
+      load_x(G, g, next, E, Hp, H, D, B);
+    }
+    tt::cp_commit();
+    // dx = dqkv round(W_in)^T (depth 3D), staged as bf16 over the attention output
+    warp_gemm<NTG, true>(rows, D, D3, QKV, SQ, Wi, SWI, [&](int r, int c, float v0, float v1) {
+      *(unsigned*)(OUT + r * SX + c) = tt::pack_bf16x2(v0, v1);
+    });
+    __syncthreads();  // dx staged
+    const int cpr = D / 8;
+    for (int i = t; i < rows * cpr; i += THREADS) {
+      const int r = i / cpr, c = i - r * cpr;
+      const int ex = tile * E + r / Hp, hi = r % Hp;
+      if (ex < B && hi < H)
+        *(uint4*)(dx + ((size_t)ex * H + hi) * D + c * 8) = *(const uint4*)(OUT + r * SX + c * 8);
+    }
+  }
+  tt::cp_wait<0>();
+
+  // this block's partials: dW_in [D][3D], db_in [3D], dW_out [D][D], db_out [D]
+  float* wsb = ws + (size_t)blockIdx.x * (4 * D * D + 4 * D);
+#pragma unroll
+  for (int j = 0; j < NTI; ++j) {
+    float* p = wsb + (m0 + gq) * D3 + ni0 + 8 * j + 2 * q4;
+    *(float2*)p = make_float2(gi[j][0], gi[j][1]);
+    *(float2*)(p + 8 * D3) = make_float2(gi[j][2], gi[j][3]);
+  }
+  float* wo = wsb + D * D3 + D3;
+#pragma unroll
+  for (int j = 0; j < NTO; ++j) {
+    float* p = wo + (m0 + gq) * D + no0 + 8 * j + 2 * q4;
+    *(float2*)p = make_float2(go[j][0], go[j][1]);
+    *(float2*)(p + 8 * D) = make_float2(go[j][2], go[j][3]);
+  }
+  if (t < D3) wsb[D * D3 + t] = gb;
+  else if (t < 4 * D) wo[D * D + t - D3] = gb;
+}
+
+template <int HPB, int D>
+int launch_bwd(const void* g, const void* x, const void* lens, const void* w_in,
+               const void* b_in, const void* w_out, void* dx, void* ws, int B, int H, int NH,
+               int E, int grid, float scale, void* stream) {
+  const size_t smem = bwd_smem_bytes(E * 16 * HPB, 16 * HPB, D);
+  cudaError_t err = cudaFuncSetAttribute(mha_bwd_tc_kernel<HPB, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  mha_bwd_tc_kernel<HPB, D><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const bf16*)g, (const bf16*)x, (const int*)lens, (const float*)w_in,
+      (const float*)b_in, (const float*)w_out, (bf16*)dx, (float*)ws, B, H, NH, E, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd_hpb(int hpb, const void* g, const void* x, const void* lens, const void* w_in,
+                   const void* b_in, const void* w_out, void* dx, void* ws, int B, int H,
+                   int NH, int E, int grid, float scale, void* stream) {
+  switch (hpb) {
+    case 1: return launch_bwd<1, D>(g, x, lens, w_in, b_in, w_out, dx, ws, B, H, NH, E, grid, scale, stream);
+    case 2: return launch_bwd<2, D>(g, x, lens, w_in, b_in, w_out, dx, ws, B, H, NH, E, grid, scale, stream);
+    case 3: return launch_bwd<3, D>(g, x, lens, w_in, b_in, w_out, dx, ws, B, H, NH, E, grid, scale, stream);
+    default: return launch_bwd<4, D>(g, x, lens, w_in, b_in, w_out, dx, ws, B, H, NH, E, grid, scale, stream);
+  }
+}
+
 }  // namespace tc
 
 // Shared memory, in floats; ops/fused_mha.py:_fwd_smem_bytes and
@@ -799,6 +1262,28 @@ extern "C" int tt_fused_mha_bwd(const void* g, const void* x, const void* lens,
                                 stream)
              : launch_bwd<false>(g, x, lens, w_in, b_in, w_out, dx, ws, B, H, D, NH, bf, epb,
                                  stream);
+}
+
+// B14 on the tensor cores: g and x [B, H, D] bf16, lens as tt_fused_mha_fwd,
+// f32 weights -> dx [B, H, D] bf16 and ws [grid, n] f32 partials as
+// tt_fused_mha_bwd's, one slice per block; g, x, W_in and W_out 16-byte
+// aligned.  D 32 or 64, D / NH a multiple of 16, Hp = round_up(H, 16) <=
+// 64; ept examples a tile (ept * Hp a multiple of 32, at most 128), grid
+// blocks, at most one a tile (ops/fused_mha.py:_bwd_tc_plan).
+extern "C" int tt_fused_mha_bwd_tc(const void* g, const void* x, const void* lens,
+                                   const void* w_in, const void* b_in, const void* w_out,
+                                   void* dx, void* ws, int B, int H, int D, int NH, int ept,
+                                   int grid, void* stream) {
+  const int hpb = (H + 15) / 16;
+  if (B < 1 || H < 1 || NH < 1 || (D != 32 && D != 64) || D % NH != 0 || (D / NH) % 16 != 0 ||
+      hpb > 4 || ept < 1 || (ept * 16 * hpb) % 32 != 0 || ept * 16 * hpb > tc::TILE_ROWS ||
+      grid < 1 || grid > (B + ept - 1) / ept)
+    return (int)cudaErrorInvalidValue;
+  const float scale = head_scale(D, NH);
+  return D == 32 ? tc::launch_bwd_hpb<32>(hpb, g, x, lens, w_in, b_in, w_out, dx, ws, B, H, NH,
+                                          ept, grid, scale, stream)
+                 : tc::launch_bwd_hpb<64>(hpb, g, x, lens, w_in, b_in, w_out, dx, ws, B, H, NH,
+                                          ept, grid, scale, stream);
 }
 
 extern "C" int tt_fused_mha_bwd_reduce(const void* ws, void* grads, int G, int n,

@@ -48,6 +48,21 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* row) {
                  : "r"(s));
 }
 
+// Two 8 x 8 bf16 matrices, as ldmatrix_x4: lanes 0 .. 15 give the row
+// addresses, matrix i lands in r[i].
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* row) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(row);
+  if (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(s));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(s));
+}
+
 // c += a . b, bf16 in, f32 accumulate (fragments as above).
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
                                          unsigned b1) {

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -63,6 +64,7 @@ _SIGNATURES = {
     "tt_fused_mha_fwd": [_P] * 7 + [_I] * 6 + [_P],
     "tt_fused_mha_fwd_tc": [_P] * 7 + [_I] * 6 + [_P],
     "tt_fused_mha_bwd": [_P] * 8 + [_I] * 7 + [_P],
+    "tt_fused_mha_bwd_tc": [_P] * 8 + [_I] * 6 + [_P],
     "tt_fused_mha_bwd_reduce": [_P, _P, _I, _I, _P],
     "tt_blockwise_attn_fwd": [_P] * 6 + [_I] * 3 + [_P],
     "tt_blockwise_attn_dq": [_P] * 8 + [_I] * 3 + [_P],
@@ -151,3 +153,12 @@ def stream_ptr(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, asked once: the
+    launch plans read it on every launch."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -373,7 +373,7 @@ def _check_bwd_smem(h: int, d: int, nh: int) -> None:
 def _bwd_grid(b: int, device) -> tuple[int, int]:
     """(blocks, examples per block) of a backward launch: at most one block
     per SM, each owning a contiguous run of examples."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _lib.sm_count(device.index)
     epb = -(-b // min(b, sms))
     return -(-b // epb), epb
 

@@ -12,9 +12,12 @@ Port of ``two_tower_models_tpu/ops/pallas/fused_mha.py``:
   other layer on the CUDA cores (``mha_fwd_kernel``, one example at a
   time);
 - B14, ``_bwd_kernel`` (:369), the custom VJP's backward: ``fused_mha_bwd``,
-  which recomputes the layer's forward per example and writes dx and
-  per-block weight-grad partials, plus a second launch that sums the
-  partials in block order (same file).
+  which recomputes the layer's forward and writes dx and per-block
+  weight-grad partials, plus a second launch that sums the partials in
+  block order (same file), on one of two kernels chosen by ``_bwd_route``:
+  bf16 layers of D 32 or 64, head width 16, 32, ... and H up to 64 on the
+  tensor cores (``mha_bwd_tc_kernel``), every other layer on the CUDA
+  cores (``mha_bwd_kernel``).
 
 ``fused_mha_layer`` runs B13 alone when no gradient is wanted and the
 ``autograd.Function`` (B13 then B14) when one is, as the JAX primal /
@@ -107,6 +110,35 @@ def fused_mha_layer_bwd_plain(g, x, lens, w_in, b_in, w_out, b_out, num_heads):
     return (dx.to(x.dtype), *(t[0] for t in grads))
 
 
+def fused_mha_layer_bwd_f64_sums(g, x, lens, w_in, b_in, w_out, b_out, num_heads):
+    """B14's function on bf16 x at its bf16 rounding points with every sum
+    taken in f64: (dx [B, H, D] bf16, dw_in, db_in, dw_out, db_out f64), the
+    yardstick of the backward as ``fused_mha_layer_f64_sums`` is the
+    forward's."""
+    rb = lambda t: t.to(torch.bfloat16).double()
+    b, h, d = x.shape
+    hd = d // num_heads
+    heads = lambda t: t.reshape(b, h, num_heads, hd).transpose(1, 2)
+    merge = lambda t: t.transpose(1, 2).reshape(b, h, d)
+    x2, wi = rb(x), rb(w_in)
+    q, k, v = (heads(rb(t)) for t in (x2 @ wi + b_in.double()).split(d, -1))
+    s = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
+    if lens is not None:
+        s = s.masked_fill(_key_invalid(lens, h, x.device), -1e30)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / rb(e).sum(-1, keepdim=True)
+    pv = rb(p)
+    g2 = rb(g)
+    dwo = torch.einsum("bqc,bqj->cj", rb(merge(pv @ v)), g2)
+    do = heads(rb(g2 @ rb(w_out).T))
+    dp = do @ v.transpose(-1, -2)
+    ds = rb(p * (dp - rb(dp * p).sum(-1, keepdim=True)) / math.sqrt(hd))
+    dqkv = rb(torch.cat([merge(ds @ k), merge(ds.transpose(-1, -2) @ q),
+                         merge(pv.transpose(-1, -2) @ do)], -1))
+    return ((dqkv @ wi.T).to(torch.bfloat16), torch.einsum("brd,brj->dj", x2, dqkv),
+            dqkv.sum((0, 1)), dwo, g2.sum((0, 1)))
+
+
 def _fwd_smem_bytes(h: int, d: int, nh: int, wsm: bool) -> int:
     """Shared memory of B13 (csrc/fused_mha.cu, fwd_smem_floats): with
     ``wsm`` the weights [D, 3D], [3D], [D, D], [D]; always one example's
@@ -144,16 +176,40 @@ def _fwd_tc_smem_bytes(h: int, d: int, ept: int) -> int:
     return 2 * (d * (3 * d + 8) + d * (d + 8) + rows * (d + 8) + rows * (3 * d + 8)) + 16 * d
 
 
-def _fwd_tc_tile(h: int, d: int) -> int | None:
+def _bwd_tc_smem_bytes(h: int, d: int, ept: int) -> int:
+    """Shared memory of B14's tensor-core kernel (csrc/fused_mha.cu,
+    tc::bwd_smem_bytes) with ``ept`` examples a tile: bf16 round(W_in)
+    [D, 3D], round(W_out) [D, D], x, g2, do and the attention output [rows,
+    D] each, q | k | v [rows, 3D], each row padded by 8 bf16; min(8, ept * D
+    / 16) warp slabs (one a warp with an (example, head) to take) of round(p)
+    and ds [Hp, Hp + 8] each; f32 b_in."""
+    hp = _round_up(h, 16)
+    rows, slabs = ept * hp, min(8, ept * d // 16)
+    return 2 * (d * (3 * d + 8) + d * (d + 8) + 4 * rows * (d + 8) + rows * (3 * d + 8)
+                + slabs * 2 * hp * (hp + 8)) + 12 * d
+
+
+def _tc_tile(h: int, smem) -> int | None:
     """Examples a tensor-core tile holds: as many as make about 128 rows,
     the rows a multiple of 32 (the projections' warp tiles), fewer where
-    shared memory needs it (D = 128); None if one does not fit."""
+    ``smem(ept)`` bytes exceed a block's shared memory; None if one does
+    not fit."""
     hp = _round_up(h, 16)
     step = 1 if hp % 32 == 0 else 2
     ept = _TC_ROWS // hp // step * step
-    while ept >= step and _fwd_tc_smem_bytes(h, d, ept) > _SMEM_LIMIT:
+    while ept >= step and smem(ept) > _SMEM_LIMIT:
         ept -= step
     return ept if ept >= step else None
+
+
+def _fwd_tc_tile(h: int, d: int) -> int | None:
+    """B13's tile (``_tc_tile``): fewer examples at D = 128."""
+    return _tc_tile(h, lambda ept: _fwd_tc_smem_bytes(h, d, ept))
+
+
+def _bwd_tc_tile(h: int, d: int) -> int | None:
+    """B14's tile (``_tc_tile``): one example at H = 64."""
+    return _tc_tile(h, lambda ept: _bwd_tc_smem_bytes(h, d, ept))
 
 
 @functools.lru_cache(maxsize=64)
@@ -182,9 +238,28 @@ def _fwd_tc_plan(b: int, h: int, d: int, sms: int) -> tuple[int, int, int, int]:
     return ept, ept * _round_up(h, 16), smem, min(-(-b // ept), per_sm * sms)
 
 
-@functools.lru_cache(maxsize=8)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+@functools.lru_cache(maxsize=64)
+def _bwd_route(dtype, h: int, d: int, nh: int) -> str:
+    """B14's kernel for a layer, a function of its dtype and shape alone:
+    "tc" (the tensor cores: bf16, D 32 or 64, the head width a multiple of
+    16, round_up(H, 16) <= 64, a tile that fits) or "fma" (the CUDA cores:
+    every other layer, f32 and D = 128 among them: each warp keeps its
+    slice of the 4D^2 weight-grad sums in registers, 64 a lane at D = 64
+    and 256 at D = 128, more than a thread has).  Cached, as ``_fwd_route``."""
+    tc = (dtype == torch.bfloat16 and d in (32, 64) and d % nh == 0 and (d // nh) % 16 == 0
+          and _round_up(h, 16) <= _TC_MAX_HP and _bwd_tc_tile(h, d) is not None)
+    return "tc" if tc else "fma"
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_tc_plan(b: int, h: int, d: int, sms: int) -> tuple[int, int, int, int]:
+    """(examples a tile, rows a tile, shared memory bytes, grid) of a
+    tensor-core backward: one block an SM (its weight-grad slices take up
+    to 255 registers a thread), at most one a tile; each block walks its
+    tiles in a persistent loop, so which tiles it sums, and in what order,
+    is fixed by (B, H, D) and the SM count."""
+    ept = _bwd_tc_tile(h, d)
+    return ept, ept * _round_up(h, 16), _bwd_tc_smem_bytes(h, d, ept), min(-(-b // ept), sms)
 
 
 def _weights_in_smem(smem_bytes, what: str, h: int, d: int, nh: int) -> bool:
@@ -239,7 +314,7 @@ def _launch_fwd_tc(x, lens, wi, bi, wo, bo, num_heads):
     x, wi, wo = (t.clone() if t.data_ptr() % 16 else t for t in (x, wi, wo))
     y = torch.empty_like(x)
     if b:
-        ept, _, _, grid = _fwd_tc_plan(b, h, d, _sm_count(x.device.index))
+        ept, _, _, grid = _fwd_tc_plan(b, h, d, _lib.sm_count(x.device.index))
         err = _lib.library().tt_fused_mha_fwd_tc(
             x.data_ptr(), 0 if lens is None else lens.data_ptr(), wi.data_ptr(), bi.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), y.data_ptr(), b, h, d, num_heads, ept, grid,
@@ -276,45 +351,87 @@ def fused_mha_fwd(x, lens, w_in, b_in, w_out, b_out, num_heads):
     return y
 
 
+def _bwd_inputs(g, x, lens, w_in, b_in, w_out):
+    """The backward kernels' operands: g in x's dtype and x contiguous,
+    lengths int32, f32 weights, all on x's device."""
+    dev = x.device
+    x = x.detach().contiguous()
+    return (g.detach().to(x.dtype).contiguous(), x, None if lens is None else _lens(lens, x),
+            *(_f32(t, dev) for t in (w_in, b_in, w_out)))
+
+
+def _reduce_partials(ws):
+    """The per-block partial grads ws [blocks, n] summed in block order
+    (``reduce_kernel``): flat dW_in, db_in, dW_out, db_out."""
+    grads = torch.empty(ws.shape[1], dtype=torch.float32, device=ws.device)
+    err = _lib.library().tt_fused_mha_bwd_reduce(ws.data_ptr(), grads.data_ptr(), ws.shape[0],
+                                                 ws.shape[1], _lib.stream_ptr(ws))
+    _lib.check(err, "fused_mha_bwd_reduce")
+    return grads
+
+
+def _launch_bwd_fma(g, x, lens, wi, bi, wo, num_heads):
+    """B14 on the CUDA cores (``mha_bwd_kernel``, over at most one block per
+    SM) and its reduce, on the wrapper's prepared inputs (B >= 1): (dx in
+    x's dtype, the flat f32 grads).  Counts nothing: ``fused_mha_bwd`` does."""
+    b, h, d = x.shape
+    wsm = _weights_in_smem(_bwd_smem_bytes, "backward", h, d, num_heads)
+    blocks, epb = _bwd_grid(b, x.device)
+    ws = torch.empty((blocks, 4 * d * d + 4 * d), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    err = _lib.library().tt_fused_mha_bwd(
+        g.data_ptr(), x.data_ptr(), 0 if lens is None else lens.data_ptr(), wi.data_ptr(),
+        bi.data_ptr(), wo.data_ptr(), dx.data_ptr(), ws.data_ptr(), b, h, d, num_heads,
+        int(x.dtype == torch.bfloat16), int(wsm), epb, _lib.stream_ptr(x),
+    )
+    _lib.check(err, "fused_mha_bwd")
+    return dx, _reduce_partials(ws)
+
+
+def _launch_bwd_tc(g, x, lens, wi, bi, wo, num_heads):
+    """B14 on the tensor cores (``mha_bwd_tc_kernel``, bf16) and its reduce,
+    on the wrapper's prepared inputs (B >= 1): (dx bf16, the flat f32
+    grads).  Counts nothing."""
+    b, h, d = x.shape
+    # the kernel reads g, x, W_in and W_out in 16-byte chunks
+    g, x, wi, wo = (t.clone() if t.data_ptr() % 16 else t for t in (g, x, wi, wo))
+    ept, _, _, grid = _bwd_tc_plan(b, h, d, _lib.sm_count(x.device.index))
+    ws = torch.empty((grid, 4 * d * d + 4 * d), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    err = _lib.library().tt_fused_mha_bwd_tc(
+        g.data_ptr(), x.data_ptr(), 0 if lens is None else lens.data_ptr(), wi.data_ptr(),
+        bi.data_ptr(), wo.data_ptr(), dx.data_ptr(), ws.data_ptr(), b, h, d, num_heads, ept,
+        grid, _lib.stream_ptr(x),
+    )
+    _lib.check(err, "fused_mha_bwd_tc")
+    return dx, _reduce_partials(ws)
+
+
 def fused_mha_bwd(g, x, lens, w_in, b_in, w_out, b_out, num_heads):
     """(dx, dw_in, db_in, dw_out, db_out); see ``fused_mha_layer_bwd_plain``.
     A CPU tensor takes the plain version; a CUDA tensor launches kernel B14
-    over at most one block per SM, then the reduce that sums the per-block
-    partial grads in block order (counted as ``fused_mha_bwd_reduce``)."""
+    on the route ``_bwd_route`` gives its dtype and shape, then the reduce
+    that sums the per-block partial grads in block order.  Every launch
+    counts as ``fused_mha_bwd`` and ``fused_mha_bwd_reduce``, one on the
+    tensor cores also as ``fused_mha_bwd_tc``."""
     if x.device.type == "cpu":
         return fused_mha_layer_bwd_plain(g, x, lens, w_in, b_in, w_out, b_out, num_heads)
     _check(x, w_in, b_in, w_out, b_out, num_heads)
     b, h, d = x.shape
     if g.shape != x.shape:
         raise ValueError(f"cotangent of shape {tuple(g.shape)} does not fit x {tuple(x.shape)}")
-    wsm = _weights_in_smem(_bwd_smem_bytes, "backward", h, d, num_heads)
-    dev = x.device
-    x = x.detach().contiguous()
-    g = g.detach().to(x.dtype).contiguous()
-    lens = None if lens is None else _lens(lens, x)
-    wi, bi, wo = (_f32(t, dev) for t in (w_in, b_in, w_out))
-    sizes = [d * 3 * d, 3 * d, d * d, d]  # flat dW_in, db_in, dW_out, db_out
-    grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    dx = torch.empty_like(x)
     if b == 0:
-        grads.zero_()
+        dx = torch.empty_like(x)
+        grads = torch.zeros(4 * d * d + 4 * d, dtype=torch.float32, device=x.device)
     else:
-        blocks, epb = _bwd_grid(b, dev)
-        ws = torch.empty((blocks, grads.numel()), dtype=torch.float32, device=dev)
-        stream = _lib.stream_ptr(x)
-        lib = _lib.library()
-        err = lib.tt_fused_mha_bwd(
-            g.data_ptr(), x.data_ptr(), 0 if lens is None else lens.data_ptr(), wi.data_ptr(),
-            bi.data_ptr(), wo.data_ptr(), dx.data_ptr(), ws.data_ptr(), b, h, d, num_heads,
-            int(x.dtype == torch.bfloat16), int(wsm), epb, stream,
-        )
-        _lib.check(err, "fused_mha_bwd")
+        tc = _bwd_route(x.dtype, h, d, num_heads) == "tc"
+        dx, grads = (_launch_bwd_tc if tc else _launch_bwd_fma)(
+            *_bwd_inputs(g, x, lens, w_in, b_in, w_out), num_heads)
         _lib.launches["fused_mha_bwd"] += 1
-        err = lib.tt_fused_mha_bwd_reduce(ws.data_ptr(), grads.data_ptr(), blocks,
-                                          grads.numel(), stream)
-        _lib.check(err, "fused_mha_bwd_reduce")
         _lib.launches["fused_mha_bwd_reduce"] += 1
-    dwi, dbi, dwo, dbo = torch.split(grads, sizes)
+        if tc:
+            _lib.launches["fused_mha_bwd_tc"] += 1
+    dwi, dbi, dwo, dbo = torch.split(grads, [d * 3 * d, 3 * d, d * d, d])
     return dx, dwi.view(d, 3 * d), dbi, dwo.view(d, d), dbo
 
 

@@ -115,10 +115,6 @@ def _check(u: torch.Tensor, i: torch.Tensor, with_diag: bool) -> None:
         raise ValueError("diagonal positives need as many items as users")
 
 
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def in_batch_ce_fwd(u: torch.Tensor, i: torch.Tensor, with_diag: bool = True):
     """(ce, lse); see ``in_batch_ce_fwd_plain``.  A CPU tensor takes the
     plain version; a CUDA tensor launches kernel B10."""
@@ -159,7 +155,7 @@ def in_batch_ce_bwd(
     lse = lse.to(torch.float32).contiguous()
     g = g.to(torch.float32).contiguous()
     (b, d), c = u.shape, i.shape[0]
-    g_r, g_c, _ = bwd_plan(b, c, d, _sm_count(u.device))
+    g_r, g_c, _ = bwd_plan(b, c, d, _lib.sm_count(u.device.index))
     empty = lambda want, *shape: torch.empty(shape, dtype=torch.float32, device=u.device) if want else None
     ws_du, ws_di = empty(want_du, g_c, b, d), empty(want_di, g_r, c, d)
     du, di = empty(want_du, b, d), empty(want_di, c, d)
