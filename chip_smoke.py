@@ -8,20 +8,25 @@ Phases, in the order they run; any failure exits non-zero:
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, and the build of the CUDA kernels from csrc/ (nvcc, on
      first use; cached under two_tower_models_tpu_torch/_build/); beside the
-     build, nvcc -Xptxas -v on csrc/fused_softmax.cu and csrc/fused_mha.cu
-     for the registers, stack and spills of the CE backward and of B13's
-     tensor-core kernel (each instance, by key bands), and their shared
-     memory (a spill fails the run);
+     build, nvcc -Xptxas -v on csrc/fused_softmax.cu, csrc/fused_mha.cu,
+     csrc/select_topk.cu and csrc/rows_write.cu for the registers, stack
+     and spills of the CE backward, of B13's and B14's tensor-core kernels
+     (each instance, by key bands), of both select kernels and of each
+     row-write instance, and their shared memory (a spill fails the run);
   2. kernels: each of the four kernels of the serving path is held against
      its plain PyTorch version on the card, on the tensors the serving path
      gives it, and timed beside that plain version, a one-call PyTorch
-     yardstick where there is one, and its bound on an H100 SXM;
+     yardstick where there is one, and its bound on an H100 SXM; the
+     select (B3) on the radix route the path takes and, launched alone,
+     on the tournament (k > K_MAX), each with its device time beside
+     torch.topk's;
   3. serve: the full-width serving configuration (the exact leg of
      scripts/bench_serving.py: 2^20-item catalog, D=64, H=32, 3-layer 4-head
      bf16 history encoder, k=100, B=1024), weights random from --seed,
      through RetrievalEngine.from_params / warmup / query.  Launch counters
      are zeroed just before the timed batches and read just after: every
-     kernel must have run, the select twice per batch.  Indices are held
+     kernel must have run, the select twice per batch on its radix route
+     and never on the tournament.  Indices are held
      against the dense plain MIPS on the same user embeddings, and the user
      embeddings against the CPU run of the same model on a slice.  The user
      tower and the exact MIPS are then timed alone, for the breakdown of a
@@ -64,12 +69,14 @@ Phases, in the order they run; any failure exits non-zero:
      the legs below and on a stream where id 0 holds about half the ids
      (exactly, on rows of small integers), and timed against F.embedding's
      gradient at 2^16-2^22 rows; the in-place row write (B19) exactly at
-     the lazy step's six write-backs on its own ids.  From one seed, the
+     the lazy step's write-backs on its own ids (one launch a table for the
+     table and its two moments, and the six one-array launches), timed
+     with and without the host's dispatch.  From one seed, the
      first lazy step is held against the first dense step on every
      parameter and table moment.  Three legs, each 2 or 3 warm-up and 10
      timed steps plus three under the profiler: train-4M-packed (dense
      Adam, B18 three times a step through the packed lookups),
-     train-4M-lazy (lazy_table_adam: B19 six times a step, no B18) and
+     train-4M-lazy (lazy_table_adam: B19 twice a step, no B18) and
      train-1M-plain (2^20-row plain tables, B18 three times a step inside
      the scatter window).  Each leg then runs one step twice from one
      state, through the kernels and on the plain route, and the tables and
@@ -170,6 +177,8 @@ CHECK_ROWS = 1 << 18  # large-table card-against-CPU check: the scatter window's
 WINDOW_ROWS = (1 << 16, 1 << 18, 1 << 20, 1 << 22)  # B18 against F.embedding's gradient
 BF16_TOL = 1e-2  # tests/test_torch_train_step.py's bf16 tolerance
 LONG_N, LONG_H = 4, 4096  # scripts/tpu_kernel_parity.py:275-293's long history (Dh 16)
+# a serving batch's selects (k = 100): both on the radix route, none on the tournament
+SELECT_ROUTE = {"select_topk_radix": 2, "select_topk": 0}
 
 
 def _fail(msg: str) -> None:
@@ -232,6 +241,21 @@ def device_ms(torch, fn, kernel: str, iters: int = 20) -> float:
         torch.cuda.synchronize()
     ev = [e for e in prof.events() if kernel in e.name]
     return sum(e.device_time for e in ev) / max(len(ev), 1) / 1e3
+
+
+def call_device_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device time of one call of ``fn``: every kernel and copy it
+    launches, from torch.profiler over ``iters`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / iters / 1e3
 
 
 def bound(bytes_: float, flops: float, flops_rate: float):
@@ -502,7 +526,7 @@ def phase_serve_varlen(torch, args, gen, smi, dev, cfg, model, cpu_model, engine
     serve_leg(
         torch, "serve varlen", engine, model, cpu_model, cfg, batches,
         {"fused_attn_stack": 1, "fused_history_encoder": 0, "tile_max_scores": 1,
-         "select_topk": 2, "gather_rescore": 1},
+         **SELECT_ROUTE, "gather_rescore": 1},
         ["fused_attn_stack"], entries, failures, smi,
     )
 
@@ -974,7 +998,7 @@ def route_check(torch, label, step, state, data, idx, failures):
         state, _ = step(state, data, idx)
         before = dict(_lib.launches)
         with disable_scatter_kernel(), mock.patch.object(
-                sparse_tables, "rows_write", rw.rows_write_reference):
+                sparse_tables, "rows_write_many", rw.rows_write_many_reference):
             twin, _ = step(twin, data, idx)
     plain_launches = sum(_lib.launches[k] - before.get(k, 0) for k in ("rows_scatter_add", "rows_write"))
     got, want = table_tensors(state), table_tensors(twin)
@@ -994,6 +1018,66 @@ def route_check(torch, label, step, state, data, idx, failures):
     return state
 
 
+def row_write_check(torch, cfg, st_lazy, batch, randn, dev, entry, entries) -> None:
+    """Phase 5a: B19 at the 4M-lazy write-back, on the step's own ids: the
+    two rows_write_many launches of a step (one a table: the table and its
+    two moments) and the six one-array launches, exactly against the plain
+    version, timed with and without the host's dispatch beside index_copy_
+    of the blended rows.  Its copies of the tables die with it."""
+    from two_tower_models_tpu_torch.ops import rows_write as rw
+    from two_tower_models_tpu_torch.training.sparse_tables import SPARSE_TABLE_KEYS, build_minibatch
+
+    d = 64
+    _, _, meta = build_minibatch(cfg, st_lazy.params, batch)
+    arrays = table_tensors(st_lazy)
+    writes, lib_args, exact, n_live = [], [], True, 0
+    for name in SPARSE_TABLE_KEYS:  # one write-back a table: the table, mu and nu
+        s, dup = meta[name]
+        plan = rw.lane_block_plan(s, dup, 128 // d)
+        dsts = [arrays[key].clone() for key in (name, f"mu.{name}", f"nu.{name}")]
+        vals = [rw.merge_rows(plan, s, randn(s.numel(), d)) for _ in dsts]
+        got = rw.rows_write_many([t.clone() for t in dsts], plan[0], plan[1], vals, d)
+        for dst, v, g in zip(dsts, vals, got):
+            exact &= torch.equal(g, rw.rows_write_reference(dst.clone(), plan[0], plan[1], v, d))
+            exact &= torch.equal(rw.rows_write(dst.clone(), plan[0], plan[1], v, d), g)
+        live = (plan[1] != 0).nonzero()[:, 0]
+        m = ((plan[1][live][:, None] >> (torch.arange(128, device=dev) // d)) & 1).float()
+        for dst, v in zip(dsts, vals):
+            lib_args.append((dst, plan[0][live], dst[plan[0][live]] * (1 - m) + v[live] * m))
+        n_live += 3 * live.numel()
+        writes.append((dsts, plan[0], plan[1], vals))
+    print(f"row write vs plain at the 4M-lazy write-back (2 tables x 3 arrays, {n_live} live "
+          f"slots of {3 * sum(w[1].numel() for w in writes)}): exact={exact}", flush=True)
+    two = lambda: [rw.rows_write_many(*w, d) for w in writes]
+    six = lambda: [rw.rows_write(dst, pids, bits, v, d)
+                   for dsts, pids, bits, vals in writes for dst, v in zip(dsts, vals)]
+    entry(
+        "rows_write", "two_tower_models_tpu_torch/csrc/rows_write.cu",
+        "two_tower_models_tpu/ops/pallas/rows_write.py:150", exact, 0.0 if exact else float("nan"),
+        time_ms(torch, two),
+        time_ms(torch, lambda: [rw.rows_write_many_reference(*w, d) for w in writes], 3),
+        # each live row read old and new and written, in 3 arrays; ids and bits once a table
+        3 * n_live * 128 * 4 + sum(w[1].numel() * 12 for w in writes), 0, F32_FLOPS,
+        None,
+    )
+    e19 = entries["rows_write"]
+    e19["device_ms"] = call_device_ms(torch, two)
+    e19["six_ms"] = time_ms(torch, six)
+    e19["six_device_ms"] = call_device_ms(torch, six)
+    e19["index_copy_ms"] = time_ms(torch, lambda: [t.index_copy_(0, i, v) for t, i, v in lib_args])
+    e19["index_copy_device_ms"] = call_device_ms(
+        torch, lambda: [t.index_copy_(0, i, v) for t, i, v in lib_args])
+    e19["note"] = (
+        "times are the write-backs of one 4M-lazy step: two rows_write_many launches (table, mu "
+        "and nu of each table; ms with the host's dispatch, device_ms the kernels alone), six_* "
+        "the six one-array launches; library_ms null: no one PyTorch call blends lanes and drops "
+        "dead slots; index_copy_* copies the blended live rows (2/3 of the bytes, no blend)")
+    print(f"row write: two launches {e19['ms']:.4f} ms (device {e19['device_ms']:.4f}); six "
+          f"one-array launches {e19['six_ms']:.4f} (device {e19['six_device_ms']:.4f}); index_copy_ "
+          f"of blended rows {e19['index_copy_ms']:.4f} (device {e19['index_copy_device_ms']:.4f}); "
+          f"bound {e19['bound_ms']:.4f}", flush=True)
+
+
 def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
     """Phase 5: large tables, scripts/bench_tables.py's configuration."""
     import dataclasses
@@ -1001,10 +1085,9 @@ def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
     from two_tower_models_tpu_torch.config import TrainConfig
     from two_tower_models_tpu_torch.nn.packed_table import is_packed
     from two_tower_models_tpu_torch.ops import _lib
-    from two_tower_models_tpu_torch.ops import rows_write as rw
     from two_tower_models_tpu_torch.ops import scatter_add as sa
     from two_tower_models_tpu_torch.training.data import gather_batch
-    from two_tower_models_tpu_torch.training.sparse_tables import SPARSE_TABLE_KEYS, build_minibatch
+    from two_tower_models_tpu_torch.training.sparse_tables import SPARSE_TABLE_KEYS
     from two_tower_models_tpu_torch.training.state import create_train_state
     from two_tower_models_tpu_torch.training.step import make_train_step
 
@@ -1107,35 +1190,7 @@ def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
     torch.cuda.empty_cache()
 
     # -- 5a: B19 at the 4M-lazy write-back, on the step's own ids --
-    _, _, meta = build_minibatch(cfg, st_lazy.params, batch)
-    arrays = table_tensors(st_lazy)
-    writes, lib_args, exact, n_live = [], [], True, 0
-    for name in SPARSE_TABLE_KEYS:
-        s, dup = meta[name]
-        plan = rw.lane_block_plan(s, dup, 128 // d)
-        for key in (name, f"mu.{name}", f"nu.{name}"):
-            w = (arrays[key].clone(), plan[0], plan[1], rw.merge_rows(plan, s, randn(s.numel(), d)))
-            exact &= torch.equal(rw.rows_write(w[0].clone(), *w[1:], d),
-                                 rw.rows_write_reference(w[0].clone(), *w[1:], d))
-            live = (w[2] != 0).nonzero()[:, 0]
-            m = ((w[2][live][:, None] >> (torch.arange(128, device=dev) // d)) & 1).float()
-            lib_args.append((w[0], w[1][live].long(), w[0][w[1][live]] * (1 - m) + w[3][live] * m))
-            n_live += live.numel()
-            writes.append(w)
-    print(f"row write vs plain at the 4M-lazy write-back (6 writes, {n_live} live slots of "
-          f"{sum(w[1].numel() for w in writes)}): exact={exact}", flush=True)
-    entry(
-        "rows_write", "two_tower_models_tpu_torch/csrc/rows_write.cu",
-        "two_tower_models_tpu/ops/pallas/rows_write.py:150", exact, 0.0 if exact else float("nan"),
-        time_ms(torch, lambda: [rw.rows_write(*w, d) for w in writes]),
-        time_ms(torch, lambda: [rw.rows_write_reference(*w, d) for w in writes], 3),
-        3 * n_live * 128 * 4 + sum(w[1].numel() * 8 for w in writes), 0, F32_FLOPS,
-        time_ms(torch, lambda: [dst.index_copy_(0, i, v) for dst, i, v in lib_args]),
-    )
-    entries["rows_write"]["note"] = (
-        "times are the six write-backs of one 4M-lazy step (table, mu, nu of both tables); "
-        "library_ms is index_copy_ of the blended live rows")
-    del writes, lib_args, meta, arrays
+    row_write_check(torch, cfg, st_lazy, batch, randn, dev, entry, entries)
     torch.cuda.empty_cache()
 
     # -- first lazy step against the first dense step, from zero moments --
@@ -1173,11 +1228,11 @@ def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
     torch.cuda.empty_cache()
     st_lazy, ms_lazy, counts = table_leg(
         torch, "train-4M-lazy", step_lazy, st_lazy, data, idx, 2,
-        {**five, "rows_scatter_add": 0, "rows_write": 6}, smi, failures)
+        {**five, "rows_scatter_add": 0, "rows_write": 2}, smi, failures)
     entries["rows_write"]["launches"] = counts.get("rows_write", 0)
-    b19 = entries["rows_write"]["ms"]
-    print(f"train-4M-lazy: B19's six launches alone {b19:.3f} ms ({b19 / ms_lazy * 100:.1f}% of "
-          f"the step)", flush=True)
+    b19 = entries["rows_write"]["device_ms"]
+    print(f"train-4M-lazy: B19's two launches alone {b19:.3f} ms of device time "
+          f"({b19 / ms_lazy * 100:.1f}% of the step)", flush=True)
     route_check(torch, "train-4M-lazy", step_lazy, st_lazy, data, idx, failures)
     del st_lazy
     torch.cuda.empty_cache()
@@ -1420,7 +1475,7 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms, b14_ptx
     del xs, xs_v
     cpu_model = copy.deepcopy(model).cpu()
     others = {"fused_history_encoder": 0, "fused_attn_stack": 0, "tile_max_scores": 1,
-              "select_topk": 2, "gather_rescore": 1}
+              **SELECT_ROUTE, "gather_rescore": 1}
     legs = {}
     for label, bts in (("serve-1M-exact-layer", batches), ("serve-1M-exact-layer-varlen", var_batches)):
         counts, legs[label] = serve_leg(torch, label, engine, model, cpu_model, cfg, bts,
@@ -1718,7 +1773,7 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
     del q, k, v, qv, kv, vv
     cpu_model = copy.deepcopy(model).cpu()
     others = {"fused_history_encoder": 0, "fused_attn_stack": 0, "fused_mha_fwd": 0,
-              "tile_max_scores": 1, "select_topk": 2, "gather_rescore": 1}
+              "tile_max_scores": 1, **SELECT_ROUTE, "gather_rescore": 1}
     legs = {}
     for label, bts in (("serve-1M-exact-blockwise", batches),
                        ("serve-1M-exact-blockwise-varlen", var_batches)):
@@ -2047,7 +2102,7 @@ def main() -> int:
         [_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(_lib.CSRC / f"{src}.cu"),
          "-o", str(_lib.BUILD_DIR / f"ptxas_{src}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in ("fused_softmax", "fused_mha")]
+        for src in ("fused_softmax", "fused_mha", "select_topk", "rows_write")]
     _lib.library()
     ptxas_log = "\n".join(p.communicate(timeout=600)[0] for p in ptxas)
     print(smi, flush=True)
@@ -2062,7 +2117,8 @@ def main() -> int:
 
     ept = fm._fwd_tc_tile(HIST, 64)
     spills, ptxas_lines = ptxas_report(
-        ptxas_log, ["ce_bwd_kernel", "ce_bwd_reduce", "mha_fwd_tc_kernel", "mha_bwd_tc_kernel"], {
+        ptxas_log, ["ce_bwd_kernel", "ce_bwd_reduce", "mha_fwd_tc_kernel", "mha_bwd_tc_kernel",
+                    "select_radix_kernel", "select_topk_kernel", "rows_write_kernel"], {
             # bwd::SMEM_FLOATS in csrc/fused_softmax.cu
             "ce_bwd_kernel": 4 * (128 * 68 + 2 * 64 * 68 + 128 * 72 + 2 * 128),
             "ce_bwd_reduce": 0,
@@ -2183,25 +2239,43 @@ def main() -> int:
     _, err4 = close(mt.keys_f32(ck4), mt.keys_f32(cp4), 0.0, 0.0)
     sel_err = max(err2, err4)
     idx_mismatch = int((ik != ip).sum()) + int((ik4 != ip4).sum())
-    sel_ms = [time_ms(torch, lambda: mt.select_rows(mk, TOPK)),
-              time_ms(torch, lambda: mt.select_rows(ck, TOPK))]
-    sel_plain = [
-        time_ms(torch, lambda: mt.select_keys_plain(mt.f32_keys(mk).clamp_min(-(1 << 31) + 1), TOPK), 3),
-        time_ms(torch, lambda: mt.select_keys_plain(mt.f32_keys(ck).clamp_min(-(1 << 31) + 1), TOPK), 3),
-    ]
-    sel_lib = [time_ms(torch, lambda: torch.topk(mk, TOPK), 3),
-               time_ms(torch, lambda: torch.topk(ck, TOPK), 3)]
-    print(f"select pass2 exact={ok2} ms={sel_ms[0]:.4f}; pass4 exact={ok4} "
-          f"ms={sel_ms[1]:.4f}; index mismatches {idx_mismatch}", flush=True)
+    # the tournament (k > K_MAX's route) at the same shapes, launched alone
+    tour = lambda x: mt._launch_select(x, TOPK, True, "tournament")
+    ok_tour = all(torch.equal(a, e) for x, want in ((mk, (kp, ip)), (ck, (cp4, ip4)))
+                  for a, e in zip(tour(x), want))
+    passes = (mk, ck)
+    sel = {
+        "ms": [time_ms(torch, lambda: mt.select_rows(x, TOPK)) for x in passes],
+        "device_ms": [call_device_ms(torch, lambda: mt.select_rows(x, TOPK)) for x in passes],
+        "plain_ms": [time_ms(torch, lambda: mt.select_keys_plain(
+            mt.f32_keys(x).clamp_min(-(1 << 31) + 1), TOPK), 3) for x in passes],
+        "library_ms": [time_ms(torch, lambda: torch.topk(x, TOPK), 3) for x in passes],
+        "library_device_ms": [call_device_ms(torch, lambda: torch.topk(x, TOPK)) for x in passes],
+        "tournament_ms": [time_ms(torch, lambda: tour(x)) for x in passes],
+        "tournament_device_ms": [call_device_ms(torch, lambda: tour(x)) for x in passes],
+    }
+    print(f"select pass2 exact={ok2} ms={sel['ms'][0]:.4f} (device {sel['device_ms'][0]:.4f}); "
+          f"pass4 exact={ok4} ms={sel['ms'][1]:.4f} (device {sel['device_ms'][1]:.4f}); index "
+          f"mismatches {idx_mismatch}; torch.topk device {sel['library_device_ms'][0]:.4f}, "
+          f"{sel['library_device_ms'][1]:.4f}; the tournament exact={ok_tour} device "
+          f"{sel['tournament_device_ms'][0]:.4f}, {sel['tournament_device_ms'][1]:.4f}", flush=True)
     entry(
-        "select_topk", "two_tower_models_tpu_torch/csrc/select_topk.cu",
-        "two_tower_models_tpu/ops/pallas/mips_topk.py:319", ok2 and ok4, sel_err,
-        sum(sel_ms), sum(sel_plain),
+        "select_topk_radix", "two_tower_models_tpu_torch/csrc/select_topk.cu",
+        "two_tower_models_tpu/ops/pallas/mips_topk.py:319", ok2 and ok4 and ok_tour, sel_err,
+        sum(sel["ms"]), sum(sel["plain_ms"]),
         (b * nt * 4 + b * TOPK * 8) + (b * TOPK * mt.TILE * 4 + b * TOPK * 8), 0, F32_FLOPS,
-        sum(sel_lib),
+        sum(sel["library_ms"]),
     )
-    entries["select_topk"]["note"] = "times are pass 2 + pass 4 of one query batch"
-    entries["select_topk"]["index_mismatches"] = idx_mismatch
+    e3 = entries["select_topk_radix"]
+    e3.update({f"{key}_by_pass": v for key, v in sel.items()})
+    e3["device_ms"] = sum(sel["device_ms"])
+    e3["library_device_ms"] = sum(sel["library_device_ms"])
+    e3["tournament_device_ms"] = sum(sel["tournament_device_ms"])
+    e3["note"] = ("times are pass 2 + pass 4 of one query batch (_by_pass: each); ms with the "
+                  "host's dispatch (CUDA events), device_ms the kernels alone (torch.profiler); "
+                  "library is torch.topk, which keeps no tie order; tournament_* the kernel "
+                  "that takes k > K_MAX, at these shapes")
+    e3["index_mismatches"] = idx_mismatch
     del mp, cp, tiles_lib
     torch.cuda.empty_cache()
 
@@ -2209,9 +2283,9 @@ def main() -> int:
     cpu_model = copy.deepcopy(model).cpu()
     serve_leg(
         torch, "serve", engine, model, cpu_model, cfg, [(*bt, None) for bt in batches],
-        {"fused_history_encoder": 1, "tile_max_scores": 1, "select_topk": 2,
+        {"fused_history_encoder": 1, "tile_max_scores": 1, **SELECT_ROUTE,
          "gather_rescore": 1},
-        ["fused_history_encoder", "tile_max_scores", "select_topk", "gather_rescore"],
+        ["fused_history_encoder", "tile_max_scores", "select_topk_radix", "gather_rescore"],
         entries, failures, smi,
     )
 

@@ -49,6 +49,7 @@ _SIGNATURES = {
     "tt_fused_history_encoder": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "tt_tile_max_scores": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tt_select_topk_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "tt_select_topk_radix": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tt_gather_rescore": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tt_fused_history_encoder_res": [_P] * 10 + [_I] * 7 + [_P],
     "tt_fused_history_encoder_bwd": [_P] * 10 + [_I] * 7 + [_P],
@@ -60,7 +61,7 @@ _SIGNATURES = {
     "tt_in_batch_ce_bwd": [_P] * 6 + [_I] * 5 + [_P],
     "tt_in_batch_ce_bwd_reduce": [_P] * 7 + [_I] * 6 + [_P],
     "tt_rows_scatter_add": [_P] * 5 + [_I] * 3 + [_P],
-    "tt_rows_write": [_P] * 4 + [_I] * 4 + [_P],
+    "tt_rows_write": [_P] * 8 + [_I] * 6 + [_P],
     "tt_fused_mha_fwd": [_P] * 7 + [_I] * 6 + [_P],
     "tt_fused_mha_fwd_tc": [_P] * 7 + [_I] * 6 + [_P],
     "tt_fused_mha_bwd": [_P] * 8 + [_I] * 7 + [_P],

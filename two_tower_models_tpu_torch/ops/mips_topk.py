@@ -5,7 +5,9 @@ Port of ``two_tower_models_tpu/ops/pallas/mips_topk.py``:
   1. ``tile_max_scores``  (csrc/tile_max.cu): per query, the max score of
      every 128-row corpus tile; the [B, C] score matrix never exists.
   2. ``select_rows``      (csrc/select_topk.cu): the k best tiles per query,
-     in lax.top_k's total order.
+     in lax.top_k's total order; a radix select for k <= ``K_MAX``
+     (launch counter ``select_topk_radix``), the tournament above it
+     (``select_topk``), as ``_select_route`` decides.
   3. ``gather_rescore``   (csrc/gather_rescore.cu): every row of the k
      selected tiles scored against its query.
   4. ``select_rows`` again over the k*128 candidates.
@@ -34,9 +36,14 @@ from two_tower_models_tpu_torch.ops import _lib
 
 TILE = 128  # corpus rows per tile: the only tile size the CUDA kernels take
 _INT_MIN = -(1 << 31)
-# Longest row the select kernel holds in shared memory (int32 keys); longer
+# Longest row the select kernels hold in shared memory (int32 keys); longer
 # rows are selected hierarchically (select_rows).
 SELECT_MAX_ROWS = 56 * 1024
+# The radix select's largest k (csrc/select_topk.cu K_MAX: its survivors'
+# rank sort); larger k take the tournament kernel.
+K_MAX = 1024
+_SMEM_OPTIN = 232_448  # an H100 block's shared memory, opted in
+_RADIX_STATIC = 1024  # headroom for the radix kernel's static shared memory
 # Plain versions score at most this many (query, row) pairs at once.
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
@@ -118,7 +125,7 @@ def tile_max_scores(
 
 
 # ---------------------------------------------------------------------------
-# Passes 2 and 4: tournament select
+# Passes 2 and 4: radix select (tournament for large k)
 # ---------------------------------------------------------------------------
 
 
@@ -134,10 +141,24 @@ def select_keys_plain(keys: torch.Tensor, k: int):
     return (top >> 32).int(), ((1 << 32) - 1 - (top & 0xFFFFFFFF)).int()
 
 
+def _select_route(n: int, k: int) -> str:
+    """The select kernel a row of n keys takes for its top k: "radix" when
+    k <= K_MAX and the row plus the larger of one 1 KB histogram and the k
+    8-byte survivors fit a block's shared memory (csrc/select_topk.cu
+    tt_select_topk_radix), else "tournament"."""
+    radix_smem = 4 * (n + (n & 1)) + max(1024, 8 * k)
+    return "radix" if k <= K_MAX and radix_smem <= _SMEM_OPTIN - _RADIX_STATIC else "tournament"
+
+
 def _select_leaf(x: torch.Tensor, k: int, is_f32: bool):
     if x.device.type == "cpu":
         keys = f32_keys(x).clamp_min(_INT_MIN + 1) if is_f32 else x
         return select_keys_plain(keys, k)
+    return _launch_select(x, k, is_f32, _select_route(x.shape[1], k))
+
+
+def _launch_select(x: torch.Tensor, k: int, is_f32: bool, route: str):
+    """One launch of the ``route`` kernel over the rows of CUDA ``x``."""
     _check_cuda("select_rows", x)
     if x.dtype != (torch.float32 if is_f32 else torch.int32):
         raise TypeError(f"select_rows takes f32 scores or int32 keys, got {x.dtype}")
@@ -148,12 +169,13 @@ def _select_leaf(x: torch.Tensor, k: int, is_f32: bool):
     out_key = torch.empty((rows, k), dtype=torch.int32, device=x.device)
     out_idx = torch.empty((rows, k), dtype=torch.int32, device=x.device)
     if rows:
-        err = _lib.library().tt_select_topk_rows(
-            xc.data_ptr(), out_key.data_ptr(), out_idx.data_ptr(),
-            rows, n, k, int(is_f32), _lib.stream_ptr(xc),
-        )
-        _lib.check(err, "select_topk")
-        _lib.launches["select_topk"] += 1
+        lib = _lib.library()
+        launch = lib.tt_select_topk_radix if route == "radix" else lib.tt_select_topk_rows
+        name = "select_topk_radix" if route == "radix" else "select_topk"
+        err = launch(xc.data_ptr(), out_key.data_ptr(), out_idx.data_ptr(),
+                     rows, n, k, int(is_f32), _lib.stream_ptr(xc))
+        _lib.check(err, name)
+        _lib.launches[name] += 1
     return out_key, out_idx
 
 

@@ -5,10 +5,12 @@ Port of ``two_tower_models_tpu/ops/pallas/rows_write.py``.  ``rows_write``
 launches kernel B19 (``csrc/rows_write.cu``, whose note says what bounds it
 and why it may skip the no-op slots) on CUDA tensors and runs
 ``rows_write_reference`` on CPU tensors; both write into ``dst`` in place,
-where the JAX function returns a new array.  ``lane_block_plan``,
-``merge_rows`` and ``merge_lane_blocks`` turn sorted logical-row updates
-into the physical-row stream the write takes; they are plain torch, as the
-JAX package leaves them to XLA.
+where the JAX function returns a new array.  ``rows_write_many`` writes up
+to three arrays that share the ids and bits (a table and its Adam moments)
+in one launch, and on CPU tensors runs the plain version once per array.
+``lane_block_plan``, ``merge_rows`` and ``merge_lane_blocks`` turn sorted
+logical-row updates into the physical-row stream the write takes; they are
+plain torch, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -33,35 +35,70 @@ def rows_write_reference(dst: torch.Tensor, ids: torch.Tensor, bits: torch.Tenso
     return dst
 
 
+def rows_write_many_reference(dsts, ids: torch.Tensor, bits: torch.Tensor, vals,
+                              block_dim: int):
+    """``rows_write_reference`` once per (dst, vals) pair, in order.
+    Returns ``dsts``."""
+    for dst, v in zip(dsts, vals, strict=True):
+        rows_write_reference(dst, ids, bits, v, block_dim)
+    return dsts
+
+
+_MAX_ARRAYS = 3  # csrc/rows_write.cu's MAX_ARRAYS
+
+
+def rows_write_many(dsts, ids: torch.Tensor, bits: torch.Tensor, vals, block_dim: int):
+    """``rows_write`` into up to three distinct arrays that share the slots
+    (the table and its two Adam moments under one lane-block plan): dsts
+    and vals are sequences of [V, W] and [N, W] f32 tensors, ids [N]
+    physical rows, unique among the live slots (bits != 0), bits [N] the
+    live lane blocks (each ``block_dim`` wide).  A CUDA tensor launches
+    kernel B19 once for all the arrays; CPU tensors run
+    ``rows_write_many_reference``.  Returns ``dsts``."""
+    dsts, vals = list(dsts), list(vals)
+    if not 1 <= len(dsts) == len(vals) <= _MAX_ARRAYS:
+        raise ValueError(f"rows_write_many takes 1 to {_MAX_ARRAYS} (dst, vals) pairs, "
+                         f"got {len(dsts)} and {len(vals)}")
+    if dsts[0].device.type == "cpu":
+        return rows_write_many_reference(dsts, ids, bits, vals, block_dim)
+    dev = dsts[0].device
+    if not (dev.type == "cuda" and ids.device == bits.device == dev
+            and all(t.device == dev for t in (*dsts, *vals))):
+        raise ValueError("rows_write takes CUDA tensors on one device")
+    v, w = dsts[0].shape
+    n = ids.shape[0]
+    if any(t.dtype != torch.float32 for t in (*dsts, *vals)):
+        raise TypeError(f"rows_write takes f32 rows, got {[t.dtype for t in (*dsts, *vals)]}")
+    if not all(t.is_contiguous() for t in dsts):
+        raise ValueError("rows_write writes in place: dst must be contiguous")
+    if (any(tuple(t.shape) != (v, w) for t in dsts) or any(tuple(t.shape) != (n, w) for t in vals)
+            or bits.shape != ids.shape or w % block_dim):
+        raise ValueError(f"shapes dst {[tuple(t.shape) for t in dsts]}, ids {tuple(ids.shape)}, "
+                         f"bits {tuple(bits.shape)}, vals {[tuple(t.shape) for t in vals]}, "
+                         f"D {block_dim}")
+    if len({t.data_ptr() for t in dsts}) != len(dsts):
+        raise ValueError("rows_write_many writes distinct arrays")
+    # the plan's own types (int64 ids, int32 bits) pass through uncopied
+    ids64 = ids.to(torch.int64).contiguous()
+    bits32 = bits.to(torch.int32).contiguous()
+    vals = [t.contiguous() for t in vals]
+    ptrs = lambda ts: [t.data_ptr() for t in ts] + [None] * (_MAX_ARRAYS - len(ts))
+    err = _lib.library().tt_rows_write(
+        *ptrs(dsts), *ptrs(vals), ids64.data_ptr(), bits32.data_ptr(), len(dsts),
+        n, v, w, block_dim, _lib.sm_count(dev.index), _lib.stream_ptr(dsts[0]),
+    )
+    _lib.check(err, "rows_write")
+    _lib.launches["rows_write"] += 1
+    return dsts
+
+
 def rows_write(dst: torch.Tensor, ids: torch.Tensor, bits: torch.Tensor,
                vals: torch.Tensor, block_dim: int) -> torch.Tensor:
     """``rows_write_reference``'s function, in place on ``dst`` [V, W]; ids
     [N] physical rows, unique among the live slots (bits != 0), bits [N] the
     live lane blocks (each ``block_dim`` wide), vals [N, W].  A CUDA tensor
-    launches kernel B19."""
-    if dst.device.type == "cpu":
-        return rows_write_reference(dst, ids, bits, vals, block_dim)
-    if not (dst.device.type == "cuda" and ids.device == bits.device == vals.device == dst.device):
-        raise ValueError("rows_write takes CUDA tensors on one device")
-    v, w = dst.shape
-    n = ids.shape[0]
-    if dst.dtype != torch.float32 or vals.dtype != torch.float32:
-        raise TypeError(f"rows_write takes f32 rows, got {dst.dtype}, {vals.dtype}")
-    if not dst.is_contiguous():
-        raise ValueError("rows_write writes in place: dst must be contiguous")
-    if tuple(vals.shape) != (n, w) or bits.shape != ids.shape or w % block_dim:
-        raise ValueError(f"shapes dst {tuple(dst.shape)}, ids {tuple(ids.shape)}, "
-                         f"bits {tuple(bits.shape)}, vals {tuple(vals.shape)}, D {block_dim}")
-    ids32 = ids.to(torch.int32).contiguous()
-    bits32 = bits.to(torch.int32).contiguous()
-    vals = vals.contiguous()
-    err = _lib.library().tt_rows_write(
-        dst.data_ptr(), ids32.data_ptr(), bits32.data_ptr(), vals.data_ptr(),
-        n, v, w, block_dim, _lib.stream_ptr(dst),
-    )
-    _lib.check(err, "rows_write")
-    _lib.launches["rows_write"] += 1
-    return dst
+    launches kernel B19 (``rows_write_many``'s one-array case)."""
+    return rows_write_many([dst], ids, bits, [vals], block_dim)[0]
 
 
 def lane_block_plan(sorted_ids: torch.Tensor, dup_mask: torch.Tensor, pack: int):

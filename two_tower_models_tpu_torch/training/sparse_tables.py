@@ -14,7 +14,8 @@ the table update cost follow the touched rows:
      minitables (``MiniTables``); nothing of either table is copied.
   3. ``apply_sparse_adam``: Adam on the touched rows only, with the bias
      correction of the global step, written back in place: packed tables
-     through ``ops.rows_write`` (kernel B19 on the card), plain ones by an
+     through ``ops.rows_write.rows_write_many`` (kernel B19 on the card,
+     one launch for a table and its two moments), plain ones by an
      indexed copy of the live slots (no kernel in the JAX package either).
 
 This is LAZY Adam (torch's SparseAdam, TF's lazy_adam): the moments of
@@ -31,7 +32,7 @@ import torch
 from two_tower_models_tpu_torch.config import ModelConfig, TrainConfig
 from two_tower_models_tpu_torch.models.two_tower import Batch, TwoTowerModel
 from two_tower_models_tpu_torch.nn.packed_table import _packed_gather, is_packed
-from two_tower_models_tpu_torch.ops.rows_write import lane_block_plan, merge_rows, rows_write
+from two_tower_models_tpu_torch.ops.rows_write import lane_block_plan, merge_rows, rows_write_many
 
 SPARSE_TABLE_KEYS = ("user_id_table", "item_id_table")
 
@@ -160,9 +161,8 @@ def apply_sparse_adam(
     if packed:
         # one plan serves the three row arrays: it depends on the ids only
         plan = lane_block_plan(sorted_ids, dup_mask, table.shape[-1] // d)
-        pids, bits = plan[0], plan[1]
-        for dst, rows in ((table, new_rows.to(table.dtype)), (mu, mu2), (nu, nu2)):
-            rows_write(dst, pids, bits, merge_rows(plan, sorted_ids, rows), block_dim=d)
+        vals = [merge_rows(plan, sorted_ids, r) for r in (new_rows.to(table.dtype), mu2, nu2)]
+        rows_write_many((table, mu, nu), plan[0], plan[1], vals, block_dim=d)
         return table, mu, nu
     keep = ~dup_mask
     live = sorted_ids[keep].long()
