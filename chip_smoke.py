@@ -9,14 +9,23 @@ Phases, in the order they run; any failure exits non-zero:
      CUDA versions, and the build of the CUDA kernels from csrc/ (nvcc, on
      first use; cached under two_tower_models_tpu_torch/_build/); beside the
      build, nvcc -Xptxas -v on csrc/fused_softmax.cu, csrc/fused_mha.cu,
-     csrc/select_topk.cu and csrc/rows_write.cu for the registers, stack
-     and spills of the CE backward, of B13's and B14's tensor-core kernels
-     (each instance, by key bands), of both select kernels and of each
-     row-write instance, and their shared memory (a spill fails the run);
+     csrc/select_topk.cu, csrc/rows_write.cu and csrc/fused_encoder.cu for
+     the registers, stack and spills of the CE backward, of B13's and B14's
+     tensor-core kernels (each instance, by key bands), of both select
+     kernels, of each row-write instance and of each instance of the
+     whole-encoder tensor-core kernel (encoder_tc_kernel<RES, STACK, Hp /
+     16>: B1, B5, B8), and their shared memory (a spill fails the run);
   2. kernels: each of the four kernels of the serving path is held against
      its plain PyTorch version on the card, on the tensors the serving path
      gives it, and timed beside that plain version, a one-call PyTorch
-     yardstick where there is one, and its bound on an H100 SXM; the
+     yardstick where there is one, and its bound on an H100 SXM.  The
+     whole-encoder forward (B1) takes the tensor cores (route "tc"), which
+     sum in their own order: its y is held as B13's (at most 0.5% of values
+     beyond one bf16 step from plain, all within 1e-2 of scale, at most 1.5
+     times the plain version's count beyond one step from the same function
+     with f64 sums, bit-equal on repeat), the FMA kernel on the same input
+     within one step of plain; its device time beside the FMA kernel's and
+     three B13 launches' on the same input; the
      select (B3) on the radix route the path takes and, launched alone,
      on the tournament (k > K_MAX), each with its device time beside
      torch.topk's;
@@ -34,21 +43,25 @@ Phases, in the order they run; any failure exits non-zero:
   2b. serve, variable-length histories: the same engine warmed up with
      variable_history=True, then ten batches with lengths uniform in
      [1, 32] and id 0 past each length.  The length-masked attention stack
-     (B8) is held against its plain version on the batch's own tensors;
+     (B8, on the tensor cores) is held and timed as B1 in phase 2 on the
+     batch's own tensors;
      launch counts, indices and user embeddings are checked as in phase 3,
      with B8 in place of the whole-encoder forward;
   4. train: the flagship training configuration (bench.py's _bench_cfg,
      copied: 65,536-row user and item tables, D=64, 16 features, T=3,
      H=32, 3-layer 4-head bf16 encoder, Debias.BOTH, fused loss; B=4096,
      Adam at lr 1e-3), weights and one fixed batch random from --seed.
-     The training kernels (encoder residual forward and backward, in-batch
+     The training kernels (encoder residual forward on the tensor cores,
+     its y and residuals xs, ps, p0 held as B1's y in phase 2, and the
+     encoder backward, on the plain and on the kernel's residuals; in-batch
      CE forward, and the CE backward that writes dU and dI in one pass over
      the score tiles, bit-equal on repeat) are held against their plain
      versions on the step's own tensors and timed.  Then 3
      warm-up and 20 timed steps through make_train_step; launch
      counters are zeroed around the timed steps and must show one launch
-     per step of each training kernel (and of the backward's reduce) and
-     none of the forward-only encoder kernel.  Three more steps run under
+     per step of each training kernel (and of the backward's reduce), the
+     residual forward's on the tensor cores, and none of the forward-only
+     encoder kernel.  Three more steps run under
      torch.profiler, for the device time per kernel and the device's busy
      share;
   4c. the recompute encoder backward (B7) on phase 4's encoder tensors,
@@ -59,9 +72,9 @@ Phases, in the order they run; any failure exits non-zero:
   4b. train, variable-length histories: the flagship config on
      make_synthetic_data with variable_history (lengths in [1, 32], id 0
      past them).  The stack's backward (B9) is held against its plain
-     version on the step's own tensors; 3 warm-up and 20 timed steps
-     launch B8, B9 and the CE kernels once each and none of the
-     fixed-length encoder kernels; three steps under torch.profiler; grads
+     version on the step's own tensors, and B8 timed there as in phase 2b;
+     3 warm-up and 20 timed steps launch B8 (on the tensor cores), B9 and
+     the CE kernels once each and none of the fixed-length encoder kernels; three steps under torch.profiler; grads
      against a CPU copy at B=256;
   5. large tables: scripts/bench_tables.py's configuration (the flagship
      with 2^22-row user and item tables, stored 128-lane packed).  The row
@@ -179,6 +192,10 @@ BF16_TOL = 1e-2  # tests/test_torch_train_step.py's bf16 tolerance
 LONG_N, LONG_H = 4, 4096  # scripts/tpu_kernel_parity.py:275-293's long history (Dh 16)
 # a serving batch's selects (k = 100): both on the radix route, none on the tournament
 SELECT_ROUTE = {"select_topk_radix": 2, "select_topk": 0}
+# the whole-encoder forward's launches on the tensor cores (B1, B5, B8; the
+# route of the cells' bf16 encoder): none unless a leg says otherwise
+ENC_TC = {"fused_history_encoder_tc": 0, "fused_history_encoder_res_tc": 0,
+          "fused_attn_stack_tc": 0}
 
 
 def _fail(msg: str) -> None:
@@ -198,7 +215,7 @@ def ptxas_report(log: str, kernels, smem: dict) -> tuple[list, dict]:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             cur = next((k for k in kernels if k in line), None)
-            args = re.findall(r"Li(\d+)E", line)
+            args = re.findall(r"L[ib](\d+)E", line)
             if cur:
                 cur += f"<{', '.join(args)}>" if args else ""
                 lines.setdefault(cur, [])
@@ -235,11 +252,14 @@ def device_ms(torch, fn, kernel: str, iters: int = 20) -> float:
     a small batch takes longer than the kernel."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events() if kernel in e.name]
+    for _ in range(3):  # a window in which the profiler recorded no launch is taken again
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if kernel in e.name]
+        if ev:
+            break
     return sum(e.device_time for e in ev) / max(len(ev), 1) / 1e3
 
 
@@ -329,6 +349,64 @@ def resid_bwd_flops(n: int, d: int, nl: int) -> int:
 def scaled_close(got, want, tol: float) -> tuple[bool, float]:
     """Each output within ``tol`` of its largest magnitude."""
     return close(got, want, 0.0, tol * float(want.float().abs().max()))
+
+
+def enc_checks(torch, label, got, again, plain, ref, fma, names):
+    """The whole-encoder tensor-core kernel's bf16 outputs ``got`` (y, or y,
+    xs, ps, p0; None where the function has none) against the plain
+    versions' ``plain``, as B13's y: at most 0.5% of values beyond one bf16
+    step, all within 1e-2 of scale; against the same function with f64
+    sums ``ref``, at most 1.5 times the plain version's count of values
+    beyond one step (or 1e-6 of the values, where both are that rare: ps
+    and p0); bit-equal to ``again``, a second run; and the FMA kernel's
+    outputs ``fma`` within one step of the plain version's (the same sum
+    order).  Returns (ok, max_abs_err)."""
+    ok, err, parts = True, 0.0, []
+    for name, a, a2, pl, r, f in zip(names, got, again, plain, ref, fma):
+        if pl is None:
+            continue
+        far, n = bf16_far(torch, a, pl), a.numel()
+        ok_s, e = scaled_close(a, pl, 1e-2)
+        far64 = [bf16_far(torch, t, r) for t in (a, pl)]
+        rep = torch.equal(a, a2)
+        fma_steps = bf16_ulps(torch, f, pl)
+        ok = ok and ok_s and far <= 5e-3 * n and far64[0] <= max(1.5 * far64[1], 1e-6 * n) \
+            and rep and 0 <= fma_steps <= 1
+        err = max(err, e)
+        parts.append(f"{name}: {far} of {n} values beyond one bf16 step (tol 0.5%), max_abs_err "
+                     f"{e:.3g} (tol 1e-2 of scale); beyond one step from f64 sums: kernel "
+                     f"{far64[0]}, plain {far64[1]} (tol 1.5x, or 1e-6 of the values); "
+                     f"bit-equal on repeat={rep}; the FMA kernel {fma_steps} steps from plain")
+    print(f"{label} on the tensor cores: " + "; ".join(parts), flush=True)
+    return ok, err
+
+
+def b13_layers(x, lens, w, nh):
+    """The per-layer tier's kernel (B13) once a layer on x: full layers,
+    every row, the whole-encoder kernels' yardstick."""
+    from two_tower_models_tpu_torch.ops import fused_mha as fm
+
+    for l in range(w[0].shape[0]):
+        x = fm.fused_mha_fwd(x, lens, w[0][l], w[1][l], w[2][l], w[3][l], nh)
+    return x
+
+
+def enc_times(torch, e, tc_fn, fma_fn, b13_fn, key: str = "") -> None:
+    """Beside a whole-encoder kernel's entry ``e`` (``key``: a prefix for
+    another shape): the tensor-core kernel's device time, the FMA kernel's
+    on the same inputs (with the host's dispatch and device), and the
+    device time of three B13 launches on the same input (``b13_layers``)."""
+    e[f"{key}device_ms"] = device_ms(torch, tc_fn, "encoder_tc_kernel")
+    e[f"{key}fma_ms"] = time_ms(torch, fma_fn)
+    e[f"{key}fma_device_ms"] = device_ms(torch, fma_fn, "encoder_kernel")
+    e[f"{key}b13x3_device_ms"] = call_device_ms(torch, b13_fn)
+
+
+def enc_line(torch, smi, label, e, key: str = "") -> str:
+    return (f"{label} on {torch.cuda.get_device_name(0)} ({smi}): the tensor cores "
+            f"{e[f'{key}ms']:.4f} ms (device {e[f'{key}device_ms']:.4f}); the FMA "
+            f"kernel {e[f'{key}fma_ms']:.4f} (device {e[f'{key}fma_device_ms']:.4f}); three B13 "
+            f"launches, device {e[f'{key}b13x3_device_ms']:.4f}")
 
 
 def check_launches(counts: dict, expect: dict, n: int, failures: list, label: str) -> None:
@@ -503,32 +581,44 @@ def phase_serve_varlen(torch, args, gen, smi, dev, cfg, model, cpu_model, engine
     _, _, hist, lens = batches[0]
     x = stack_input(torch, model, hist, lens)
     xb = x.to(torch.bfloat16)
-    yk = fe.fused_attn_stack_fwd(xb, lens, *w, nh)
-    yp = fe.fused_attn_stack_fwd_plain(xb, lens, *w, nh)
-    ulps = bf16_ulps(torch, yk, yp)
+    route = fe._enc_route(torch.bfloat16, HIST, d, nh, nl)
+    l32, w_k = fe._lens(lens, xb), [fe._f32(t, dev) for t in w]
+    fma8 = lambda: fe._launch_fwd_fma("fused_attn_stack", xb, l32, *w_k, nh)
+    ok_bf, err_bf = enc_checks(
+        torch, "attention stack", (fe.fused_attn_stack_fwd(xb, lens, *w, nh),),
+        (fe.fused_attn_stack_fwd(xb, lens, *w, nh),), (fe.fused_attn_stack_fwd_plain(xb, lens, *w, nh),),
+        (fe.fused_attn_stack_f64_sums(xb, lens, *w, nh),), (fma8(),), ("y",))
     ok_32, err_32 = close(fe.fused_attn_stack_fwd(x, lens, *w, nh),
                           fe.fused_attn_stack_fwd_plain(x, lens, *w, nh), 1e-4, 1e-4)
-    print(f"attention stack bf16 steps from plain: {ulps}; f32: ok={ok_32} "
-          f"max_abs_err={err_32:.3g} (tol 1e-4)", flush=True)
+    print(f"attention stack route {route}; f32: ok={ok_32} max_abs_err={err_32:.3g} (tol 1e-4)",
+          flush=True)
     n_valid = int(lens.sum())
     w_bytes = sum(t.numel() for t in w) * 4
     entry(
         "fused_attn_stack", "two_tower_models_tpu_torch/csrc/fused_encoder.cu",
-        "two_tower_models_tpu/ops/pallas/fused_encoder.py:853", 0 <= ulps <= 1 and ok_32,
-        close(yk, yp, 0.0, 0.0)[1],
+        "two_tower_models_tpu/ops/pallas/fused_encoder.py:853",
+        ok_bf and ok_32 and route == "tc", err_bf,
         time_ms(torch, lambda: fe.fused_attn_stack_fwd(xb, lens, *w, nh)),
         time_ms(torch, lambda: fe.fused_attn_stack_fwd_plain(xb, lens, *w, nh)),
         n_valid * d * 2 + BATCH * 4 + w_bytes + BATCH * d * 2,
         sum(enc_flops(n, d, nl) for n in lens.tolist()), BF16_FLOPS, None,
     )
-    entries["fused_attn_stack"]["note"] = (
-        "bytes and operations count each example's valid rows only")
-    serve_leg(
+    e8 = entries["fused_attn_stack"]
+    e8["kernel_route"] = route
+    enc_times(torch, e8, lambda: fe.fused_attn_stack_fwd(xb, lens, *w, nh), fma8,
+              lambda: b13_layers(xb, l32, w, nh))
+    print(enc_line(torch, smi, f"B8 at B={BATCH}", e8), flush=True)
+    e8["note"] = (
+        "bytes and operations count each example's valid rows only; kernel_route, device_ms, "
+        "fma_* and b13x3_device_ms as fused_history_encoder's, with lengths; train_* at the "
+        "training batch (B=4096) of phase 4b")
+    counts, _ = serve_leg(
         torch, "serve varlen", engine, model, cpu_model, cfg, batches,
         {"fused_attn_stack": 1, "fused_history_encoder": 0, "tile_max_scores": 1,
-         **SELECT_ROUTE, "gather_rescore": 1},
+         **SELECT_ROUTE, "gather_rescore": 1, **ENC_TC, "fused_attn_stack_tc": 1},
         ["fused_attn_stack"], entries, failures, smi,
     )
+    e8["tc_launches"] = counts.get("fused_attn_stack_tc", 0)
 
 
 def trace_steps(torch, step, state, data, idx, label: str):
@@ -701,22 +791,31 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
     x = model.item_id_table.detach()[batch.user_history].to(torch.bfloat16)
     res_k = fe.fused_history_encoder_res(x, pe, *w, nh)
     res_p = fe.fused_history_encoder_res_plain(x, pe, *w, nh)
-    # y and the bf16 residuals (xs, ps, p0) round where the plain version
-    # does: each value within one bf16 step of it
-    ulps = [bf16_ulps(torch, a, e) for a, e in zip(res_k, res_p)]
-    print(f"encoder residual forward, bf16 steps from plain (y, xs, ps, p0): {ulps}", flush=True)
-    checks = [(0 <= n <= 1, close(a, e, 0.0, 0.0)[1]) for n, a, e in zip(ulps, res_k, res_p)]
+    route = fe._enc_route(x.dtype, h, d, nh, nl)
+    w_k = [fe._f32(t, dev) for t in w]
+    fma5 = lambda: fe._launch_fwd_fma("fused_history_encoder_res", x, fe._pe(pe, x), *w_k, nh)
+    ok5, err5 = enc_checks(
+        torch, "encoder residual forward", res_k, fe.fused_history_encoder_res(x, pe, *w, nh),
+        res_p, fe.fused_history_encoder_res_f64_sums(x, pe, *w, nh), fma5(),
+        ("y", "xs", "ps", "p0"))
     w_bytes = sum(t.numel() for t in w) * 4 + pe.numel() * 4
     resid_bytes = (nl * b * h * d + (nl - 1) * b * nh * h * h + b * nh * h) * 2
     entry(
         "fused_history_encoder_res", "two_tower_models_tpu_torch/csrc/fused_encoder.cu",
-        "two_tower_models_tpu/ops/pallas/fused_encoder.py:561",
-        all(ok for ok, _ in checks), max(err for _, err in checks),
+        "two_tower_models_tpu/ops/pallas/fused_encoder.py:561", ok5 and route == "tc", err5,
         time_ms(torch, lambda: fe.fused_history_encoder_res(x, pe, *w, nh)),
         time_ms(torch, lambda: fe.fused_history_encoder_res_plain(x, pe, *w, nh)),
         b * h * d * 2 + w_bytes + b * 2 * d * 2 + resid_bytes, b * enc_flops(h, d, nl),
         BF16_FLOPS, None,
     )
+    e5 = entries["fused_history_encoder_res"]
+    e5["kernel_route"] = route
+    x0 = (x.float() + pe).to(torch.bfloat16)
+    enc_times(torch, e5, lambda: fe.fused_history_encoder_res(x, pe, *w, nh), fma5,
+              lambda: b13_layers(x0, None, w, nh))
+    print(enc_line(torch, smi, f"B5 at B={b}", e5), flush=True)
+    e5["note"] = "kernel_route, device_ms, fma_* and b13x3_device_ms as fused_history_encoder's"
+    del x0
     # B6 on the plain residuals, so it is held alone; the cotangent is
     # random at the size of a loss averaged over B (bf16, as autograd gives it)
     g_enc = (randn(b, 2, d) / b).to(torch.bfloat16)
@@ -724,6 +823,15 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
     bwd_args = (g_enc, xs, ps, p0, w[0], w[1], w[2], nh)
     got, want = fe.fused_history_encoder_bwd(*bwd_args), fe.fused_history_encoder_bwd_plain(*bwd_args)
     checks = [close(a, e, 0.0, 3e-2 * float(e.float().abs().max())) for a, e in zip(got, want)]
+    # and on the tensor-core kernel's residuals, against the plain backward
+    # on the plain version's: the layouts agree, and the rounding flips
+    # between the two forwards stay within the backward's tolerance
+    on_tc = [close(a, e, 0.0, 3e-2 * float(e.float().abs().max())) for a, e in zip(
+        fe.fused_history_encoder_bwd(g_enc, *res_k[1:], w[0], w[1], w[2], nh), want)]
+    print(f"encoder backward (B6) on the tensor-core residuals vs plain: ok="
+          f"{all(ok for ok, _ in on_tc)} max_abs_err {[float(f'{e:.3g}') for _, e in on_tc]} "
+          f"(tol 3e-2 of scale)", flush=True)
+    checks += on_tc
     grads_bytes = sum(t.numel() for t in want[1:]) * 4
     entry(
         "fused_history_encoder_bwd", "two_tower_models_tpu_torch/csrc/fused_encoder_bwd.cu",
@@ -777,8 +885,10 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
     expect = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1,
               "fused_history_encoder_bwd_reduce": 1, "fused_in_batch_ce": 1,
               "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1, "fused_history_encoder": 0,
-              "fused_history_encoder_bwd_recompute": 0, "rows_scatter_add": 0, "rows_write": 0}
+              "fused_history_encoder_bwd_recompute": 0, "rows_scatter_add": 0, "rows_write": 0,
+              **ENC_TC, "fused_history_encoder_res_tc": 1}
     check_launches(counts, expect, TRAIN_STEPS, failures, "train")
+    e5["tc_launches"] = counts.get("fused_history_encoder_res_tc", 0)
     for name, per in expect.items():
         if name in entries and per:
             entries[name]["launches"] = counts.get(name, 0)
@@ -819,6 +929,7 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
                     "fused_history_encoder": 1, "fused_history_encoder_bwd_recompute": 1,
                     "fused_history_encoder_bwd_recompute_reduce": 1,
                     "fused_history_encoder_res": 0, "fused_history_encoder_bwd": 0,
+                    **ENC_TC, "fused_history_encoder_tc": 1,
                 }, TRAIN_STEPS, failures, "train (B7)")
                 entries["fused_history_encoder_bwd_recompute"]["launches"] = counts.get(
                     "fused_history_encoder_bwd_recompute", 0)
@@ -894,6 +1005,18 @@ def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, fa
     entries["fused_attn_stack_bwd"]["note"] = (
         "ms includes the second launch that sums the per-block weight grads; bytes and "
         "operations count each example's valid rows only")
+    # B8 at the training batch: the tensor cores, the FMA kernel, three B13
+    e8 = entries["fused_attn_stack"]
+    l32, w_k = fe._lens(lens, xb), [fe._f32(t, dev) for t in w]
+    e8["train_ms"] = time_ms(torch, lambda: fe.fused_attn_stack_fwd(xb, lens, *w, nh))
+    e8["train_bound_ms"] = bound(n_valid * d * 2 + b * 4 + sum(t.numel() for t in w) * 4
+                                 + b * d * 2, sum(enc_flops(n, d, nl) for n in lens.tolist()),
+                                 BF16_FLOPS)[0]
+    enc_times(torch, e8, lambda: fe.fused_attn_stack_fwd(xb, lens, *w, nh),
+              lambda: fe._launch_fwd_fma("fused_attn_stack", xb, l32, *w_k, nh),
+              lambda: b13_layers(xb, l32, w, nh), "train_")
+    print(enc_line(torch, smi, f"B8 at B={b}", e8, "train_")
+          + f"; bound {e8['train_bound_ms']:.4f}", flush=True)
     del got, want, x, xb
     torch.cuda.empty_cache()
 
@@ -908,8 +1031,9 @@ def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, fa
         "fused_in_batch_ce": 1, "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1,
         "fused_history_encoder": 0, "fused_history_encoder_res": 0,
         "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
-        "rows_scatter_add": 0, "rows_write": 0,
+        "rows_scatter_add": 0, "rows_write": 0, **ENC_TC, "fused_attn_stack_tc": 1,
     }, TRAIN_STEPS, failures, "train varlen")
+    entries["fused_attn_stack"]["train_tc_launches"] = counts.get("fused_attn_stack_tc", 0)
     entries["fused_attn_stack_bwd"]["launches"] = counts.get("fused_attn_stack_bwd", 0)
     entries["fused_attn_stack_bwd"]["reduce_launches"] = counts.get(
         "fused_attn_stack_bwd_reduce", 0)
@@ -1215,7 +1339,8 @@ def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
 
     # -- 5b, 5c: the two 4M legs --
     five = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1, "fused_in_batch_ce": 1,
-            "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1}
+            "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1, **ENC_TC,
+            "fused_history_encoder_res_tc": 1}
     st_dense, ms_packed, counts = table_leg(
         torch, "train-4M-packed", step_dense, st_dense, data, idx, 2,
         {**five, "rows_scatter_add": 3, "rows_write": 0, "fused_adam": 0}, smi, failures)
@@ -1453,7 +1578,7 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms, b14_ptx
     )
     e13 = entries["fused_mha_fwd"]
     fma = lambda xx, ll: fm._launch_fwd_fma(*fm._fwd_inputs(xx, ll, *w), nh)
-    e13["route"] = fm._fwd_route(x.dtype, HIST, d, nh)
+    e13["kernel_route"] = fm._fwd_route(x.dtype, HIST, d, nh)
     e13["fma_ms"] = time_ms(torch, lambda: fma(x, None))
     e13["fma_varlen_ms"] = time_ms(torch, lambda: fma(xv, lens))
     e13["varlen_ms"] = time_ms(torch, lambda: fm.fused_mha_fwd(xv, lens, *w, nh))
@@ -1465,7 +1590,7 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms, b14_ptx
         e13[f"{key}device_ms"] = device_ms(torch, lambda: fm.fused_mha_fwd(xx, ll, *w, nh),
                                            "mha_fwd_tc_kernel")
         e13[f"fma_{key}device_ms"] = device_ms(torch, lambda: fma(xx, ll), "mha_fwd_kernel")
-    print(f"B13 at B={b} on {torch.cuda.get_device_name(0)} ({smi}): route {e13['route']} "
+    print(f"B13 at B={b} on {torch.cuda.get_device_name(0)} ({smi}): route {e13['kernel_route']} "
           f"{e13['ms']:.4f} ms, with lengths {e13['varlen_ms']:.4f} (device time "
           f"{e13['device_ms']:.4f}, {e13['varlen_device_ms']:.4f}); the FMA kernel "
           f"{e13['fma_ms']:.4f}, {e13['fma_varlen_ms']:.4f} (device {e13['fma_device_ms']:.4f}, "
@@ -1475,7 +1600,7 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms, b14_ptx
     del xs, xs_v
     cpu_model = copy.deepcopy(model).cpu()
     others = {"fused_history_encoder": 0, "fused_attn_stack": 0, "tile_max_scores": 1,
-              **SELECT_ROUTE, "gather_rescore": 1}
+              **SELECT_ROUTE, "gather_rescore": 1, **ENC_TC}
     legs = {}
     for label, bts in (("serve-1M-exact-layer", batches), ("serve-1M-exact-layer-varlen", var_batches)):
         counts, legs[label] = serve_leg(torch, label, engine, model, cpu_model, cfg, bts,
@@ -1533,7 +1658,7 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms, b14_ptx
     e14 = entries["fused_mha_bwd"]
     bwd = lambda: fm.fused_mha_bwd(g, x, None, *w, nh)
     fma14 = lambda: fm._launch_bwd_fma(*fm._bwd_inputs(g, x, None, *w[:3]), nh)
-    e14["route"] = fm._bwd_route(x.dtype, HIST, d, nh)
+    e14["kernel_route"] = fm._bwd_route(x.dtype, HIST, d, nh)
     e14["device_ms"] = device_ms(torch, bwd, "mha_bwd_tc_kernel")
     e14["reduce_device_ms"] = device_ms(torch, bwd, "reduce_kernel")
     e14["fma_ms"] = time_ms(torch, fma14)
@@ -1544,7 +1669,7 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms, b14_ptx
         "dispatch; device_ms is mha_bwd_tc_kernel's launch alone and reduce_device_ms the "
         "reduce's (torch.profiler); fma_* the FMA kernel (mha_bwd_kernel) on the same inputs; "
         "library_ms is the autograd backward of F.multi_head_attention_forward (bf16)")
-    print(f"B14 at B={bt} on {torch.cuda.get_device_name(0)} ({smi}): route {e14['route']} "
+    print(f"B14 at B={bt} on {torch.cuda.get_device_name(0)} ({smi}): route {e14['kernel_route']} "
           f"{e14['ms']:.4f} ms (device time {e14['device_ms']:.4f}, its reduce "
           f"{e14['reduce_device_ms']:.4f}); the FMA kernel {e14['fma_ms']:.4f} (device "
           f"{e14['fma_device_ms']:.4f}); library {e14['library_ms']:.4f}; bound "
@@ -1552,7 +1677,7 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms, b14_ptx
     e13["note"] = (
         "ms, plain_ms, bound_ms, library_ms at the serving batch (B=1024), varlen_* there "
         "with lengths (bound counting valid keys only), train_* at the training batch "
-        "(B=4096); library_ms is F.multi_head_attention_forward (bf16); route is the kernel "
+        "(B=4096); library_ms is F.multi_head_attention_forward (bf16); kernel_route is the kernel "
         "fused_mha_fwd takes there (tc: the tensor cores), *fma_ms the FMA kernel on the "
         "same inputs; *device_ms one launch's device time from torch.profiler")
     del xs, x, g
@@ -1564,7 +1689,7 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms, b14_ptx
               "fused_history_encoder": 0, "fused_history_encoder_res": 0,
               "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
               "fused_attn_stack": 0, "fused_attn_stack_bwd": 0, "rows_scatter_add": 0,
-              "rows_write": 0}
+              "rows_write": 0, **ENC_TC}
     var_data = make_synthetic_data(DataConfig(
         num_samples=bt, num_users=TRAIN_ROWS, num_items=TRAIN_ROWS, feature_dim=16,
         history_len=HIST, num_tasks=3, max_position=cfg.position_table_size,
@@ -1773,7 +1898,7 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
     del q, k, v, qv, kv, vv
     cpu_model = copy.deepcopy(model).cpu()
     others = {"fused_history_encoder": 0, "fused_attn_stack": 0, "fused_mha_fwd": 0,
-              "tile_max_scores": 1, **SELECT_ROUTE, "gather_rescore": 1}
+              "tile_max_scores": 1, **SELECT_ROUTE, "gather_rescore": 1, **ENC_TC}
     legs = {}
     for label, bts in (("serve-1M-exact-blockwise", batches),
                        ("serve-1M-exact-blockwise-varlen", var_batches)):
@@ -1887,7 +2012,7 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
               "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
               "fused_attn_stack": 0, "fused_attn_stack_bwd": 0, "fused_mha_fwd": 0,
               "fused_mha_bwd": 0, "fused_mha_bwd_tc": 0, "rows_scatter_add": 0, "rows_write": 0,
-              "fused_adam": 0}
+              "fused_adam": 0, **ENC_TC}
     var_data = make_synthetic_data(DataConfig(
         num_samples=bt, num_users=TRAIN_ROWS, num_items=TRAIN_ROWS, feature_dim=16,
         history_len=HIST, num_tasks=3, max_position=cfg.position_table_size,
@@ -2017,7 +2142,8 @@ def phase_fused_adam(torch, args, smi, dev, entry, entries, failures, ms_packed)
 
     # -- 8c: the leg --
     five = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1, "fused_in_batch_ce": 1,
-            "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1}
+            "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1, **ENC_TC,
+            "fused_history_encoder_res_tc": 1}
     step = make_train_step(cfg, fused_cfg)
     st_fused, ms, counts = table_leg(
         torch, "train-4M-packed-fusedadam", step, st_fused, data, idx, 2,
@@ -2102,7 +2228,7 @@ def main() -> int:
         [_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(_lib.CSRC / f"{src}.cu"),
          "-o", str(_lib.BUILD_DIR / f"ptxas_{src}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in ("fused_softmax", "fused_mha", "select_topk", "rows_write")]
+        for src in ("fused_softmax", "fused_mha", "select_topk", "rows_write", "fused_encoder")]
     _lib.library()
     ptxas_log = "\n".join(p.communicate(timeout=600)[0] for p in ptxas)
     print(smi, flush=True)
@@ -2116,15 +2242,20 @@ def main() -> int:
     from two_tower_models_tpu_torch.ops import fused_mha as fm
 
     ept = fm._fwd_tc_tile(HIST, 64)
+    enc_smem = fe._enc_tc_plan(TRAIN_BATCH, HIST, 64, 3, 1)[2]
     spills, ptxas_lines = ptxas_report(
         ptxas_log, ["ce_bwd_kernel", "ce_bwd_reduce", "mha_fwd_tc_kernel", "mha_bwd_tc_kernel",
-                    "select_radix_kernel", "select_topk_kernel", "rows_write_kernel"], {
+                    "select_radix_kernel", "select_topk_kernel", "rows_write_kernel",
+                    "encoder_tc_kernel"], {
             # bwd::SMEM_FLOATS in csrc/fused_softmax.cu
             "ce_bwd_kernel": 4 * (128 * 68 + 2 * 64 * 68 + 128 * 72 + 2 * 128),
             "ce_bwd_reduce": 0,
             # the instances of the cells' H = 32 (two key bands), D = 64
             f"mha_fwd_tc_kernel<{HIST // 16}>": fm._fwd_tc_smem_bytes(HIST, 64, ept),
             f"mha_bwd_tc_kernel<{HIST // 16}, 64>": fm._bwd_tc_plan(TRAIN_BATCH, HIST, 64, 1)[2],
+            # B1, B5 and B8 (<RES, STACK, Hp / 16>) at the cells' three layers
+            **{f"encoder_tc_kernel<{res}, {stack}, {HIST // 16}>": enc_smem
+               for res, stack in ((0, 0), (1, 0), (0, 1))},
         })
     dev = torch.device(DEVICE)
 
@@ -2178,22 +2309,39 @@ def main() -> int:
               f"plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
               f"library_ms={library_ms}", flush=True)
 
-    # kernel 1: whole encoder (main path: bf16); f32 checked too
+    # kernel 1: whole encoder (main path: bf16, on the tensor cores); f32 checked too
     enc_args = lambda x: (x, pe, *w, nh)
-    yk = fe.fused_history_encoder(*enc_args(x_bf16))
-    yp = fe.fused_history_encoder_plain(*enc_args(x_bf16))
-    ok_bf, err_bf = close(yk, yp, 3e-2, 3e-2)
+    route = fe._enc_route(torch.bfloat16, HIST, d, nh, nl)
+    w_k = [fe._f32(t, dev) for t in w]
+    fma1 = lambda: fe._launch_fwd_fma("fused_history_encoder", x_bf16, fe._pe(pe, x_bf16), *w_k, nh)
+    ok_bf, err_bf = enc_checks(
+        torch, "encoder", (fe.fused_history_encoder(*enc_args(x_bf16)),),
+        (fe.fused_history_encoder(*enc_args(x_bf16)),),
+        (fe.fused_history_encoder_plain(*enc_args(x_bf16)),),
+        (fe.fused_history_encoder_f64_sums(*enc_args(x_bf16)),), (fma1(),), ("y",))
     ok_32, err_32 = close(fe.fused_history_encoder(*enc_args(x_f32)),
                           fe.fused_history_encoder_plain(*enc_args(x_f32)), 1e-4, 1e-4)
-    print(f"encoder f32: ok={ok_32} max_abs_err={err_32:.3g} (tol 1e-4)", flush=True)
+    print(f"encoder route {route}; f32: ok={ok_32} max_abs_err={err_32:.3g} (tol 1e-4)", flush=True)
     entry(
         "fused_history_encoder", "two_tower_models_tpu_torch/csrc/fused_encoder.cu",
-        "two_tower_models_tpu/ops/pallas/fused_encoder.py:506", ok_bf and ok_32, err_bf,
+        "two_tower_models_tpu/ops/pallas/fused_encoder.py:506",
+        ok_bf and ok_32 and route == "tc", err_bf,
         time_ms(torch, lambda: fe.fused_history_encoder(*enc_args(x_bf16))),
         time_ms(torch, lambda: fe.fused_history_encoder_plain(*enc_args(x_bf16))),
         b * HIST * d * 2 + HIST * d * 4 + sum(t.numel() for t in w) * 4 + b * 2 * d * 2,
         b * enc_flops(HIST, d, nl), BF16_FLOPS, None,
     )
+    e1 = entries["fused_history_encoder"]
+    e1["kernel_route"] = route
+    x0 = (x_f32 + pe).to(torch.bfloat16)
+    enc_times(torch, e1, lambda: fe.fused_history_encoder(*enc_args(x_bf16)), fma1,
+              lambda: b13_layers(x0, None, w, nh))
+    print(enc_line(torch, smi, f"B1 at B={b}", e1), flush=True)
+    e1["note"] = ("kernel_route is the kernel fused_history_encoder takes (tc: the tensor cores); "
+                  "device_ms that kernel's device time from torch.profiler; fma_* the FMA "
+                  "kernel (encoder_kernel) on the same inputs; b13x3_device_ms three B13 "
+                  "launches (full layers) on x + PE")
+    del x0
 
     # kernel 2: tile maxes
     mk = mt.tile_max_scores(q, corpus, mt.TILE, c)
@@ -2281,13 +2429,14 @@ def main() -> int:
 
     # ---- phase 3: serve ------------------------------------------------
     cpu_model = copy.deepcopy(model).cpu()
-    serve_leg(
+    counts, _ = serve_leg(
         torch, "serve", engine, model, cpu_model, cfg, [(*bt, None) for bt in batches],
         {"fused_history_encoder": 1, "tile_max_scores": 1, **SELECT_ROUTE,
-         "gather_rescore": 1},
+         "gather_rescore": 1, **ENC_TC, "fused_history_encoder_tc": 1},
         ["fused_history_encoder", "tile_max_scores", "select_topk_radix", "gather_rescore"],
         entries, failures, smi,
     )
+    e1["tc_launches"] = counts.get("fused_history_encoder_tc", 0)
 
     # where a batch's time goes: the user tower and the MIPS, each alone
     u, f, h = batches[0]

@@ -12,15 +12,20 @@ conftest:
 Tolerances: tile-max and rescore scores are f32 sums in another order than
 cuBLAS's (rtol 1e-5); the CE kernels the same, relative to each output's
 largest magnitude (or to one g p x term, where the exact gradient may be
-0), and the CE backward bit-equal on a repeated call (no atomics); the encoder forward at 1e-4 (f32) and 3e-2 (bf16, three
-layers of bf16 rounding); the residual forward's output and stored
-residuals at 1e-4 (f32) and within one bf16 step of each value (bf16: it
-rounds where the plain version does); the encoder backward at 1e-4 (f32) and 3e-2 (bf16)
+0), and the CE backward bit-equal on a repeated call (no atomics); the encoder forward (B1), the
+residual forward's output and stored residuals (B5) and the length-masked
+stack (B8) at 1e-4 in f32; in bf16 the FMA kernel, which sums in the plain
+version's order, within one bf16 step of each value, and the tensor-core
+kernel, which sums in its own order, as B13's: every value within 1e-2 of
+scale and bit-equal on repeat, and on a batch of 2^20 values of row 0 or
+more (the counts come in clumps) at most 0.5% of values beyond one step
+and no more values beyond one step from the same function with f64 sums
+than 1.5 times the plain version's (or 1e-6 of the values, where both are
+that rare); the encoder backward at 1e-4 (f32) and 3e-2 (bf16)
 of each output's largest magnitude, since a bf16 rounding point that flips
 by one ulp between two sum orders carries into the sums over the batch;
-selections exactly.  The length-masked stack (B8) as the residual forward,
-its backward (B9) and the recompute encoder backward (B7) as the encoder
-backward.  The row scatter-add (B18) at 1e-5 (f32 sums in another order),
+selections exactly.  The stack's backward (B9) and the recompute encoder
+backward (B7) as the encoder backward.  The row scatter-add (B18) at 1e-5 (f32 sums in another order),
 and exactly on sums of ones; the in-place row write (B19) exactly.
 """
 
@@ -68,32 +73,110 @@ def _assert_close(got, want, rtol, atol=0.0):
     torch.testing.assert_close(got.float().cpu(), want.float().cpu(), rtol=rtol, atol=atol)
 
 
+# The cells' shapes (B = 1024 serving, 4096 training; H = 32, D = 64, four
+# heads, three layers); B at the edges of a tile of four examples (1, 3, 5)
+# and not a multiple of it (1000, 37); H = 10 and 16 (Hp = 16, eight
+# examples a tile), 40 (Hp = 48, two), 64 (one a tile of 64 rows); one
+# layer (the thin one alone); one head (head width 64).  In bf16 these take
+# the tensor-core kernel, but D = 32 with four heads (head width 8), which
+# takes the FMA kernel.
+_ENC_FWD_SHAPES = [
+    (1000, 32, 64, 4, 3), (37, 10, 64, 2, 1), (64, 8, 32, 4, 2), (9, 40, 64, 4, 2),
+    (1024, 32, 64, 4, 3), (4096, 32, 64, 4, 3), (1, 32, 64, 4, 3), (3, 32, 64, 4, 3),
+    (5, 32, 64, 4, 3), (3, 40, 64, 4, 3), (7, 64, 64, 4, 2), (33, 16, 64, 1, 2),
+]
+
+
+def _enc_tc(dtype, h, d, nh, nl):
+    """Whether the encoder's forward takes the tensor cores (asserting that
+    ``_enc_route`` agrees): bf16, D a multiple of 32, head width of 16k, H
+    <= 64 (every shape of these tests fits shared memory)."""
+    tc = dtype == torch.bfloat16 and d % 32 == 0 and (d // nh) % 16 == 0 and h <= 64
+    assert (fe._enc_route(dtype, h, d, nh, nl) == "tc") == tc
+    return tc
+
+
+def _fma_forward(name, x, side, w, nh):
+    """Forward kernel ``name`` forced onto the FMA kernel (``encoder_kernel``)."""
+    return fe._launch_fwd_fma(name, x.contiguous(), side, *(fe._f32(t, x.device) for t in w), nh)
+
+
+def _far(a, b):
+    """Values of two bf16 tensors more than one bf16 step apart."""
+    return int((_bf16_steps(a, b) > 1).sum())
+
+
+def _hold_tc(got, again, want):
+    """A bf16 output of a tensor-core encoder kernel at the test's batch:
+    every value within 1e-2 of scale of the plain version's; bit-equal on
+    repeat."""
+    assert torch.equal(got, again)
+    _scaled_close(got, want, 1e-2)
+
+
+def _hold_tc_big(got, plain, ref):
+    """A bf16 output of a tensor-core encoder kernel on a batch of 2^20
+    values of row 0 or more, where the counts below are more than a few
+    clumps (one flipped rounding moves a row): at most 0.5% of its values
+    beyond one bf16 step from the plain version's, and against the same
+    function with f64 sums no more values beyond one step than 1.5 times
+    the plain version's, or 1e-6 of the values where both are that rare
+    (ps and p0: 0-11 of 10^8 values on an H100)."""
+    assert float((_bf16_steps(got, plain) > 1).float().mean()) <= 5e-3
+    far = [_far(t, ref) for t in (got, plain)]
+    assert far[0] <= max(1.5 * far[1], 1e-6 * got.numel()), far
+
+
+def _big(b, d):
+    """The batch on which the f64-sum counts are taken: at least 2^20 values
+    of row 0 [B, D], at least B examples."""
+    return max(b, (1 << 20) // d)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize(
-    "b,h,d,nh,nl", [(1000, 32, 64, 4, 3), (37, 10, 64, 2, 1), (64, 8, 32, 4, 2), (9, 40, 64, 4, 2)]
-)
+@pytest.mark.parametrize("b,h,d,nh,nl", _ENC_FWD_SHAPES)
 def test_encoder_kernel_matches_plain(dev, dtype, b, h, d, nh, nl):
-    """B not a multiple of the examples per block; H above a warp's 32
-    lanes (40); one layer (only the thin last layer)."""
-    r = np.random.default_rng(b + h)
-    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
-    lim_in, lim_out = math.sqrt(6.0 / (4 * d)), math.sqrt(6.0 / (2 * d))
-    x = t(r.normal(size=(b, h, d))).to(dtype)
-    args = (
-        t(r.normal(size=(h, d)) * 0.5),
-        t(r.uniform(-lim_in, lim_in, (nl, d, 3 * d))),
-        t(r.uniform(-0.1, 0.1, (nl, 3 * d))),
-        t(r.uniform(-lim_out, lim_out, (nl, d, d))),
-        t(r.uniform(-0.1, 0.1, (nl, d))),
-        nh,
-    )
-    before = _lib.launches["fused_history_encoder"]
-    got = fe.fused_history_encoder(x, *args)
-    assert _lib.launches["fused_history_encoder"] == before + 1
-    want = fe.fused_history_encoder_plain(x, *args)
+    """B1 against its plain version.  The FMA kernel, launched at every
+    shape through its launcher, within one bf16 step; ``fused_history_encoder``
+    on the route ``_enc_route`` gives (asserted, and counted as
+    ``fused_history_encoder_tc`` on the tensor cores), 1e-4 in f32 and in
+    bf16 held as ``_hold_tc`` and ``_hold_tc_big`` say."""
+    x, w, _ = _encoder_inputs(b, h, d, nh, nl, dtype, dev, seed=b + h)
+    tc = _enc_tc(dtype, h, d, nh, nl)
+    before = dict(_lib.launches)
+    got = fe.fused_history_encoder(x, *w, nh)
+    assert _lib.launches["fused_history_encoder"] == before.get("fused_history_encoder", 0) + 1
+    assert _lib.launches["fused_history_encoder_tc"] == before.get("fused_history_encoder_tc", 0) + tc
+    want = fe.fused_history_encoder_plain(x, *w, nh)
     assert got.dtype == dtype and got.shape == (b, 2, d)
-    tol = 1e-4 if dtype == torch.float32 else 3e-2
-    _assert_close(got, want, tol, tol)
+    fma = _fma_forward("fused_history_encoder", x, fe._pe(w[0], x), w[1:], nh)
+    if dtype == torch.float32:
+        _assert_close(got, want, 1e-4, 1e-4)
+        _assert_close(fma, want, 1e-4, 1e-4)
+        return
+    assert _bf16_ulps(fma, want) <= 1
+    if not tc:
+        assert torch.equal(got, fma)
+        return
+    _hold_tc(got, fe.fused_history_encoder(x, *w, nh), want)
+    x, w, _ = _encoder_inputs(_big(b, d), h, d, nh, nl, dtype, dev, seed=b + h)
+    _hold_tc_big(fe.fused_history_encoder(x, *w, nh), fe.fused_history_encoder_plain(x, *w, nh),
+                 fe.fused_history_encoder_f64_sums(x, *w, nh))
+
+
+def test_encoder_tc_kernel_at_unaligned_addresses(dev):
+    """x and the weights at addresses that are not 16-byte aligned give the
+    tensor-core kernel's y bit for bit (the wrapper copies them)."""
+    x, w, _ = _encoder_inputs(9, 32, 64, 4, 3, torch.bfloat16, dev, seed=11)
+
+    def odd(t):  # a copy at an address 16-byte aligned no more
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return o.copy_(t)
+
+    xo, wio, woo = odd(x), odd(w[1]), odd(w[3])
+    assert all(t.data_ptr() % 16 for t in (xo, wio, woo))
+    want = fe.fused_history_encoder(x, *w, 4)
+    assert torch.equal(fe.fused_history_encoder(xo, w[0], wio, w[2], woo, w[4], 4), want)
 
 
 @pytest.mark.parametrize(
@@ -401,23 +484,51 @@ def _encoder_inputs(b, h, d, nh, nl, dtype, dev, seed):
 _ENC_SHAPES = [(1, 32, 64, 4, 3), (37, 10, 64, 2, 1), (64, 8, 32, 4, 2), (300, 32, 64, 4, 3)]
 
 
+# _ENC_SHAPES, the cells' training batch, B at the edges of a tile (3, 5)
+# and not a multiple of it (1000), H = 40 (Hp = 48)
+_ENC_RES_SHAPES = _ENC_SHAPES + [
+    (4096, 32, 64, 4, 3), (3, 32, 64, 4, 3), (5, 32, 64, 4, 3), (1000, 32, 64, 4, 3),
+    (3, 40, 64, 4, 3),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,h,d,nh,nl", _ENC_SHAPES)
+@pytest.mark.parametrize("b,h,d,nh,nl", _ENC_RES_SHAPES)
 def test_encoder_res_kernel_matches_plain(dev, dtype, b, h, d, nh, nl):
-    """B5: the output and the stored residuals, B = 1, H = 10, L = 1."""
+    """B5: the output and each stored residual (xs, ps, p0), held as B1's
+    output is in ``test_encoder_kernel_matches_plain``: B = 1, H = 10, L = 1
+    among the shapes."""
     x, w, _ = _encoder_inputs(b, h, d, nh, nl, dtype, dev, seed=b + h)
-    before = _lib.launches["fused_history_encoder_res"]
+    tc = _enc_tc(dtype, h, d, nh, nl)
+    before = dict(_lib.launches)
     got = fe.fused_history_encoder_res(x, *w, nh)
-    assert _lib.launches["fused_history_encoder_res"] == before + 1
+    name = "fused_history_encoder_res"
+    assert _lib.launches[name] == before.get(name, 0) + 1
+    assert _lib.launches[name + "_tc"] == before.get(name + "_tc", 0) + tc
     want = fe.fused_history_encoder_res_plain(x, *w, nh)
-    assert (got[2] is None) == (want[2] is None) == (nl == 1)
-    for a, e in zip(got, want):
-        if e is not None:
-            assert a.dtype == dtype and a.shape == e.shape
-            if dtype == torch.float32:
-                _assert_close(a, e, 1e-4, 1e-4)
-            else:
-                assert _bf16_ulps(a, e) <= 1
+    fma = _fma_forward(name, x, fe._pe(w[0], x), w[1:], nh)
+    assert (got[2] is None) == (want[2] is None) == (fma[2] is None) == (nl == 1)
+    again = fe.fused_history_encoder_res(x, *w, nh) if tc else fma
+    for a, a2, f, e in zip(got, again, fma, want):
+        if e is None:
+            continue
+        assert a.dtype == f.dtype == dtype and a.shape == f.shape == e.shape
+        if dtype == torch.float32:
+            _assert_close(a, e, 1e-4, 1e-4)
+            _assert_close(f, e, 1e-4, 1e-4)
+            continue
+        assert _bf16_ulps(f, e) <= 1
+        if tc:
+            _hold_tc(a, a2, e)
+        else:
+            assert torch.equal(a, f)
+    if tc:
+        x, w, _ = _encoder_inputs(_big(b, d), h, d, nh, nl, dtype, dev, seed=b + h)
+        runs = [fe.fused_history_encoder_res(x, *w, nh), fe.fused_history_encoder_res_plain(x, *w, nh),
+                fe.fused_history_encoder_res_f64_sums(x, *w, nh)]
+        for a, e, ref in zip(*runs):
+            if ref is not None:
+                _hold_tc_big(a, e, ref)
 
 
 def _bf16_steps(a, b):
@@ -519,29 +630,54 @@ _STACK_SHAPES = [
 ]
 
 
+# _STACK_SHAPES, the cells' batches, B at the edges of a tile (1, 5) and
+# not a multiple of it (1000), H = 40 (Hp = 48), length 1 at the cells' H
+_STACK_FWD_SHAPES = _STACK_SHAPES + [
+    (1024, 32, 64, 4, 3, "mix"), (4096, 32, 64, 4, 3, "mix"), (1, 32, 64, 4, 3, "mix"),
+    (5, 32, 64, 4, 3, "mix"), (1000, 32, 64, 4, 3, "mix"), (7, 40, 64, 4, 3, "mix"),
+    (64, 32, 64, 4, 3, "ones"),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,h,d,nh,nl,lens_kind", _STACK_SHAPES)
+@pytest.mark.parametrize("b,h,d,nh,nl,lens_kind", _STACK_FWD_SHAPES)
 def test_attn_stack_kernel_matches_plain(dev, dtype, b, h, d, nh, nl, lens_kind):
-    """B8: y0 [B, D] within one bf16 step of the plain version (it rounds
-    where the plain version does), 1e-4 in f32."""
+    """B8: y0 [B, D] held as B1's output is in
+    ``test_encoder_kernel_matches_plain``."""
     x, lens, w, _ = _stack_case(b, h, d, nh, nl, dtype, dev, b + h, lens_kind)
-    before = _lib.launches["fused_attn_stack"]
+    tc = _enc_tc(dtype, h, d, nh, nl)
+    before = dict(_lib.launches)
     got = fe.fused_attn_stack_fwd(x, lens, *w, nh)
-    assert _lib.launches["fused_attn_stack"] == before + 1
+    assert _lib.launches["fused_attn_stack"] == before.get("fused_attn_stack", 0) + 1
+    assert _lib.launches["fused_attn_stack_tc"] == before.get("fused_attn_stack_tc", 0) + tc
     want = fe.fused_attn_stack_fwd_plain(x, lens, *w, nh)
     assert got.dtype == dtype and got.shape == (b, d)
+    fma = _fma_forward("fused_attn_stack", x, fe._lens(lens, x), w, nh)
     if dtype == torch.float32:
         _assert_close(got, want, 1e-4, 1e-4)
-    else:
-        assert _bf16_ulps(got, want) <= 1
+        _assert_close(fma, want, 1e-4, 1e-4)
+        return
+    assert _bf16_ulps(fma, want) <= 1
+    if not tc:
+        assert torch.equal(got, fma)
+        return
+    _hold_tc(got, fe.fused_attn_stack_fwd(x, lens, *w, nh), want)
+    x, lens, w, _ = _stack_case(_big(b, d), h, d, nh, nl, dtype, dev, b + h, lens_kind)
+    _hold_tc_big(fe.fused_attn_stack_fwd(x, lens, *w, nh),
+                 fe.fused_attn_stack_fwd_plain(x, lens, *w, nh),
+                 fe.fused_attn_stack_f64_sums(x, lens, *w, nh))
 
 
 def test_attn_stack_at_full_length_is_the_encoders_row0(dev):
     """At lengths H and a zero PE, B8's output is B1's row 0, bit for bit:
-    one kernel, where every key is valid."""
+    one kernel (the tensor-core one, at this shape), where every key is
+    valid."""
     x, lens, w, _ = _stack_case(300, 32, 64, 4, 3, torch.bfloat16, dev, 5, "full")
+    before = dict(_lib.launches)
     y1 = fe.fused_history_encoder(x, torch.zeros(32, 64, device=dev), *w, 4)
     assert torch.equal(fe.fused_attn_stack_fwd(x, lens, *w, 4), y1[:, 0])
+    for name in ("fused_history_encoder_tc", "fused_attn_stack_tc"):
+        assert _lib.launches[name] == before.get(name, 0) + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

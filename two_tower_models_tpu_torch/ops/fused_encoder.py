@@ -28,6 +28,18 @@ the CPU path, and the reference the kernel is held against on the card.
 The plain backwards are written out with the Pallas kernels' rounding
 points; they are not torch autograd of the plain forward.
 
+B1, B5 and B8 run on one of two kernels, chosen by ``_enc_route`` before
+the launch from the dtype and shape alone: bf16 encoders of head width 16,
+32, ..., D a multiple of 32, H up to 64 and every layer's weights in shared
+memory beside a tile go to the tensor cores (``encoder_tc_kernel``, tiles
+of several examples kept on chip across the layers); every other encoder
+(f32, head width 8, longer histories, deeper or wider layers) to the CUDA
+cores (``encoder_kernel``).  The tensor cores sum in f32 in another order
+than the plain version, so ``fused_history_encoder_f64_sums``,
+``fused_history_encoder_res_f64_sums`` and ``fused_attn_stack_f64_sums``
+(the same functions with every sum in f64) are the yardstick both are
+measured against on the card.
+
 Residual layouts (any layout will do, as long as kernel and plain agree):
 xs [L, B, H, D], ps [L-1, B, NH, H, H] (None when L == 1) and p0
 [B, NH, H], all in the input dtype: per head, the values of the Pallas
@@ -36,6 +48,7 @@ kernel's merged [H, NH*H] layout without its padding.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -45,6 +58,9 @@ from two_tower_models_tpu_torch.ops import _lib
 
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 _MAX_EXAMPLES_PER_BLOCK = 8
+_TC_ROWS = 128  # rows a tensor-core tile aims at: E examples of Hp rows
+_TC_MAX_HP = 64  # the longest padded history whose S band fits the kernels' registers
+_TC_STATIC_SMEM = 32  # bytes of static shared memory of encoder_tc_kernel (a tile's lengths)
 _NEG_INF = -1e30  # an invalid key's score (the Pallas kernels' mask value)
 
 # Backward strategy of fused_history_encoder, the JAX module's constant of
@@ -251,6 +267,69 @@ def fused_attn_stack_bwd_plain(g, x, lengths, w_in, b_in, w_out, b_out, num_head
     return (dy.to(x.dtype), *grads)
 
 
+def _layers_f64_sums(x, w_in, b_in, w_out, b_out, num_heads, rb, lengths=None):
+    """``_layers_plain`` with every sum in f64 on an f64 input x [B, H, D],
+    the operands rounded by ``rb`` (to bf16 and back, or not at all): (the
+    last layer's row 0 [B, D], each layer's input, each layer's
+    probabilities [B, NH, nq, H], all f64 and unrounded)."""
+    num_layers = w_in.shape[0]
+    b, h, d = x.shape
+    hd = d // num_heads
+    heads = lambda t: t.reshape(b, t.shape[1], num_heads, hd).transpose(1, 2)
+    invalid = None if lengths is None else _key_invalid(lengths, h, x.device)
+    xs, ps = [], []
+    for l in range(num_layers):
+        xs.append(x)
+        nq = 1 if l == num_layers - 1 else h
+        q, k, v = (heads(rb(t)) for t in (rb(x) @ rb(w_in[l]) + b_in[l].double()).split(d, -1))
+        s = (q[:, :, :nq] @ k.transpose(-1, -2)) / math.sqrt(hd)
+        if invalid is not None:
+            s = s.masked_fill(invalid, _NEG_INF)
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e / rb(e).sum(-1, keepdim=True)
+        ps.append(p)
+        out = (rb(p) @ v).transpose(1, 2).reshape(b, nq, d)
+        x = rb(out) @ rb(w_out[l]) + b_out[l].double()
+    return x[:, 0], xs, ps
+
+
+def _rounder(dtype):
+    """The f64 yardsticks' rounding: to bf16 and back for bf16 input, none for f32."""
+    if dtype == torch.bfloat16:
+        return lambda t: t.to(torch.bfloat16).double()
+    return lambda t: t.double()
+
+
+def fused_history_encoder_res_f64_sums(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads):
+    """B5's function (``fused_history_encoder_res_plain``) at the same
+    rounding points with every sum in f64: (y, xs, ps, p0) in the input
+    dtype.  The yardstick against which two f32 versions whose sums run in
+    different orders (the plain version and the tensor-core kernel) are both
+    measured."""
+    dt, rb = hist_emb.dtype, _rounder(hist_emb.dtype)
+    xin = hist_emb.double()
+    y0, xs, ps = _layers_f64_sums(rb(xin + pe.double()), w_in, b_in, w_out, b_out, num_heads, rb)
+    y = torch.stack([y0, xin.mean(dim=1)], dim=1).to(dt)
+    full = torch.stack([p.to(dt) for p in ps[:-1]]) if len(ps) > 1 else None
+    return y, torch.stack([x.to(dt) for x in xs]), full, ps[-1][:, :, 0].to(dt)
+
+
+def fused_history_encoder_f64_sums(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads):
+    """B1's function (``fused_history_encoder_plain``) with every sum in
+    f64: [B, 2, D] in the input dtype (``fused_history_encoder_res_f64_sums``)."""
+    return fused_history_encoder_res_f64_sums(hist_emb, pe, w_in, b_in, w_out, b_out,
+                                              num_heads)[0]
+
+
+def fused_attn_stack_f64_sums(x, lengths, w_in, b_in, w_out, b_out, num_heads):
+    """B8's function (``fused_attn_stack_fwd_plain``) with every sum in f64:
+    [B, D] in x's dtype."""
+    rb = _rounder(x.dtype)
+    y0, _, _ = _layers_f64_sums(rb(x.double()), w_in, b_in, w_out, b_out, num_heads, rb,
+                                lengths)
+    return y0.to(x.dtype)
+
+
 def _examples_per_block(h: int, d: int, nh: int) -> int:
     fixed = 4 * (3 * d * d + 3 * d + d * d + d + 3 * h * d + nh * h * h + h * d)
     epb = min(_MAX_EXAMPLES_PER_BLOCK, (_SMEM_LIMIT - fixed) // (4 * h * d))
@@ -295,36 +374,140 @@ def _pe(pe: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return _f32(pe, x.device)
 
 
-def _launch_forward(name, x, side, w_in, b_in, w_out, b_out, num_heads, *,
-                    stack: bool = False, res: bool = False):
-    """Launch forward kernel ``name``: B1, B5 (``res``: with the residuals)
-    or B8 (``stack``: a [B, D] output).  ``side`` is the prepared PE
-    (``_pe``) or, with ``stack``, the lengths (``_lens``)."""
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _tc_tile(h: int, smem) -> int | None:
+    """Examples a tensor-core tile holds: as many as make about 128 rows,
+    the rows a multiple of 32 (the projections' warp tiles), fewer where
+    ``smem(ept)`` bytes exceed a block's shared memory; None if one does
+    not fit."""
+    hp = _round_up(h, 16)
+    step = 1 if hp % 32 == 0 else 2
+    ept = _TC_ROWS // hp // step * step
+    while ept >= step and smem(ept) > _SMEM_LIMIT:
+        ept -= step
+    return ept if ept >= step else None
+
+
+def _enc_tc_smem_bytes(h: int, d: int, num_layers: int, ept: int) -> int:
+    """Dynamic shared memory of ``encoder_tc_kernel`` (csrc/fused_encoder.cu,
+    tc::smem_bytes) with ``ept`` examples a tile: bf16 round(W_in) [D, 3D]
+    and round(W_out) [D, D] of every layer, two x buffers [rows, D] and
+    q | k | v [rows, 3D], each row padded by 8 bf16, then f32 b_in and
+    b_out of every layer; rows = ept * round_up(H, 16)."""
+    rows = ept * _round_up(h, 16)
+    return (2 * (num_layers * d * (3 * d + 8) + num_layers * d * (d + 8) + 2 * rows * (d + 8)
+                 + rows * (3 * d + 8)) + 16 * num_layers * d)
+
+
+def _enc_tc_tile(h: int, d: int, num_layers: int) -> int | None:
+    """The whole-encoder tensor-core tile (``_tc_tile``): fewer examples
+    where the layers' weights leave less room; None where they leave none."""
+    return _tc_tile(h, lambda ept: _enc_tc_smem_bytes(h, d, num_layers, ept) + _TC_STATIC_SMEM)
+
+
+@functools.lru_cache(maxsize=64)
+def _enc_route(dtype, h: int, d: int, nh: int, num_layers: int) -> str:
+    """B1's, B5's and B8's kernel, a function of the dtype and shape alone:
+    "tc" (the tensor cores: bf16, D a multiple of 32 (the QKV projection's
+    warp tiles), the head width a multiple of 16, round_up(H, 16) <= 64,
+    every layer's weights and a tile in shared memory) or "fma" (the CUDA
+    cores: f32, which the Pallas kernel computes in f32 and TF32 would not
+    match; a head width of 8; other widths; longer histories; encoders too
+    deep or too wide for shared memory).  Cached, as the plan and the SM
+    count are: the wrapper asks on every launch."""
+    tc = (dtype == torch.bfloat16 and d % nh == 0 and d % 32 == 0 and (d // nh) % 16 == 0
+          and _round_up(h, 16) <= _TC_MAX_HP and _enc_tc_tile(h, d, num_layers) is not None)
+    return "tc" if tc else "fma"
+
+
+@functools.lru_cache(maxsize=64)
+def _enc_tc_plan(b: int, h: int, d: int, num_layers: int, sms: int) -> tuple[int, int, int, int]:
+    """(examples a tile, rows a tile, dynamic shared memory bytes, grid) of
+    a tensor-core launch: one block an SM (the weights of every layer
+    staged once a block), at most one a tile; each block walks its tiles in
+    a persistent loop."""
+    ept = _enc_tc_tile(h, d, num_layers)
+    return (ept, ept * _round_up(h, 16), _enc_tc_smem_bytes(h, d, num_layers, ept),
+            min(-(-b // ept), sms))
+
+
+def _forward_outputs(name, x, num_layers, num_heads):
+    """Empty outputs of forward kernel ``name``: (y, xs, ps, p0) for B5
+    (ps None when L == 1), y alone for B1 ([B, 2, D]) and B8 ([B, D])."""
+    b, h, d = x.shape
+    new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
+    y = new(b, d) if name == "fused_attn_stack" else new(b, 2, d)
+    if not name.endswith("_res"):
+        return y
+    ps = new(num_layers - 1, b, num_heads, h, h) if num_layers > 1 else None
+    return y, new(num_layers, b, h, d), ps, new(b, num_heads, h)
+
+
+def _pointers(out) -> list:
+    """The output pointers of a forward launch: y, or y, xs, ps (0 when
+    None), p0."""
+    return [0 if t is None else t.data_ptr() for t in (out if isinstance(out, tuple) else (out,))]
+
+
+def _launch_fwd_fma(name, x, side, wi, bi, wo, bo, num_heads):
+    """Forward kernel ``name`` (B1, B5 or B8) on the CUDA cores
+    (``encoder_kernel``) on the wrapper's prepared inputs (``side``: the PE
+    or the lengths).  Counts nothing: ``_launch_forward`` does."""
+    b, h, d = x.shape
+    num_layers = wi.shape[0]
+    epb = _examples_per_block(h, d, num_heads)
+    out = _forward_outputs(name, x, num_layers, num_heads)
+    if b:
+        err = getattr(_lib.library(), "tt_" + name)(
+            x.data_ptr(), side.data_ptr(), wi.data_ptr(), bi.data_ptr(), wo.data_ptr(),
+            bo.data_ptr(), *_pointers(out), b, h, d, num_heads, num_layers,
+            int(x.dtype == torch.bfloat16), epb, _lib.stream_ptr(x),
+        )
+        _lib.check(err, name)
+    return out
+
+
+def _launch_fwd_tc(name, x, side, wi, bi, wo, bo, num_heads):
+    """Forward kernel ``name`` on the tensor cores (``encoder_tc_kernel``,
+    bf16 x) on the wrapper's prepared inputs.  Counts nothing."""
+    b, h, d = x.shape
+    num_layers = wi.shape[0]
+    # the kernel reads x, W_in and W_out in 16-byte chunks
+    x, wi, wo = (t.clone() if t.data_ptr() % 16 else t for t in (x, wi, wo))
+    out = _forward_outputs(name, x, num_layers, num_heads)
+    if b:
+        ept, _, _, grid = _enc_tc_plan(b, h, d, num_layers, _lib.sm_count(x.device.index))
+        err = getattr(_lib.library(), f"tt_{name}_tc")(
+            x.data_ptr(), side.data_ptr(), wi.data_ptr(), bi.data_ptr(), wo.data_ptr(),
+            bo.data_ptr(), *_pointers(out), b, h, d, num_heads, num_layers, ept, grid,
+            _lib.stream_ptr(x),
+        )
+        _lib.check(err, name + "_tc")
+    return out
+
+
+def _launch_forward(name, x, side, w_in, b_in, w_out, b_out, num_heads):
+    """Launch forward kernel ``name``: B1 (``fused_history_encoder``), B5
+    (``fused_history_encoder_res``: with the residuals) or B8
+    (``fused_attn_stack``: a [B, D] output), on the route ``_enc_route``
+    gives the dtype and shape.  ``side`` is the prepared PE (``_pe``) or,
+    for B8, the lengths (``_lens``).  Every launch counts as ``name``, one
+    on the tensor cores also as ``name_tc``."""
     _check(x, w_in, b_in, w_out, b_out, num_heads)
     b, h, d = x.shape
     num_layers = w_in.shape[0]
-    epb = _examples_per_block(h, d, num_heads)
-    dev = x.device
-    x = x.detach().contiguous()
-    wi, bi, wo, bo = (_f32(t, dev) for t in (w_in, b_in, w_out, b_out))
-    y = torch.empty((b, d) if stack else (b, 2, d), dtype=x.dtype, device=dev)
-    new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=dev)
-    xs = new(num_layers, b, h, d) if res else None
-    ps = new(num_layers - 1, b, num_heads, h, h) if res and num_layers > 1 else None
-    p0 = new(b, num_heads, h) if res else None
-    if b == 0:
-        return (y, xs, ps, p0) if res else y
-    lib = _lib.library()
-    args = [x.data_ptr(), side.data_ptr(), wi.data_ptr(), bi.data_ptr(),
-            wo.data_ptr(), bo.data_ptr(), y.data_ptr()]
-    if res:
-        args += [xs.data_ptr(), 0 if ps is None else ps.data_ptr(), p0.data_ptr()]
-    args += [b, h, d, num_heads, num_layers, int(x.dtype == torch.bfloat16),
-             epb, _lib.stream_ptr(x)]
-    err = getattr(lib, "tt_" + name)(*args)
-    _lib.check(err, name)
-    _lib.launches[name] += 1
-    return (y, xs, ps, p0) if res else y
+    tc = _enc_route(x.dtype, h, d, num_heads, num_layers) == "tc"
+    out = (_launch_fwd_tc if tc else _launch_fwd_fma)(
+        name, x.detach().contiguous(), side,
+        *(_f32(t, x.device) for t in (w_in, b_in, w_out, b_out)), num_heads)
+    if b:
+        _lib.launches[name] += 1
+        if tc:
+            _lib.launches[name + "_tc"] += 1
+    return out
 
 
 def fused_history_encoder_res(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads):
@@ -335,7 +518,7 @@ def fused_history_encoder_res(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads)
             hist_emb, pe, w_in, b_in, w_out, b_out, num_heads
         )
     return _launch_forward("fused_history_encoder_res", hist_emb, _pe(pe, hist_emb),
-                           w_in, b_in, w_out, b_out, num_heads, res=True)
+                           w_in, b_in, w_out, b_out, num_heads)
 
 
 def _encoder_forward(hist_emb, pe, w_in, b_in, w_out, b_out, num_heads):
@@ -352,7 +535,7 @@ def fused_attn_stack_fwd(x, lengths, w_in, b_in, w_out, b_out, num_heads):
     if x.device.type == "cpu":
         return fused_attn_stack_fwd_plain(x, lengths, w_in, b_in, w_out, b_out, num_heads)
     return _launch_forward("fused_attn_stack", x, _lens(lengths, x), w_in, b_in, w_out,
-                           b_out, num_heads, stack=True)
+                           b_out, num_heads)
 
 
 def _bwd_smem_bytes(h: int, d: int, nh: int) -> int:

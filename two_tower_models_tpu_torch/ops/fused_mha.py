@@ -46,6 +46,7 @@ import torch
 from two_tower_models_tpu_torch.ops import _lib
 from two_tower_models_tpu_torch.ops.fused_encoder import (
     _SMEM_LIMIT,
+    _TC_MAX_HP,
     _attn_layer_plain,
     _backward_plain,
     _bwd_grid,
@@ -54,6 +55,8 @@ from two_tower_models_tpu_torch.ops.fused_encoder import (
     _key_invalid,
     _lens,
     _mm,
+    _round_up,
+    _tc_tile,
 )
 
 
@@ -156,15 +159,9 @@ def _bwd_smem_bytes(h: int, d: int, nh: int, wsm: bool) -> int:
     return 4 * (w + 3 * h * d + h * (3 * d + 1) + 2 * nh * h * h)
 
 
-_TC_ROWS = 128  # rows a tensor-core tile aims at: E examples of Hp rows
-_TC_MAX_HP = 64  # the longest padded history whose S band fits the kernel's registers
 _TC_BLOCKS_PER_SM = 2  # the tensor-core kernel's __launch_bounds__
 _SM_SMEM = 233472  # bytes of shared memory a Hopper SM holds for its blocks
 _BLOCK_RESERVED = 1024  # of which each resident block takes for itself
-
-
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
 
 
 def _fwd_tc_smem_bytes(h: int, d: int, ept: int) -> int:
@@ -187,19 +184,6 @@ def _bwd_tc_smem_bytes(h: int, d: int, ept: int) -> int:
     rows, slabs = ept * hp, min(8, ept * d // 16)
     return 2 * (d * (3 * d + 8) + d * (d + 8) + 4 * rows * (d + 8) + rows * (3 * d + 8)
                 + slabs * 2 * hp * (hp + 8)) + 12 * d
-
-
-def _tc_tile(h: int, smem) -> int | None:
-    """Examples a tensor-core tile holds: as many as make about 128 rows,
-    the rows a multiple of 32 (the projections' warp tiles), fewer where
-    ``smem(ept)`` bytes exceed a block's shared memory; None if one does
-    not fit."""
-    hp = _round_up(h, 16)
-    step = 1 if hp % 32 == 0 else 2
-    ept = _TC_ROWS // hp // step * step
-    while ept >= step and smem(ept) > _SMEM_LIMIT:
-        ept -= step
-    return ept if ept >= step else None
 
 
 def _fwd_tc_tile(h: int, d: int) -> int | None:
