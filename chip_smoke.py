@@ -9,12 +9,14 @@ Phases, in the order they run; any failure exits non-zero:
      CUDA versions, and the build of the CUDA kernels from csrc/ (nvcc, on
      first use; cached under two_tower_models_tpu_torch/_build/); beside the
      build, nvcc -Xptxas -v on csrc/fused_softmax.cu, csrc/fused_mha.cu,
-     csrc/select_topk.cu, csrc/rows_write.cu and csrc/fused_encoder.cu for
-     the registers, stack and spills of the CE backward, of B13's and B14's
-     tensor-core kernels (each instance, by key bands), of both select
-     kernels, of each row-write instance and of each instance of the
-     whole-encoder tensor-core kernel (encoder_tc_kernel<RES, STACK, Hp /
-     16>: B1, B5, B8), and their shared memory (a spill fails the run);
+     csrc/select_topk.cu, csrc/rows_write.cu, csrc/fused_encoder.cu and
+     csrc/fused_encoder_bwd.cu for the registers, stack and spills of the
+     CE backward, of B13's and B14's tensor-core kernels (each instance, by
+     key bands), of both select kernels, of each row-write instance, of each
+     instance of the whole-encoder tensor-core kernel (encoder_tc_kernel<RES,
+     STACK, Hp / 16>: B1, B5, B8) and of its backward
+     (encoder_bwd_tc_kernel<MODE, Hp / 16, D>: B6, B9), and their shared
+     memory (a spill fails the run);
   2. kernels: each of the four kernels of the serving path is held against
      its plain PyTorch version on the card, on the tensors the serving path
      gives it, and timed beside that plain version, a one-call PyTorch
@@ -53,15 +55,21 @@ Phases, in the order they run; any failure exits non-zero:
      Adam at lr 1e-3), weights and one fixed batch random from --seed.
      The training kernels (encoder residual forward on the tensor cores,
      its y and residuals xs, ps, p0 held as B1's y in phase 2, and the
-     encoder backward, on the plain and on the kernel's residuals; in-batch
+     encoder backward (B6, on the tensor cores) on the plain and on the
+     kernel's residuals: within 3e-2 of scale of the plain version, against
+     the backward with f64 sums at most 1.5 times the plain version's count
+     of dx values beyond one bf16 step and its grads' RMS error, bit-equal
+     on repeat, the FMA kernel on the same inputs within 3e-2 of scale; its
+     device time beside the FMA kernel's, three B14 launches' of the same
+     shape, its bound and phase 1's ptxas line; in-batch
      CE forward, and the CE backward that writes dU and dI in one pass over
      the score tiles, bit-equal on repeat) are held against their plain
      versions on the step's own tensors and timed.  Then 3
      warm-up and 20 timed steps through make_train_step; launch
      counters are zeroed around the timed steps and must show one launch
      per step of each training kernel (and of the backward's reduce), the
-     residual forward's on the tensor cores, and none of the forward-only
-     encoder kernel.  Three more steps run under
+     residual forward's and the backward's on the tensor cores, and none
+     of the forward-only encoder kernel.  Three more steps run under
      torch.profiler, for the device time per kernel and the device's busy
      share;
   4c. the recompute encoder backward (B7) on phase 4's encoder tensors,
@@ -71,9 +79,10 @@ Phases, in the order they run; any failure exits non-zero:
      at B=256 on the card against a CPU copy of the model;
   4b. train, variable-length histories: the flagship config on
      make_synthetic_data with variable_history (lengths in [1, 32], id 0
-     past them).  The stack's backward (B9) is held against its plain
-     version on the step's own tensors, and B8 timed there as in phase 2b;
-     3 warm-up and 20 timed steps launch B8 (on the tensor cores), B9 and
+     past them).  The stack's backward (B9, on the tensor cores) is held
+     and timed as B6 in phase 4 on the step's own tensors, its dx exactly 0
+     past each length, and B8 timed there as in phase 2b;
+     3 warm-up and 20 timed steps launch B8 and B9 (on the tensor cores) and
      the CE kernels once each and none of the fixed-length encoder kernels; three steps under torch.profiler; grads
      against a CPU copy at B=256;
   5. large tables: scripts/bench_tables.py's configuration (the flagship
@@ -195,7 +204,8 @@ SELECT_ROUTE = {"select_topk_radix": 2, "select_topk": 0}
 # the whole-encoder forward's launches on the tensor cores (B1, B5, B8; the
 # route of the cells' bf16 encoder): none unless a leg says otherwise
 ENC_TC = {"fused_history_encoder_tc": 0, "fused_history_encoder_res_tc": 0,
-          "fused_attn_stack_tc": 0}
+          "fused_attn_stack_tc": 0, "fused_history_encoder_bwd_tc": 0,
+          "fused_attn_stack_bwd_tc": 0}
 
 
 def _fail(msg: str) -> None:
@@ -389,6 +399,73 @@ def b13_layers(x, lens, w, nh):
     for l in range(w[0].shape[0]):
         x = fm.fused_mha_fwd(x, lens, w[0][l], w[1][l], w[2][l], w[3][l], nh)
     return x
+
+
+def bwd_checks(torch, label, got, again, plain, ref, fma, names):
+    """An encoder backward on the tensor cores, ``got`` (dx bf16, then the
+    f32 grads), against the plain version's ``plain``: each output within
+    3e-2 of its scale; against the same function with f64 sums ``ref``: dx
+    no more values beyond one bf16 step than 1.5 times the plain version's
+    (or 1e-6 of the values, where both are that rare), each grad's RMS
+    error relative to its scale at most 1.5 times the plain version's, or
+    1e-6 where both are near 0; bit-equal to ``again``, a second run; and
+    the FMA kernel's outputs ``fma`` within 3e-2 of scale of the plain
+    version's.  Prints a line; returns (ok, max_abs_err)."""
+    checks = [scaled_close(a, e, 3e-2) for a, e in zip(got, plain)]
+    fma_checks = [scaled_close(a, e, 3e-2) for a, e in zip(fma, plain)]
+    n = got[0].numel()
+    far = bf16_far(torch, got[0], plain[0])
+    far64 = [bf16_far(torch, t[0], ref[0]) for t in (got, plain)]
+    rms = [[float((a.double() - e).pow(2).mean().sqrt() / e.abs().max().clamp_min(1e-300))
+            for a, e in zip(t[1:], ref[1:])] for t in (got, plain)]
+    rep = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+    ok64 = far64[0] <= max(1.5 * far64[1], 1e-6 * n) and all(
+        k <= max(1.5 * p, 1e-6) for k, p in zip(*rms))
+    ok = all(k for k, _ in checks + fma_checks) and ok64 and rep
+    print(f"{label} on the tensor cores: dx {far} of {n} values beyond one bf16 step from plain; "
+          f"max_abs_err ({', '.join(names)}) {[float(f'{e:.3g}') for _, e in checks]} (tol 3e-2 "
+          f"of scale); dx beyond one step from f64 sums: kernel {far64[0]}, plain {far64[1]} "
+          f"(tol 1.5x, or 1e-6 of the values); grads' RMS error from f64 sums (of scale) kernel "
+          f"{[float(f'{v:.3g}') for v in rms[0]]}, plain {[float(f'{v:.3g}') for v in rms[1]]} "
+          f"(tol 1.5x, or 1e-6); bit-equal on repeat={rep}; the FMA kernel max_abs_err "
+          f"{[float(f'{e:.3g}') for _, e in fma_checks]} (tol 3e-2 of scale)", flush=True)
+    return ok, max(e for _, e in checks)
+
+
+def b14_layers(torch, x, lens, w, nh):
+    """The per-layer tier's backward (B14) once a layer at x's shape, with
+    a cotangent of that shape: the whole-encoder backward's yardstick."""
+    from two_tower_models_tpu_torch.ops import fused_mha as fm
+
+    g = torch.ones_like(x) / x.shape[0]
+    for l in range(w[0].shape[0]):
+        fm.fused_mha_bwd(g, x, lens, w[0][l], w[1][l], w[2][l], w[3][l], nh)
+
+
+def bwd_times(torch, e, tc_fn, fma_fn, b14_fn, ptxas: str) -> None:
+    """Beside an encoder backward's entry ``e``: the tensor-core kernel's
+    device time and its reduce's, the FMA kernel's on the same inputs (with
+    the host's dispatch and device), three B14 launches' device time of the
+    same shape, and phase 1's ptxas line of the instance."""
+    e["device_ms"] = device_ms(torch, tc_fn, "encoder_bwd_tc_kernel")
+    e["reduce_device_ms"] = device_ms(torch, tc_fn, "reduce_kernel")
+    e["fma_ms"] = time_ms(torch, fma_fn)
+    e["fma_device_ms"] = device_ms(torch, fma_fn, "encoder_bwd_kernel")
+    e["b14x3_device_ms"] = call_device_ms(torch, b14_fn)
+    e["ptxas"] = ptxas
+    e["note"] = (
+        "ms includes the second launch that sums the per-block weight grads and the host's "
+        "dispatch; device_ms is encoder_bwd_tc_kernel's launch alone and reduce_device_ms the "
+        "reduce's (torch.profiler); fma_* the FMA kernel (encoder_bwd_kernel) on the same "
+        "inputs; b14x3_device_ms three B14 launches (and reduces) of the same shape")
+
+
+def bwd_line(torch, smi, label, e) -> str:
+    return (f"{label} on {torch.cuda.get_device_name(0)} ({smi}): route {e['kernel_route']} "
+            f"{e['ms']:.4f} ms (device time {e['device_ms']:.4f}, its reduce "
+            f"{e['reduce_device_ms']:.4f}); the FMA kernel {e['fma_ms']:.4f} (device "
+            f"{e['fma_device_ms']:.4f}); three B14 launches, device {e['b14x3_device_ms']:.4f}; "
+            f"bound {e['bound_ms']:.4f} ({e['bound_by']}); ptxas {e['ptxas']}")
 
 
 def enc_times(torch, e, tc_fn, fma_fn, b13_fn, key: str = "") -> None:
@@ -713,7 +790,7 @@ def fixed_batch(torch, gen, dev, cfg, b: int):
     )
 
 
-def phase_train(torch, args, smi, dev, entry, entries, failures):
+def phase_train(torch, args, smi, dev, entry, entries, failures, b6_ptxas: str):
     from two_tower_models_tpu_torch.config import TrainConfig
     from two_tower_models_tpu_torch.models import two_tower as tt
     from two_tower_models_tpu_torch.models.history_encoder import (
@@ -821,8 +898,21 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
     g_enc = (randn(b, 2, d) / b).to(torch.bfloat16)
     _, xs, ps, p0 = res_p
     bwd_args = (g_enc, xs, ps, p0, w[0], w[1], w[2], nh)
-    got, want = fe.fused_history_encoder_bwd(*bwd_args), fe.fused_history_encoder_bwd_plain(*bwd_args)
-    checks = [close(a, e, 0.0, 3e-2 * float(e.float().abs().max())) for a, e in zip(got, want)]
+    route6 = fe._enc_bwd_route(x.dtype, h, d, nh, nl)
+    inputs6, shapes6 = fe._res_bwd_inputs(*bwd_args), fe._grad_shapes(h, d, nl, True)
+
+    def fma6():  # the FMA kernel on the same inputs, its outputs in the wrapper's order
+        dx6 = torch.empty_like(x)
+        dwi, dbi, dwo, dbo, dpe = fe._launch_bwd_fma("fused_history_encoder_bwd", inputs6, dx6,
+                                                     shapes6, nh, nl)
+        return dx6, dpe, dwi, dbi, dwo, dbo
+
+    want = fe.fused_history_encoder_bwd_plain(*bwd_args)
+    ok6, err6 = bwd_checks(
+        torch, "encoder backward (B6)", fe.fused_history_encoder_bwd(*bwd_args),
+        fe.fused_history_encoder_bwd(*bwd_args), want,
+        fe.fused_history_encoder_bwd_f64_sums(*bwd_args), fma6(),
+        ("dx", "dpe", "dW_in", "db_in", "dW_out", "db_out"))
     # and on the tensor-core kernel's residuals, against the plain backward
     # on the plain version's: the layouts agree, and the rounding flips
     # between the two forwards stay within the backward's tolerance
@@ -831,19 +921,21 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
     print(f"encoder backward (B6) on the tensor-core residuals vs plain: ok="
           f"{all(ok for ok, _ in on_tc)} max_abs_err {[float(f'{e:.3g}') for _, e in on_tc]} "
           f"(tol 3e-2 of scale)", flush=True)
-    checks += on_tc
     grads_bytes = sum(t.numel() for t in want[1:]) * 4
     entry(
         "fused_history_encoder_bwd", "two_tower_models_tpu_torch/csrc/fused_encoder_bwd.cu",
         "two_tower_models_tpu/ops/pallas/fused_encoder.py:618",
-        all(ok for ok, _ in checks), max(err for _, err in checks),
+        ok6 and all(ok for ok, _ in on_tc) and route6 == "tc", err6,
         time_ms(torch, lambda: fe.fused_history_encoder_bwd(*bwd_args)),
         time_ms(torch, lambda: fe.fused_history_encoder_bwd_plain(*bwd_args)),
         b * 2 * d * 2 + resid_bytes + w_bytes + b * h * d * 2 + grads_bytes,
         b * resid_bwd_flops(h, d, nl), BF16_FLOPS, None,
     )
-    entries["fused_history_encoder_bwd"]["note"] = (
-        "ms includes the second launch that sums the per-block weight grads")
+    e6 = entries["fused_history_encoder_bwd"]
+    e6["kernel_route"] = route6
+    bwd_times(torch, e6, lambda: fe.fused_history_encoder_bwd(*bwd_args), fma6,
+              lambda: b14_layers(torch, xs[0], None, w, nh), b6_ptxas)
+    print(bwd_line(torch, smi, f"B6 at B={b}", e6), flush=True)
 
     # -- phase 4c, first half: B7 on the same input, against its plain
     # version and against B6 on B5's residuals (one VJP, p rounded in B6) --
@@ -873,7 +965,7 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
     )
     entries["fused_history_encoder_bwd_recompute"]["note"] = (
         "ms includes the second launch that sums the per-block weight grads")
-    del res_k, res_p, got, want, xs, ps, p0, got7, want7, b6
+    del res_k, res_p, want, xs, ps, p0, got7, want7, b6
     torch.cuda.empty_cache()
 
     # -- the training steps --
@@ -886,9 +978,10 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
               "fused_history_encoder_bwd_reduce": 1, "fused_in_batch_ce": 1,
               "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1, "fused_history_encoder": 0,
               "fused_history_encoder_bwd_recompute": 0, "rows_scatter_add": 0, "rows_write": 0,
-              **ENC_TC, "fused_history_encoder_res_tc": 1}
+              **ENC_TC, "fused_history_encoder_res_tc": 1, "fused_history_encoder_bwd_tc": 1}
     check_launches(counts, expect, TRAIN_STEPS, failures, "train")
     e5["tc_launches"] = counts.get("fused_history_encoder_res_tc", 0)
+    e6["tc_launches"] = counts.get("fused_history_encoder_bwd_tc", 0)
     for name, per in expect.items():
         if name in entries and per:
             entries[name]["launches"] = counts.get(name, 0)
@@ -949,9 +1042,11 @@ def phase_train(torch, args, smi, dev, entry, entries, failures):
     return cfg, train_cfg, b6_ms  # phase 4b trains the same configuration
 
 
-def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, failures) -> None:
+def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, failures,
+                       b9_ptxas: str) -> None:
     """Phase 4b: the flagship step on make_synthetic_data's variable-length
-    histories; B9 on the step's own tensors."""
+    histories; B9 on the step's own tensors (``b9_ptxas``: phase 1's report
+    of its tensor-core instance there)."""
     from two_tower_models_tpu_torch.config import DataConfig
     from two_tower_models_tpu_torch.ops import fused_encoder as fe
     from two_tower_models_tpu_torch.training.data import gather_batch, make_synthetic_data
@@ -978,33 +1073,47 @@ def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, fa
     xb = x.to(torch.bfloat16)
     g = torch.randn(b, d, generator=gen, device=dev) / b
     gb = g.to(torch.bfloat16)
+    h = HIST
+    route9 = fe._enc_bwd_route(xb.dtype, h, d, nh, nl)
+    inputs9 = fe._recompute_bwd_inputs(gb, xb, fe._lens(lens, xb), *w, nh, enc=False)
+    shapes9 = fe._grad_shapes(h, d, nl, False)
+
+    def fma9():  # the FMA kernel on the same inputs
+        dx9 = torch.empty_like(xb)
+        return (dx9, *fe._launch_bwd_fma("fused_attn_stack_bwd", inputs9, dx9, shapes9, nh, nl,
+                                         fe._res_floats(h, d, nh, nl)))
+
     got = fe.fused_attn_stack_bwd(gb, xb, lens, *w, nh)
     want = fe.fused_attn_stack_bwd_plain(gb, xb, lens, *w, nh)
-    checks = [scaled_close(a, e, 3e-2) for a, e in zip(got, want)]
+    ok9, err9 = bwd_checks(
+        torch, "attention stack backward (B9)", got, fe.fused_attn_stack_bwd(gb, xb, lens, *w, nh),
+        want, fe.fused_attn_stack_bwd_f64_sums(gb, xb, lens, *w, nh), fma9(),
+        ("dx", "dW_in", "db_in", "dW_out", "db_out"))
     ok_32 = all(scaled_close(a, e, 1e-4)[0] for a, e in zip(
         fe.fused_attn_stack_bwd(g, x, lens, *w, nh),
         fe.fused_attn_stack_bwd_plain(g, x, lens, *w, nh)))
     past = torch.arange(HIST, device=dev)[None, :] >= lens[:, None]
     zero_past = bool((got[0][past] == 0).all())
-    print(f"attention stack backward (dx, dW_in, db_in, dW_out, db_out) vs plain: "
-          f"max_abs_err {[float(f'{err:.3g}') for _, err in checks]} (tol 3e-2 of scale); "
-          f"f32 ok={ok_32} (tol 1e-4 of scale); dx zero past each length: {zero_past}",
-          flush=True)
+    print(f"attention stack backward: f32 ok={ok_32} (tol 1e-4 of scale); dx zero past each "
+          f"length: {zero_past}", flush=True)
     n_valid = int(lens.sum())
     grads_bytes = sum(t.numel() for t in want[1:]) * 4
     entry(
         "fused_attn_stack_bwd", "two_tower_models_tpu_torch/csrc/fused_encoder_bwd.cu",
         "two_tower_models_tpu/ops/pallas/fused_encoder.py:893",
-        all(ok for ok, _ in checks) and ok_32 and zero_past, max(err for _, err in checks),
+        ok9 and ok_32 and zero_past and route9 == "tc", err9,
         time_ms(torch, lambda: fe.fused_attn_stack_bwd(gb, xb, lens, *w, nh)),
         time_ms(torch, lambda: fe.fused_attn_stack_bwd_plain(gb, xb, lens, *w, nh)),
         n_valid * d * 2 + b * 4 + b * d * 2 + sum(t.numel() for t in w) * 4
         + b * HIST * d * 2 + grads_bytes,
         sum(vjp_flops(n, d, nl) for n in lens.tolist()), BF16_FLOPS, None,
     )
-    entries["fused_attn_stack_bwd"]["note"] = (
-        "ms includes the second launch that sums the per-block weight grads; bytes and "
-        "operations count each example's valid rows only")
+    e9 = entries["fused_attn_stack_bwd"]
+    e9["kernel_route"] = route9
+    bwd_times(torch, e9, lambda: fe.fused_attn_stack_bwd(gb, xb, lens, *w, nh), fma9,
+              lambda: b14_layers(torch, xb, fe._lens(lens, xb), w, nh), b9_ptxas)
+    e9["note"] += "; bytes and operations count each example's valid rows only"
+    print(bwd_line(torch, smi, f"B9 at B={b}", e9), flush=True)
     # B8 at the training batch: the tensor cores, the FMA kernel, three B13
     e8 = entries["fused_attn_stack"]
     l32, w_k = fe._lens(lens, xb), [fe._f32(t, dev) for t in w]
@@ -1032,9 +1141,11 @@ def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, fa
         "fused_history_encoder": 0, "fused_history_encoder_res": 0,
         "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
         "rows_scatter_add": 0, "rows_write": 0, **ENC_TC, "fused_attn_stack_tc": 1,
+        "fused_attn_stack_bwd_tc": 1,
     }, TRAIN_STEPS, failures, "train varlen")
     entries["fused_attn_stack"]["train_tc_launches"] = counts.get("fused_attn_stack_tc", 0)
     entries["fused_attn_stack_bwd"]["launches"] = counts.get("fused_attn_stack_bwd", 0)
+    entries["fused_attn_stack_bwd"]["tc_launches"] = counts.get("fused_attn_stack_bwd_tc", 0)
     entries["fused_attn_stack_bwd"]["reduce_launches"] = counts.get(
         "fused_attn_stack_bwd_reduce", 0)
     if not finite(torch, metrics):
@@ -1340,7 +1451,7 @@ def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
     # -- 5b, 5c: the two 4M legs --
     five = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1, "fused_in_batch_ce": 1,
             "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1, **ENC_TC,
-            "fused_history_encoder_res_tc": 1}
+            "fused_history_encoder_res_tc": 1, "fused_history_encoder_bwd_tc": 1}
     st_dense, ms_packed, counts = table_leg(
         torch, "train-4M-packed", step_dense, st_dense, data, idx, 2,
         {**five, "rows_scatter_add": 3, "rows_write": 0, "fused_adam": 0}, smi, failures)
@@ -2143,7 +2254,7 @@ def phase_fused_adam(torch, args, smi, dev, entry, entries, failures, ms_packed)
     # -- 8c: the leg --
     five = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1, "fused_in_batch_ce": 1,
             "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1, **ENC_TC,
-            "fused_history_encoder_res_tc": 1}
+            "fused_history_encoder_res_tc": 1, "fused_history_encoder_bwd_tc": 1}
     step = make_train_step(cfg, fused_cfg)
     st_fused, ms, counts = table_leg(
         torch, "train-4M-packed-fusedadam", step, st_fused, data, idx, 2,
@@ -2228,7 +2339,8 @@ def main() -> int:
         [_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(_lib.CSRC / f"{src}.cu"),
          "-o", str(_lib.BUILD_DIR / f"ptxas_{src}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in ("fused_softmax", "fused_mha", "select_topk", "rows_write", "fused_encoder")]
+        for src in ("fused_softmax", "fused_mha", "select_topk", "rows_write", "fused_encoder",
+                    "fused_encoder_bwd")]
     _lib.library()
     ptxas_log = "\n".join(p.communicate(timeout=600)[0] for p in ptxas)
     print(smi, flush=True)
@@ -2243,10 +2355,11 @@ def main() -> int:
 
     ept = fm._fwd_tc_tile(HIST, 64)
     enc_smem = fe._enc_tc_plan(TRAIN_BATCH, HIST, 64, 3, 1)[2]
+    bwd_smem = fe._enc_bwd_tc_plan(TRAIN_BATCH, HIST, 64, 3, 1)[2]
     spills, ptxas_lines = ptxas_report(
         ptxas_log, ["ce_bwd_kernel", "ce_bwd_reduce", "mha_fwd_tc_kernel", "mha_bwd_tc_kernel",
                     "select_radix_kernel", "select_topk_kernel", "rows_write_kernel",
-                    "encoder_tc_kernel"], {
+                    "encoder_tc_kernel", "encoder_bwd_tc_kernel"], {
             # bwd::SMEM_FLOATS in csrc/fused_softmax.cu
             "ce_bwd_kernel": 4 * (128 * 68 + 2 * 64 * 68 + 128 * 72 + 2 * 128),
             "ce_bwd_reduce": 0,
@@ -2256,6 +2369,8 @@ def main() -> int:
             # B1, B5 and B8 (<RES, STACK, Hp / 16>) at the cells' three layers
             **{f"encoder_tc_kernel<{res}, {stack}, {HIST // 16}>": enc_smem
                for res, stack in ((0, 0), (1, 0), (0, 1))},
+            # B6 and B9 (<MODE, Hp / 16, D>: MODE 0 from the stored residuals, 2 the stack)
+            **{f"encoder_bwd_tc_kernel<{mode}, {HIST // 16}, 64>": bwd_smem for mode in (0, 2)},
         })
     dev = torch.device(DEVICE)
 
@@ -2454,9 +2569,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 4 (and 4c): train; phase 4b: train variable lengths -------
-    train_cfg4, train_cfg, b56_ms = phase_train(torch, args, smi, dev, entry, entries, failures)
+    bwd_ptxas = ["; ".join(ptxas_lines.get(f"encoder_bwd_tc_kernel<{mode}, {HIST // 16}, 64>", []))
+                 for mode in (0, 2)]
+    train_cfg4, train_cfg, b56_ms = phase_train(torch, args, smi, dev, entry, entries, failures,
+                                                bwd_ptxas[0])
     torch.cuda.empty_cache()
-    phase_train_varlen(torch, args, smi, dev, train_cfg4, train_cfg, entry, entries, failures)
+    phase_train_varlen(torch, args, smi, dev, train_cfg4, train_cfg, entry, entries, failures,
+                       bwd_ptxas[1])
     torch.cuda.empty_cache()
 
     # ---- phase 5: large tables -------------------------------------------

@@ -706,6 +706,164 @@ def test_attn_stack_bwd_is_deterministic(dev):
         assert torch.equal(a, b)
 
 
+# B6 and B9 on the tensor cores alone: the cells' shape at B at the edges
+# of a tile of four examples (1, 3, 5), not a multiple of it (1000) and the
+# training batch (4096); H = 40 (Hp = 48, two examples a tile), H = 64 (one
+# example), D = 32 with H = 16 (eight examples), the thin layer alone
+_BWD_TC_SHAPES = [
+    (1, 32, 64, 4, 3), (3, 32, 64, 4, 3), (5, 32, 64, 4, 3), (1000, 32, 64, 4, 3),
+    (4096, 32, 64, 4, 3), (9, 40, 64, 4, 3), (7, 64, 64, 4, 2), (33, 16, 32, 2, 3),
+    (20, 32, 64, 4, 1),
+]
+
+
+# seeds of the f64-sum comparisons of B6 and B9.  A grad's error from f64
+# sums is, on one input, the sum over some 10^5 rows of a few hundred
+# roundings that flip by one bf16 step, in the kernel and in the plain
+# version alike, and its ratio to the plain version's is heavy-tailed both
+# ways: 0.04-3.1 over single seeds, at the cells' shape too, with medians
+# over ten seeds of 0.48-0.99 (scripts/torch_encoder_bwd_f64.py; an H100).
+# So the grads are held by the median over ten seeds, the dx counts summed
+_F64_SEEDS = tuple(range(0, 10000, 1000))
+
+
+def _bwd_vs_f64(runs):
+    """A tensor-core backward against the same function with f64 sums, over
+    ``runs`` of (got, want, ref): the kernel's outputs (dx, then the f32
+    grads), the plain version's and the f64 sums' on one input each.  dx no
+    more values beyond one bf16 step, summed over the runs, than 1.5 times
+    the plain version's (or 1e-6 of the values, where both are that rare);
+    each grad's RMS error relative to its scale at most 1.5 times the plain
+    version's, or 1e-6 of scale where both are near 0, in the median run."""
+    far = [sum(_far(r[i][0], r[2][0]) for r in runs) for i in (0, 1)]
+    n = sum(r[0][0].numel() for r in runs)
+    rms = lambda a, e: float((a.double() - e).pow(2).mean().sqrt() / e.abs().max().clamp_min(1e-300))
+    # per grad and run: the kernel's error over its bound (<= 1 passes)
+    over = [[rms(r[0][j], r[2][j]) / max(1.5 * rms(r[1][j], r[2][j]), 1e-6) for r in runs]
+            for j in range(1, len(runs[0][2]))]
+    assert far[0] <= max(1.5 * far[1], 1e-6 * n), far
+    assert all(sorted(o)[len(o) // 2] <= 1.0 for o in over), over
+
+
+def _fma_bwd(name, inputs, b, h, d, nh, nl, with_pe, res_floats=0):
+    """Backward ``name`` forced onto the FMA kernel (``encoder_bwd_kernel``)
+    and its reduce: (dx, the grads) as the wrapper returns them."""
+    dx = torch.empty((b, h, d), dtype=torch.bfloat16, device=inputs[1].device)
+    grads = fe._launch_bwd_fma(name, inputs, dx, fe._grad_shapes(h, d, nl, with_pe), nh, nl,
+                               res_floats)
+    return (dx, *grads)
+
+
+def _fma_bwd_fits(h, d, nh):
+    """Whether the FMA kernel takes the shape: one example's working set
+    and the layer's weights and grads in shared memory (H = 40 and 64 at D
+    = 64 do not fit; the tensor cores take them)."""
+    return fe._bwd_smem_bytes(h, d, nh) <= fe._SMEM_LIMIT
+
+
+def _enc_bwd_case(b, h, d, nh, nl, dev, seed):
+    """B6's arguments: a bf16 cotangent [B, 2, D], B5's residuals (the
+    training path's forward) and the weights."""
+    x, w, g = _encoder_inputs(b, h, d, nh, nl, torch.bfloat16, dev, seed)
+    _, xs, ps, p0 = fe.fused_history_encoder_res(x, *w, nh)
+    return g, xs, ps, p0, w[1], w[2], w[3], nh
+
+
+def _counts(names, before):
+    return [_lib.launches[n] - before.get(n, 0) for n in names]
+
+
+@pytest.mark.parametrize("b,h,d,nh,nl", _BWD_TC_SHAPES)
+def test_encoder_bwd_tc_route_alone(dev, b, h, d, nh, nl):
+    """B6 on the tensor cores (``encoder_bwd_tc_kernel``): one launch of
+    each counter; dx, dPE and the four weight grads within 3e-2 of scale of
+    the plain version's, as the FMA kernel is where it takes the shape
+    (``_fma_bwd_fits``); bit-equal on repeat; and on batches of at least
+    2^23 values of dx against the backward with f64 sums (``_bwd_vs_f64``,
+    over the ten ``_F64_SEEDS``)."""
+    assert fe._enc_bwd_route(torch.bfloat16, h, d, nh, nl) == "tc"
+    args = _enc_bwd_case(b, h, d, nh, nl, dev, b + h + 11)
+    names = ["fused_history_encoder_bwd", "fused_history_encoder_bwd_tc",
+             "fused_history_encoder_bwd_reduce"]
+    before = dict(_lib.launches)
+    got = fe.fused_history_encoder_bwd(*args)
+    assert _counts(names, before) == [1, 1, 1]
+    again = fe.fused_history_encoder_bwd(*args)
+    assert all(torch.equal(a, e) for a, e in zip(got, again))
+    want = fe.fused_history_encoder_bwd_plain(*args)
+    for a, e in zip(got, want):
+        assert a.shape == e.shape and a.dtype == e.dtype
+        _scaled_close(a, e, 3e-2)
+    if _fma_bwd_fits(h, d, nh):
+        fma = _fma_bwd("fused_history_encoder_bwd", fe._res_bwd_inputs(*args), b, h, d, nh, nl,
+                       True)
+        for f, e in zip((fma[0], fma[-1], *fma[1:-1]), want):  # (dx, dpe, ...) as got
+            _scaled_close(f, e, 3e-2)
+    runs = []
+    for seed in _F64_SEEDS:
+        big = _enc_bwd_case(max(b, -(-(1 << 23) // (h * d))), h, d, nh, nl, dev, b + h + 11 + seed)
+        runs.append((fe.fused_history_encoder_bwd(*big), fe.fused_history_encoder_bwd_plain(*big),
+                     fe.fused_history_encoder_bwd_f64_sums(*big)))
+    _bwd_vs_f64(runs)
+
+
+@pytest.mark.parametrize("b,h,d,nh,nl", _BWD_TC_SHAPES)
+def test_attn_stack_bwd_tc_route_alone(dev, b, h, d, nh, nl):
+    """B9 on the tensor cores: held as B6 in ``test_encoder_bwd_tc_route_alone``,
+    and dx exact zeros past each length."""
+    assert fe._enc_bwd_route(torch.bfloat16, h, d, nh, nl) == "tc"
+    x, lens, w, g = _stack_case(b, h, d, nh, nl, torch.bfloat16, dev, b + h + 12, "mix")
+    names = ["fused_attn_stack_bwd", "fused_attn_stack_bwd_tc", "fused_attn_stack_bwd_reduce"]
+    before = dict(_lib.launches)
+    got = fe.fused_attn_stack_bwd(g, x, lens, *w, nh)
+    assert _counts(names, before) == [1, 1, 1]
+    again = fe.fused_attn_stack_bwd(g, x, lens, *w, nh)
+    assert all(torch.equal(a, e) for a, e in zip(got, again))
+    want = fe.fused_attn_stack_bwd_plain(g, x, lens, *w, nh)
+    for a, e in zip(got, want):
+        assert a.shape == e.shape and a.dtype == e.dtype
+        _scaled_close(a, e, 3e-2)
+    if _fma_bwd_fits(h, d, nh):
+        inputs = fe._recompute_bwd_inputs(g, x, fe._lens(lens, x), *w, nh, enc=False)
+        fma = _fma_bwd("fused_attn_stack_bwd", inputs, b, h, d, nh, nl, False,
+                       fe._res_floats(h, d, nh, nl))
+        for f, e in zip(fma, want):
+            _scaled_close(f, e, 3e-2)
+    past = torch.arange(h, device=dev)[None, :] >= lens[:, None]
+    assert bool((got[0][past] == 0).all())
+    runs = []
+    for seed in _F64_SEEDS:
+        x, lens, w, g = _stack_case(max(b, -(-(1 << 23) // (h * d))), h, d, nh, nl,
+                                    torch.bfloat16, dev, b + h + 12 + seed, "mix")
+        runs.append((fe.fused_attn_stack_bwd(g, x, lens, *w, nh),
+                     fe.fused_attn_stack_bwd_plain(g, x, lens, *w, nh),
+                     fe.fused_attn_stack_bwd_f64_sums(g, x, lens, *w, nh)))
+    _bwd_vs_f64(runs)
+
+
+def test_encoder_bwd_tc_at_unaligned_addresses(dev):
+    """B6's and B9's tensor-core kernels read their inputs in 16-byte
+    chunks; copies at addresses that are not 16-byte aligned (the wrapper
+    clones them) give the same results bit for bit."""
+
+    def odd(t):  # a copy at an address 16-byte aligned no more
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return o.copy_(t)
+
+    g, xs, ps, p0, wi, bi, wo, nh = _enc_bwd_case(300, 32, 64, 4, 3, dev, 13)
+    got = fe.fused_history_encoder_bwd(g, xs, ps, p0, wi, bi, wo, nh)
+    moved = [odd(t) for t in (g, xs, ps, p0, wi, wo)]
+    assert all(t.data_ptr() % 16 for t in moved)
+    go, xo, pso, p0o, wio, woo = moved
+    assert all(torch.equal(a, e) for a, e in zip(
+        fe.fused_history_encoder_bwd(go, xo, pso, p0o, wio, bi, woo, nh), got))
+    x, lens, w, g = _stack_case(300, 32, 64, 4, 3, torch.bfloat16, dev, 14, "mix")
+    got = fe.fused_attn_stack_bwd(g, x, lens, *w, 4)
+    go, xo, wio, woo = (odd(t) for t in (g, x, w[0], w[2]))
+    assert all(torch.equal(a, e) for a, e in zip(
+        fe.fused_attn_stack_bwd(go, xo, lens, wio, w[1], woo, w[3], 4), got))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,h,d,nh,nl", _ENC_SHAPES)
 def test_encoder_recompute_bwd_kernel_matches_plain_and_b6(dev, dtype, b, h, d, nh, nl):

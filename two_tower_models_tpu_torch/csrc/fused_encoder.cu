@@ -273,7 +273,7 @@ int launch(const void* x, const void* pe, const int* lens, const void* w_in,
 
 namespace tc {
 
-using namespace tt::tc;  // bf16, PAD, TILE_ROWS, warp_gemm, load_x, band_attention
+using namespace tt::tc;  // bf16, PAD, TILE_ROWS, warp_gemm, load_x, store_rows, band_attention
 
 // Threads of a block of the instance of HPB key bands: sixteen warps (128
 // registers a thread) up to Hp = 32, eight (255) for Hp = 48 and 64, whose
@@ -306,20 +306,6 @@ __device__ __forceinline__ void band_gemm(int N, int K, Row arow, const bf16* Bm
       epi(g, n0 + 8 * j + 2 * q4, acc[j][0], acc[j][1]);
       epi(g + 8, n0 + 8 * j + 2 * q4, acc[j][2], acc[j][3]);
     }
-  }
-}
-
-// Rows < H of the tile's examples < B, from a tile [E*Hp][D+PAD] in shared
-// memory to dst [B, H, D] in device memory, 16 bytes a store.
-template <int THREADS>
-__device__ __forceinline__ void store_rows(bf16* dst, const bf16* X, int tile, int E, int Hp,
-                                           int H, int D, int B) {
-  const int cpr = D / 8;
-  for (int i = threadIdx.x; i < E * Hp * cpr; i += THREADS) {
-    const int r = i / cpr, c = i - r * cpr;
-    const int ex = tile * E + r / Hp, hi = r % Hp;
-    if (ex < B && hi < H)
-      *(uint4*)(dst + ((size_t)ex * H + hi) * D + c * 8) = *(const uint4*)(X + r * (D + PAD) + c * 8);
   }
 }
 

@@ -60,7 +60,71 @@
 // bytes at the flagship's L = 3), go to an f32 scratch [B, R] in device
 // memory, written once and read once.
 
-#include "common.cuh"
+// B6 and B9 on the tensor cores (encoder_bwd_tc_kernel<MODE, HPB, D>)
+// replace the same two Pallas kernels (calls at :618 and :893) for bf16
+// with D 32 or 64, the head width a multiple of 16 and Hp = round_up(H, 16)
+// <= 64 (ops/fused_encoder.py:_enc_bwd_route; f32, head width 8, D = 128
+// and longer histories keep encoder_bwd_kernel above, as B7 does), at the
+// rounding points listed above, every product on mma.sync m16n8k16 with
+// each k16 step of a projection added rounded (tt::mma_bf16_add).
+// Bound on the H100: bytes, by a little (at B = 4096, H = 32, D = 64,
+// L = 3, B6 reads 119 MB of residuals and writes 17 MB of dx, 0.041 ms at
+// 3.35 TB/s, against 36 GFLOP, 0.036 ms at the bf16 tensor-core rate; B9
+// has no residuals to read and recomputes the forward: operations).
+// Design: B14's tensor-core tile (csrc/fused_mha.cu, helpers in
+// csrc/mha_tc.cuh) walked over the layers:
+// - tiles of E examples of Hp rows (about 128 rows), one persistent block
+//   an SM, block k owning tiles k, k + grid, ...  A layer's weight-grad
+//   slices take 64 floats a lane at D = 64 beside a working set of about
+//   200 registers, so the layers cannot all stay in registers: the block
+//   goes through the layers last to first, and for each it stages that
+//   layer's round(W_in), round(W_out) (bf16) and b_in, walks its tiles,
+//   and writes its slices of the layer's grads to its own slice of ws
+//   (the layout above), which reduce_kernel sums in block order.  dW_in's
+//   slices (48 floats a lane) stay in registers across the tiles; each
+//   tile's dW_out slice (16) is added to an f32 [D][D] in shared memory,
+//   which kept the instances within 255 registers, no spills;
+// - dy between layers stays in an f32 scratch [B, H, D] in device memory:
+//   a layer's dx goes there as float2 stores straight from the
+//   accumulators, and the layer below reads its rows back (plain loads:
+//   the read-only path is not coherent with the block's own writes).  Only
+//   the block that owns a tile writes and reads its rows, so a
+//   __syncthreads between layers is all the ordering needed.  g2 =
+//   round(dy) goes to shared memory.  db_out sums the unrounded dy over the
+//   block's rows: g's row 0 in the thin layer; below it dy = dqkv
+//   round(W_in)^T of the layer above, so by linearity the block's db_in of
+//   that layer times round(W_in)^T, in f32 at its end (summing 10^5 f32 dy
+//   rows would add up the tensor cores' product errors: 1.7x the plain
+//   version's RMS error from f64 sums at H = 40);
+// - B6 rebuilds q | k | v from the stored round(x) (xs) and takes p from
+//   ps or p0: the forward's round(p), both round(p) and p there.  A warp's
+//   slab of p is filled with cp.async, the first (example, head)'s behind
+//   the tile's projections, the next one's behind the last one's dk and
+//   dq.  No scores, no exponentials, no denominators;
+// - B9 first runs the forward over its tiles, first layer to last, with
+//   B8's helpers (band_attention), and writes each layer's input round(x_l),
+//   l >= 1, to a bf16 scratch [L-1, B, H, D] (cp.async.cg reads it back,
+//   through L2).  Its backward recomputes S and the softmax as B14 does,
+//   p in f32 unrounded in dp p and ds;
+// - a full layer is B14's tile: q | k | v and do by warp_gemm, a warp per
+//   (example, head) with round(p) and ds in its slabs, dv, dk and dq from
+//   them, the weight grads in each warp's register slices, dx =
+//   dqkv round(W_in)^T.  The thin last layer runs the same code on one
+//   query band: p is row 0's alone (B6: the slab's other rows are zeros;
+//   B9: the other rows' p is set to 0), so ds and the output are zero
+//   there and dq is zero past row 0, as in _thin_bwd;
+// - layer 0 stages its f32 dx over g2 and do, then writes dx in x's dtype
+//   16 bytes a store: B6 adds gmean / H and adds dPE, summed over the
+//   tile's examples, to its slice of ws; B9 writes exact zeros past each
+//   length (a select, never a product with 0).
+// No float atomics and every sum in a fixed order: bit-equal on repeat.
+// Shared memory at the cells (H = 32, D = 64, E = 4) 218,112 bytes, one
+// block an SM.
+
+#include <algorithm>
+#include <type_traits>
+
+#include "mha_tc.cuh"
 
 namespace {
 
@@ -448,6 +512,457 @@ int launch_bwd(const void* g, const void* xs, const void* ps, const void* p0,
   return (int)cudaGetLastError();
 }
 
+// ---- B6 and B9 on the tensor cores -------------------------------------------
+
+namespace tc {
+
+using namespace tt::tc;  // bf16, PAD, TILE_ROWS, warp_gemm, load_x, store_rows, the band helpers
+constexpr int THREADS = 256;  // eight warps, one block an SM
+constexpr int WARPS = THREADS / 32;
+
+// Shared memory of one block in bytes (ops/fused_encoder.py:_enc_bwd_tc_smem_bytes):
+// bf16 round(W_in) [D][3D] and round(W_out) [D][D] of one layer, x, g2, do
+// and the attention output [rows][D] each, q | k | v [rows][3D], each row
+// padded by 8 bf16; min(8, E * D / 16) warp slabs of round(p) and ds
+// [Hp][Hp + 8] each; f32 b_in [3D], b_out [D] and the block's dW_out [D][D].
+size_t smem_bytes(int rows, int Hp, int D) {
+  const size_t slabs = std::min(WARPS, rows / Hp * (D / 16));
+  return 2 * ((size_t)D * (3 * D + PAD) + (size_t)D * (D + PAD) + 4 * (size_t)rows * (D + PAD) +
+              (size_t)rows * (3 * D + PAD) + slabs * 2 * Hp * (Hp + PAD)) +
+         16 * (size_t)D + 4 * (size_t)D * D;
+}
+
+// The thread's index, opaque to the compiler: the addresses a loop derives
+// from it are computed where the loop runs, not once for the whole kernel
+// and kept in registers across the layers (at 255 registers a thread,
+// those spilled).
+__device__ __forceinline__ int fresh_tid() {
+  int t = threadIdx.x;
+  asm volatile("" : "+r"(t));
+  return t;
+}
+
+// MODE_STORED (B6) or MODE_STACK (B9); HPB = Hp / 16; D 32 or 64, so that
+// each warp's slice of a layer's weight grads has a fixed shape in
+// registers.  x is B6's xs [L, B, H, D] or B9's x [B, H, D]; xr (B9, L > 1)
+// and dy are scratch in device memory that the block writes and reads
+// again in this launch, so neither is read through the read-only path.
+template <int MODE, int HPB, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
+                      const bf16* __restrict__ ps, const bf16* __restrict__ p0,
+                      const int* __restrict__ lens, const float* __restrict__ w_in,
+                      const float* __restrict__ b_in, const float* __restrict__ w_out,
+                      const float* __restrict__ b_out, bf16* __restrict__ dx, bf16* xr,
+                      float* dy, float* __restrict__ ws, int B, int H, int NH, int L, int E,
+                      float scale) {
+  constexpr bool STACK = MODE == MODE_STACK;
+  constexpr int Hp = 16 * HPB, D3 = 3 * D;
+  constexpr int SWI = D3 + PAD, SWO = D + PAD, SX = D + PAD, SQ = D3 + PAD, SP = Hp + PAD;
+  constexpr int DS = D + 8;               // f32 row stride of layer 0's dx stage
+  constexpr int RB = D / 16;              // 16-row blocks of dW_in and dW_out
+  constexpr int NTI = 3 * D * D / 1024;   // n8 tiles of dW_in a warp owns
+  constexpr int NTO = D * D / 1024;       // and of dW_out
+  constexpr int NTG = D >= 64 ? 4 : 2;    // warp tile width / 8 of the D-wide products
+  constexpr int CP = D / 2;               // column pairs of a row of dy
+  constexpr int RSTEP = THREADS / CP;     // rows between a thread's rows of dy
+  constexpr int NDY = TILE_ROWS / RSTEP;  // the most rows of dy a thread takes a tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hd = D / NH, rows = E * Hp;
+  bf16* Wi = (bf16*)smem_raw;   // [D][SWI] round(W_in) of the layer
+  bf16* Wo = Wi + D * SWI;      // [D][SWO] round(W_out)
+  bf16* X = Wo + D * SWO;       // [rows][SX] round(x), the layer's input
+  bf16* G = X + rows * SX;      // [rows][SX] g2 = round(dy); B9's first pass: the other x buffer
+  bf16* DO = G + rows * SX;     // [rows][SX] do; dk of each (example, head) after dv
+  bf16* OUT = DO + rows * SX;   // [rows][SX] the attention output
+  bf16* QKV = OUT + rows * SX;  // [rows][SQ] q | k | v, then dq | dk | dv
+  bf16* SL = QKV + rows * SQ;   // [warp][2][Hp][SP] round(p), ds
+  float* bi = (float*)(SL + min(WARPS, E * RB) * 2 * Hp * SP);  // [3D]
+  float* bo = bi + D3;          // [D] (B9's first pass)
+  float* GO = bo + D;           // [D][D] the block's dW_out of the layer
+  float* STG = (float*)G;       // [rows][DS] layer 0's f32 dx, over g2 and do
+  __shared__ int sl[TILE_ROWS / 16];  // the tile's lengths
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32, gq = lane / 4, q4 = lane % 4;
+  const int tiles = (B + E - 1) / E;
+  const size_t lsz = (size_t)B * H * D;  // one layer of xs or xr
+  const size_t wsz = (size_t)L * (4 * D * D + 4 * D) + (STACK ? 0 : (size_t)H * D);
+  float* wsb = ws + (size_t)blockIdx.x * wsz;  // this block's slice of the partial grads
+  float* dpe = wsb + (size_t)L * (4 * D * D + 4 * D);  // its dPE [H][D] (B6)
+
+  // layer l's round(W_in), round(W_out) as bf16 (16 bytes a load), b_in (and b_out) as f32
+  auto stage = [&](int l) {
+    const int t = fresh_tid();
+    const float4* wi = (const float4*)(w_in + (size_t)l * D * D3);
+    const float4* wo = (const float4*)(w_out + (size_t)l * D * D);
+    for (int i = t; i < D * D3 / 4; i += THREADS) {
+      const float4 v = wi[i];
+      *(uint2*)(Wi + (4 * i / D3) * SWI + 4 * i % D3) =
+          make_uint2(tt::pack_bf16x2(v.x, v.y), tt::pack_bf16x2(v.z, v.w));
+    }
+    for (int i = t; i < D * D / 4; i += THREADS) {
+      const float4 v = wo[i];
+      *(uint2*)(Wo + (4 * i / D) * SWO + 4 * i % D) =
+          make_uint2(tt::pack_bf16x2(v.x, v.y), tt::pack_bf16x2(v.z, v.w));
+    }
+    for (int i = t; i < D3; i += THREADS) bi[i] = b_in[(size_t)l * D3 + i];
+    if (STACK)
+      for (int i = t; i < D; i += THREADS) bo[i] = b_out[(size_t)l * D + i];
+  };
+  auto set_lens = [&](int tile) {
+    const int ex = tile * E + t;
+    if (t < E) sl[t] = STACK && ex < B ? lens[ex] : H;
+  };
+
+  if constexpr (STACK) {
+    // the forward, first layer to last, over this block's tiles (B8's
+    // layers on B8's helpers): round(x_l) of layers 1 .. L-1 into xr
+    for (int l = 0; l + 1 < L; ++l) {
+      const bf16* src = l == 0 ? x : xr + (size_t)(l - 1) * lsz;
+      __syncthreads();  // the last layer's tiles are done with the weights and buffers
+      stage(l);
+      load_x(X, src, blockIdx.x, E, Hp, H, D, B);  // the plan gives every block a tile
+      tt::cp_commit();
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += (int)gridDim.x, ++it) {
+        bf16* Xc = it & 1 ? G : X;
+        const int next = tile + (int)gridDim.x;
+        set_lens(tile);
+        tt::cp_wait<0>();
+        __syncthreads();  // x landed, weights and lengths staged, the last tile's output stored
+        if (next < tiles) load_x(it & 1 ? X : G, src, next, E, Hp, H, D, B);
+        tt::cp_commit();
+        warp_gemm<2>(rows, D3, D, Xc, SX, Wi, SWI, [&](int r, int c, float v0, float v1) {
+          *(unsigned*)(QKV + r * SQ + c) = tt::pack_bf16x2(v0 + bi[c], v1 + bi[c + 1]);
+        });
+        __syncthreads();  // q | k | v complete
+        for (int u = warp; u < E * NH * HPB; u += WARPS) {
+          const int e = u / (NH * HPB), h = (u / HPB) % NH, qb = u % HPB;
+          if (tile * E + e >= B) continue;
+          const bf16* K = QKV + e * Hp * SQ + D + h * hd;
+          band_attention<HPB>(QKV + (e * Hp + qb * 16) * SQ + h * hd, K, K + D, SQ, hd, H, sl[e],
+                              scale, [](const unsigned (&)[HPB][4]) {});
+        }
+        __syncthreads();  // the attention output complete
+        // the layer's output, rounded once: the next layer's input (padded rows stay 0)
+        warp_gemm<2>(rows, D, D, QKV, SQ, Wo, SWO, [&](int r, int c, float v0, float v1) {
+          *(unsigned*)(Xc + r * SX + c) =
+              r % Hp < H ? tt::pack_bf16x2(v0 + bo[c], v1 + bo[c + 1]) : 0u;
+        });
+        __syncthreads();  // the output complete
+        store_rows<THREADS>(xr + (size_t)l * lsz, Xc, tile, E, Hp, H, D, B);
+      }
+    }
+  } else {  // dPE [H][D], after the four grads in the block's slice: summed there at layer 0
+    for (int i = t; i < H * D; i += THREADS) dpe[i] = 0.0f;
+  }
+
+  // the backward, last layer to first
+  const int m0 = 16 * (warp % RB), ni0 = (warp / RB) * 8 * NTI, no0 = (warp / RB) * 8 * NTO;
+  for (int l = L - 1; l >= 0; --l) {
+    const bool thin = l == L - 1;
+    const bf16* src = !STACK ? x + (size_t)l * lsz : l == 0 ? x : xr + (size_t)(l - 1) * lsz;
+    // this warp's slice of dW_in in registers across the tiles: rows m0 ..
+    // m0 + 15, columns ni0 ..; its slice of dW_out (columns no0 ..) in GO;
+    // db_in column t (t < 3D)
+    float gi[NTI][4], gbi = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NTI; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) gi[j][c] = 0.0f;
+    __syncthreads();  // the last layer is done with the weights, buffers and its sums
+    stage(l);
+    for (int i = fresh_tid(); i < D * D; i += THREADS) GO[i] = 0.0f;
+    load_x(X, src, blockIdx.x, E, Hp, H, D, B);
+    tt::cp_commit();
+    // B6: the stored round(p) of (example, head) u of `tile` into this
+    // warp's slab with cp.async (rows < 16 in the thin layer, whose p is
+    // row 0's alone); zeros at padded rows and keys
+    auto load_probs = [&](int tile, int u) {
+      const int e = u / NH, h = u - e * NH, ex = tile * E + e;
+      bf16* P = SL + warp * 2 * Hp * SP;
+      const int nr = thin ? 16 : Hp, pr = thin ? 1 : H;
+      const bf16* from = thin ? p0 + ((size_t)ex * NH + h) * H
+                              : ps + (((size_t)l * B + ex) * NH + h) * H * H;
+      if (H % 8 == 0) {  // rows of 16-byte chunks
+        for (int i = lane; i < nr * 2 * HPB; i += 32) {
+          const int r = i / (2 * HPB), c = 8 * (i % (2 * HPB));
+          const bool ok = ex < B && r < pr && c < H;
+          tt::cp_async16(P + r * SP + c, ok ? from + r * H + c : p0, ok ? 16 : 0);
+        }
+      } else {
+        for (int i = lane; i < nr * Hp; i += 32) {
+          const int r = i / Hp, c = i - r * Hp;
+          P[r * SP + c] = ex < B && r < pr && c < H ? from[r * H + c] : __float2bfloat16_rn(0.0f);
+        }
+      }
+    };
+    // a warp per (example, head) of the tile: every query band (one in
+    // the thin layer, whose query is row 0 alone), then dv, dk and dq from
+    // the warp's slabs
+    auto attention = [&](int tile, auto thin_layer) {
+      constexpr bool THIN = decltype(thin_layer)::value;
+      constexpr int NQB = THIN ? 1 : HPB;
+      for (int u = warp; u < E * NH; u += WARPS) {
+        const int e = u / NH, h = u - e * NH;
+        bf16* Qh = QKV + e * Hp * SQ + h * hd;
+        bf16* Kh = Qh + D;
+        bf16* Vh = Qh + 2 * D;
+        bf16* Dh = DO + e * Hp * SX + h * hd;
+        bf16* Oh = OUT + e * Hp * SX + h * hd;
+        bf16* Ps = SL + warp * 2 * Hp * SP;  // round(p) [Hp][SP]
+        bf16* Ss = Ps + Hp * SP;             // ds [Hp][SP]
+        if constexpr (!STACK) {  // this (example, head)'s probabilities landed
+          tt::cp_wait<0>();
+          __syncwarp();
+        }
+        for (int qb = 0; qb < NQB; ++qb) {
+          float s[2 * HPB][4];  // p in f32 in the S accumulators' layout
+          if constexpr (STACK) {  // recomputed, as B8 computes it
+            band_probs<HPB>(s, Qh + qb * 16 * SQ, Kh, SQ, hd, H, sl[e], scale);
+            if constexpr (THIN)  // row 0 alone
+#pragma unroll
+              for (int j = 0; j < 2 * HPB; ++j)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) s[j][c] = gq == 0 && c < 2 ? s[j][c] : 0.0f;
+          } else {  // the forward's round(p), from the slab
+#pragma unroll
+            for (int j = 0; j < 2 * HPB; ++j) {
+              const bf16* pr = Ps + (qb * 16 + gq) * SP + 8 * j + 2 * q4;
+              const float2 a = __bfloat1622float2(*(const __nv_bfloat162*)pr);
+              const float2 b = __bfloat1622float2(*(const __nv_bfloat162*)(pr + 8 * SP));
+              s[j][0] = a.x;
+              s[j][1] = a.y;
+              s[j][2] = b.x;
+              s[j][3] = b.y;
+            }
+          }
+          unsigned pa[HPB][4];
+          pack_probs<HPB>(pa, s, STACK ? Ps + qb * 16 * SP : nullptr, SP);
+          band_bwd<HPB>(s, pa, Vh, SQ, Dh + qb * 16 * SX, SX, Oh + qb * 16 * SX, SX,
+                        Ss + qb * 16 * SP, SP, hd, scale);
+        }
+        if constexpr (THIN)  // the output rows past the first band: zeros for dW_out
+          for (int i = lane; i < (Hp - 16) * (hd / 8); i += 32)
+            *(uint4*)(Oh + (16 + i / (hd / 8)) * SX + 8 * (i % (hd / 8))) = make_uint4(0, 0, 0, 0);
+        head_grads<HPB, NQB>(Ps, Ss, SP, Qh, Kh, Vh, SQ, Dh, SX, hd, [&] {
+          if constexpr (!STACK) {  // the next (example, head)'s probabilities, behind dk and dq
+            if (u + WARPS < E * NH) load_probs(tile, u + WARPS);
+            tt::cp_commit();
+          }
+        });
+      }
+    };
+
+    for (int tile = blockIdx.x; tile < tiles; tile += (int)gridDim.x) {
+      const int next = tile + (int)gridDim.x;
+      set_lens(tile);
+      if constexpr (!STACK) {  // the first (example, head) of this warp, behind the projections
+        if (warp < E * NH) load_probs(tile, warp);
+        tt::cp_commit();
+      }
+      // g2 = round(dy) into G: the f32 dy of the layer above, or g's row 0
+      // in the thin layer.  A thread takes rows r0, r0 + RSTEP, ... of each
+      // example (Hp is a multiple of RSTEP), so the i-th is row r0 + (i %
+      // NPE) RSTEP of example i / NPE; all loads first.
+      {
+        constexpr int NPE = Hp / RSTEP;
+        const int cp = fresh_tid() % CP, r0 = fresh_tid() / CP;  // column pair, first row
+        float2 v[NDY];
+#pragma unroll
+        for (int i = 0; i < NDY; ++i) {
+          const int e = i / NPE, hi = r0 + (i % NPE) * RSTEP, ex = tile * E + e;
+          v[i] = make_float2(0.0f, 0.0f);
+          if (e < E && ex < B) {
+            if (thin) {
+              if (hi == 0)
+                v[i] = __bfloat1622float2(
+                    *(const __nv_bfloat162*)(g + (size_t)ex * (STACK ? D : 2 * D) + 2 * cp));
+            } else if (hi < H) {
+              v[i] = *(const float2*)(dy + ((size_t)ex * H + hi) * D + 2 * cp);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < NDY; ++i) {
+          const int e = i / NPE, hi = r0 + (i % NPE) * RSTEP;
+          if (e < E)
+            *(unsigned*)(G + (e * Hp + hi) * SX + 2 * cp) = tt::pack_bf16x2(v[i].x, v[i].y);
+        }
+      }
+      tt::cp_wait<STACK ? 0 : 1>();
+      __syncthreads();  // x landed, g2 complete, lengths and weights staged
+      qkv_and_do<NTG>(rows, D, X, SX, Wi, SWI, bi, QKV, SQ, G, Wo, SWO, DO);
+      __syncthreads();  // q | k | v and do complete
+      if (thin)
+        attention(tile, std::true_type());
+      else
+        attention(tile, std::false_type());
+      __syncthreads();  // dq | dk | dv and the attention output complete
+
+      // the weight grads: dW_in += round(x)^T dqkv (this warp's slice),
+      // dW_out += out^T g2 (the tile's sum added to the warp's slice of
+      // GO), db_in += sum dqkv (a column a thread)
+      warp_gemm_tn<NTI>(gi, rows, X, SX, m0, QKV, SQ, ni0);
+      {
+        float go[NTO][4];
+#pragma unroll
+        for (int j = 0; j < NTO; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) go[j][c] = 0.0f;
+        warp_gemm_tn<NTO>(go, rows, OUT, SX, m0, G, SX, no0);
+        store_slice<NTO, true>(GO, D, go, m0, no0);
+      }
+      if (t < D3) gbi += col_sum(QKV + t, SQ, rows);
+      __syncthreads();  // x, g2 and the attention output read
+      if (next < tiles) load_x(X, src, next, E, Hp, H, D, B);
+      tt::cp_commit();
+      if (l > 0) {
+        // dx = dqkv round(W_in)^T (depth 3D) in f32: the dy of the layer
+        // below, straight from the accumulators
+        warp_gemm<NTG, true>(rows, D, D3, QKV, SQ, Wi, SWI, [&](int r, int c, float v0, float v1) {
+          const int e = r / Hp, hi = r - e * Hp, ex = tile * E + e;
+          if (ex < B && hi < H)
+            *(float2*)(dy + ((size_t)ex * H + hi) * D + c) = make_float2(v0, v1);
+        });
+        continue;
+      }
+      // layer 0: dx staged in f32 over g2 and do, then written in x's dtype
+      // 16 bytes a store (B6: + gmean / H; B9: zeros past each length),
+      // and B6's dPE summed over the tile's examples in order
+      warp_gemm<NTG, true>(rows, D, D3, QKV, SQ, Wi, SWI, [&](int r, int c, float v0, float v1) {
+        *(float2*)(STG + r * DS + c) = make_float2(v0, v1);
+      });
+      __syncthreads();  // dx staged
+      for (int i = fresh_tid(); i < rows * (D / 8); i += THREADS) {
+        const int r = i / (D / 8), c = 8 * (i - r * (D / 8)), e = r / Hp, hi = r - e * Hp;
+        const int ex = tile * E + e;
+        if (ex >= B || hi >= H) continue;
+        const float4 a = *(const float4*)(STG + r * DS + c);
+        const float4 b = *(const float4*)(STG + r * DS + c + 4);
+        float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+        if constexpr (STACK) {
+          if (hi >= sl[e])
+#pragma unroll
+            for (int k = 0; k < 8; ++k) v[k] = 0.0f;
+        } else {
+          const uint4 gm = *(const uint4*)(g + ((size_t)ex * 2 + 1) * D + c);
+          const __nv_bfloat162* g2 = (const __nv_bfloat162*)&gm;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float2 f = __bfloat1622float2(g2[k]);
+            v[2 * k] += f.x / (float)H;
+            v[2 * k + 1] += f.y / (float)H;
+          }
+        }
+        *(uint4*)(dx + ((size_t)ex * H + hi) * D + c) =
+            make_uint4(tt::pack_bf16x2(v[0], v[1]), tt::pack_bf16x2(v[2], v[3]),
+                       tt::pack_bf16x2(v[4], v[5]), tt::pack_bf16x2(v[6], v[7]));
+      }
+      if constexpr (!STACK)  // H <= 64: at most 64 D / THREADS elements a thread
+#pragma unroll
+        for (int k = 0; k < 64 * D / THREADS; ++k) {
+          const int i = fresh_tid() + k * THREADS, hi = i / D, c = i - hi * D;
+          if (hi < H) {
+            float acc = 0.0f;
+            for (int e = 0; e < E && tile * E + e < B; ++e) acc += STG[(e * Hp + hi) * DS + c];
+            dpe[i] += acc;
+          }
+        }
+      __syncthreads();  // the stage read: the next tile writes g2
+    }
+    tt::cp_wait<0>();
+
+    // this layer's partials to the block's slice: dW_in [L][D][3D], db_in
+    // [L][3D], dW_out [L][D][D], db_out [L][D]
+    float* dbo = wsb + (size_t)L * (D * D3 + D3 + D * D);
+    {
+      const int w = fresh_tid() / 32;  // the slice's address, not kept from the kernel's start
+      store_slice<NTI>(wsb + (size_t)l * D * D3, D3, gi, 16 * (w % RB), (w / RB) * 8 * NTI);
+    }
+    if (t < D3) {
+      wsb[(size_t)L * D * D3 + (size_t)l * D3 + t] = gbi;
+      bi[t] = gbi;  // b_in is dead: db_in to shared memory for the layer below's db_out
+    }
+    __syncthreads();  // GO and db_in complete
+    for (int i = fresh_tid(); i < D * D; i += THREADS)
+      wsb[(size_t)L * (D * D3 + D3) + (size_t)l * D * D + i] = GO[i];
+    // db_out of the layer below sums its dy, dqkv round(W_in)^T, over the
+    // block's rows: the block's db_in times round(W_in)^T, in f32, by
+    // linearity, where summing 10^5 dy rows would add up the tensor cores'
+    // product errors
+    if (l > 0 && t < D) {
+      float acc = 0.0f;
+      for (int j = 0; j < D3; ++j) acc = fmaf(bi[j], __bfloat162float(Wi[t * SWI + j]), acc);
+      dbo[(size_t)(l - 1) * D + t] = acc;
+    }
+    if (thin) {
+      // db_out of the thin layer sums g's row 0 over the block's examples:
+      // THREADS / D groups of a thread a column, each a share of the
+      // tiles, then the groups in order (do is dead)
+      constexpr int NG = THREADS / D;
+      const int c = t % D, grp = t / D;
+      float acc = 0.0f;
+      for (int tile = blockIdx.x + grp * (int)gridDim.x; tile < tiles; tile += NG * (int)gridDim.x)
+        for (int e = 0; e < E && tile * E + e < B; ++e)
+          acc += __bfloat162float(g[(size_t)(tile * E + e) * (STACK ? D : 2 * D) + c]);
+      float* red = (float*)DO;
+      red[t] = acc;
+      __syncthreads();
+      if (t < D) {
+        float sum = 0.0f;
+        for (int k = 0; k < NG; ++k) sum += red[k * D + t];
+        dbo[(size_t)l * D + t] = sum;
+      }
+    }
+  }
+}
+
+template <int MODE, int HPB, int D>
+int launch(const void* g, const void* x, const void* ps, const void* p0, const void* lens,
+           const void* w_in, const void* b_in, const void* w_out, const void* b_out, void* dx,
+           void* xr, void* dy, void* ws, int B, int H, int NH, int L, int E, int grid,
+           void* stream) {
+  const size_t smem = smem_bytes(E * 16 * HPB, 16 * HPB, D);
+  cudaError_t err = cudaFuncSetAttribute(encoder_bwd_tc_kernel<MODE, HPB, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const float scale = (float)(1.0 / sqrt((double)(D / NH)));
+  encoder_bwd_tc_kernel<MODE, HPB, D><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const bf16*)g, (const bf16*)x, (const bf16*)ps, (const bf16*)p0, (const int*)lens,
+      (const float*)w_in, (const float*)b_in, (const float*)w_out, (const float*)b_out,
+      (bf16*)dx, (bf16*)xr, (float*)dy, (float*)ws, B, H, NH, L, E, scale);
+  return (int)cudaGetLastError();
+}
+
+// Checks the shape and plan (ops/fused_encoder.py:_enc_bwd_tc_plan) and
+// launches the instance of D and H's key bands.
+template <int MODE>
+int launch_shape(const void* g, const void* x, const void* ps, const void* p0, const void* lens,
+                 const void* w_in, const void* b_in, const void* w_out, const void* b_out,
+                 void* dx, void* xr, void* dy, void* ws, int B, int H, int D, int NH, int L,
+                 int ept, int grid, void* stream) {
+  const int hpb = (H + 15) / 16;
+  const bool deep = MODE == MODE_STACK ? xr != nullptr : ps != nullptr;  // the full layers' inputs
+  if (B < 1 || H < 1 || NH < 1 || L < 1 || (D != 32 && D != 64) || D % NH != 0 ||
+      (D / NH) % 16 != 0 || hpb > 4 || ept < 1 || (ept * 16 * hpb) % 32 != 0 ||
+      ept * 16 * hpb > TILE_ROWS || grid < 1 || grid > (B + ept - 1) / ept || deep != (L > 1))
+    return (int)cudaErrorInvalidValue;
+#define TT_ARGS g, x, ps, p0, lens, w_in, b_in, w_out, b_out, dx, xr, dy, ws, B, H, NH, L, ept, grid, stream
+  switch (hpb + 4 * (D == 64)) {
+    case 1: return launch<MODE, 1, 32>(TT_ARGS);
+    case 2: return launch<MODE, 2, 32>(TT_ARGS);
+    case 3: return launch<MODE, 3, 32>(TT_ARGS);
+    case 4: return launch<MODE, 4, 32>(TT_ARGS);
+    case 5: return launch<MODE, 1, 64>(TT_ARGS);
+    case 6: return launch<MODE, 2, 64>(TT_ARGS);
+    case 7: return launch<MODE, 3, 64>(TT_ARGS);
+    default: return launch<MODE, 4, 64>(TT_ARGS);
+  }
+#undef TT_ARGS
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Each backward runs over G = ceil(B / epb) blocks, each writing its slice
@@ -494,4 +1009,30 @@ extern "C" int tt_fused_history_encoder_bwd_reduce(const void* ws, void* grads,
   reduce_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       (const float*)ws, (float*)grads, G, (size_t)n);
   return (int)cudaGetLastError();
+}
+
+// B6 on the tensor cores: g [B, 2, D], xs [L, B, H, D], ps [L-1, B, NH, H, H]
+// (null when L == 1) and p0 [B, NH, H] bf16, 16-byte aligned; the f32
+// weights (W_in, W_out 16-byte aligned).  D 32 or 64, D / NH a multiple of
+// 16, Hp = round_up(H, 16) <= 64; ept examples a tile, grid blocks
+// (ops/fused_encoder.py:_enc_bwd_tc_plan).  dx [B, H, D] bf16, dy an f32
+// scratch [B, H, D], ws [grid, L (4D^2 + 4D) + H D] as
+// tt_fused_history_encoder_bwd's.
+extern "C" int tt_fused_history_encoder_bwd_tc(
+    const void* g, const void* xs, const void* ps, const void* p0, const void* w_in,
+    const void* b_in, const void* w_out, void* dx, void* dy_scratch, void* ws, int B, int H,
+    int D, int NH, int L, int ept, int grid, void* stream) {
+  return tc::launch_shape<MODE_STORED>(g, xs, ps, p0, nullptr, w_in, b_in, w_out, nullptr, dx,
+                                       nullptr, dy_scratch, ws, B, H, D, NH, L, ept, grid, stream);
+}
+
+// B9 on the tensor cores: g [B, D], x [B, H, D] bf16 (16-byte aligned),
+// lens [B] int32 and the f32 weights; xr a bf16 scratch [L-1, B, H, D]
+// (null when L == 1), dy and ws as B6's (ws [grid, L (4D^2 + 4D)]).
+extern "C" int tt_fused_attn_stack_bwd_tc(
+    const void* g, const void* x, const void* lens, const void* w_in, const void* b_in,
+    const void* w_out, const void* b_out, void* dx, void* xr, void* dy_scratch, void* ws, int B,
+    int H, int D, int NH, int L, int ept, int grid, void* stream) {
+  return tc::launch_shape<MODE_STACK>(g, x, nullptr, nullptr, lens, w_in, b_in, w_out, b_out, dx,
+                                      xr, dy_scratch, ws, B, H, D, NH, L, ept, grid, stream);
 }

@@ -129,6 +129,9 @@
 //   reduce_kernel sums the blocks in order (no float atomics);
 // - dx = dqkv round(W_in)^T (depth 3D), staged as bf16 over the attention
 //   output and written with 16-byte stores, rows < H only.
+// The tile's pieces (the projections, the band softmax backward, the slab
+// products, the grad-slice sums) are in csrc/mha_tc.cuh, shared with the
+// whole encoder's backward (csrc/fused_encoder_bwd.cu).
 // Shared memory at the cells 201,472 bytes (W 34 KB; x, g2, do, out 18 KB
 // each; q | k | v 51 KB; eight slabs 41 KB), so one block an SM and 255
 // registers a thread allowed: ptxas gives 199-244 at D = 64 (205 at the
@@ -575,69 +578,6 @@ int launch(const void* x, const void* lens, const void* w_in, const void* b_in,
 
 // ---- B14 on the tensor cores ----------------------------------------------
 
-// The sum over one row of a lane quad's values f(j, c) (c = 0, 1: the
-// row's two columns of n-tile j) in row_den's order, so in the FMA
-// kernel's: a lane per key kj < 32 holds f at kj and kj + 32, then a
-// butterfly over the 32 lanes at offsets 16, 8, 4, 2, 1.
-template <int HPB, class F>
-__device__ __forceinline__ float row_sum(F f) {
-  float a[4][2];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      a[j][c] = j < 2 * HPB ? f(j, c) : 0.0f;
-      if (j + 4 < 2 * HPB) a[j][c] += f(j + 4, c);
-    }
-  float u[2];
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    u[c] = (a[0][c] + a[2][c]) + (a[1][c] + a[3][c]);
-    u[c] += __shfl_xor_sync(0xffffffffu, u[c], 2);
-    u[c] += __shfl_xor_sync(0xffffffffu, u[c], 1);
-  }
-  return u[0] + u[1];
-}
-
-// The two m16n8 accumulators of a 16 x 16 product, rounded to bf16, at dst
-// (row stride ld): rows g and g + 8, columns 8j + 2q4 and the next.
-__device__ __forceinline__ void store_c16(bf16* dst, int ld, const float (&o)[2][4]) {
-  const int lane = threadIdx.x % 32, g = lane / 4, q4 = lane % 4;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    *(unsigned*)(dst + g * ld + 8 * j + 2 * q4) = tt::pack_bf16x2(o[j][0], o[j][1]);
-    *(unsigned*)(dst + (g + 8) * ld + 8 * j + 2 * q4) = tt::pack_bf16x2(o[j][2], o[j][3]);
-  }
-}
-
-// acc [16, 8 NTT] += A[0 : rows, m0 : m0 + 16]^T . Bm[0 : rows, n0 : n0 + 8 NTT],
-// A and Bm bf16 by row in shared memory (strides sa, sb), rows a multiple
-// of 16: a sum over rows, so A^T is read through ldmatrix.trans.  Each k16
-// step (16 rows) is summed on its own and added rounded (tt::mma_bf16_add).
-template <int NTT>
-__device__ __forceinline__ void warp_gemm_tn(float (&acc)[NTT][4], int rows, const bf16* A,
-                                             int sa, int m0, const bf16* Bm, int sb, int n0) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll 1
-  for (int k0 = 0; k0 < rows; k0 += 16) {
-    unsigned a[4];  // a0 (m 0-7, k 0-7), a1 (m 8-15, k 0-7), a2 (m 0-7, k 8-15), a3
-    tt::ldmatrix_x4<true>(a, A + (k0 + lane % 8 + (lane / 16) * 8) * sa + m0 + ((lane / 8) % 2) * 8);
-    const bf16* brow = Bm + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * sb + n0;
-#pragma unroll
-    for (int j = 0; j + 1 < NTT; j += 2) {
-      unsigned b[4];
-      tt::ldmatrix_x4<true>(b, brow + 8 * j + (lane / 16) * 8);
-      tt::mma_bf16_add(acc[j], a, b[0], b[1]);
-      tt::mma_bf16_add(acc[j + 1], a, b[2], b[3]);
-    }
-    if constexpr (NTT % 2 == 1) {
-      unsigned b[2];
-      tt::ldmatrix_x2<true>(b, brow + 8 * (NTT - 1));
-      tt::mma_bf16_add(acc[NTT - 1], a, b[0], b[1]);
-    }
-  }
-}
-
 // Shared memory of one backward block in bytes
 // (ops/fused_mha.py:_bwd_tc_smem_bytes): bf16 round(W_in) [D][3D],
 // round(W_out) [D][D], x, g2, do and the attention output [rows][D] each,
@@ -677,7 +617,7 @@ mha_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
   bf16* SL = QKV + rows * SQ;         // [warp][2][Hp][SP] round(p), ds
   float* bi = (float*)(SL + min(WARPS, E * RB) * 2 * Hp * SP);  // [3D]
   __shared__ int sl[TILE_ROWS / 16];  // the tile's lengths
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32, gq = lane / 4, q4 = lane % 4;
+  const int t = threadIdx.x, warp = t / 32;
   const int tiles = (B + E - 1) / E;
   auto tile_len = [&](int tile) {
     const int ex = tile * E + t;
@@ -719,12 +659,7 @@ mha_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
     if (t < E) sl[t] = len_next;
     tt::cp_wait<0>();
     __syncthreads();  // x and g landed, lengths and weights staged, the previous dx written out
-    warp_gemm<4>(rows, D3, D, X, SX, Wi, SWI, [&](int r, int c, float v0, float v1) {
-      *(unsigned*)(QKV + r * SQ + c) = tt::pack_bf16x2(v0 + bi[c], v1 + bi[c + 1]);
-    });
-    warp_gemm<NTG, true>(rows, D, D, G, SX, Wo, SWO, [&](int r, int c, float v0, float v1) {
-      *(unsigned*)(DO + r * SX + c) = tt::pack_bf16x2(v0, v1);
-    });
+    qkv_and_do<NTG>(rows, D, X, SX, Wi, SWI, bi, QKV, SQ, G, Wo, SWO, DO);
     if (next < tiles) len_next = tile_len(next);
     __syncthreads();  // q | k | v and do complete
 
@@ -740,169 +675,14 @@ mha_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
       bf16* Ps = SL + warp * 2 * Hp * SP;  // round(p) [Hp][SP]
       bf16* Ss = Ps + Hp * SP;             // ds [Hp][SP]
       for (int qb = 0; qb < HPB; ++qb) {
-        float s[2 * HPB][4];
-#pragma unroll
-        for (int j = 0; j < 2 * HPB; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) s[j][c] = 0.0f;
-        for (int c0 = 0; c0 < hd; c0 += 16) {
-          unsigned a[4];
-          tt::ldmatrix_x4<false>(a, Qh + (qb * 16 + lane % 16) * SQ + c0 + (lane / 16) * 8);
-#pragma unroll
-          for (int jp = 0; jp < HPB; ++jp) {
-            unsigned b[4];
-            tt::ldmatrix_x4<false>(
-                b, Kh + (jp * 16 + lane % 8 + (lane / 16) * 8) * SQ + c0 + ((lane / 8) % 2) * 8);
-            tt::mma_bf16(s[2 * jp], a, b[0], b[1]);
-            tt::mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
-          }
-        }
-        // the forward's softmax, as mha_fwd_tc_kernel computes it; p stays f32
-        float m0r = -INFINITY, m1r = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 2 * HPB; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int key = 8 * j + 2 * q4 + (c & 1);
-            s[j][c] = key >= H ? -INFINITY : key < len ? s[j][c] * scale : -1e30f;
-            if (c < 2) m0r = fmaxf(m0r, s[j][c]);
-            else m1r = fmaxf(m1r, s[j][c]);
-          }
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          m0r = fmaxf(m0r, __shfl_xor_sync(0xffffffffu, m0r, off));
-          m1r = fmaxf(m1r, __shfl_xor_sync(0xffffffffu, m1r, off));
-        }
-#pragma unroll
-        for (int j = 0; j < 2 * HPB; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) s[j][c] = expf(s[j][c] - (c < 2 ? m0r : m1r));
-        const float d0 = fmaxf(row_den<HPB>(s, 0), 1e-30f);
-        const float d1 = fmaxf(row_den<HPB>(s, 2), 1e-30f);
-#pragma unroll
-        for (int j = 0; j < 2 * HPB; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const float ev = s[j][c];  // a masked key's e is 0: skip the slow division
-            s[j][c] = ev == 0.0f ? 0.0f : ev / (c < 2 ? d0 : d1);
-          }
-        // round(p): P.V's A operand, and its band of the slab for dv
-        unsigned pa[HPB][4];
-#pragma unroll
-        for (int kk = 0; kk < HPB; ++kk) {
-          pa[kk][0] = tt::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-          pa[kk][1] = tt::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-          pa[kk][2] = tt::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-          pa[kk][3] = tt::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-          bf16* pr = Ps + (qb * 16 + gq) * SP + 16 * kk + 2 * q4;
-          *(unsigned*)pr = pa[kk][0];
-          *(unsigned*)(pr + 8 * SP) = pa[kk][1];
-          *(unsigned*)(pr + 8) = pa[kk][2];
-          *(unsigned*)(pr + 8 * SP + 8) = pa[kk][3];
-        }
-        // out = round(P.V_h)
-        for (int c0 = 0; c0 < hd; c0 += 16) {
-          float o[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-#pragma unroll
-          for (int kk = 0; kk < HPB; ++kk) {
-            unsigned b[4];
-            tt::ldmatrix_x4<true>(
-                b, Vh + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * SQ + c0 + (lane / 16) * 8);
-            tt::mma_bf16(o[0], pa[kk], b[0], b[1]);
-            tt::mma_bf16(o[1], pa[kk], b[2], b[3]);
-          }
-          store_c16(Oh + qb * 16 * SX + c0, SX, o);
-        }
-        // dp = do_h V_h^T, f32
-        float dp[2 * HPB][4];
-#pragma unroll
-        for (int j = 0; j < 2 * HPB; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) dp[j][c] = 0.0f;
-        for (int c0 = 0; c0 < hd; c0 += 16) {
-          unsigned a[4];
-          tt::ldmatrix_x4<false>(a, Dh + (qb * 16 + lane % 16) * SX + c0 + (lane / 16) * 8);
-#pragma unroll
-          for (int jp = 0; jp < HPB; ++jp) {
-            unsigned b[4];
-            tt::ldmatrix_x4<false>(
-                b, Vh + (jp * 16 + lane % 8 + (lane / 16) * 8) * SQ + c0 + ((lane / 8) % 2) * 8);
-            tt::mma_bf16(dp[2 * jp], a, b[0], b[1]);
-            tt::mma_bf16(dp[2 * jp + 1], a, b[2], b[3]);
-          }
-        }
-        // pdp, the row sums of round(dp p); ds = round(p (dp - pdp) scale) to the slab
-        const float r0 = row_sum<HPB>(
-            [&](int j, int c) { return tt::round_bf16(dp[j][c] * s[j][c]); });
-        const float r1 = row_sum<HPB>(
-            [&](int j, int c) { return tt::round_bf16(dp[j][2 + c] * s[j][2 + c]); });
-#pragma unroll
-        for (int j = 0; j < 2 * HPB; ++j) {
-          bf16* sr = Ss + (qb * 16 + gq) * SP + 8 * j + 2 * q4;
-          *(unsigned*)sr = tt::pack_bf16x2(s[j][0] * (dp[j][0] - r0) * scale,
-                                          s[j][1] * (dp[j][1] - r0) * scale);
-          *(unsigned*)(sr + 8 * SP) = tt::pack_bf16x2(s[j][2] * (dp[j][2] - r1) * scale,
-                                                     s[j][3] * (dp[j][3] - r1) * scale);
-        }
+        float s[2 * HPB][4];  // the forward's softmax; p stays f32
+        band_probs<HPB>(s, Qh + qb * 16 * SQ, Kh, SQ, hd, H, len, scale);
+        unsigned pa[HPB][4];  // round(p): P.V's A operand, and its band of the slab for dv
+        pack_probs<HPB>(pa, s, Ps + qb * 16 * SP, SP);
+        band_bwd<HPB>(s, pa, Vh, SQ, Dh + qb * 16 * SX, SX, Oh + qb * 16 * SX, SX,
+                      Ss + qb * 16 * SP, SP, hd, scale);
       }
-      __syncwarp();
-      // dv_h = round(round(P)^T do_h) over v's columns (v is dead); P^T and
-      // dS^T are read from the slabs through ldmatrix.trans
-      for (int kb = 0; kb < HPB; ++kb)
-        for (int c0 = 0; c0 < hd; c0 += 16) {
-          float o[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-#pragma unroll
-          for (int qb = 0; qb < HPB; ++qb) {
-            unsigned a[4], b[4];
-            tt::ldmatrix_x4<true>(
-                a, Ps + (qb * 16 + lane % 8 + (lane / 16) * 8) * SP + kb * 16 + ((lane / 8) % 2) * 8);
-            tt::ldmatrix_x4<true>(
-                b, Dh + (qb * 16 + lane % 8 + ((lane / 8) % 2) * 8) * SX + c0 + (lane / 16) * 8);
-            tt::mma_bf16(o[0], a, b[0], b[1]);
-            tt::mma_bf16(o[1], a, b[2], b[3]);
-          }
-          store_c16(Vh + kb * 16 * SQ + c0, SQ, o);
-        }
-      __syncwarp();
-      // dk_h = round(dS^T Q_h) over do_h (dead once dv is taken)
-      for (int kb = 0; kb < HPB; ++kb)
-        for (int c0 = 0; c0 < hd; c0 += 16) {
-          float o[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-#pragma unroll
-          for (int qb = 0; qb < HPB; ++qb) {
-            unsigned a[4], b[4];
-            tt::ldmatrix_x4<true>(
-                a, Ss + (qb * 16 + lane % 8 + (lane / 16) * 8) * SP + kb * 16 + ((lane / 8) % 2) * 8);
-            tt::ldmatrix_x4<true>(
-                b, Qh + (qb * 16 + lane % 8 + ((lane / 8) % 2) * 8) * SQ + c0 + (lane / 16) * 8);
-            tt::mma_bf16(o[0], a, b[0], b[1]);
-            tt::mma_bf16(o[1], a, b[2], b[3]);
-          }
-          store_c16(Dh + kb * 16 * SX + c0, SX, o);
-        }
-      __syncwarp();
-      // dq_h = round(dS K_h) over q's columns (q is dead once dk is taken)
-      for (int qb = 0; qb < HPB; ++qb)
-        for (int c0 = 0; c0 < hd; c0 += 16) {
-          float o[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-#pragma unroll
-          for (int kk = 0; kk < HPB; ++kk) {
-            unsigned a[4], b[4];
-            tt::ldmatrix_x4<false>(a, Ss + (qb * 16 + lane % 16) * SP + kk * 16 + (lane / 16) * 8);
-            tt::ldmatrix_x4<true>(
-                b, Kh + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * SQ + c0 + (lane / 16) * 8);
-            tt::mma_bf16(o[0], a, b[0], b[1]);
-            tt::mma_bf16(o[1], a, b[2], b[3]);
-          }
-          store_c16(Qh + qb * 16 * SQ + c0, SQ, o);
-        }
-      __syncwarp();
-      // dk over k's columns (k is dead once dq is taken)
-      for (int i = lane; i < Hp * hd / 8; i += 32) {
-        const int r = i / (hd / 8), c = 8 * (i - r * (hd / 8));
-        *(uint4*)(Kh + r * SQ + c) = *(const uint4*)(Dh + r * SX + c);
-      }
-      __syncwarp();  // the slabs are free for this warp's next (example, head)
+      head_grads<HPB, HPB>(Ps, Ss, SP, Qh, Kh, Vh, SQ, Dh, SX, hd, [] {});
     }
     __syncthreads();  // dq | dk | dv and the attention output complete
 
@@ -910,15 +690,7 @@ mha_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
     // warp's slices), db_in += sum dqkv, db_out += sum g2 (a column a thread)
     warp_gemm_tn<NTI>(gi, rows, X, SX, m0, QKV, SQ, ni0);
     warp_gemm_tn<NTO>(go, rows, OUT, SX, m0, G, SX, no0);
-    if (t < 4 * D) {
-      const bf16* col = t < D3 ? QKV + t : G + (t - D3);
-      const int ld = t < D3 ? SQ : SX;
-      float c4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int r = 0; r < rows; r += 4)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) c4[i] += __bfloat162float(col[(r + i) * ld]);
-      gb += (c4[0] + c4[1]) + (c4[2] + c4[3]);
-    }
+    if (t < 4 * D) gb += t < D3 ? col_sum(QKV + t, SQ, rows) : col_sum(G + (t - D3), SX, rows);
     __syncthreads();  // x, g2 and the attention output read
     if (next < tiles) {
       load_x(X, x, next, E, Hp, H, D, B);
@@ -942,19 +714,9 @@ mha_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
 
   // this block's partials: dW_in [D][3D], db_in [3D], dW_out [D][D], db_out [D]
   float* wsb = ws + (size_t)blockIdx.x * (4 * D * D + 4 * D);
-#pragma unroll
-  for (int j = 0; j < NTI; ++j) {
-    float* p = wsb + (m0 + gq) * D3 + ni0 + 8 * j + 2 * q4;
-    *(float2*)p = make_float2(gi[j][0], gi[j][1]);
-    *(float2*)(p + 8 * D3) = make_float2(gi[j][2], gi[j][3]);
-  }
   float* wo = wsb + D * D3 + D3;
-#pragma unroll
-  for (int j = 0; j < NTO; ++j) {
-    float* p = wo + (m0 + gq) * D + no0 + 8 * j + 2 * q4;
-    *(float2*)p = make_float2(go[j][0], go[j][1]);
-    *(float2*)(p + 8 * D) = make_float2(go[j][2], go[j][3]);
-  }
+  store_slice<NTI>(wsb, D3, gi, m0, ni0);
+  store_slice<NTO>(wo, D, go, m0, no0);
   if (t < D3) wsb[D * D3 + t] = gb;
   else if (t < 4 * D) wo[D * D + t - D3] = gb;
 }

@@ -40,6 +40,14 @@ than the plain version, so ``fused_history_encoder_f64_sums``,
 (the same functions with every sum in f64) are the yardstick both are
 measured against on the card.
 
+B6 and B9 run on one of two kernels too, chosen by ``_enc_bwd_route``:
+bf16 encoders of D 32 or 64, head width 16k and H up to 64 go to
+``encoder_bwd_tc_kernel`` (the tensor cores, one layer's weights staged at
+a time, the layers walked last to first over each block's own tiles), the
+rest to ``encoder_bwd_kernel`` (the CUDA cores); B7 stays on the CUDA cores.
+``fused_history_encoder_bwd_f64_sums`` and ``fused_attn_stack_bwd_f64_sums``
+are the backwards' yardsticks.
+
 Residual layouts (any layout will do, as long as kernel and plain agree):
 xs [L, B, H, D], ps [L-1, B, NH, H, H] (None when L == 1) and p0
 [B, NH, H], all in the input dtype: per head, the values of the Pallas
@@ -330,6 +338,63 @@ def fused_attn_stack_f64_sums(x, lengths, w_in, b_in, w_out, b_out, num_heads):
     return y0.to(x.dtype)
 
 
+def _backward_f64_sums(dy, xs, ps, w_in, b_in, w_out, num_heads, rb):
+    """``_backward_plain`` with every sum in f64: dy [B, nq, D], the layers'
+    inputs xs and probabilities ps f64 (each rounded by ``rb`` where the
+    plain version rounds it).  Returns (the cotangent of layer 0's input,
+    [dw_in, db_in, dw_out, db_out]), f64."""
+    num_layers = w_in.shape[0]
+    b, h, d = xs[0].shape
+    hd = d // num_heads
+    heads = lambda t: t.reshape(b, t.shape[1], num_heads, hd).transpose(1, 2)
+    merge = lambda t: t.transpose(1, 2).reshape(b, t.shape[2], d)
+    grads = [[None] * num_layers for _ in range(4)]
+    for l in range(num_layers - 1, -1, -1):
+        x2, wi, p = rb(xs[l]), rb(w_in[l]), ps[l]
+        q, k, v = (rb(t) for t in (x2 @ wi + b_in[l].double()).split(d, -1))
+        qh, kh, vh = heads(q[:, : p.shape[2]]), heads(k), heads(v)
+        pv = rb(p)
+        g2 = rb(dy)
+        grads[2][l] = torch.einsum("bqc,bqj->cj", rb(merge(pv @ vh)), g2)
+        grads[3][l] = dy.sum(dim=(0, 1))
+        do = heads(rb(g2 @ rb(w_out[l]).T))
+        dp = do @ vh.transpose(-1, -2)
+        ds = rb(p * (dp - rb(dp * p).sum(-1, keepdim=True)) / math.sqrt(hd))
+        dq = merge(ds @ kh)
+        dq = torch.cat([dq, dq.new_zeros(b, h - dq.shape[1], d)], dim=1)
+        dqkv = rb(torch.cat([dq, merge(ds.transpose(-1, -2) @ qh),
+                             merge(pv.transpose(-1, -2) @ do)], -1))
+        grads[0][l] = torch.einsum("brd,brj->dj", x2, dqkv)
+        grads[1][l] = dqkv.sum(dim=(0, 1))
+        dy = dqkv @ wi.T
+    return dy, [torch.stack(t) for t in grads]
+
+
+def fused_history_encoder_bwd_f64_sums(g, xs, ps, p0, w_in, b_in, w_out, num_heads):
+    """B6's function (``fused_history_encoder_bwd_plain``) at the same
+    rounding points with every sum in f64: (dx in the residuals' dtype, dpe,
+    dw_in, db_in, dw_out, db_out f64), the yardstick of the backward as
+    ``fused_history_encoder_res_f64_sums`` is the forward's."""
+    dt, rb = xs.dtype, _rounder(xs.dtype)
+    num_layers = xs.shape[0]
+    probs = [ps[l].double() for l in range(num_layers - 1)] + [p0.double()[:, :, None, :]]
+    g = g.to(dt).double()
+    dy, grads = _backward_f64_sums(g[:, :1], list(xs.double()), probs, w_in, b_in, w_out,
+                                   num_heads, rb)
+    return ((dy + g[:, 1:] / dy.shape[1]).to(dt), dy.sum(dim=0), *grads)
+
+
+def fused_attn_stack_bwd_f64_sums(g, x, lengths, w_in, b_in, w_out, b_out, num_heads):
+    """B9's function (``fused_attn_stack_bwd_plain``) with every sum in f64,
+    the forward recomputed in f64 (``_layers_f64_sums``): (dx in x's dtype,
+    dw_in, db_in, dw_out, db_out f64)."""
+    rb = _rounder(x.dtype)
+    _, xs, ps = _layers_f64_sums(rb(x.double()), w_in, b_in, w_out, b_out, num_heads, rb, lengths)
+    dy, grads = _backward_f64_sums(g.to(x.dtype).double()[:, None], xs, ps, w_in, b_in, w_out,
+                                   num_heads, rb)
+    return (dy.to(x.dtype), *grads)
+
+
 def _examples_per_block(h: int, d: int, nh: int) -> int:
     fixed = 4 * (3 * d * d + 3 * d + d * d + d + 3 * h * d + nh * h * h + h * d)
     epb = min(_MAX_EXAMPLES_PER_BLOCK, (_SMEM_LIMIT - fixed) // (4 * h * d))
@@ -434,6 +499,55 @@ def _enc_tc_plan(b: int, h: int, d: int, num_layers: int, sms: int) -> tuple[int
             min(-(-b // ept), sms))
 
 
+def _enc_bwd_tc_smem_bytes(h: int, d: int, ept: int) -> int:
+    """Dynamic shared memory of ``encoder_bwd_tc_kernel``
+    (csrc/fused_encoder_bwd.cu, tc::smem_bytes) with ``ept`` examples a
+    tile: bf16 round(W_in) [D, 3D] and round(W_out) [D, D] of one layer, x,
+    g2, do and the attention output [rows, D] each, q | k | v [rows, 3D],
+    each row padded by 8 bf16; min(8, ept * D / 16) warp slabs of round(p)
+    and ds [Hp, Hp + 8] each; f32 b_in [3D], b_out [D] and dW_out [D, D]."""
+    hp = _round_up(h, 16)
+    rows, slabs = ept * hp, min(8, ept * d // 16)
+    return (2 * (d * (3 * d + 8) + d * (d + 8) + 4 * rows * (d + 8) + rows * (3 * d + 8)
+                 + slabs * 2 * hp * (hp + 8)) + 16 * d + 4 * d * d)
+
+
+def _enc_bwd_tc_tile(h: int, d: int) -> int | None:
+    """The tensor-core backward's tile (``_tc_tile``): fewer examples at
+    Hp = 48 and 64."""
+    return _tc_tile(h, lambda ept: _enc_bwd_tc_smem_bytes(h, d, ept) + _TC_STATIC_SMEM)
+
+
+@functools.lru_cache(maxsize=64)
+def _enc_bwd_route(dtype, h: int, d: int, nh: int, num_layers: int) -> str:
+    """B6's and B9's kernel, a function of the dtype and shape alone: "tc"
+    (the tensor cores: bf16, D 32 or 64, the head width a multiple of 16,
+    round_up(H, 16) <= 64, a tile in shared memory) or "fma" (the CUDA
+    cores: f32, which the Pallas kernel computes in f32 and TF32 would not
+    match; a head width of 8; D = 128, whose weight-grad slices (256 floats
+    a lane) do not fit the registers; longer histories).  The kernel stages
+    one layer's weights at a time, so no depth is refused.  Cached, as
+    ``_enc_route``."""
+    tc = (dtype == torch.bfloat16 and d in (32, 64) and d % nh == 0 and (d // nh) % 16 == 0
+          and num_layers >= 1 and _round_up(h, 16) <= _TC_MAX_HP
+          and _enc_bwd_tc_tile(h, d) is not None)
+    return "tc" if tc else "fma"
+
+
+@functools.lru_cache(maxsize=64)
+def _enc_bwd_tc_plan(b: int, h: int, d: int, num_layers: int,
+                     sms: int) -> tuple[int, int, int, int]:
+    """(examples a tile, rows a tile, dynamic shared memory bytes, grid) of
+    a tensor-core backward: one block an SM (its weight-grad slices take up
+    to 255 registers a thread), at most one a tile.  Block k owns tiles k,
+    k + grid, ... and walks them for every layer, so which tiles it sums,
+    and in what order, is fixed by (B, H, D) and the SM count; the depth
+    changes neither."""
+    ept = _enc_bwd_tc_tile(h, d)
+    return (ept, ept * _round_up(h, 16), _enc_bwd_tc_smem_bytes(h, d, ept),
+            min(-(-b // ept), sms))
+
+
 def _forward_outputs(name, x, num_layers, num_heads):
     """Empty outputs of forward kernel ``name``: (y, xs, ps, p0) for B5
     (ps None when L == 1), y alone for B1 ([B, 2, D]) and B8 ([B, D])."""
@@ -447,9 +561,10 @@ def _forward_outputs(name, x, num_layers, num_heads):
 
 
 def _pointers(out) -> list:
-    """The output pointers of a forward launch: y, or y, xs, ps (0 when
-    None), p0."""
-    return [0 if t is None else t.data_ptr() for t in (out if isinstance(out, tuple) else (out,))]
+    """The pointers of a tensor, or of a tuple or list of tensors (0 for
+    None): a forward's outputs (y, or y, xs, ps, p0), a backward's inputs."""
+    return [0 if t is None else t.data_ptr()
+            for t in (out if isinstance(out, (tuple, list)) else (out,))]
 
 
 def _launch_fwd_fma(name, x, side, wi, bi, wo, bo, num_heads):
@@ -561,54 +676,125 @@ def _bwd_grid(b: int, device) -> tuple[int, int]:
     return -(-b // epb), epb
 
 
+def _launch_bwd_fma(name, inputs, dx, shapes, num_heads, num_layers, res_floats: int = 0):
+    """Backward ``name`` (B6, B7 or B9) on the CUDA cores
+    (``encoder_bwd_kernel``) over at most one block per SM, each owning a
+    contiguous run of examples, then the reduce: writes dx [B, H, D] and
+    returns the grads of ``shapes`` (``_grad_shapes``).  ``inputs`` are the
+    kernel's leading tensor arguments (None for a null pointer);
+    ``res_floats`` > 0 gives the recomputing kernels their f32 scratch [B,
+    res_floats].  Counts nothing: ``_launch_backward`` does."""
+    b, h, d = dx.shape
+    blocks, epb = _bwd_grid(b, dx.device)
+    ws = torch.empty((blocks, sum(math.prod(s) for s in shapes)), dtype=torch.float32,
+                     device=dx.device)
+    dy = torch.empty((b, h, d), dtype=torch.float32, device=dx.device)
+    res = ([torch.empty((b, res_floats), dtype=torch.float32, device=dx.device)]
+           if res_floats else [])
+    err = getattr(_lib.library(), "tt_" + name)(
+        *_pointers(inputs), dx.data_ptr(), *_pointers(res), dy.data_ptr(), ws.data_ptr(), b, h,
+        d, num_heads, num_layers, int(dx.dtype == torch.bfloat16), epb, _lib.stream_ptr(dx),
+    )
+    _lib.check(err, name)
+    return _split_grads(_reduce_partials(ws, name), shapes)
+
+
+def _launch_bwd_tc(name, inputs, dx, shapes, num_heads, num_layers):
+    """Backward ``name`` (B6 or B9) on the tensor cores
+    (``encoder_bwd_tc_kernel``, bf16) over the plan's grid, then the
+    reduce: writes dx and returns the grads, as ``_launch_bwd_fma``.  B9
+    gets a bf16 scratch [L-1, B, H, D] for the layers' rebuilt inputs.
+    Counts nothing."""
+    b, h, d = dx.shape
+    # the kernel reads x, g, the probabilities and the weights in 16-byte chunks
+    inputs = [t.clone() if t is not None and t.data_ptr() % 16 else t for t in inputs]
+    ept, _, _, grid = _enc_bwd_tc_plan(b, h, d, num_layers, _lib.sm_count(dx.device.index))
+    ws = torch.empty((grid, sum(math.prod(s) for s in shapes)), dtype=torch.float32,
+                     device=dx.device)
+    dy = torch.empty((b, h, d), dtype=torch.float32, device=dx.device)
+    scratch = []
+    if name == "fused_attn_stack_bwd":
+        scratch = [torch.empty((num_layers - 1, b, h, d), dtype=dx.dtype, device=dx.device)
+                   if num_layers > 1 else None]
+    err = getattr(_lib.library(), f"tt_{name}_tc")(
+        *_pointers(inputs), dx.data_ptr(), *_pointers(scratch), dy.data_ptr(), ws.data_ptr(),
+        b, h, d, num_heads, num_layers, ept, grid, _lib.stream_ptr(dx),
+    )
+    _lib.check(err, name + "_tc")
+    return _split_grads(_reduce_partials(ws, name), shapes)
+
+
+def _grad_shapes(h: int, d: int, num_layers: int, with_pe: bool) -> list:
+    """The grads a backward launch writes, flat and in this order: dW_in,
+    db_in, dW_out, db_out and, with the PE, dPE."""
+    shapes = [(num_layers, d, 3 * d), (num_layers, 3 * d), (num_layers, d, d), (num_layers, d)]
+    return shapes + ([(h, d)] if with_pe else [])
+
+
+def _split_grads(grads, shapes) -> list:
+    """The flat grads as the tensors of ``shapes`` (``_grad_shapes``)."""
+    parts = torch.split(grads, [math.prod(s) for s in shapes])
+    return [t.view(s) for t, s in zip(parts, shapes)]
+
+
+def _reduce_partials(ws, name: str) -> torch.Tensor:
+    """The per-block partial grads ws [blocks, n] of backward ``name``
+    summed in block order (``reduce_kernel``)."""
+    grads = torch.empty(ws.shape[1], dtype=torch.float32, device=ws.device)
+    err = _lib.library().tt_fused_history_encoder_bwd_reduce(
+        ws.data_ptr(), grads.data_ptr(), ws.shape[0], ws.shape[1], _lib.stream_ptr(ws))
+    _lib.check(err, name + "_reduce")
+    return grads
+
+
 def _launch_backward(name, inputs, b, h, d, num_heads, num_layers, dtype, dev,
-                     with_pe: bool, res_floats: int):
-    """Launch backward ``name`` (B6, B7 or B9) over at most one block per SM,
-    then the reduce that sums the per-block partial grads in block order
-    (counted as ``name_reduce``).  ``inputs`` are the kernel's leading
-    pointer arguments; ``res_floats`` > 0 gives the recomputing kernels
-    their f32 scratch [B, res_floats].  Returns (dx, dw_in, db_in, dw_out,
-    db_out[, dpe])."""
-    # flat dW_in, db_in, dW_out, db_out and, with the PE, dPE
-    sizes = [num_layers * d * 3 * d, num_layers * 3 * d, num_layers * d * d, num_layers * d]
-    sizes += [h * d] if with_pe else []
-    grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+                     with_pe: bool, res_floats: int = 0):
+    """Launch backward ``name`` (B6, B7 or B9), B6 and B9 on the route
+    ``_enc_bwd_route`` gives the dtype and shape (B7 on the CUDA cores),
+    then the reduce that sums the per-block partial grads in block order.
+    Every launch counts as ``name`` and ``name_reduce``, one on the tensor
+    cores also as ``name_tc``.  ``inputs`` are the kernel's leading tensor
+    arguments (None for a null pointer).  Returns (dx, dw_in, db_in,
+    dw_out, db_out[, dpe])."""
+    shapes = _grad_shapes(h, d, num_layers, with_pe)
+    tc = (name != "fused_history_encoder_bwd_recompute"
+          and _enc_bwd_route(dtype, h, d, num_heads, num_layers) == "tc")
+    if not tc:
+        _check_bwd_smem(h, d, num_heads)
     dx = torch.empty((b, h, d), dtype=dtype, device=dev)
     if b == 0:
-        grads.zero_()
+        return (dx, *(torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes))
+    if tc:
+        grads = _launch_bwd_tc(name, inputs, dx, shapes, num_heads, num_layers)
     else:
-        blocks, epb = _bwd_grid(b, dev)
-        ws = torch.empty((blocks, grads.numel()), dtype=torch.float32, device=dev)
-        dy = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-        res = torch.empty((b, res_floats), dtype=torch.float32, device=dev) if res_floats else None
-        stream = _lib.stream_ptr(dx)
-        lib = _lib.library()
-        err = getattr(lib, "tt_" + name)(
-            *inputs, dx.data_ptr(), *([res.data_ptr()] if res_floats else []),
-            dy.data_ptr(), ws.data_ptr(), b, h, d, num_heads, num_layers,
-            int(dtype == torch.bfloat16), epb, stream,
-        )
-        _lib.check(err, name)
-        _lib.launches[name] += 1
-        err = lib.tt_fused_history_encoder_bwd_reduce(
-            ws.data_ptr(), grads.data_ptr(), blocks, grads.numel(), stream
-        )
-        _lib.check(err, name + "_reduce")
-        _lib.launches[name + "_reduce"] += 1
-    parts = torch.split(grads, sizes)
-    shapes = [(num_layers, d, 3 * d), (num_layers, 3 * d), (num_layers, d, d),
-              (num_layers, d), (h, d)]
-    return (dx, *(t.view(shape) for t, shape in zip(parts, shapes)))
+        grads = _launch_bwd_fma(name, inputs, dx, shapes, num_heads, num_layers, res_floats)
+    _lib.launches[name] += 1
+    _lib.launches[name + "_reduce"] += 1
+    if tc:
+        _lib.launches[name + "_tc"] += 1
+    return (dx, *grads)
 
 
 def fused_history_encoder_bwd(g, xs, ps, p0, w_in, b_in, w_out, num_heads):
     """(dx, dpe, dw_in, db_in, dw_out, db_out); see
     ``fused_history_encoder_bwd_plain``.  A CPU tensor takes the plain
-    version; a CUDA tensor launches kernel B6 and its reduce."""
+    version; a CUDA tensor launches kernel B6, on the route
+    ``_enc_bwd_route`` gives, and its reduce."""
     if xs.device.type == "cpu":
         return fused_history_encoder_bwd_plain(g, xs, ps, p0, w_in, b_in, w_out, num_heads)
     if xs.device.type != "cuda":
         raise ValueError(f"unsupported device {xs.device}")
+    num_layers, b, h, d = xs.shape
+    dx, dwi, dbi, dwo, dbo, dpe = _launch_backward(
+        "fused_history_encoder_bwd", _res_bwd_inputs(g, xs, ps, p0, w_in, b_in, w_out, num_heads),
+        b, h, d, num_heads, num_layers, xs.dtype, xs.device, True,
+    )
+    return dx, dpe, dwi, dbi, dwo, dbo
+
+
+def _res_bwd_inputs(g, xs, ps, p0, w_in, b_in, w_out, num_heads) -> list:
+    """B6's checks and its kernels' leading tensor arguments: g in the
+    residuals' dtype, xs, ps (None when L == 1), p0, the f32 weights."""
     if xs.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"residuals must be bf16 or f32, got {xs.dtype}")
     num_layers, b, h, d = xs.shape
@@ -619,43 +805,39 @@ def fused_history_encoder_bwd(g, xs, ps, p0, w_in, b_in, w_out, num_heads):
     if w_in.shape != (num_layers, d, 3 * d) or b_in.shape != (num_layers, 3 * d) \
             or w_out.shape != (num_layers, d, d):
         raise ValueError("encoder weight shapes do not agree")
-    _check_bwd_smem(h, d, num_heads)
-    dev = xs.device
-    wi, bi, wo = (_f32(t, dev) for t in (w_in, b_in, w_out))
-    g = g.detach().to(xs.dtype).contiguous()
-    xs, p0 = xs.contiguous(), p0.contiguous()
-    ps = None if ps is None else ps.contiguous()
-    inputs = [g.data_ptr(), xs.data_ptr(), 0 if ps is None else ps.data_ptr(), p0.data_ptr(),
-              wi.data_ptr(), bi.data_ptr(), wo.data_ptr()]
-    dx, dwi, dbi, dwo, dbo, dpe = _launch_backward(
-        "fused_history_encoder_bwd", inputs, b, h, d, num_heads, num_layers, xs.dtype, dev,
-        True, 0,
-    )
-    return dx, dpe, dwi, dbi, dwo, dbo
+    return [g.detach().to(xs.dtype).contiguous(), xs.detach().contiguous(),
+            None if ps is None else ps.detach().contiguous(), p0.detach().contiguous(),
+            *(_f32(t, xs.device) for t in (w_in, b_in, w_out))]
+
+
+def _recompute_bwd_inputs(g, x, side, w_in, b_in, w_out, b_out, num_heads, *,
+                          enc: bool) -> list:
+    """B7's (``enc``: ``side`` the prepared PE, g [B, 2, D]) or B9's
+    (``side`` the prepared lengths, g [B, D]) checks and its kernels'
+    leading tensor arguments: g in x's dtype, x, side, the f32 weights."""
+    _check(x, w_in, b_in, w_out, b_out, num_heads)
+    b, _, d = x.shape
+    if g.shape != ((b, 2, d) if enc else (b, d)):
+        raise ValueError(f"cotangent of shape {tuple(g.shape)} does not fit x {tuple(x.shape)}")
+    return [g.detach().to(x.dtype).contiguous(), x.detach().contiguous(), side,
+            *(_f32(t, x.device) for t in (w_in, b_in, w_out, b_out))]
+
+
+def _res_floats(h: int, d: int, num_heads: int, num_layers: int) -> int:
+    """The FMA kernels' rebuilt residuals of an example, in floats: its
+    layers' inputs and the full and thin layers' probabilities."""
+    return num_layers * h * d + (num_layers - 1) * num_heads * h * h + num_heads * h
 
 
 def _launch_recompute_bwd(name, g, x, side, w_in, b_in, w_out, b_out, num_heads, *,
                           enc: bool):
-    """Launch recomputing backward ``name``: B7 (``enc``: ``side`` the
-    prepared PE, g [B, 2, D]) or B9 (``side`` the prepared lengths, g
-    [B, D]).  Returns (dx, dw_in, db_in, dw_out, db_out[, dpe])."""
-    _check(x, w_in, b_in, w_out, b_out, num_heads)
+    """Launch recomputing backward ``name``: B7 or B9 (``_recompute_bwd_inputs``).
+    Returns (dx, dw_in, db_in, dw_out, db_out[, dpe])."""
+    inputs = _recompute_bwd_inputs(g, x, side, w_in, b_in, w_out, b_out, num_heads, enc=enc)
     b, h, d = x.shape
     num_layers = w_in.shape[0]
-    if g.shape != ((b, 2, d) if enc else (b, d)):
-        raise ValueError(f"cotangent of shape {tuple(g.shape)} does not fit x {tuple(x.shape)}")
-    _check_bwd_smem(h, d, num_heads)
-    dev = x.device
-    x = x.detach().contiguous()
-    g = g.detach().to(x.dtype).contiguous()
-    wi, bi, wo, bo = (_f32(t, dev) for t in (w_in, b_in, w_out, b_out))
-    inputs = [g.data_ptr(), x.data_ptr(), side.data_ptr(), wi.data_ptr(), bi.data_ptr(),
-              wo.data_ptr(), bo.data_ptr()]
-    # the rebuilt residuals of an example: its layers' inputs and the full
-    # and thin layers' probabilities
-    res_floats = num_layers * h * d + (num_layers - 1) * num_heads * h * h + num_heads * h
-    return _launch_backward(name, inputs, b, h, d, num_heads, num_layers, x.dtype, dev,
-                            enc, res_floats)
+    return _launch_backward(name, inputs, b, h, d, num_heads, num_layers, x.dtype, x.device,
+                            enc, _res_floats(h, d, num_heads, num_layers))
 
 
 def fused_history_encoder_bwd_recompute(g, hist_emb, pe, w_in, b_in, w_out, b_out, num_heads):
@@ -675,8 +857,8 @@ def fused_history_encoder_bwd_recompute(g, hist_emb, pe, w_in, b_in, w_out, b_ou
 
 def fused_attn_stack_bwd(g, x, lengths, w_in, b_in, w_out, b_out, num_heads):
     """(dx, dw_in, db_in, dw_out, db_out); see ``fused_attn_stack_bwd_plain``.
-    A CPU tensor takes the plain version; a CUDA tensor launches kernel B9
-    and its reduce."""
+    A CPU tensor takes the plain version; a CUDA tensor launches kernel B9,
+    on the route ``_enc_bwd_route`` gives, and its reduce."""
     if x.device.type == "cpu":
         return fused_attn_stack_bwd_plain(g, x, lengths, w_in, b_in, w_out, b_out, num_heads)
     return _launch_recompute_bwd(
