@@ -9,13 +9,15 @@ Phases, in the order they run; any failure exits non-zero:
      CUDA versions, and the build of the CUDA kernels from csrc/ (nvcc, on
      first use; cached under two_tower_models_tpu_torch/_build/); beside the
      build, nvcc -Xptxas -v on csrc/fused_softmax.cu, csrc/fused_mha.cu,
-     csrc/select_topk.cu, csrc/rows_write.cu, csrc/fused_encoder.cu and
-     csrc/fused_encoder_bwd.cu for the registers, stack and spills of the
-     CE backward, of B13's and B14's tensor-core kernels (each instance, by
-     key bands), of both select kernels, of each row-write instance, of each
-     instance of the whole-encoder tensor-core kernel (encoder_tc_kernel<RES,
-     STACK, Hp / 16>: B1, B5, B8) and of its backward
-     (encoder_bwd_tc_kernel<MODE, Hp / 16, D>: B6, B9), and their shared
+     csrc/select_topk.cu, csrc/rows_write.cu, csrc/fused_encoder.cu,
+     csrc/fused_encoder_bwd.cu, csrc/tile_max.cu and csrc/gather_rescore.cu
+     for the registers, stack and spills of the CE backward, of B13's and
+     B14's tensor-core kernels (each instance, by key bands), of both select
+     kernels, of each row-write instance, of each instance of the
+     whole-encoder tensor-core kernel (encoder_tc_kernel<RES, STACK, Hp /
+     16>: B1, B5, B8) and of its backward (encoder_bwd_tc_kernel<MODE, Hp /
+     16, D>: B6, B9), of the tile max (tile_max_kernel: B2) and of the
+     gather-rescore's inversion and scoring kernels (B4), and their shared
      memory (a spill fails the run);
   2. kernels: each of the four kernels of the serving path is held against
      its plain PyTorch version on the card, on the tensors the serving path
@@ -27,7 +29,13 @@ Phases, in the order they run; any failure exits non-zero:
      times the plain version's count beyond one step from the same function
      with f64 sums, bit-equal on repeat), the FMA kernel on the same input
      within one step of plain; its device time beside the FMA kernel's and
-     three B13 launches' on the same input; the
+     three B13 launches' on the same input; the tile max (B2) and the
+     gather-rescore (B4) timed by device time beside their event times,
+     B4's inversion launches apart from its scoring launch, B4's inverted
+     selection equal to its plain version, B2's tile max at every selected
+     tile equal to the max of B4's scores over it bit for bit, and B4 on a
+     skewed selection (every query on the same 100 tiles) against plain and
+     timed; the
      select (B3) on the radix route the path takes and, launched alone,
      on the tournament (k > K_MAX), each with its device time beside
      torch.topk's;
@@ -201,6 +209,9 @@ BF16_TOL = 1e-2  # tests/test_torch_train_step.py's bf16 tolerance
 LONG_N, LONG_H = 4, 4096  # scripts/tpu_kernel_parity.py:275-293's long history (Dh 16)
 # a serving batch's selects (k = 100): both on the radix route, none on the tournament
 SELECT_ROUTE = {"select_topk_radix": 2, "select_topk": 0}
+# a serving batch's exact MIPS: B2, both selects, B4's inversion and its scoring
+MIPS_ROUTE = {"tile_max_scores": 1, **SELECT_ROUTE, "gather_rescore_invert": 1,
+              "gather_rescore": 1}
 # the whole-encoder forward's launches on the tensor cores (B1, B5, B8; the
 # route of the cells' bf16 encoder): none unless a leg says otherwise
 ENC_TC = {"fused_history_encoder_tc": 0, "fused_history_encoder_res_tc": 0,
@@ -691,8 +702,8 @@ def phase_serve_varlen(torch, args, gen, smi, dev, cfg, model, cpu_model, engine
         "training batch (B=4096) of phase 4b")
     counts, _ = serve_leg(
         torch, "serve varlen", engine, model, cpu_model, cfg, batches,
-        {"fused_attn_stack": 1, "fused_history_encoder": 0, "tile_max_scores": 1,
-         **SELECT_ROUTE, "gather_rescore": 1, **ENC_TC, "fused_attn_stack_tc": 1},
+        {"fused_attn_stack": 1, "fused_history_encoder": 0, **MIPS_ROUTE, **ENC_TC,
+         "fused_attn_stack_tc": 1},
         ["fused_attn_stack"], entries, failures, smi,
     )
     e8["tc_launches"] = counts.get("fused_attn_stack_tc", 0)
@@ -1710,8 +1721,7 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms, b14_ptx
           f"{e13['varlen_bound_ms']:.4f}", flush=True)
     del xs, xs_v
     cpu_model = copy.deepcopy(model).cpu()
-    others = {"fused_history_encoder": 0, "fused_attn_stack": 0, "tile_max_scores": 1,
-              **SELECT_ROUTE, "gather_rescore": 1, **ENC_TC}
+    others = {"fused_history_encoder": 0, "fused_attn_stack": 0, **MIPS_ROUTE, **ENC_TC}
     legs = {}
     for label, bts in (("serve-1M-exact-layer", batches), ("serve-1M-exact-layer-varlen", var_batches)):
         counts, legs[label] = serve_leg(torch, label, engine, model, cpu_model, cfg, bts,
@@ -2009,7 +2019,7 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
     del q, k, v, qv, kv, vv
     cpu_model = copy.deepcopy(model).cpu()
     others = {"fused_history_encoder": 0, "fused_attn_stack": 0, "fused_mha_fwd": 0,
-              "tile_max_scores": 1, **SELECT_ROUTE, "gather_rescore": 1, **ENC_TC}
+              **MIPS_ROUTE, **ENC_TC}
     legs = {}
     for label, bts in (("serve-1M-exact-blockwise", batches),
                        ("serve-1M-exact-blockwise-varlen", var_batches)):
@@ -2302,6 +2312,89 @@ def nonfinite_check(torch, dev) -> bool:
     return tile_exact and pipe_exact
 
 
+def rescore_checks(torch, dev, smi, q, corpus, mk, tile_idx, ptxas_lines, entry, entries):
+    """Phase 2's B4 on the serving batch's own selection ``tile_idx`` (sorted,
+    as the pipeline takes it): the inverted selection against its plain
+    version (counts, offsets and work items exactly, each tile's pairs as a
+    set); the scores against the plain version and, bit for bit, B2's tile
+    max ``mk`` at every selected tile against the max of B4's scores over
+    its rows; the skewed selection (every query on the first query's 100
+    tiles) against the plain version.  Entries gather_rescore_invert and
+    gather_rescore, each timed with the host's dispatch and by device time,
+    the inversion's launches apart from the scoring launch.  Returns B4's
+    scores."""
+    from two_tower_models_tpu_torch.ops import mips_topk as mt
+
+    b, d = q.shape
+    c, nt, n = corpus.shape[0], mk.shape[1], q.shape[0] * TOPK
+    src, replaces = ("two_tower_models_tpu_torch/csrc/gather_rescore.cu",
+                     "two_tower_models_tpu/ops/pallas/mips_topk.py:559")
+    inv_fn = lambda: mt.invert_selection(tile_idx, nt)
+    got = mt.rescore_scratch_views(inv_fn(), b, TOPK, nt)
+    want = mt.rescore_scratch_views(mt.invert_selection_plain(tile_idx, nt), b, TOPK, nt)
+    n_items = int(want["n_items"][0])
+    flat = tile_idx.reshape(-1).long()
+    pair_key = lambda p: flat[p.long()] * n + p.long()  # (tile, pair): each list as a set
+    bad = [k for k in ("n_items", "counts", "offsets") if not torch.equal(got[k], want[k])]
+    bad += [] if torch.equal(got["items"][:n_items], want["items"][:n_items]) else ["items"]
+    bad += ([] if torch.equal(torch.sort(pair_key(got["pairs"])).values, pair_key(want["pairs"]))
+            else ["pairs"])
+    entry("gather_rescore_invert", src, replaces, not bad, float(len(bad)),
+          time_ms(torch, inv_fn),
+          time_ms(torch, lambda: mt.invert_selection_plain(tile_idx, nt), 3),
+          2 * n * 4 + (2 * nt + 3) * 4 + n_items * 16 + 4, 0, F32_FLOPS,
+          time_ms(torch, lambda: torch.argsort(flat, stable=True), 3))
+    ei = entries["gather_rescore_invert"]
+    ei.update(device_ms=call_device_ms(torch, inv_fn), work_items=n_items, mismatched_parts=bad,
+              note="max_abs_err counts the parts of the inverted selection (n_items, counts, "
+                   "offsets, items, pairs as sets) that differ from the plain version's; "
+                   "library is torch.argsort of the selection (the pairs alone)")
+
+    rs_fn = lambda: mt.gather_rescore(q, corpus, tile_idx, mt.TILE)
+    ck = rs_fn()
+    cp = mt.gather_rescore_plain(q, corpus, tile_idx, mt.TILE)
+    scale = float(cp.abs().max())
+    ok, err = close(ck, cp, 1e-5, 1e-5 * scale)
+    rows = tile_idx.long()[:, :, None] * mt.TILE + torch.arange(mt.TILE, device=dev)
+    cand = ck.view(b, TOPK, mt.TILE).masked_fill(rows >= c, float("-inf"))
+    bits = torch.equal(mt.f32_keys(cand).amax(-1), mt.f32_keys(mk.gather(1, tile_idx.long())))
+    skew = tile_idx[:1].expand(b, TOPK).contiguous()
+    sk_fn = lambda: mt.gather_rescore(q, corpus, skew, mt.TILE)
+    ok_sk, err_sk = close(sk_fn(), mt.gather_rescore_plain(q, corpus, skew, mt.TILE), 1e-5,
+                          1e-5 * scale)
+    tiles_lib = corpus.view(nt, mt.TILE, d)
+    entry(
+        "gather_rescore", src, replaces, ok and bits and ok_sk, max(err, err_sk),
+        time_ms(torch, rs_fn),
+        time_ms(torch, lambda: mt.gather_rescore_plain(q, corpus, tile_idx, mt.TILE), 3),
+        int(torch.unique(tile_idx).numel()) * mt.TILE * d * 4 + b * d * 4 + n * 4
+        + n * mt.TILE * 4, 2 * n * mt.TILE * d, F32_FLOPS,
+        time_ms(torch, lambda: torch.bmm(
+            tiles_lib[tile_idx.long()].view(b, TOPK * mt.TILE, d), q[:, :, None]), 3),
+    )
+    e4 = entries["gather_rescore"]
+    e4.update(
+        device_ms=call_device_ms(torch, rs_fn), invert_device_ms=ei["device_ms"],
+        score_device_ms=device_ms(torch, rs_fn, "rescore_kernel"),
+        tile_max_equals_rescore_max=bits,
+        skewed={"ok": ok_sk, "max_abs_err": err_sk, "ms": time_ms(torch, sk_fn),
+                "device_ms": call_device_ms(torch, sk_fn),
+                "score_device_ms": device_ms(torch, sk_fn, "rescore_kernel")},
+        ptxas="; ".join(ptxas_lines.get("rescore_kernel", [])),
+        note="ms and device_ms count the inversion and the scoring (invert_device_ms, "
+             "score_device_ms: each alone); skewed: every query on the first query's 100 "
+             "tiles; bytes count each distinct selected tile once")
+    sk = e4["skewed"]
+    print(f"B4 at B={b}, k={TOPK} on {smi}: inversion vs plain exact={not bad} ({n_items} work "
+          f"items), scores ok={ok} max_abs_err={err:.3g}; B2's tile max = max of B4's scores at "
+          f"every selected tile, bit for bit: {bits}; device {e4['device_ms']:.4f} ms (inversion "
+          f"{ei['device_ms']:.4f}, scoring {e4['score_device_ms']:.4f}), with the host's dispatch "
+          f"{e4['ms']:.4f}; bound {e4['bound_ms']:.4f} ({e4['bound_by']}); skewed: ok={ok_sk} "
+          f"device {sk['device_ms']:.4f} (scoring {sk['score_device_ms']:.4f}), with the host's "
+          f"dispatch {sk['ms']:.4f}; ptxas {e4['ptxas']}", flush=True)
+    return ck
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2340,7 +2433,7 @@ def main() -> int:
          "-o", str(_lib.BUILD_DIR / f"ptxas_{src}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src in ("fused_softmax", "fused_mha", "select_topk", "rows_write", "fused_encoder",
-                    "fused_encoder_bwd")]
+                    "fused_encoder_bwd", "tile_max", "gather_rescore")]
     _lib.library()
     ptxas_log = "\n".join(p.communicate(timeout=600)[0] for p in ptxas)
     print(smi, flush=True)
@@ -2359,7 +2452,9 @@ def main() -> int:
     spills, ptxas_lines = ptxas_report(
         ptxas_log, ["ce_bwd_kernel", "ce_bwd_reduce", "mha_fwd_tc_kernel", "mha_bwd_tc_kernel",
                     "select_radix_kernel", "select_topk_kernel", "rows_write_kernel",
-                    "encoder_tc_kernel", "encoder_bwd_tc_kernel"], {
+                    "encoder_tc_kernel", "encoder_bwd_tc_kernel", "tile_max_kernel",
+                    "rescore_kernel", "invert_count_kernel", "invert_scan_kernel",
+                    "invert_scatter_kernel"], {
             # bwd::SMEM_FLOATS in csrc/fused_softmax.cu
             "ce_bwd_kernel": 4 * (128 * 68 + 2 * 64 * 68 + 128 * 72 + 2 * 128),
             "ce_bwd_reduce": 0,
@@ -2371,6 +2466,10 @@ def main() -> int:
                for res, stack in ((0, 0), (1, 0), (0, 1))},
             # B6 and B9 (<MODE, Hp / 16, D>: MODE 0 from the stored residuals, 2 the stack)
             **{f"encoder_bwd_tc_kernel<{mode}, {HIST // 16}, 64>": bwd_smem for mode in (0, 2)},
+            # B2 and B4 at the serving cell's D = 64
+            "tile_max_kernel": mt._tile_max_smem_bytes(64),
+            "rescore_kernel": mt._rescore_smem_bytes(64),
+            **{f"invert_{k}_kernel": 0 for k in ("count", "scan", "scatter")},
         })
     dev = torch.device(DEVICE)
 
@@ -2459,7 +2558,8 @@ def main() -> int:
     del x0
 
     # kernel 2: tile maxes
-    mk = mt.tile_max_scores(q, corpus, mt.TILE, c)
+    tm_fn = lambda: mt.tile_max_scores(q, corpus, mt.TILE, c)
+    mk = tm_fn()
     mp = mt.tile_max_scores_plain(q, corpus, mt.TILE, c)
     scale = float(mp.abs().max())
     ok, err = close(mk, mp, 1e-5, 1e-5 * scale)
@@ -2467,32 +2567,28 @@ def main() -> int:
     entry(
         "tile_max_scores", "two_tower_models_tpu_torch/csrc/tile_max.cu",
         "two_tower_models_tpu/ops/pallas/mips_topk.py:112", ok, err,
-        time_ms(torch, lambda: mt.tile_max_scores(q, corpus, mt.TILE, c)),
+        time_ms(torch, tm_fn),
         time_ms(torch, lambda: mt.tile_max_scores_plain(q, corpus, mt.TILE, c), 3),
         b * d * 4 + c * d * 4 + b * nt * 4, 2 * b * c * d, F32_FLOPS,
         time_ms(torch, lambda: (q @ corpus.T).view(b, nt, mt.TILE).amax(-1), 3),
     )
+    e2 = entries["tile_max_scores"]
+    qblocks, runs, per_sm, tm_smem = mt._tile_max_plan(b, c, d, _lib.sm_count(q.device.index))
+    e2["device_ms"] = call_device_ms(torch, tm_fn)
+    e2["plan"] = {"query_blocks": qblocks, "runs": runs, "blocks_an_sm": per_sm,
+                  "smem_bytes": tm_smem}
+    e2["ptxas"] = "; ".join(ptxas_lines.get("tile_max_kernel", []))
+    print(f"B2 at B={b}, C={c}, D={d} on {smi}: device {e2['device_ms']:.4f} ms, with the host's "
+          f"dispatch {e2['ms']:.4f}; bound {e2['bound_ms']:.4f} ({e2['bound_by']}), "
+          f"{e2['bound_ms'] / max(e2['device_ms'], 1e-9):.1%} of it; {qblocks} query blocks x "
+          f"{runs} runs, {per_sm} blocks an SM; ptxas {e2['ptxas']}", flush=True)
 
     # kernel 3 at pass 2 ([B, NT]) and pass 4 ([B, k*TILE]); kernel 4 between
     kk, ik = mt.select_rows(mk, TOPK)
     kp, ip = mt.select_keys_plain(mt.f32_keys(mk).clamp_min(-(1 << 31) + 1), TOPK)
     ok2 = torch.equal(kk, kp) and torch.equal(ik, ip)
     tile_idx = torch.sort(ik, dim=1).values
-    ck = mt.gather_rescore(q, corpus, tile_idx, mt.TILE)
-    cp = mt.gather_rescore_plain(q, corpus, tile_idx, mt.TILE)
-    ok, err = close(ck, cp, 1e-5, 1e-5 * scale)
-    n_tiles_read = int(torch.unique(tile_idx).numel())
-    tiles_lib = corpus.view(nt, mt.TILE, d)
-    entry(
-        "gather_rescore", "two_tower_models_tpu_torch/csrc/gather_rescore.cu",
-        "two_tower_models_tpu/ops/pallas/mips_topk.py:559", ok, err,
-        time_ms(torch, lambda: mt.gather_rescore(q, corpus, tile_idx, mt.TILE)),
-        time_ms(torch, lambda: mt.gather_rescore_plain(q, corpus, tile_idx, mt.TILE), 3),
-        n_tiles_read * mt.TILE * d * 4 + b * d * 4 + b * TOPK * 4 + b * TOPK * mt.TILE * 4,
-        2 * b * TOPK * mt.TILE * d, F32_FLOPS,
-        time_ms(torch, lambda: torch.bmm(
-            tiles_lib[tile_idx.long()].view(b, TOPK * mt.TILE, d), q[:, :, None]), 3),
-    )
+    ck = rescore_checks(torch, dev, smi, q, corpus, mk, tile_idx, ptxas_lines, entry, entries)
     ck4, ik4 = mt.select_rows(ck, TOPK)
     cp4, ip4 = mt.select_keys_plain(mt.f32_keys(ck).clamp_min(-(1 << 31) + 1), TOPK)
     ok4 = torch.equal(ck4, cp4) and torch.equal(ik4, ip4)
@@ -2539,16 +2635,16 @@ def main() -> int:
                   "library is torch.topk, which keeps no tie order; tournament_* the kernel "
                   "that takes k > K_MAX, at these shapes")
     e3["index_mismatches"] = idx_mismatch
-    del mp, cp, tiles_lib
+    del mp
     torch.cuda.empty_cache()
 
     # ---- phase 3: serve ------------------------------------------------
     cpu_model = copy.deepcopy(model).cpu()
     counts, _ = serve_leg(
         torch, "serve", engine, model, cpu_model, cfg, [(*bt, None) for bt in batches],
-        {"fused_history_encoder": 1, "tile_max_scores": 1, **SELECT_ROUTE,
-         "gather_rescore": 1, **ENC_TC, "fused_history_encoder_tc": 1},
-        ["fused_history_encoder", "tile_max_scores", "select_topk_radix", "gather_rescore"],
+        {"fused_history_encoder": 1, **MIPS_ROUTE, **ENC_TC, "fused_history_encoder_tc": 1},
+        ["fused_history_encoder", "tile_max_scores", "select_topk_radix", "gather_rescore_invert",
+         "gather_rescore"],
         entries, failures, smi,
     )
     e1["tc_launches"] = counts.get("fused_history_encoder_tc", 0)

@@ -1,9 +1,13 @@
-"""SHA-256 of the port's tensor-core attention kernels' outputs at the cells.
+"""SHA-256 of the port's kernels' outputs at the cells.
 
 Hashes, for the checkout it is run from, what B13 (``fused_mha_fwd``), B14
 (``fused_mha_bwd``), B1, B5 and B8 (the whole-encoder forward) return at
 the cells' shape (B = 4096, H = 32, D = 64, four heads, three layers, bf16),
-without and with per-example lengths, on inputs made from a numpy seed.
+without and with per-example lengths, and what B2 (``tile_max_scores``) and
+B4 (``gather_rescore``) return at the serving cell's (B = 1024, C = 2^20,
+D = 64, k = 100, ``valid`` inside the last tile; B4 on the tiles the
+pipeline selects from B2's output and on a skewed selection, every query
+on the same 100 tiles), on inputs made from a numpy seed.
 Two checkouts whose kernels compute the same values bit for bit print the
 same hashes, so one copy of this script compares two commits on one card:
 
@@ -40,6 +44,7 @@ def main() -> int:
         return 2
     from two_tower_models_tpu_torch.ops import fused_encoder as fe
     from two_tower_models_tpu_torch.ops import fused_mha as fm
+    from two_tower_models_tpu_torch.ops import mips_topk as mt
 
     dev = torch.device("cuda")
     b, h, d, nh, nl = 4096, 32, 64, 4, 3
@@ -61,6 +66,18 @@ def main() -> int:
     out["B1"] = digest(fe.fused_history_encoder(x, pe, *w, nh))
     out["B5"] = digest(*fe.fused_history_encoder_res(x, pe, *w, nh))
     out["B8"] = digest(fe.fused_attn_stack_fwd(xm, lens, *w, nh))
+    del x, g, xm
+    nb, c, k = 1024, 1 << 20, 100
+    q = t(r.normal(size=(nb, d)))
+    corpus = t(r.normal(size=(c, d)))
+    valid = c - 77
+    m = mt.tile_max_scores(q, corpus, mt.TILE, valid)
+    tiles = torch.sort(mt.select_rows(m, k)[1], dim=1).values
+    skew = torch.from_numpy(np.sort(r.choice(c // mt.TILE, k, replace=False)).astype(np.int32))
+    skew = skew.to(dev)[None, :].expand(nb, k).contiguous()
+    out["B2"] = digest(m)
+    out["B4"] = digest(mt.gather_rescore(q, corpus, tiles, mt.TILE))
+    out["B4_skewed"] = digest(mt.gather_rescore(q, corpus, skew, mt.TILE))
     torch.cuda.synchronize()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

@@ -179,8 +179,13 @@ def test_encoder_tc_kernel_at_unaligned_addresses(dev):
     assert torch.equal(fe.fused_history_encoder(xo, w[0], wio, w[2], woo, w[4], 4), want)
 
 
+# B = 1 and B off a block's 256 (or, at D = 200, 128) queries; C off a
+# block's run of tiles with valid inside a tile; D from 16 to 200 (D = 200
+# takes the 8-query instance)
 @pytest.mark.parametrize(
-    "b,c,d,valid", [(1, 4096, 64, 4096), (130, 4000, 32, 4000), (300, 4096, 16, 3000), (257, 8192, 100, 8100)]
+    "b,c,d,valid", [(1, 4096, 64, 4096), (130, 4000, 32, 4000), (300, 4096, 16, 3000), (257, 8192, 100, 8100),
+                    (1, 20000, 200, 19990), (513, 20000, 64, 19990), (100, 10000, 128, 9999),
+                    (77, 6000, 200, 5950), (1000, 70000, 32, 69950), (260, 33000, 16, 32900)]
 )
 def test_tile_max_matches_plain_and_rescore_bitwise(dev, b, c, d, valid):
     """Tile maxes against the plain version, and, bit for bit, against the
@@ -223,6 +228,83 @@ def test_gather_rescore_matches_plain(dev, b, c, d, k):
     tidx[0, 0] = nt - 1
     got = mt.gather_rescore(q, corpus, tidx, mt.TILE)
     _assert_close(got, mt.gather_rescore_plain(q, corpus, tidx, mt.TILE), 1e-5, 1e-5)
+
+
+# B = 1 and 300, k = 1 and 100, D from 16 to 200, the ragged last tile; on
+# integer-grid inputs, whose sums are exact in any order
+@pytest.mark.parametrize("b,c,d,k", [(16, 4000, 64, 7), (1, 4000, 16, 1), (300, 20000, 100, 1),
+                                     (77, 5000, 128, 40), (64, 6000, 200, 33), (1, 20000, 64, 100)])
+def test_gather_rescore_shapes_match_plain_exactly(dev, b, c, d, k):
+    q, corpus = _grid(18, b, d, dev=dev), _grid(19, c, d, dev=dev)
+    nt = -(-c // mt.TILE)
+    tidx = torch.from_numpy(np.random.default_rng(5).integers(0, nt, size=(b, k)).astype(np.int32)).to(dev)
+    tidx[0, 0] = nt - 1
+    got = mt.gather_rescore(q, corpus, tidx, mt.TILE)
+    assert torch.equal(got, mt.gather_rescore_plain(q, corpus, tidx, mt.TILE))
+
+
+def test_mips_kernels_at_unaligned_addresses(dev):
+    """Query and corpus copies at addresses 16-byte aligned no more (the
+    kernels read 16 bytes at a time): the same bits as aligned ones."""
+    b, c, d, k = 33, 5000, 64, 9
+    q, corpus = _randn(20, b, d, dev=dev), _randn(21, c, d, dev=dev)
+
+    def odd(t):
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return o.copy_(t)
+
+    qo, co = odd(q), odd(corpus)
+    assert qo.data_ptr() % 16 and co.data_ptr() % 16
+    tidx = _rescore_selection("twice", b, k, -(-c // mt.TILE), dev)
+    assert torch.equal(mt.tile_max_scores(qo, co, mt.TILE, c - 3), mt.tile_max_scores(q, corpus, mt.TILE, c - 3))
+    assert torch.equal(mt.gather_rescore(qo, co, tidx, mt.TILE), mt.gather_rescore(q, corpus, tidx, mt.TILE))
+
+
+def _rescore_selection(case, b, k, nt, dev):
+    r = np.random.default_rng(15)
+    t = r.integers(0, nt, size=(b, k))
+    if case == "twice":  # a row that selects one tile twice (and the ragged tile)
+        t[:, 1] = t[:, 0]
+        t[0, 2:4] = nt - 1
+    elif case == "one-tile":  # every query on one tile
+        t[:] = nt // 3
+    elif case == "skewed":  # every query on the same k tiles, sorted as the pipeline does
+        t[:] = np.sort(r.choice(nt, k, replace=False))
+    elif case == "outside":  # indices past the last tile and negative: zero rows
+        t[:, 0], t[:, -1] = nt + 5, -1
+    return torch.from_numpy(t.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("case", ["twice", "one-tile", "skewed", "outside"])
+@pytest.mark.parametrize("b,c,d,k", [(130, 20000, 64, 100), (33, 4000, 200, 5), (1, 3000, 32, 7)])
+def test_gather_rescore_selections_match_plain(dev, case, b, c, d, k):
+    """The inverted selection's edge cases: a tile twice in a row, one tile
+    for every query (one list of B * k pairs, many work items), the
+    skewed selection, and tile indices outside the corpus; integer-grid
+    inputs, exact."""
+    q, corpus = _grid(16, b, d, dev=dev), _grid(17, c, d, dev=dev)
+    tidx = _rescore_selection(case, b, k, -(-c // mt.TILE), dev)
+    got = mt.gather_rescore(q, corpus, tidx, mt.TILE)
+    assert torch.equal(got, mt.gather_rescore_plain(q, corpus, tidx, mt.TILE))
+
+
+@pytest.mark.parametrize("case", ["twice", "one-tile", "skewed", "outside"])
+def test_invert_selection_matches_plain(dev, case):
+    """The card's inverted selection equals the plain version's: counts,
+    offsets, work items and their count exactly, each list's pairs as a set
+    (their order inside a list is the atomics')."""
+    b, k, nt = 300, 100, 8192 // 16
+    tidx = _rescore_selection(case, b, k, nt, dev)
+    got = mt.rescore_scratch_views(mt.invert_selection(tidx, nt).cpu(), b, k, nt)
+    want = mt.rescore_scratch_views(mt.invert_selection_plain(tidx.cpu(), nt), b, k, nt)
+    n_items = int(want["n_items"][0])
+    for name in ("n_items", "counts", "offsets"):
+        assert torch.equal(got[name], want[name]), name
+    assert torch.equal(got["items"][:n_items], want["items"][:n_items])
+    flat = tidx.cpu().reshape(-1).long()
+    bucket = torch.where((flat >= 0) & (flat < nt), flat, nt)
+    key = lambda p: bucket[p.long()] * (b * k) + p.long()
+    assert torch.equal(torch.sort(key(got["pairs"])).values, key(want["pairs"]))
 
 
 def _select_cases(dev):
@@ -328,7 +410,7 @@ def test_pipeline_matches_dense_exactly(dev, b, c, d, k, valid):
     before = dict(_lib.launches)
     idx, sc, emb = mt.mips_topk_exact_tiled(corpus, q, k, valid_count=valid)
     for name, n in (("tile_max_scores", 1), ("select_topk_radix", 2), ("select_topk", 0),
-                    ("gather_rescore", 1)):
+                    ("gather_rescore_invert", 1), ("gather_rescore", 1)):
         assert _lib.launches[name] == before.get(name, 0) + n
     ridx, rsc, remb = mips_topk(corpus, q, k, valid_count=valid)
     assert torch.equal(idx, ridx) and torch.equal(sc, rsc) and torch.equal(emb, remb)

@@ -165,3 +165,137 @@ def test_key_map_round_trip_and_order():
     kt = TM.f32_keys(torch.from_numpy(x))
     np.testing.assert_array_equal(kt.numpy(), np.asarray(JM._f32_keys(jnp.asarray(x))))
     np.testing.assert_array_equal(TM.keys_f32(kt).numpy().view(np.int32), x.view(np.int32))
+
+
+# -- launch plans of the tile-max and gather-rescore kernels (CPU: the plan
+# is Python; the card tests run the kernels on it)
+
+
+@pytest.mark.parametrize(
+    "b,c,d",
+    [(1024, 1 << 20, 64), (1, 4096, 64), (300, 4000, 16), (257, 8192, 100), (129, 20000, 128),
+     (64, 5000, 200), (40000, 1 << 16, 64), (5, 128, 4)],
+)
+def test_tile_max_plan_covers_every_tile_once(b, c, d):
+    """The persistent grid: every (query block, tile) pair scored by exactly
+    one block, no run empty, every query in a block, shared memory within a
+    block's opt-in and the SM's for the blocks planned an SM."""
+    sms = 132
+    qblocks, runs, per_sm, smem = TM._tile_max_plan(b, c, d, sms)
+    nt = -(-c // TM.TILE)
+    assert qblocks * 128 >= b > (qblocks - 1) * 128
+    assert smem == TM._tile_max_smem_bytes(d) <= TM._SMEM_OPTIN
+    assert per_sm in (1, 2) and per_sm * (smem + TM._SMEM_BLOCK_RESERVED) <= TM._SMEM_SM
+    assert runs * qblocks <= max(per_sm * sms, qblocks)
+    seen = np.zeros((qblocks, nt), np.int64)
+    for blk in range(runs * qblocks):  # csrc/tile_max.cu's block-to-work map
+        qb, run = blk % qblocks, blk // qblocks
+        lo, hi = run * nt // runs, (run + 1) * nt // runs
+        assert hi > lo
+        seen[qb, lo:hi] += 1
+    assert (seen == 1).all()
+
+
+def test_tile_max_plan_at_the_serving_cell():
+    """B = 1024, C = 2^20, D = 64 on 132 SMs: eight query blocks of 128, 33
+    runs of 248-249 tiles, two blocks an SM; one an SM at D = 200."""
+    assert TM._tile_max_plan(1024, 1 << 20, 64, 132) == (8, 33, 2, 102_400)
+    assert TM._tile_max_plan(1024, 1 << 20, 200, 132)[1:3] == (16, 1)
+    assert TM._padded(64) == 68 and TM._padded(100) == 100 and TM._padded(200) == 204
+
+
+def _selection(case, b, k, nt, seed=7):
+    r = np.random.default_rng(seed)
+    if case == "random":
+        t = r.integers(0, nt, size=(b, k))
+    elif case == "sorted":
+        t = np.sort(r.integers(0, nt, size=(b, k)), axis=1)
+    elif case == "skewed":  # every query on the same k tiles
+        t = np.broadcast_to(np.sort(r.choice(nt, k, replace=False)), (b, k))
+    elif case == "one-tile":
+        t = np.full((b, k), nt // 2)
+    elif case == "distinct":  # one pair a tile
+        t = r.permutation(nt)[: b * k].reshape(b, k)
+    else:  # "outside": duplicates in a row and indices outside [0, nt)
+        t = r.integers(-3, nt + 3, size=(b, k))
+        t[:, -1] = t[:, 0]
+    return torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32))
+
+
+_SEL_CASES = ["random", "sorted", "skewed", "one-tile", "distinct", "outside"]
+
+
+@pytest.mark.parametrize("case", _SEL_CASES)
+@pytest.mark.parametrize("b,k,nt", [(1, 1, 1), (1, 5, 40), (37, 7, 40), (130, 100, 8192 // 64)])
+def test_invert_selection_plain_lists_every_pair_once(case, b, k, nt):
+    """The inverted selection (csrc/gather_rescore.cu's layout, as the
+    plain version writes it): every (query, slot) pair in its bucket's list
+    once, the lists cut into items of at most QW pairs in order, the item
+    count within ``_rescore_plan``'s bound (equal to it when every pair has
+    a tile of its own)."""
+    if case == "distinct":
+        nt = max(nt, b * k)
+    tidx = _selection(case, b, k, nt)
+    bound, size = TM._rescore_plan(b, k, nt)
+    scratch = TM.invert_selection(tidx, nt)  # a CPU tensor: the plain version
+    assert scratch.shape == (size,) and scratch.dtype == torch.int32
+    v = TM.rescore_scratch_views(scratch, b, k, nt)
+    n_items = int(v["n_items"][0])
+    assert n_items <= bound
+    if case == "distinct":
+        assert n_items == bound == b * k
+    flat = tidx.reshape(-1).long()
+    bucket = torch.where((flat >= 0) & (flat < nt), flat, nt)
+    assert torch.equal(v["counts"].long(), torch.bincount(bucket, minlength=nt + 1))
+    assert int(v["offsets"][0]) == 0 and int(v["offsets"][-1]) == b * k
+    pairs = v["pairs"].long()
+    assert torch.equal(torch.sort(pairs).values, torch.arange(b * k))
+    assert torch.equal(bucket[pairs], torch.sort(bucket).values)  # grouped by bucket
+    covered = torch.zeros(b * k, dtype=torch.long)
+    for t, first, n, _ in v["items"][:n_items].tolist():
+        assert 1 <= n <= TM._RS_QW
+        assert int(v["offsets"][t]) <= first and first + n <= int(v["offsets"][t + 1])
+        assert (first - int(v["offsets"][t])) % TM._RS_QW == 0
+        assert bool((bucket[pairs[first : first + n]] == t).all())
+        covered[pairs[first : first + n]] += 1
+    assert bool((covered == 1).all())
+
+
+def _rescore_by_items(query, corpus, tidx, tile):
+    """csrc/gather_rescore.cu's rescore_kernel in torch: each work item's
+    tile (zero rows past C and for the bucket outside [0, NT)) against its
+    pairs' queries, each score the fmaf chain's plain counterpart."""
+    b, k = tidx.shape
+    c = corpus.shape[0]
+    nt = max(1, -(-c // tile))
+    v = TM.rescore_scratch_views(TM.invert_selection(tidx, nt), b, k, nt)
+    out = torch.full((b * k, tile), float("nan"))
+    for t, first, n, _ in v["items"][: int(v["n_items"][0])].tolist():
+        rows = torch.zeros(tile, corpus.shape[1])
+        if t < nt:
+            part = corpus[t * tile : (t + 1) * tile]
+            rows[: part.shape[0]] = part
+        p = v["pairs"][first : first + n].long()
+        out[p] = query[p // k] @ rows.T
+    return out.reshape(b, k * tile)
+
+
+@pytest.mark.parametrize("case", _SEL_CASES)
+def test_rescore_by_items_matches_plain_and_pallas(case):
+    """Scoring by the inverted selection's work items gives every output
+    the plain version gives (exactly, on integer-grid inputs, ragged last
+    tile and outside indices included) and the Pallas kernel's (1e-5, on
+    normal inputs, indices inside the corpus)."""
+    b, c, d, tile = 40, 4000, 32, 128  # B a multiple of the Pallas kernel's 8 queries
+    nt = -(-c // tile)
+    tidx = _selection(case if case != "distinct" else "random", b, 7, nt)
+    r = np.random.default_rng(3)
+    qg = torch.from_numpy(r.integers(-2, 3, size=(b, d)).astype(np.float32))
+    cg = torch.from_numpy(r.integers(-2, 3, size=(c, d)).astype(np.float32))
+    assert torch.equal(_rescore_by_items(qg, cg, tidx, tile), TM.gather_rescore_plain(qg, cg, tidx, tile))
+    if case != "outside":
+        qn, cn = _normal(4, (b, d)), _normal(5, (c, d))
+        want = JM.gather_rescore(jnp.asarray(qn), jnp.asarray(_pad_rows(cn, nt * tile)),
+                                 jnp.asarray(tidx.numpy()), tile)
+        got = _rescore_by_items(torch.from_numpy(qn), torch.from_numpy(cn), tidx, tile)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)

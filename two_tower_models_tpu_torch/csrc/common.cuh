@@ -8,17 +8,23 @@
 
 namespace tt {
 
-// The canonical f32 inner product of the exact-MIPS kernels:
+// The canonical f32 inner product of the exact-MIPS kernels, per (query,
+// row) element:
 //   acc = +0.0f; for d = 0 .. D-1: acc = fmaf(q[d], c[d], acc)
-// computed for an RQ x RC block of (query, row) pairs at once.  Element
-// (i, j) reads q at qs[i*q_step + d*q_dstride] and the row at
-// cs[j*c_step + d*c_dstride].
+// tile_max_kernel (csrc/tile_max.cu) and rescore_kernel
+// (csrc/gather_rescore.cu) must both keep exactly this chain for every
+// element, however they tile, vectorise or stage the operands (each does
+// four d-steps of it per 16-byte load, in d order), so a row's tile-max
+// score is bit-identical to its rescore score.  The exact top-k argument
+// (a row's tile max >= its own score, and the k selected tiles hold the
+// true top k) relies on that equality: two accumulation orders could
+// differ by an ulp at a near-tie and drop a true winner.  No fast-math,
+// no TF32, no split sums.
 //
-// tile_max_scores and gather_rescore both score through this routine, so a
-// row's tile-max score is bit-identical to its rescore score.  The exact
-// top-k argument (a row's tile max >= its own score, and the k selected
-// tiles hold the true top k) relies on that equality: two accumulation
-// orders could differ by an ulp at a near-tie and drop a true winner.
+// dot_block computes that chain for an RQ x RC block of (query, row) pairs
+// at once (the CE kernels of csrc/fused_softmax.cu use it).  Element (i, j)
+// reads q at qs[i*q_step + d*q_dstride] and the row at
+// cs[j*c_step + d*c_dstride].
 template <int RQ, int RC>
 __device__ __forceinline__ void dot_block(float (&acc)[RQ][RC],
                                           const float* qs, int q_step, int q_dstride,
@@ -40,6 +46,11 @@ __device__ __forceinline__ void dot_block(float (&acc)[RQ][RC],
       for (int j = 0; j < RC; ++j) acc[i][j] = fmaf(qv[i], cv[j], acc[i][j]);
   }
 }
+
+// Row stride in floats of rows of w floats in shared memory: an odd number
+// of float4s, so the eight rows a quarter-warp reads with one 16-byte load
+// each start in a distinct 4-bank group (the MIPS kernels).
+__host__ __device__ constexpr int padded(int w) { return (w / 4) % 2 ? w : w + 4; }
 
 // Monotone int32 key of an f32 bit pattern (the JAX package's _f32_keys):
 // the float total order (-0.0 below +0.0, NaN above +inf) becomes int32

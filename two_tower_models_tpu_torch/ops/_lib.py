@@ -47,10 +47,11 @@ _F = ctypes.c_float
 # C signatures: every entry takes its pointers, floats, ints and the stream last.
 _SIGNATURES = {
     "tt_fused_history_encoder": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "tt_tile_max_scores": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tt_tile_max_scores": [_P, _P, _P] + [_I] * 6 + [_P],
     "tt_select_topk_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tt_select_topk_radix": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "tt_gather_rescore": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tt_gather_rescore_invert": [_P, _P, _I, _I, _I, _P],
+    "tt_gather_rescore": [_P] * 4 + [_I] * 6 + [_P],
     "tt_fused_history_encoder_res": [_P] * 10 + [_I] * 7 + [_P],
     "tt_fused_history_encoder_bwd": [_P] * 10 + [_I] * 7 + [_P],
     "tt_fused_history_encoder_bwd_reduce": [_P, _P, _I, _I, _P],

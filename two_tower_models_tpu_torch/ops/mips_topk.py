@@ -9,7 +9,10 @@ Port of ``two_tower_models_tpu/ops/pallas/mips_topk.py``:
      (launch counter ``select_topk_radix``), the tournament above it
      (``select_topk``), as ``_select_route`` decides.
   3. ``gather_rescore``   (csrc/gather_rescore.cu): every row of the k
-     selected tiles scored against its query.
+     selected tiles scored against its query; ``invert_selection`` first
+     turns the [B, k] selection into per-tile lists of (query, slot) pairs
+     (launch counter ``gather_rescore_invert``), so each selected tile is
+     read once and scored against every query that picked it.
   4. ``select_rows`` again over the k*128 candidates.
 
 Each kernel's source note says what bounds it on the H100 and what its
@@ -21,14 +24,16 @@ has max >= the k-th score, at most k tiles can, and ties resolve to the
 lowest index in both selections; sorting the selected tiles ascending makes
 pass 4's positional tie-break the dense lowest-global-index rule.  On the
 card this needs a row's tile-max score to equal its rescore score bit for
-bit, which holds because both kernels score through one routine
-(csrc/common.cuh).  The plain versions score with ``torch.matmul``.
+bit, which holds because both kernels compute each score as one fmaf chain
+in d order (csrc/common.cuh).  The plain versions score with ``torch.matmul``.
 
 Layouts: the pipeline keeps scores as [B, N] rows; ``select_topk_t``
 keeps the JAX package's transposed [N, B] signature for callers of it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -43,6 +48,11 @@ SELECT_MAX_ROWS = 56 * 1024
 # rank sort); larger k take the tournament kernel.
 K_MAX = 1024
 _SMEM_OPTIN = 232_448  # an H100 block's shared memory, opted in
+_SMEM_SM = 233_472  # an H100 SM's shared memory (228 KB)
+_SMEM_BLOCK_RESERVED = 1024  # the shared memory the card reserves a resident block
+_TM_QUERIES = 128  # queries a tile-max block holds (csrc/tile_max.cu TQ)
+_TM_DK = 64  # floats of a corpus row a tile-max ring stage holds (DK)
+_RS_QW = 32  # pairs a gather-rescore work item at most (csrc/gather_rescore.cu QW)
 _RADIX_STATIC = 1024  # headroom for the radix kernel's static shared memory
 # Plain versions score at most this many (query, row) pairs at once.
 _PLAIN_CHUNK_ELEMS = 1 << 26
@@ -96,6 +106,44 @@ def tile_max_scores_plain(query, corpus, tile, valid_count) -> torch.Tensor:
     return keys_f32(torch.cat(out, dim=1))
 
 
+def _padded(w: int) -> int:
+    """Row stride in floats of rows of ``w`` floats in the kernels' shared
+    memory (csrc/tile_max.cu, gather_rescore.cu ``padded``): an odd number
+    of float4s, so eight consecutive rows start in distinct bank groups."""
+    return w if (w // 4) % 2 else w + 4
+
+
+def _tile_max_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of ``tile_max_kernel`` (csrc/tile_max.cu
+    smem_bytes): 128 queries of D floats and a two-stage ring of 128 rows
+    of min(D, 64) floats."""
+    return 4 * (_TM_QUERIES * d + 2 * TILE * _padded(min(d, _TM_DK)))
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_max_plan(b: int, c: int, d: int, sms: int) -> tuple[int, int, int, int]:
+    """(query blocks, corpus runs, blocks an SM, dynamic shared memory
+    bytes) of a tile-max launch: a persistent grid of runs x query blocks
+    of 128, as many as the card holds at once (two an SM, the kernel's
+    launch bounds, where their shared memory fits: D <= 88), every query
+    block of a run launched together so that they read the run's tiles
+    from L2 in step.  Each run takes a contiguous share of the
+    ceil(C / 128) tiles, none empty."""
+    smem = _tile_max_smem_bytes(d)
+    per_sm = max(1, min(2, _SMEM_SM // (smem + _SMEM_BLOCK_RESERVED)))
+    n_tiles = -(-c // TILE)
+    qblocks = -(-b // _TM_QUERIES)
+    runs = max(1, min(n_tiles, per_sm * sms // qblocks))
+    return qblocks, runs, per_sm, smem
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels' float4
+    and cp.async reads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def tile_max_scores(
     query: torch.Tensor,  # [B, D] f32
     corpus: torch.Tensor,  # [C, D] f32
@@ -110,14 +158,15 @@ def tile_max_scores(
         raise TypeError("tile_max_scores takes f32 query and corpus")
     b, d = query.shape
     c = corpus.shape[0]
-    if tile != TILE or corpus.shape[1] != d or d % 4 or d > 200:
+    if tile != TILE or corpus.shape[1] != d or d % 4 or not 0 < d <= 200:
         raise ValueError(f"tile_max_scores takes tile={TILE}, D % 4 == 0, D <= 200")
-    q, cc = query.contiguous(), corpus.contiguous()
+    q, cc = _aligned(query), _aligned(corpus)
     m = torch.empty((b, -(-c // tile)), dtype=torch.float32, device=q.device)
     if b and c:
+        _, runs, _, _ = _tile_max_plan(b, c, d, _lib.sm_count(q.device.index))
         err = _lib.library().tt_tile_max_scores(
             q.data_ptr(), cc.data_ptr(), m.data_ptr(), b, c, d,
-            min(int(valid_count), c), tile, _lib.stream_ptr(q),
+            min(int(valid_count), c), tile, runs, _lib.stream_ptr(q),
         )
         _lib.check(err, "tile_max_scores")
         _lib.launches["tile_max_scores"] += 1
@@ -226,7 +275,8 @@ def select_topk_t(scores_t: torch.Tensor, k: int):
 
 def gather_rescore_plain(query, corpus, tile_idx, tile) -> torch.Tensor:
     """cand[b, j*tile + r] = <query_b, corpus[tile_idx[b, j]*tile + r]>,
-    rows past the corpus end scoring as zero rows.  [B, k*tile] f32."""
+    rows past the corpus end (and every row of a negative tile index)
+    scoring as zero rows.  [B, k*tile] f32."""
     b, k = tile_idx.shape
     c = corpus.shape[0]
     rows = tile_idx.long()[:, :, None] * tile + torch.arange(tile, device=tile_idx.device)
@@ -235,10 +285,89 @@ def gather_rescore_plain(query, corpus, tile_idx, tile) -> torch.Tensor:
     out = []
     for b0 in range(0, b, qb):
         r = rows[b0 : b0 + qb]
-        cand = corpus[r.clamp(max=c - 1)].float()  # [qb, k*tile, D]
+        cand = corpus[r.clamp(0, c - 1)].float()  # [qb, k*tile, D]
         s = (cand @ query[b0 : b0 + qb].float()[:, :, None])[:, :, 0]
-        out.append(torch.where(r < c, s, torch.zeros_like(s)))
+        out.append(torch.where((r >= 0) & (r < c), s, torch.zeros_like(s)))
     return torch.cat(out, dim=0) if out else rows.float()
+
+
+def _rescore_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of ``rescore_kernel`` (csrc/gather_rescore.cu
+    rescore_smem_bytes): a tile of 128 rows and QW queries of D floats, and
+    the QW pairs' flat indices."""
+    return 4 * (TILE + _RS_QW) * _padded(d) + 4 * _RS_QW
+
+
+def _rescore_plan(b: int, k: int, n_tiles: int) -> tuple[int, int]:
+    """(upper bound on work items, int32 scratch elements) of an inverted
+    selection of b * k (query, slot) pairs over ``n_tiles`` tiles and the
+    bucket of indices outside them (csrc/gather_rescore.cu).  Each non-empty
+    bucket of n pairs gives ceil(n / QW) items, so with m <= min(buckets,
+    b * k) non-empty buckets there are at most (b * k + m * (QW - 1)) // QW.
+    The scratch holds the items (four int32 each), their count (padded to
+    four), the counts and offsets of the buckets, and the pairs."""
+    n, buckets = b * k, n_tiles + 1
+    bound = (n + min(buckets, n) * (_RS_QW - 1)) // _RS_QW
+    return bound, 4 * bound + 4 + buckets + (buckets + 1) + n
+
+
+def rescore_scratch_views(scratch: torch.Tensor, b: int, k: int, n_tiles: int) -> dict:
+    """The named parts of an inverted selection's scratch (``_rescore_plan``'s
+    layout): items [bound, 4] (tile, first pair, pairs), n_items [1],
+    counts [NT + 1], offsets [NT + 2], pairs [B * k] (flat b * k + j)."""
+    bound, _ = _rescore_plan(b, k, n_tiles)
+    sizes = (4 * bound, 4, n_tiles + 1, n_tiles + 2, b * k)
+    items, n_items, counts, offsets, pairs = torch.split(scratch, sizes)
+    return {"items": items.view(bound, 4), "n_items": n_items[:1], "counts": counts,
+            "offsets": offsets, "pairs": pairs}
+
+
+def invert_selection_plain(tile_idx: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """The inverted selection of ``tile_idx`` [B, k] as the kernels lay it
+    out (``rescore_scratch_views``): per bucket (a tile, or ``n_tiles`` for
+    an index outside [0, n_tiles)) its pairs' flat indices b * k + j in
+    ascending order, and its work items of at most QW pairs.  Items past
+    the count are zero."""
+    b, k = tile_idx.shape
+    bound, _ = _rescore_plan(b, k, n_tiles)
+    dev = tile_idx.device
+    t = tile_idx.reshape(-1).long()
+    bucket = torch.where((t >= 0) & (t < n_tiles), t, n_tiles)
+    counts = torch.bincount(bucket, minlength=n_tiles + 1)
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    offsets = torch.cat([zero, counts.cumsum(0)])
+    per = -(-counts // _RS_QW)
+    item_off = torch.cat([zero, per.cumsum(0)])
+    n_items = int(item_off[-1])
+    tile_of = torch.repeat_interleave(torch.arange(n_tiles + 1, device=dev), per)
+    first = offsets[tile_of] + (torch.arange(n_items, device=dev) - item_off[tile_of]) * _RS_QW
+    items = torch.zeros((bound, 4), dtype=torch.long, device=dev)
+    items[:n_items, 0] = tile_of
+    items[:n_items, 1] = first
+    items[:n_items, 2] = torch.minimum(offsets[tile_of + 1] - first,
+                                       torch.full_like(first, _RS_QW))
+    pairs = torch.sort(bucket * max(b * k, 1) + torch.arange(b * k, device=dev)).indices
+    head = torch.tensor([n_items, 0, 0, 0], dtype=torch.long, device=dev)
+    return torch.cat([items.reshape(-1), head, counts, offsets, pairs]).int()
+
+
+def invert_selection(tile_idx: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """Pass 3's first half: ``tile_idx`` [B, k] int32 inverted into per-tile
+    lists of pairs cut into work items (``invert_selection_plain``; on the
+    card the order inside a list is the atomics', which changes no score)."""
+    if tile_idx.device.type == "cpu":
+        return invert_selection_plain(tile_idx, n_tiles)
+    _check_cuda("invert_selection", tile_idx)
+    b, k = tile_idx.shape
+    bound, size = _rescore_plan(b, k, n_tiles)
+    tidx = tile_idx.to(torch.int32).contiguous()
+    scratch = torch.empty(size, dtype=torch.int32, device=tidx.device)
+    err = _lib.library().tt_gather_rescore_invert(
+        tidx.data_ptr(), scratch.data_ptr(), b * k, n_tiles, bound, _lib.stream_ptr(tidx),
+    )
+    _lib.check(err, "gather_rescore_invert")
+    _lib.launches["gather_rescore_invert"] += 1
+    return scratch
 
 
 def gather_rescore(
@@ -247,7 +376,8 @@ def gather_rescore(
     tile_idx: torch.Tensor,  # [B, k] selected tile per query
     tile: int,
 ) -> torch.Tensor:
-    """[B, k*tile] candidate scores (``gather_rescore_plain``)."""
+    """[B, k*tile] candidate scores (``gather_rescore_plain``): on the card,
+    ``invert_selection`` and then one scoring launch over its work items."""
     if query.device.type == "cpu":
         return gather_rescore_plain(query, corpus, tile_idx, tile)
     _check_cuda("gather_rescore", query, corpus, tile_idx)
@@ -255,15 +385,16 @@ def gather_rescore(
         raise TypeError("gather_rescore takes f32 query and corpus")
     b, d = query.shape
     k = tile_idx.shape[1]
-    if tile != TILE or corpus.shape[1] != d or d % 4 or d > 200 or tile_idx.shape[0] != b:
+    if tile != TILE or corpus.shape[1] != d or d % 4 or not 0 < d <= 200 or tile_idx.shape[0] != b:
         raise ValueError(f"gather_rescore takes tile={TILE}, D % 4 == 0, D <= 200")
-    q, cc = query.contiguous(), corpus.contiguous()
-    tidx = tile_idx.to(torch.int32).contiguous()
+    q, cc = _aligned(query), _aligned(corpus)
     out = torch.empty((b, k * tile), dtype=torch.float32, device=q.device)
     if b and k:
+        n_tiles = max(1, -(-cc.shape[0] // tile))
+        scratch = invert_selection(tile_idx, n_tiles)
         err = _lib.library().tt_gather_rescore(
-            q.data_ptr(), cc.data_ptr(), tidx.data_ptr(), out.data_ptr(),
-            b, cc.shape[0], d, k, tile, _lib.stream_ptr(q),
+            q.data_ptr(), cc.data_ptr(), scratch.data_ptr(), out.data_ptr(), cc.shape[0], d, k,
+            n_tiles, _rescore_plan(b, k, n_tiles)[0], tile, _lib.stream_ptr(q),
         )
         _lib.check(err, "gather_rescore")
         _lib.launches["gather_rescore"] += 1
