@@ -11,7 +11,8 @@ Phases, in the order they run; any failure exits non-zero:
      build, nvcc -Xptxas -v on csrc/fused_softmax.cu, csrc/fused_mha.cu,
      csrc/select_topk.cu, csrc/rows_write.cu, csrc/fused_encoder.cu,
      csrc/fused_encoder_bwd.cu, csrc/tile_max.cu and csrc/gather_rescore.cu
-     for the registers, stack and spills of the CE backward, of B13's and
+     for the registers, stack and spills of the CE forward (B10:
+     ce_fwd_tc_kernel<MULTI>, MULTI for D > 64) and backward, of B13's and
      B14's tensor-core kernels (each instance, by key bands), of both select
      kernels, of each row-write instance, of each instance of the
      whole-encoder tensor-core kernel (encoder_tc_kernel<RES, STACK, Hp /
@@ -70,7 +71,11 @@ Phases, in the order they run; any failure exits non-zero:
      on repeat, the FMA kernel on the same inputs within 3e-2 of scale; its
      device time beside the FMA kernel's, three B14 launches' of the same
      shape, its bound and phase 1's ptxas line; in-batch
-     CE forward, and the CE backward that writes dU and dI in one pass over
+     CE forward (B10, 3xTF32 on the tensor cores: also within 1e-5 of max
+     |lse| of a logsumexp over f64 scores, beside the plain version's
+     error, and bit-equal on repeat; its device time beside the library
+     call's, its 3xTF32 bound and the f32 FMA one, phase 1's ptxas line),
+     and the CE backward that writes dU and dI in one pass over
      the score tiles, bit-equal on repeat) are held against their plain
      versions on the step's own tensors and timed.  Then 3
      warm-up and 20 timed steps through make_train_step; launch
@@ -184,11 +189,12 @@ import subprocess
 import sys
 import time
 
-# H100 SXM data sheet (dense): HBM bytes/s, f32 CUDA-core and bf16
-# tensor-core FLOP/s.
+# H100 SXM data sheet (dense): HBM bytes/s, f32 CUDA-core and bf16 and
+# TF32 tensor-core FLOP/s.
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 
 CORPUS = 1 << 20
 BATCH = 1024
@@ -801,12 +807,14 @@ def fixed_batch(torch, gen, dev, cfg, b: int):
     )
 
 
-def phase_train(torch, args, smi, dev, entry, entries, failures, b6_ptxas: str):
+def phase_train(torch, args, smi, dev, entry, entries, failures, b6_ptxas: str,
+                b10_ptxas: str):
     from two_tower_models_tpu_torch.config import TrainConfig
     from two_tower_models_tpu_torch.models import two_tower as tt
     from two_tower_models_tpu_torch.models.history_encoder import (
         sinusoidal_positional_encoding,
     )
+    from two_tower_models_tpu_torch.ops import _lib
     from two_tower_models_tpu_torch.ops import fused_encoder as fe
     from two_tower_models_tpu_torch.ops import fused_softmax as fs
     from two_tower_models_tpu_torch.training.data import gather_batch
@@ -832,19 +840,54 @@ def phase_train(torch, args, smi, dev, entry, entries, failures, b6_ptxas: str):
         it = tt.compute_item_embeddings(model, cfg, batch.item_id, batch.item_features)
         nuv, _ = tt.example_weights(model, cfg, u, batch.position, batch.labels)
     g_ce = nuv / b  # the cotangent of ce in the loss
+    # B10 (3xTF32 on the tensor cores): against plain, and both against f64 sums
     ce_k, lse_k = fs.in_batch_ce_fwd(u, it)
     ce_p, lse_p = fs.in_batch_ce_fwd_plain(u, it)
     ok_c, err_c = close(ce_k, ce_p, 0.0, 1e-5 * float(ce_p.abs().max()))
     ok_l, err_l = close(lse_k, lse_p, 0.0, 1e-5 * float(lse_p.abs().max()))
+    ce_2, lse_2 = fs.in_batch_ce_fwd(u, it)
+    repeat10 = torch.equal(ce_k, ce_2) and torch.equal(lse_k, lse_2)
+    s64 = u.double() @ it.double().T
+    lse64 = torch.logsumexp(s64, 1)
+    ce64 = lse64 - torch.diagonal(s64)
+    del s64
+    f64_scale = float(lse64.abs().max())
+    f64_err = lambda got, want: float((got.double() - want).abs().max()) / f64_scale
+    f64 = {"lse": f64_err(lse_k, lse64), "ce": f64_err(ce_k, ce64),
+           "plain_lse": f64_err(lse_p, lse64), "plain_ce": f64_err(ce_p, ce64)}
+    ok_64 = max(f64["lse"], f64["ce"]) <= 1e-5
+    print(f"CE forward (B10) vs plain: max_abs_err {max(err_c, err_l):.3g} (tol 1e-5 of scale); "
+          f"from f64 sums, share of max |lse| {f64_scale:.4f}: kernel lse {f64['lse']:.3g} ce "
+          f"{f64['ce']:.3g}, plain lse {f64['plain_lse']:.3g} ce {f64['plain_ce']:.3g} (tol 1e-5); "
+          f"bit-equal on repeat={repeat10}; splits "
+          f"{fs.fwd_plan(b, b, d, _lib.sm_count(torch.cuda.current_device()))}; "
+          f"bounds: 3xTF32 {3 * 2 * b * b * d / TF32_FLOPS * 1e3:.4f} ms, f32 FMA "
+          f"{2 * b * b * d / F32_FLOPS * 1e3:.4f} ms", flush=True)
+    b10 = lambda: fs.in_batch_ce_fwd(u, it)
     ce_lib = lambda: torch.logsumexp(u @ it.T, 1) - (u * it).sum(1)
     entry(
         "fused_in_batch_ce", "two_tower_models_tpu_torch/csrc/fused_softmax.cu",
-        "two_tower_models_tpu/ops/pallas/fused_softmax.py:121", ok_c and ok_l,
-        max(err_c, err_l),
-        time_ms(torch, lambda: fs.in_batch_ce_fwd(u, it)),
-        time_ms(torch, lambda: fs.in_batch_ce_fwd_plain(u, it)),
-        2 * b * d * 4 + 2 * b * 4, 2 * b * b * d, F32_FLOPS, time_ms(torch, ce_lib),
+        "two_tower_models_tpu/ops/pallas/fused_softmax.py:121",
+        ok_c and ok_l and repeat10 and ok_64, max(err_c, err_l),
+        time_ms(torch, b10), time_ms(torch, lambda: fs.in_batch_ce_fwd_plain(u, it)),
+        2 * b * d * 4 + 2 * b * 4, 3 * 2 * b * b * d, TF32_FLOPS, time_ms(torch, ce_lib),
     )
+    e10 = entries["fused_in_batch_ce"]
+    e10["device_ms"] = device_ms(torch, b10, "ce_fwd_tc_kernel")
+    e10["library_device_ms"] = call_device_ms(torch, ce_lib)
+    e10["f32_fma_bound_ms"] = 2 * b * b * d / F32_FLOPS * 1e3
+    e10["f64_err"] = f64
+    e10["ptxas"] = b10_ptxas
+    print(f"B10 at B={b} on {torch.cuda.get_device_name(0)} ({smi}): device {e10['device_ms']:.4f} "
+          f"ms, with the host's dispatch {e10['ms']:.4f}; library (logsumexp of U I^T - diag) "
+          f"device {e10['library_device_ms']:.4f}, {e10['library_ms']:.4f} with dispatch; bound "
+          f"{e10['bound_ms']:.4f} ({e10['bound_by']}, 3xTF32), f32 FMA {e10['f32_fma_bound_ms']:.4f}; "
+          f"ptxas {b10_ptxas}", flush=True)
+    e10["note"] = ("bound_ms counts the three TF32 products at the TF32 tensor-core rate "
+                   "(f32_fma_bound_ms: one f32 product on the CUDA cores); device_ms the "
+                   "kernel's device time from torch.profiler; f64_err the max abs error from "
+                   "f64 sums over max |f64 lse|")
+    del ce_2, lse_2, lse64, ce64
     # B11 and B12: one pass over the score tiles writes both gradients
     term = float(g_ce.abs().max()) * max(float(u.abs().max()), float(it.abs().max()))
     (du_k, di_k), (du_p, di_p) = (fs.in_batch_ce_bwd(u, it, lse_k, g_ce),
@@ -2445,16 +2488,20 @@ def main() -> int:
         flush=True,
     )
     from two_tower_models_tpu_torch.ops import fused_mha as fm
+    from two_tower_models_tpu_torch.ops import fused_softmax as fs
 
     ept = fm._fwd_tc_tile(HIST, 64)
     enc_smem = fe._enc_tc_plan(TRAIN_BATCH, HIST, 64, 3, 1)[2]
     bwd_smem = fe._enc_bwd_tc_plan(TRAIN_BATCH, HIST, 64, 3, 1)[2]
     spills, ptxas_lines = ptxas_report(
-        ptxas_log, ["ce_bwd_kernel", "ce_bwd_reduce", "mha_fwd_tc_kernel", "mha_bwd_tc_kernel",
+        ptxas_log, ["ce_fwd_tc_kernel", "ce_bwd_kernel", "ce_bwd_reduce", "mha_fwd_tc_kernel",
+                    "mha_bwd_tc_kernel",
                     "select_radix_kernel", "select_topk_kernel", "rows_write_kernel",
                     "encoder_tc_kernel", "encoder_bwd_tc_kernel", "tile_max_kernel",
                     "rescore_kernel", "invert_count_kernel", "invert_scan_kernel",
                     "invert_scatter_kernel"], {
+            # B10 (<MULTI>: D > 64), fwd::smem_bytes in csrc/fused_softmax.cu
+            **{f"ce_fwd_tc_kernel<{m}>": fs.fwd_smem_bytes(m) for m in (0, 1)},
             # bwd::SMEM_FLOATS in csrc/fused_softmax.cu
             "ce_bwd_kernel": 4 * (128 * 68 + 2 * 64 * 68 + 128 * 72 + 2 * 128),
             "ce_bwd_reduce": 0,
@@ -2668,7 +2715,8 @@ def main() -> int:
     bwd_ptxas = ["; ".join(ptxas_lines.get(f"encoder_bwd_tc_kernel<{mode}, {HIST // 16}, 64>", []))
                  for mode in (0, 2)]
     train_cfg4, train_cfg, b56_ms = phase_train(torch, args, smi, dev, entry, entries, failures,
-                                                bwd_ptxas[0])
+                                                bwd_ptxas[0],
+                                                "; ".join(ptxas_lines.get("ce_fwd_tc_kernel<0>", [])))
     torch.cuda.empty_cache()
     phase_train_varlen(torch, args, smi, dev, train_cfg4, train_cfg, entry, entries, failures,
                        bwd_ptxas[1])

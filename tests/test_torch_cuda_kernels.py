@@ -1,7 +1,8 @@
 """PyTorch port: the CUDA kernels against their plain PyTorch versions on
 the card, at shapes the main paths do not reach (ragged corpora, padded
-rows, odd batches, other encoder widths, hierarchical selects, D = 65 and
-C != B for the CE kernels, NaN rows), and the encoder's autograd route.
+rows, odd batches, other encoder widths, hierarchical selects, D = 65, 640
+and 1024 and C != B for the CE kernels, NaN rows), and the encoder's
+autograd route.
 
 Needs an NVIDIA GPU with ``nvcc``; skips elsewhere.  It imports neither JAX
 nor the JAX package, so on a machine without JAX run it without the suite's
@@ -12,7 +13,9 @@ conftest:
 Tolerances: tile-max and rescore scores are f32 sums in another order than
 cuBLAS's (rtol 1e-5); the CE kernels the same, relative to each output's
 largest magnitude (or to one g p x term, where the exact gradient may be
-0), and the CE backward bit-equal on a repeated call (no atomics); the encoder forward (B1), the
+0), the forward (3xTF32 on the tensor cores) also within 1e-5 of max |lse|
+of a logsumexp over f64 scores at the flagship step's shape, and both
+bit-equal on a repeated call (no float atomics); the encoder forward (B1), the
 residual forward's output and stored residuals (B5) and the length-masked
 stack (B8) at 1e-4 in f32; in bf16 the FMA kernel, which sums in the plain
 version's order, within one bf16 step of each value, and the tensor-core
@@ -451,14 +454,16 @@ def _term(g, x):
 
 
 _CE_SHAPES = [(1, 1, 64, True), (100, 100, 64, True), (4096, 4096, 64, True),
-              (300, 1000, 65, False), (77, 130, 65, False), (50, 20, 7, False)]
+              (300, 1000, 65, False), (77, 130, 65, False), (50, 20, 7, False),
+              (33, 33, 640, True), (8, 40, 1024, False)]
 
 
 @pytest.mark.parametrize("b,c,d,diag", _CE_SHAPES)
 def test_ce_kernels_match_plain(dev, b, c, d, diag):
     """B10, and B11 with B12 in one backward pass plus its reduce: B not a
     multiple of the 128-row tile, C != B with D = 65 (the logQ route's
-    width, two output slices), B = 1, D = 7."""
+    width, two output slices), B = 1, D = 7, and D = 640 and 1024 (ten and
+    sixteen staged d chunks in B10)."""
     u, i = _randn(20, b, d, dev=dev) * 0.3, _randn(21, c, d, dev=dev) * 0.3
     g = _randn(22, b, dev=dev)
     before = dict(_lib.launches)
@@ -491,6 +496,53 @@ def test_ce_bwd_bit_equal_on_repeat_and_alone(dev, b, c, d, diag):
             assert _lib.launches[name] == before.get(name, 0) + 1
         assert (got[1] is None) if want_du else (got[0] is None)
         assert torch.equal(got[0], du) if want_du else torch.equal(got[1], di)
+
+
+@pytest.mark.parametrize("b,c,d,diag", _CE_SHAPES)
+def test_ce_fwd_bit_equal_on_repeat(dev, b, c, d, diag):
+    """B10 merges its column splits' partials in split order, whichever
+    block finishes last: a repeated call gives the same bits."""
+    u, i = _randn(43, b, d, dev=dev) * 0.3, _randn(44, c, d, dev=dev) * 0.3
+    ce, lse = fs.in_batch_ce_fwd(u, i, diag)
+    ce2, lse2 = fs.in_batch_ce_fwd(u, i, diag)
+    assert torch.equal(ce, ce2) and torch.equal(lse, lse2)
+
+
+def test_ce_fwd_at_the_cell_from_f64_sums(dev):
+    """B10 at the flagship step's shape (B = C = 4096, D = 64, normal inputs
+    at scales 0.3 and 1): lse and ce within 1e-5 of max |lse| of a
+    logsumexp over f64 scores (3xTF32: a single TF32 product is 1e-5 to
+    1e-4 off), beside the plain version's error."""
+    for seed, scale in ((45, 0.3), (46, 1.0)):
+        u, i = _randn(seed, 4096, 64, dev=dev) * scale, _randn(seed + 10, 4096, 64, dev=dev) * scale
+        s64 = u.double() @ i.double().T
+        lse64 = torch.logsumexp(s64, 1)
+        ce64 = lse64 - torch.diagonal(s64)
+        top = float(lse64.abs().max())
+        ce, lse = fs.in_batch_ce_fwd(u, i)
+        ce_p, lse_p = fs.in_batch_ce_fwd_plain(u, i)
+        err = lambda got, want: float((got.double() - want).abs().max()) / top
+        print(f"B10 from f64 sums at scale {scale}: lse {err(lse, lse64):.3g} ce {err(ce, ce64):.3g}; "
+              f"plain lse {err(lse_p, lse64):.3g} ce {err(ce_p, ce64):.3g} (of max |lse| {top:.4f})")
+        assert err(lse, lse64) <= 1e-5 and err(ce, ce64) <= 1e-5
+
+
+def test_ce_fwd_at_unaligned_addresses(dev):
+    """U and I at addresses 16-byte aligned no more (the kernel stages 16
+    bytes at a time, the wrapper copies such inputs): the same bits as
+    aligned ones, with and without the diagonal."""
+    b, d = 300, 64
+    u, i = _randn(47, b, d, dev=dev) * 0.3, _randn(48, b, d, dev=dev) * 0.3
+
+    def odd(t):
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return o.copy_(t)
+
+    uo, io = odd(u), odd(i)
+    assert uo.data_ptr() % 16 and io.data_ptr() % 16
+    for diag in (True, False):
+        got, want = fs.in_batch_ce_fwd(uo, io, diag), fs.in_batch_ce_fwd(u, i, diag)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 def test_ce_kernels_propagate_nan_like_plain(dev):

@@ -20,32 +20,6 @@ namespace tt {
 // true top k) relies on that equality: two accumulation orders could
 // differ by an ulp at a near-tie and drop a true winner.  No fast-math,
 // no TF32, no split sums.
-//
-// dot_block computes that chain for an RQ x RC block of (query, row) pairs
-// at once (the CE kernels of csrc/fused_softmax.cu use it).  Element (i, j)
-// reads q at qs[i*q_step + d*q_dstride] and the row at
-// cs[j*c_step + d*c_dstride].
-template <int RQ, int RC>
-__device__ __forceinline__ void dot_block(float (&acc)[RQ][RC],
-                                          const float* qs, int q_step, int q_dstride,
-                                          const float* cs, int c_step, int c_dstride,
-                                          int D) {
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int j = 0; j < RC; ++j) acc[i][j] = 0.0f;
-  for (int d = 0; d < D; ++d) {
-    float qv[RQ], cv[RC];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) qv[i] = qs[i * q_step + d * q_dstride];
-#pragma unroll
-    for (int j = 0; j < RC; ++j) cv[j] = cs[j * c_step + d * c_dstride];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < RC; ++j) acc[i][j] = fmaf(qv[i], cv[j], acc[i][j]);
-  }
-}
 
 // Row stride in floats of rows of w floats in shared memory: an odd number
 // of float4s, so the eight rows a quarter-warp reads with one 16-byte load

@@ -3,24 +3,66 @@
 // and one backward pass that writes both gradients.
 //
 // Replaces two_tower_models_tpu/ops/pallas/fused_softmax.py:
-//   ce_fwd_kernel   <- _fwd_kernel     (fused_in_batch_ce / fused_lse forward)
-//   ce_bwd_kernel   <- _bwd_du_kernel  (dU_b = sum_j g_b p_bj i_j - g_b i_b)
-//   + ce_bwd_reduce <- _bwd_di_kernel  (dI_j = sum_b g_b p_bj u_b - g_j u_j)
+//   ce_fwd_tc_kernel <- _fwd_kernel    (fused_in_batch_ce / fused_lse forward)
+//   ce_bwd_kernel    <- _bwd_du_kernel (dU_b = sum_j g_b p_bj i_j - g_b i_b)
+//   + ce_bwd_reduce  <- _bwd_di_kernel (dI_j = sum_b g_b p_bj u_b - g_j u_j)
 // with p_bj = exp(s_bj - lse_b); the diagonal terms only with_diag.
 // U [B, D], I [C, D], lse and g [B]; all f32 (the two towers' outputs are
 // f32 at every compute dtype), any D.
 //
-// Bound on the H100: operations.  At B = C = 4096, D = 64 the forward is
-// 2.1 GFLOP of f32 FMA (0.032 ms at 67 TFLOP/s) against 2 MB of inputs;
-// the backward 6.4 GFLOP (0.096 ms): S once, then (g p) . I and (g p)^T . U.
+// Bound on the H100: operations.  At B = C = 4096, D = 64 the forward's
+// three TF32 products are 6.4 GFLOP on the tensor cores (0.0130 ms at 495
+// TFLOP/s; one f32 product on the CUDA cores would be 2.1 GFLOP, 0.032 ms
+// at 67) against 2 MB of inputs; the backward 6.4 GFLOP of f32 FMA (0.096
+// ms): S once, then (g p) . I and (g p)^T . U.
 //
-// Forward design: a block owns TR = 32 rows and walks over tiles of TC = 64
-// columns staged in shared memory (row stride D | 1, odd, so the 16 column
-// rows a warp reads fall in 16 banks).  Each of the 256 threads holds a
-// 2 x 4 register tile of scores (tt::dot_block).  It keeps a running (max,
-// sum) per thread and row, starting from -1e30 as the Pallas kernel does,
-// and merges the 16 partials of a row with shuffles at the end; the
-// diagonal score is taken from the same dot products.
+// Forward design (ce_fwd_tc_kernel<MULTI>, MULTI for D > 64): the scores on
+// the tensor cores in 3xTF32.  Each operand is split into TF32 hi and lo
+// (cvt.rna; x - hi is exact), and s = hi_u.lo_i + lo_u.hi_i + hi_u.hi_i,
+// per k8 step in that order, by mma.sync m16n8k8 into a fresh accumulator
+// that is then added to the score rounded to nearest (chunk_products says
+// why).  Its lse lies within 2e-7 of max |lse| of an f64 logsumexp at the
+// flagship step, as the plain f32 version's does; one TF32 product would
+// miss 1e-6 (tests/test_torch_ce_forward.py).  Four limits of a row-tile
+// kernel on the CUDA cores, and what this design does about each:
+//  - A block per 32-row tile is under one wave (128 blocks at B = 4096).
+//    Here the grid is cdiv(B, 128) row tiles x S column splits
+//    (ops/fused_softmax.py:fwd_plan), S filling the blocks the card holds
+//    (two an SM: 32 x 8 at the cell, each block walking 8 of the 64 column
+//    tiles).  Each block writes its rows' partial (max, sum, diagonal) to a
+//    workspace; the last block of a row tile to finish (an int atomic
+//    ticket, set back to 0 for the next launch) merges the S partials in
+//    split order.  One launch a call, no float atomics, the same bits on
+//    every call.
+//  - Scalar shared loads give 8 FMAs per 6 loads.  Here a warp owns 16
+//    rows, its A fragments read with ldmatrix from the row tile of U staged
+//    once (f32, split at the load: 4 values feed 24 products), and every B
+//    fragment (hi, lo) feeds three products; per k8 step a warp issues four
+//    column bands' hi.lo, then lo.hi, then hi.hi, four chains of three,
+//    twice.
+//  - Tile copies that block the compute.  Here the column tiles of I (64
+//    rows x 64 d, and for MULTI the row tile of U's d chunk beside them)
+//    arrive by cp.async in a three-stage ring; once a stage lands, the
+//    block splits it in place into TF32 hi and a lo buffer, once for all
+//    eight warps.  Row stride 68 floats (4 banks mod 32): the eight 16-byte
+//    rows of each ldmatrix matrix fall in distinct banks.
+//  - Whole rows at a D | 1 stride do not fit shared memory from D = 606.
+//    Here d is staged 64 at a time, zero-filled up to the chunk's last k8
+//    step (D = 1 .. 7 take one step).  16-byte copies where D % 4 == 0 and
+//    both inputs are 16-byte aligned (the wrapper copies an input that is
+//    not), 4-byte copies else.
+//  - The online softmax from the accumulators: a thread holds rows g and
+//    g + 8 of its warp's 16 and columns 8 nt + 2t + e of each tile; per
+//    tile its max over its 16 valid columns (fmaxf drops a NaN score), then
+//    the sum of __expf(s - max) (the MUFU ex2; a NaN score carries into the
+//    sum, so the row's lse and ce are NaN as the plain version's), padded
+//    columns selected out, the diagonal score taken from the same
+//    accumulators; (max, sum) start at (-1e30, 0) as the Pallas kernel's.
+//    The four lanes of a quad merge by shuffles, each merge rescaling both
+//    sums with expf and adding them rounded (the same bits either way).
+// At the cell: 256 threads, 128 registers and 104,448 bytes of shared
+// memory a block (two blocks an SM), no spills; MULTI 127 registers,
+// 174,080 bytes (one).
 //
 // Backward design (ce_bwd_kernel, then ce_bwd_reduce): the grid is G_r x G_c
 // blocks of 128 threads, two per SM (ops/fused_softmax.py:bwd_plan sizes it
@@ -45,88 +87,285 @@
 // (blockIdx.z), each recomputing S over all of D in 64-wide staged chunks.
 // Plain f32 FMA on the CUDA cores; 3xTF32 on the tensor cores is later work.
 
-#include "common.cuh"
 #include "mma.cuh"
 
 #include <algorithm>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int RQ = 2, RC = 4;  // register tile per thread
-constexpr int TR = 16 * RQ;    // rows a block owns
-constexpr int TC = 16 * RC;    // columns per step
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+
+// ---- forward: 3xTF32 on the tensor cores ----
+
+namespace fwd {
+
+constexpr int NW = 8;       // warps a block, 16 rows each
+constexpr int NT = 32 * NW;
+constexpr int BM = 16 * NW; // rows of U a block owns
+constexpr int BN = 64;      // columns of S (rows of I) in a tile: eight n8 bands
+constexpr int DK = 64;      // d of a staged chunk: eight k8 steps
+constexpr int SD = DK + 4;  // staged row stride, 68 floats = 4 banks mod 32
+constexpr int NS = 3;       // ring stages
 constexpr float NEG_BIG = -1e30f;
 
-__device__ __forceinline__ void stage(float* dst, const float* src, int row0,
-                                      int nrows, int n, int D, int SD) {
-  for (int e = threadIdx.x; e < nrows * D; e += THREADS) {
-    const int r = e / D, c = e - r * D;
-    dst[r * SD + c] = (row0 + r < n) ? src[(size_t)(row0 + r) * D + c] : 0.0f;
+// A ring stage holds a column tile of I's d chunk and, with MULTI, the row
+// tile of U's; then I's TF32 lo, then (not MULTI) the row tile of U.
+template <bool MULTI>
+__host__ __device__ constexpr int stage_floats() { return (BN + (MULTI ? BM : 0)) * SD; }
+
+template <bool MULTI>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * ((size_t)NS * stage_floats<MULTI>() + BN * SD + (MULTI ? 0 : BM * SD));
+}
+
+// Rows row0 .. row0 + NROWS - 1 of src [n, D], d in [d0, d0 + DK), into dst
+// [NROWS][SD] by cp.async; rows past n and d past D are zero-filled up to
+// the chunk's last k8 step, d beyond it is not written.  vec: D % 4 == 0 and
+// src 16-byte aligned, so a float4 is all in or all out.
+template <int NROWS>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int n, int D,
+                                           int d0, int vec) {
+  const int dw = min(D - d0, DK), dw8 = (dw + 7) & ~7;
+  if (vec) {
+    for (int e = threadIdx.x; e < NROWS * (DK / 4); e += NT) {
+      const int r = e / (DK / 4), q = (e % (DK / 4)) * 4;
+      if (q >= dw8) continue;
+      const bool ok = row0 + r < n && q < dw;
+      tt::cp_async16(dst + r * SD + q, ok ? src + (size_t)(row0 + r) * D + d0 + q : src,
+                     ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < NROWS * DK; e += NT) {
+      const int r = e / DK, q = e % DK;
+      if (q >= dw8) continue;
+      const bool ok = row0 + r < n && q < dw;
+      cp_async4(dst + r * SD + q, ok ? src + (size_t)(row0 + r) * D + d0 + q : src, ok ? 4 : 0);
+    }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-ce_fwd_kernel(const float* __restrict__ U, const float* __restrict__ I,
-              float* __restrict__ ce, float* __restrict__ lse, int B, int C,
-              int D, int with_diag) {
-  extern __shared__ float smem[];
-  const int SD = D | 1;
-  float* us = smem;            // [TR][SD]
-  float* is = us + TR * SD;    // [TC][SD]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int r0 = blockIdx.x * TR;
-  stage(us, U, r0, TR, B, D, SD);
-  float m[RQ], l[RQ], dg[RQ];
+// c[nt] += the chunk's scores of the 16 rows at a (f32, split here) against
+// column band nt of the staged tile (TF32 hi at b, lo at bl).  Per k8 step
+// the three products hi.lo, lo.hi, hi.hi of four bands at a time go into
+// fresh accumulators, which are then added to c rounded to nearest:
+// mma.sync adds into the accumulator it is given without rounding to
+// nearest, which over a chain of 24 products would bias a score toward zero
+// by up to 24 of its ulps, and the gradients read exp(s - lse).
+__device__ __forceinline__ void chunk_products(float (&c)[8][4], const float* a, const float* b,
+                                               const float* bl, int nks, int lane) {
+  // ldmatrix.x4, lane L giving a row address of matrix L / 8.  A: row
+  // L % 8 + 8 ((L / 8) % 2), k half L / 16, landing as a0 .. a3.  B: band
+  // 2p + L / 16, row L % 8 of it, k half (L / 8) % 2, landing as b0, b1 of
+  // band 2p, then of band 2p + 1.
+  const int offa = ((lane & 7) + 8 * ((lane >> 3) & 1)) * SD + 4 * (lane >> 4);
+  const int offb = ((lane >> 4) * 8 + (lane & 7)) * SD + ((lane >> 3) & 1) * 4;
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) { m[i] = NEG_BIG; l[i] = 0.0f; dg[i] = 0.0f; }
-  for (int c0 = 0; c0 < C; c0 += TC) {
-    __syncthreads();  // readers of the previous column tile are done
-    stage(is, I, c0, TC, C, D, SD);
-    __syncthreads();
-    float s[RQ][RC];
-    tt::dot_block<RQ, RC>(s, us + ty * SD, 16 * SD, 1, is + tx * SD, 16 * SD, 1, D);
+  for (int ks = 0; ks < 8; ++ks) {
+    if (ks >= nks) continue;
+    unsigned ar[4], ahi[4], alo[4];
+    tt::ldmatrix_x4<false>(ar, a + offa + ks * 8);
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int row = r0 + ty + 16 * i;
-      float tmax = NEG_BIG;
+    for (int q = 0; q < 4; ++q) tt::tf32_split(__uint_as_float(ar[q]), ahi[q], alo[q]);
 #pragma unroll
-      for (int j = 0; j < RC; ++j) {
-        const int col = c0 + tx + 16 * j;
-        if (col < C) {
-          tmax = fmaxf(tmax, s[i][j]);
-          if (with_diag && col == row) dg[i] = s[i][j];
-        }
+    for (int half = 0; half < 2; ++half) {
+      unsigned hi[2][4], lo[2][4];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int o = offb + (2 * half + p) * 16 * SD + ks * 8;
+        tt::ldmatrix_x4<false>(hi[p], b + o);
+        tt::ldmatrix_x4<false>(lo[p], bl + o);
       }
-      const float mn = fmaxf(m[i], tmax);
-      float sum = 0.0f;
+      float d[4][4];
 #pragma unroll
-      for (int j = 0; j < RC; ++j)
-        if (c0 + tx + 16 * j < C) sum += expf(s[i][j] - mn);
-      l[i] = l[i] * expf(m[i] - mn) + sum;
-      m[i] = mn;
-    }
-  }
-  // merge the 16 partials of each row (lanes tx = 0..15 of one half-warp)
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    float mi = m[i], li = l[i], di = dg[i];
-    for (int off = 8; off > 0; off >>= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, mi, off);
-      const float lo = __shfl_xor_sync(0xffffffffu, li, off);
-      di += __shfl_xor_sync(0xffffffffu, di, off);
-      const float mn = fmaxf(mi, mo);
-      li = li * expf(mi - mn) + lo * expf(mo - mn);
-      mi = mn;
-    }
-    const int row = r0 + ty + 16 * i;
-    if (tx == 0 && row < B) {
-      const float v = mi + logf(li);
-      lse[row] = v;
-      ce[row] = v - di;
+        for (int q = 0; q < 4; ++q) d[n][q] = 0.0f;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) tt::mma_tf32(d[n], ahi, lo[n / 2][2 * (n % 2)], lo[n / 2][2 * (n % 2) + 1]);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) tt::mma_tf32(d[n], alo, hi[n / 2][2 * (n % 2)], hi[n / 2][2 * (n % 2) + 1]);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) tt::mma_tf32(d[n], ahi, hi[n / 2][2 * (n % 2)], hi[n / 2][2 * (n % 2) + 1]);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) c[4 * half + n][q] += d[n][q];
     }
   }
 }
+
+// One tile's scores into the running (m, l) of the thread's rows row and
+// row + 8: its columns c0 + 8 nt + 2t + e below C, max first, then the sum
+// of exps in (nt, e) order; the diagonal score where a column is the row.
+__device__ __forceinline__ void softmax_tile(const float (&c)[8][4], int c0, int C, int row,
+                                             int with_diag, int t, float (&m)[2], float (&l)[2],
+                                             float (&dg)[2]) {
+  const bool full = c0 + BN <= C;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float tmax = NEG_BIG;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (full || c0 + 8 * nt + 2 * t + e < C) tmax = fmaxf(tmax, c[nt][2 * h + e]);
+    const float mn = fmaxf(m[h], tmax);
+    float sum = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (full || c0 + 8 * nt + 2 * t + e < C) sum += __expf(c[nt][2 * h + e] - mn);
+    l[h] = __fadd_rn(__fmul_rn(l[h], expf(m[h] - mn)), sum);
+    m[h] = mn;
+    const int r = row + 8 * h;
+    if (with_diag && r >= c0 && r < c0 + BN) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (c0 + 8 * nt + 2 * t + e == r) dg[h] = c[nt][2 * h + e];
+    }
+  }
+}
+
+// (m, l) of one part merged into (M, L): the two sums rescaled to the
+// larger max, each product rounded, then added (the same bits whichever
+// part is which).
+__device__ __forceinline__ void merge(float& M, float& L, float m, float l) {
+  const float mn = fmaxf(M, m);
+  L = __fadd_rn(__fmul_rn(L, expf(M - mn)), __fmul_rn(l, expf(m - mn)));
+  M = mn;
+}
+
+// Block (rt, sp): rows rt BM .. rt BM + BM - 1 against the column tiles of
+// split sp (an even split of the cdiv(C, BN) tiles over S), each tile's d
+// in chunks of DK through the ring.  With S > 1 each block writes its rows'
+// partial (m, l, diagonal) to ws [3][S][B], and the last block of the row
+// tile to finish merges the S partials in split order.
+template <bool MULTI>
+__global__ void __launch_bounds__(NT, MULTI ? 1 : 2)
+ce_fwd_tc_kernel(const float* __restrict__ U, const float* __restrict__ I,
+                 float* __restrict__ ce, float* __restrict__ lse, float* __restrict__ ws,
+                 int* __restrict__ tickets, int B, int C, int D, int S, int with_diag,
+                 int vec) {
+  constexpr int STAGE = stage_floats<MULTI>();
+  extern __shared__ float4 fsm[];  // float4: 16-byte aligned
+  float* ring = (float*)fsm;        // NS x STAGE
+  float* lo_s = ring + NS * STAGE;  // [BN][SD]: TF32 lo of the current I chunk
+  float* u_s = lo_s + BN * SD;      // [BM][SD]: the row tile of U (not MULTI)
+  __shared__ int last;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = blockIdx.x * BM, rw = r0 + 16 * warp, sp = blockIdx.y;
+  const int n_ct = (C + BN - 1) / BN, nkc = MULTI ? (D + DK - 1) / DK : 1;
+  const int ct0 = sp * n_ct / S, ct1 = (sp + 1) * n_ct / S, J = (ct1 - ct0) * nkc;
+  const bool active = rw < B;  // warp-uniform
+  auto issue = [&](int j) {     // work item j (column tile, d chunk) into its ring stage
+    float* dst = ring + (j % NS) * STAGE;
+    const int d0 = (j % nkc) * DK;
+    stage_rows<BN>(dst, I, (ct0 + j / nkc) * BN, C, D, d0, vec);
+    if (MULTI) stage_rows<BM>(dst + BN * SD, U, r0, B, D, d0, vec);
+  };
+  if (!MULTI) stage_rows<BM>(u_s, U, r0, B, D, 0, vec);  // joins the first group
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < J) issue(s);
+    tt::cp_commit();
+  }
+  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.0f, 0.0f}, dg[2] = {0.0f, 0.0f};
+  float acc[8][4];
+  for (int j = 0; j < J; ++j) {
+    tt::cp_wait<NS - 2>();
+    __syncthreads();  // item j has landed; every warp is done with item j - 1's stage
+    if (j + NS - 1 < J) issue(j + NS - 1);
+    tt::cp_commit();
+    float* b = ring + (j % NS) * STAGE;
+    const int ct = ct0 + j / nkc, kc = j % nkc;
+    const int nks = (min(D - kc * DK, DK) + 7) / 8;
+    for (int e = threadIdx.x; e < BN * DK; e += NT) {  // I's chunk to TF32 hi in place, lo beside
+      const int r = e / DK, q = e % DK;
+      if (q < 8 * nks) {
+        unsigned hi, lo;
+        tt::tf32_split(b[r * SD + q], hi, lo);
+        b[r * SD + q] = __uint_as_float(hi);
+        lo_s[r * SD + q] = __uint_as_float(lo);
+      }
+    }
+    __syncthreads();
+    if (!active) continue;
+    if (kc == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
+    }
+    chunk_products(acc, (MULTI ? b + BN * SD : u_s) + 16 * warp * SD, b, lo_s, nks, lane);
+    if (kc == nkc - 1) softmax_tile(acc, ct * BN, C, rw + g, with_diag, t, m, l, dg);
+  }
+  // the four lanes of a quad hold parts of the same two rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[h], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[h], off);
+      dg[h] += __shfl_xor_sync(0xffffffffu, dg[h], off);
+      merge(m[h], l[h], mo, lo);
+    }
+  if (active && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = rw + g + 8 * h;
+      if (row >= B) continue;
+      if (S == 1) {
+        const float v = m[h] + logf(l[h]);
+        lse[row] = v;
+        ce[row] = with_diag ? v - dg[h] : v;
+      } else {
+        ws[(size_t)sp * B + row] = m[h];
+        ws[(size_t)(S + sp) * B + row] = l[h];
+        ws[(size_t)(2 * S + sp) * B + row] = dg[h];
+      }
+    }
+  }
+  if (S == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tickets + blockIdx.x, 1) == S - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int r = threadIdx.x; r < BM && r0 + r < B; r += NT) {
+    const int row = r0 + r;
+    float M = __ldcg(ws + row), L = __ldcg(ws + (size_t)S * B + row);
+    float G = __ldcg(ws + (size_t)2 * S * B + row);
+    for (int s = 1; s < S; ++s) {
+      merge(M, L, __ldcg(ws + (size_t)s * B + row), __ldcg(ws + (size_t)(S + s) * B + row));
+      G += __ldcg(ws + (size_t)(2 * S + s) * B + row);
+    }
+    const float v = M + logf(L);
+    lse[row] = v;
+    ce[row] = with_diag ? v - G : v;
+  }
+  if (threadIdx.x == 0) tickets[blockIdx.x] = 0;
+}
+
+template <bool MULTI>
+int launch_fwd(const float* u, const float* i, float* ce, float* lse, float* ws, int* tickets,
+               int B, int C, int D, int with_diag, int S, cudaStream_t stream) {
+  const size_t smem = smem_bytes<MULTI>();
+  cudaError_t err = cudaFuncSetAttribute(ce_fwd_tc_kernel<MULTI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = D % 4 == 0 && ((size_t)u % 16 | (size_t)i % 16) == 0;
+  ce_fwd_tc_kernel<MULTI><<<dim3((B + BM - 1) / BM, S), NT, smem, stream>>>(
+      u, i, ce, lse, ws, tickets, B, C, D, S, with_diag, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fwd
 
 // ---- backward: one pass over the tile pairs, then the reduce ----
 
@@ -139,11 +378,6 @@ constexpr int KC = 64;       // d staged at once, and d of one output slice
 constexpr int SD = KC + 4;   // U, I row stride: 17 float4s
 constexpr int SP = BN + 8;   // g p row stride
 constexpr int SMEM_FLOATS = BM * SD + 2 * BN * SD + BM * SP + 2 * BM;
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
 
 // Rows row0 .. row0 + NROWS - 1 of src [n, D], d in [d0, d0 + KC), into
 // dst [NROWS][SD] with cp.async; rows past n and d past D are zero-filled.
@@ -384,22 +618,21 @@ __global__ void ce_bwd_reduce(const float* __restrict__ ws_du, const float* __re
 
 }  // namespace bwd
 
-size_t fwd_smem(int D) { return (size_t)(TR + TC) * (D | 1) * sizeof(float); }
-
 }  // namespace
 
-extern "C" int tt_in_batch_ce_fwd(const void* u, const void* i, void* ce,
-                                  void* lse, int B, int C, int D,
-                                  int with_diag, void* stream) {
-  if (B < 1 || C < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      ce_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ce_fwd_kernel<<<(B + TR - 1) / TR, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)u, (const float*)i, (float*)ce, (float*)lse, B, C, D,
-      with_diag);
-  return (int)cudaGetLastError();
+// ce [B] and lse [B] of U [B, D] against I [C, D] on a cdiv(B, 128) x S grid
+// (ops/fused_softmax.py:fwd_plan chooses S <= cdiv(C, 64)); with S > 1, ws
+// [3, S, B] f32 takes the partials and tickets [cdiv(B, 128)] int32, all
+// zero, the row tiles' counts (left zero).
+extern "C" int tt_in_batch_ce_fwd(const void* u, const void* i, void* ce, void* lse, void* ws,
+                                  void* tickets, int B, int C, int D, int with_diag, int S,
+                                  void* stream) {
+  using namespace fwd;
+  if (B < 1 || C < 1 || D < 1 || S < 1 || S > (C + BN - 1) / BN || (S > 1 && (!ws || !tickets)))
+    return (int)cudaErrorInvalidValue;
+  auto launch = D <= DK ? launch_fwd<false> : launch_fwd<true>;
+  return launch((const float*)u, (const float*)i, (float*)ce, (float*)lse, (float*)ws,
+                (int*)tickets, B, C, D, with_diag, S, (cudaStream_t)stream);
 }
 
 // The backward's pass over the tile pairs on a G_r x G_c grid (x cdiv(D, 64)

@@ -84,6 +84,37 @@ __device__ __forceinline__ void mma_bf16_add(float (&c)[4], const unsigned (&a)[
   for (int i = 0; i < 4; ++i) c[i] += d[i];
 }
 
+// x rounded to TF32 (10 mantissa bits kept, to nearest, ties away from
+// zero), as the f32 bit pattern the tf32 mma.sync takes.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The 3xTF32 split: x = hi + lo + a remainder of at most 2^-22 |x|, hi and lo
+// TF32; x - hi is exact in f32.
+__device__ __forceinline__ void tf32_split(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a . b, mma.sync m16n8k8, row.col, TF32 in, f32 accumulate: for
+// groupID g = lane / 4 and t = lane % 4
+//   A (16 x 8, 4 x tf32): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//   B (8 x 8,  2 x tf32): b0 (k t, n g), b1 (k t+4, n g)
+//   C (16 x 8, 4 x f32):  c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
+// so ldmatrix (b16) of an [n][k] f32 tile by row gives B: lane L of an
+// 8 x 8 b16 matrix gets the 32-bit word L % 4 of row L / 4.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Two floats rounded to nearest-even bf16, lo in the low half.
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

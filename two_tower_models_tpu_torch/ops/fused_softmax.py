@@ -3,12 +3,13 @@
 Port of ``two_tower_models_tpu/ops/pallas/fused_softmax.py``:
 ``fused_in_batch_ce`` (ce, lse with diagonal positives) and ``fused_lse``
 (the rectangular row logsumexp), each an ``autograd.Function`` whose
-forward is kernel B10 and whose backward is one kernel for both B11 (dU)
+forward is kernel B10 (3xTF32 on the tensor cores, one launch on
+``fwd_plan``'s grid) and whose backward is one kernel for both B11 (dU)
 and B12 (dI), which computes each tile of scores once, plus the launch
 that sums its partial slices, all in ``csrc/fused_softmax.cu``; the
-source's note says what bounds them on the H100.  The plain versions below compute the same functions with the
-[B, C] matrix materialised: the CPU path, and the reference the kernels are
-held against on the card.
+source's note says what bounds them on the H100.  The plain versions below
+compute the same functions with the [B, C] matrix materialised: the CPU
+path, and the reference the kernels are held against on the card.
 
 As in the JAX package, the backward reads only the cotangent of ``ce``
 (``fused_in_batch_ce``) or of ``lse`` (``fused_lse``); a cotangent of the
@@ -104,6 +105,44 @@ def bwd_tiles(n_tiles: int, groups: int, k: int) -> range:
     return range(k * n_tiles // groups, (k + 1) * n_tiles // groups)
 
 
+# The forward kernel's tiles (csrc/fused_softmax.cu, namespace fwd): 128 rows
+# of U (16 a warp, eight warps) by 64 rows of I, d staged 64 at a time in a
+# three-stage ring; two blocks an SM for D <= 64, one beyond (the ring then
+# also carries U's d chunks).
+FWD_ROWS, FWD_COLS, FWD_DCHUNK, FWD_STAGES = 128, 64, 64, 3
+
+
+def fwd_smem_bytes(multi: bool) -> int:
+    """The forward kernel's dynamic shared memory (fwd::smem_bytes): the
+    ring's stages, I's TF32 lo, and U's row tile (in each stage if multi,
+    D > 64; else once)."""
+    sd = FWD_DCHUNK + 4
+    stage = (FWD_COLS + (FWD_ROWS if multi else 0)) * sd
+    return 4 * (FWD_STAGES * stage + FWD_COLS * sd + (0 if multi else FWD_ROWS * sd))
+
+
+def fwd_plan(b: int, c: int, d: int, sms: int) -> int:
+    """S, the splits of the forward's columns: the cdiv(B, 128) row tiles
+    times S fill the blocks the card holds at once (two an SM up to D = 64,
+    one beyond), with S at most the cdiv(C, 64) column tiles, which are split
+    evenly over S (``bwd_tiles``).  32 x 8 on 132 SMs at B = C = 4096."""
+    n_rt, n_ct = _cdiv(b, FWD_ROWS), _cdiv(c, FWD_COLS)
+    slots = max(1, sms * (2 if d <= FWD_DCHUNK else 1))
+    return max(1, min(n_ct, slots // n_rt))
+
+
+_tickets: dict = {}
+
+
+def _zero_tickets(device: torch.device, n: int) -> torch.Tensor:
+    """n int32 zeros on ``device`` kept across calls: the forward's row-tile
+    counts, which its last block per row tile sets back to zero."""
+    t = _tickets.get(device)
+    if t is None or t.numel() < n:
+        t = _tickets[device] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return t
+
+
 def _check(u: torch.Tensor, i: torch.Tensor, with_diag: bool) -> None:
     if u.device.type != "cuda" or i.device != u.device:
         raise ValueError(f"the CE kernels take CUDA tensors on one device, got {u.device}, {i.device}")
@@ -117,17 +156,23 @@ def _check(u: torch.Tensor, i: torch.Tensor, with_diag: bool) -> None:
 
 def in_batch_ce_fwd(u: torch.Tensor, i: torch.Tensor, with_diag: bool = True):
     """(ce, lse); see ``in_batch_ce_fwd_plain``.  A CPU tensor takes the
-    plain version; a CUDA tensor launches kernel B10."""
+    plain version; a CUDA tensor launches kernel B10 once, on ``fwd_plan``'s
+    grid (an input not 16-byte aligned copied first)."""
     if u.device.type == "cpu":
         return in_batch_ce_fwd_plain(u, i, with_diag)
     _check(u, i, with_diag)
-    u, i = u.contiguous(), i.contiguous()
-    b, d = u.shape
+    u, i = (t.contiguous() for t in (u, i))
+    u, i = (t.clone() if t.data_ptr() % 16 else t for t in (u, i))
+    (b, d), c = u.shape, i.shape[0]
+    s = fwd_plan(b, c, d, _lib.sm_count(u.device.index))
     ce = torch.empty(b, dtype=torch.float32, device=u.device)
     lse = torch.empty_like(ce)
+    ws = torch.empty(3, s, b, dtype=torch.float32, device=u.device) if s > 1 else None
+    tickets = _zero_tickets(u.device, _cdiv(b, FWD_ROWS)) if s > 1 else None
     err = _lib.library().tt_in_batch_ce_fwd(
         u.data_ptr(), i.data_ptr(), ce.data_ptr(), lse.data_ptr(),
-        b, i.shape[0], d, int(with_diag), _lib.stream_ptr(u),
+        None if ws is None else ws.data_ptr(), None if tickets is None else tickets.data_ptr(),
+        b, c, d, int(with_diag), s, _lib.stream_ptr(u),
     )
     _lib.check(err, "fused_in_batch_ce")
     _lib.launches["fused_in_batch_ce"] += 1
