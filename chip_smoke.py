@@ -17,7 +17,7 @@ Phases, in the order they run; any failure exits non-zero:
      kernels, of each row-write instance, of each instance of the
      whole-encoder tensor-core kernel (encoder_tc_kernel<RES, STACK, Hp /
      16>: B1, B5, B8) and of its backward (encoder_bwd_tc_kernel<MODE, Hp /
-     16, D>: B6, B9), of the tile max (tile_max_kernel: B2) and of the
+     16, D>: B6, B7, B9), of the tile max (tile_max_kernel: B2) and of the
      gather-rescore's inversion and scoring kernels (B4), and their shared
      memory (a spill fails the run);
   2. kernels: each of the four kernels of the serving path is held against
@@ -85,11 +85,19 @@ Phases, in the order they run; any failure exits non-zero:
      of the forward-only encoder kernel.  Three more steps run under
      torch.profiler, for the device time per kernel and the device's busy
      share;
-  4c. the recompute encoder backward (B7) on phase 4's encoder tensors,
-     against its plain version and against B6; then the step with B1 and
-     B7 in place of B5 and B6 (_RESIDUAL_BWD False), timed beside the B5/B6
-     step in the order B6, B7, B7, B6.  Last, train_loss and its gradients
-     at B=256 on the card against a CPU copy of the model;
+  4c. the recompute encoder backward (B7, on the tensor cores) on phase
+     4's encoder tensors, held as B6 is in phase 4 (against its plain
+     version, the backward with f64 sums and the FMA kernel on the same
+     inputs, bit-equal on repeat; its f32 instance within 1e-4 of scale of
+     plain), against the FMA kernel directly and against B6 on B5's
+     residuals, both within 3e-2 of scale; its device time beside the FMA
+     kernel's, three B14 launches', its bound and phase 1's ptxas line.
+     Then the step with B1 and B7 in place of B5 and B6 (_RESIDUAL_BWD
+     False): one launch of each a step, B7 on the tensor cores, timed
+     beside the B5/B6 step in the order B6, B7, B7, B6, and three steps of
+     it under torch.profiler, their device-busy ms a step beside the B5/B6
+     step's.  Last, train_loss and its gradients at B=256 on the card
+     against a CPU copy of the model;
   4b. train, variable-length histories: the flagship config on
      make_synthetic_data with variable_history (lengths in [1, 32], id 0
      past them).  The stack's backward (B9, on the tensor cores) is held
@@ -222,7 +230,7 @@ MIPS_ROUTE = {"tile_max_scores": 1, **SELECT_ROUTE, "gather_rescore_invert": 1,
 # route of the cells' bf16 encoder): none unless a leg says otherwise
 ENC_TC = {"fused_history_encoder_tc": 0, "fused_history_encoder_res_tc": 0,
           "fused_attn_stack_tc": 0, "fused_history_encoder_bwd_tc": 0,
-          "fused_attn_stack_bwd_tc": 0}
+          "fused_history_encoder_bwd_recompute_tc": 0, "fused_attn_stack_bwd_tc": 0}
 
 
 def _fail(msg: str) -> None:
@@ -808,7 +816,7 @@ def fixed_batch(torch, gen, dev, cfg, b: int):
 
 
 def phase_train(torch, args, smi, dev, entry, entries, failures, b6_ptxas: str,
-                b10_ptxas: str):
+                b7_ptxas: str, b10_ptxas: str):
     from two_tower_models_tpu_torch.config import TrainConfig
     from two_tower_models_tpu_torch.models import two_tower as tt
     from two_tower_models_tpu_torch.models.history_encoder import (
@@ -991,35 +999,57 @@ def phase_train(torch, args, smi, dev, entry, entries, failures, b6_ptxas: str,
               lambda: b14_layers(torch, xs[0], None, w, nh), b6_ptxas)
     print(bwd_line(torch, smi, f"B6 at B={b}", e6), flush=True)
 
-    # -- phase 4c, first half: B7 on the same input, against its plain
-    # version and against B6 on B5's residuals (one VJP, p rounded in B6) --
+    # -- phase 4c, first half: B7 on the same input, held as B6 (against
+    # its plain version, f64 sums and the FMA kernel), against the FMA
+    # kernel directly and against B6 on B5's residuals (one VJP, p rounded
+    # in B6) --
     rc_args = (g_enc, x, pe, *w, nh)
+    route7 = fe._enc_bwd_route(x.dtype, h, d, nh, nl)
+    inputs7 = fe._recompute_bwd_inputs(g_enc, x, fe._pe(pe, x), *w, nh, enc=True)
+    res7 = fe._res_floats(h, d, nh, nl)
+
+    def fma7():  # the FMA kernel on the same inputs, its outputs in the wrapper's order
+        dx7 = torch.empty_like(x)
+        dwi, dbi, dwo, dbo, dpe = fe._launch_bwd_fma("fused_history_encoder_bwd_recompute",
+                                                     inputs7, dx7, shapes6, nh, nl, res7)
+        return dx7, dpe, dwi, dbi, dwo, dbo
+
     got7 = fe.fused_history_encoder_bwd_recompute(*rc_args)
-    want7 = fe.fused_history_encoder_bwd_recompute_plain(*rc_args)
-    checks = [scaled_close(a, e, 3e-2) for a, e in zip(got7, want7)]
+    fma7_out = fma7()
+    ok7, err7 = bwd_checks(
+        torch, "encoder recompute backward (B7)", got7,
+        fe.fused_history_encoder_bwd_recompute(*rc_args),
+        fe.fused_history_encoder_bwd_recompute_plain(*rc_args),
+        fe.fused_history_encoder_bwd_recompute_f64_sums(*rc_args), fma7_out,
+        ("dx", "dpe", "dW_in", "db_in", "dW_out", "db_out"))
+    vs_fma = [scaled_close(a, e, 3e-2) for a, e in zip(got7, fma7_out)]
     b6 = fe.fused_history_encoder_bwd(g_enc, *res_k[1:], w[0], w[1], w[2], nh)
     vs_b6 = [scaled_close(a, e, 3e-2) for a, e in zip(got7, b6)]
     x32, g32 = x.float(), g_enc.float()
     ok_32 = all(scaled_close(a, e, 1e-4)[0] for a, e in zip(
         fe.fused_history_encoder_bwd_recompute(g32, x32, pe, *w, nh),
         fe.fused_history_encoder_bwd_recompute_plain(g32, x32, pe, *w, nh)))
-    print(f"encoder recompute backward vs B6 (dx, dpe, dW_in, db_in, dW_out, db_out): "
-          f"ok={all(ok for ok, _ in vs_b6)} max_abs_err "
-          f"{[float(f'{err:.3g}') for _, err in vs_b6]} (tol 3e-2 of scale); f32 vs plain "
-          f"ok={ok_32} (tol 1e-4 of scale)", flush=True)
+    print(f"encoder recompute backward (B7) vs the FMA kernel and vs B6 (dx, dpe, dW_in, "
+          f"db_in, dW_out, db_out): FMA ok={all(ok for ok, _ in vs_fma)} max_abs_err "
+          f"{[float(f'{err:.3g}') for _, err in vs_fma]}; B6 ok={all(ok for ok, _ in vs_b6)} "
+          f"max_abs_err {[float(f'{err:.3g}') for _, err in vs_b6]} (tol 3e-2 of scale); f32 "
+          f"vs plain ok={ok_32} (tol 1e-4 of scale)", flush=True)
     entry(
         "fused_history_encoder_bwd_recompute",
         "two_tower_models_tpu_torch/csrc/fused_encoder_bwd.cu",
         "two_tower_models_tpu/ops/pallas/fused_encoder.py:700",
-        all(ok for ok, _ in checks + vs_b6) and ok_32, max(err for _, err in checks),
+        ok7 and all(ok for ok, _ in vs_fma + vs_b6) and ok_32 and route7 == "tc", err7,
         time_ms(torch, lambda: fe.fused_history_encoder_bwd_recompute(*rc_args)),
         time_ms(torch, lambda: fe.fused_history_encoder_bwd_recompute_plain(*rc_args)),
         b * h * d * 2 + b * 2 * d * 2 + w_bytes + b * h * d * 2 + grads_bytes,
         b * vjp_flops(h, d, nl), BF16_FLOPS, None,
     )
-    entries["fused_history_encoder_bwd_recompute"]["note"] = (
-        "ms includes the second launch that sums the per-block weight grads")
-    del res_k, res_p, want, xs, ps, p0, got7, want7, b6
+    e7 = entries["fused_history_encoder_bwd_recompute"]
+    e7["kernel_route"] = route7
+    bwd_times(torch, e7, lambda: fe.fused_history_encoder_bwd_recompute(*rc_args), fma7,
+              lambda: b14_layers(torch, xs[0], None, w, nh), b7_ptxas)
+    print(bwd_line(torch, smi, f"B7 at B={b}", e7), flush=True)
+    del res_k, res_p, want, xs, ps, p0, got7, fma7_out, b6
     torch.cuda.empty_cache()
 
     # -- the training steps --
@@ -1057,10 +1087,11 @@ def phase_train(torch, args, smi, dev, entry, entries, failures, b6_ptxas: str,
     )
 
     # -- where a step's device time goes: a trace of three steps --
-    state, _ = trace_steps(torch, step, state, data, idx, "train")
+    state, busy6 = trace_steps(torch, step, state, data, idx, "train")
 
     # -- phase 4c, second half: the step with B1 + B7 (_RESIDUAL_BWD False)
-    # beside the B5 + B6 step, in the order B6, B7, B7, B6 --
+    # beside the B5 + B6 step, in the order B6, B7, B7, B6, then three B7
+    # steps under the profiler --
     b6_ms, b7_ms = [ms_step], []
     try:
         fe._RESIDUAL_BWD = False
@@ -1077,19 +1108,24 @@ def phase_train(torch, args, smi, dev, entry, entries, failures, b6_ptxas: str,
                     "fused_history_encoder_bwd_recompute_reduce": 1,
                     "fused_history_encoder_res": 0, "fused_history_encoder_bwd": 0,
                     **ENC_TC, "fused_history_encoder_tc": 1,
+                    "fused_history_encoder_bwd_recompute_tc": 1,
                 }, TRAIN_STEPS, failures, "train (B7)")
-                entries["fused_history_encoder_bwd_recompute"]["launches"] = counts.get(
-                    "fused_history_encoder_bwd_recompute", 0)
-                entries["fused_history_encoder_bwd_recompute"]["reduce_launches"] = counts.get(
-                    "fused_history_encoder_bwd_recompute_reduce", 0)
+                e7["launches"] = counts.get("fused_history_encoder_bwd_recompute", 0)
+                e7["tc_launches"] = counts.get("fused_history_encoder_bwd_recompute_tc", 0)
+                e7["reduce_launches"] = counts.get("fused_history_encoder_bwd_recompute_reduce", 0)
+        state, busy7 = trace_steps(torch, step, state, data, idx, "train (B7)")
     finally:
         fe._RESIDUAL_BWD = True
     state, _, ms, _, _ = run_steps(torch, step, state, data, idx, TRAIN_STEPS)
     b6_ms.append(ms)
+    busy = lambda v: "not measured" if v is None else f"{v:.3f}"
     print(f"encoder backward in the step on {torch.cuda.get_device_name(0)} ({smi}), "
           f"{TRAIN_STEPS} steps each, order B6 B7 B7 B6: B5+B6 ms/step "
-          f"{b6_ms[0]:.3f} {b6_ms[1]:.3f}; B1+B7 ms/step {b7_ms[0]:.3f} {b7_ms[1]:.3f}",
-          flush=True)
+          f"{b6_ms[0]:.3f} {b6_ms[1]:.3f}; B1+B7 ms/step {b7_ms[0]:.3f} {b7_ms[1]:.3f}; "
+          f"device busy ms a step (three profiled steps): B5+B6 {busy(busy6)}, B1+B7 "
+          f"{busy(busy7)}", flush=True)
+    e7["busy_ms_step"] = busy7
+    e7["busy_ms_step_b5_b6"] = busy6
 
     # -- train_loss and its gradients, card against a CPU copy --
     grads_vs_cpu(torch, model, cfg, data, idx, failures, "train")
@@ -2511,8 +2547,9 @@ def main() -> int:
             # B1, B5 and B8 (<RES, STACK, Hp / 16>) at the cells' three layers
             **{f"encoder_tc_kernel<{res}, {stack}, {HIST // 16}>": enc_smem
                for res, stack in ((0, 0), (1, 0), (0, 1))},
-            # B6 and B9 (<MODE, Hp / 16, D>: MODE 0 from the stored residuals, 2 the stack)
-            **{f"encoder_bwd_tc_kernel<{mode}, {HIST // 16}, 64>": bwd_smem for mode in (0, 2)},
+            # B6, B7 and B9 (<MODE, Hp / 16, D>: MODE 0 from the stored
+            # residuals, 1 by recompute, 2 the stack)
+            **{f"encoder_bwd_tc_kernel<{mode}, {HIST // 16}, 64>": bwd_smem for mode in (0, 1, 2)},
             # B2 and B4 at the serving cell's D = 64
             "tile_max_kernel": mt._tile_max_smem_bytes(64),
             "rescore_kernel": mt._rescore_smem_bytes(64),
@@ -2713,13 +2750,13 @@ def main() -> int:
 
     # ---- phase 4 (and 4c): train; phase 4b: train variable lengths -------
     bwd_ptxas = ["; ".join(ptxas_lines.get(f"encoder_bwd_tc_kernel<{mode}, {HIST // 16}, 64>", []))
-                 for mode in (0, 2)]
+                 for mode in (0, 1, 2)]
     train_cfg4, train_cfg, b56_ms = phase_train(torch, args, smi, dev, entry, entries, failures,
-                                                bwd_ptxas[0],
+                                                bwd_ptxas[0], bwd_ptxas[1],
                                                 "; ".join(ptxas_lines.get("ce_fwd_tc_kernel<0>", [])))
     torch.cuda.empty_cache()
     phase_train_varlen(torch, args, smi, dev, train_cfg4, train_cfg, entry, entries, failures,
-                       bwd_ptxas[1])
+                       bwd_ptxas[2])
     torch.cuda.empty_cache()
 
     # ---- phase 5: large tables -------------------------------------------

@@ -1,6 +1,7 @@
-"""Times of the in-batch CE forward (B10) of the PyTorch port and the busy
-time of the training steps that run it, for the checkout it is run from,
-so that one copy of this script compares two commits on the same card:
+"""Times of the in-batch CE forward (B10) and the recompute encoder
+backward (B7) of the PyTorch port and the busy time of the training steps
+that run them, for the checkout it is run from, so that one copy of this
+script compares two commits on the same card:
 
     python3 scripts/torch_ce_times.py
     (cd ../other_checkout && python3 /abs/path/scripts/torch_ce_times.py)
@@ -12,13 +13,17 @@ the host's dispatch included) and ``device_ms`` (every kernel of one call,
 from torch.profiler, mean of 20, and its split by kernel name); its ce and
 lse against a logsumexp of f64 scores (max abs error over max |f64 lse|),
 beside the plain version's; the one-call library yardstick
-``logsumexp(U I^T) - diag`` timed the same way.  Then three training legs,
-each 3 warm-up and 10 timed steps (ms/step by CUDA events, host ms/step,
-the CE forward's launches) and three steps under torch.profiler (device
-busy ms a step): train-65k-flagship (the fixed batch), -varlen
-(make_synthetic_data's variable-length histories) and train-4M-packed
-(2^22-row tables stored packed, dense Adam).  The configurations, batches
-and step loops are chip_smoke.py's own, imported from the checkout.
+``logsumexp(U I^T) - diag`` timed the same way.  B7
+(``fused_history_encoder_bwd_recompute``, the route the checkout gives it)
+on the step's own history embeddings and encoder weights with a random
+cotangent, timed the same way.  Then four training legs, each 3 warm-up
+and 10 timed steps (ms/step by CUDA events, host ms/step, the CE forward's
+launches) and three steps under torch.profiler (device busy ms a step):
+train-65k-flagship (the fixed batch), the same with B1 + B7 in place of B5
++ B6 (``_RESIDUAL_BWD`` False: -b7), -varlen (make_synthetic_data's
+variable-length histories) and train-4M-packed (2^22-row tables stored
+packed, dense Adam).  The configurations, batches and step loops are
+chip_smoke.py's own, imported from the checkout.
 
 Prints the card's name and power limit, then one JSON line.  Needs a GPU.
 """
@@ -68,7 +73,8 @@ def device_times(fn, iters: int = ITERS) -> tuple[float, dict]:
 
 
 def train_leg(cs, label, cfg, train_cfg, data, seed):
-    """3 warm-up and 10 timed steps, then three under the profiler."""
+    """3 warm-up and 10 timed steps, then three under the profiler; the
+    encoder's launches of each backward (B6, B7) in the timed steps."""
     from two_tower_models_tpu_torch.training.state import create_train_state
     from two_tower_models_tpu_torch.training.step import make_train_step
 
@@ -81,6 +87,8 @@ def train_leg(cs, label, cfg, train_cfg, data, seed):
     state, busy = cs.trace_steps(torch, step, state, data, idx, label)
     out = {"ms_step": ms, "host_ms_step": host_ms, "busy_ms_step": busy,
            "ce_fwd_launches": counts.get("fused_in_batch_ce", 0),
+           "b6_launches": counts.get("fused_history_encoder_bwd", 0),
+           "b7_launches": counts.get("fused_history_encoder_bwd_recompute", 0),
            "finite": cs.finite(torch, metrics)}
     del state, step
     torch.cuda.empty_cache()
@@ -94,6 +102,10 @@ def main() -> int:
     import chip_smoke as cs
     from two_tower_models_tpu_torch.config import DataConfig, TrainConfig
     from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.models.history_encoder import (
+        sinusoidal_positional_encoding,
+    )
+    from two_tower_models_tpu_torch.ops import fused_encoder as fe
     from two_tower_models_tpu_torch.ops import fused_softmax as fs
     from two_tower_models_tpu_torch.training.data import gather_batch, make_synthetic_data
     from two_tower_models_tpu_torch.training.state import create_train_state
@@ -121,9 +133,22 @@ def main() -> int:
         s64 = u.double() @ it.double().T
         lse64 = torch.logsumexp(s64, 1)
         ce64 = lse64 - torch.diagonal(s64)
-        del s64, model
+        del s64
         scale = float(lse64.abs().max())
         err = lambda got, want: float((got.double() - want).abs().max()) / scale
+        # B7 on the step's history embeddings (bf16, as the encoder takes them)
+        layers = model.history_encoder.attn_layers
+        w = [torch.stack([getattr(getattr(l, p), a) for l in layers]).detach()
+             for p, a in (("in_proj", "w"), ("in_proj", "b"), ("out_proj", "w"),
+                          ("out_proj", "b"))]
+        x = model.item_id_table.detach()[batch.user_history].to(torch.bfloat16)
+        pe = sinusoidal_positional_encoding(x.shape[1], x.shape[2], dev)
+        g = (torch.randn(b, 2, x.shape[2], generator=gen, device=dev) / b).to(torch.bfloat16)
+        b7 = lambda: fe.fused_history_encoder_bwd_recompute(g, x, pe, *w, 4)  # noqa: E731
+        dms7, kernels7 = device_times(b7)
+        out["b7"] = {"shape": list(x.shape), "ms": events_ms(b7), "device_ms": dms7,
+                     "kernels": kernels7}
+        del x, pe, g, w, layers, model
         ce_k, lse_k = fs.in_batch_ce_fwd(u, it)
         ce_p, lse_p = fs.in_batch_ce_fwd_plain(u, it)
         ce_2, lse_2 = fs.in_batch_ce_fwd(u, it)
@@ -142,8 +167,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(json.dumps(out["b10"]), flush=True)
 
-    # -- the training legs that run it --
+    print(json.dumps(out["b7"]), flush=True)
+
+    # -- the training legs that run them --
     out["train-65k-flagship"] = train_leg(cs, "train-65k-flagship", cfg, train_cfg, data, 1)
+    try:
+        fe._RESIDUAL_BWD = False
+        out["train-65k-flagship-b7"] = train_leg(cs, "train-65k-flagship-b7", cfg, train_cfg,
+                                                 data, 1)
+    finally:
+        fe._RESIDUAL_BWD = True
     varlen = make_synthetic_data(DataConfig(
         num_samples=b, num_users=rows, num_items=rows, feature_dim=16, history_len=cs.HIST,
         num_tasks=3, max_position=cfg.position_table_size, seed=0, variable_history=True,

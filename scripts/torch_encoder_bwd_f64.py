@@ -1,16 +1,19 @@
-"""B6's and B9's kernels against the backward with f64 sums, seed by seed.
+"""B6's, B7's and B9's kernels against the backward with f64 sums, seed by seed.
 
-For each shape below, each backward (B6 from the residuals B5 stores, B9
-the length-masked stack with lengths uniform in [1, H]) and each seed, on
+For each shape below, each backward (B6 from the residuals B5 stores, B7
+recomputing the forward from x and the PE, B9 the length-masked stack with
+lengths uniform in [1, H]) and each seed, on
 at least 2^23 values of dx, from the tensor-core kernel (the wrapper on its
 route), the plain version and, where it takes the shape, the FMA kernel
 (``_launch_bwd_fma``):
 
 - ``dx_far``: values of dx more than one bf16 step from the f64 sums'
-  (``fused_history_encoder_bwd_f64_sums``, ``fused_attn_stack_bwd_f64_sums``);
+  (``fused_history_encoder_bwd_f64_sums``,
+  ``fused_history_encoder_bwd_recompute_f64_sums``,
+  ``fused_attn_stack_bwd_f64_sums``);
 - ``rms``: each grad's RMS error against the f64 sums, relative to that
-  grad's largest magnitude (B6: dPE, dW_in, db_in, dW_out, db_out; B9
-  without dPE);
+  grad's largest magnitude (B6 and B7: dPE, dW_in, db_in, dW_out, db_out;
+  B9 without dPE);
 - ``db_out_by_layer``: db_out's RMS error layer by layer, relative to the
   same largest magnitude.
 
@@ -99,10 +102,14 @@ def main() -> int:
             x, w, g_enc, lens, xm, g_stack = inputs(b, h, d, nh, nl, seed, dev)
             _, xs, ps, p0 = fe.fused_history_encoder_res(x, *w, nh)
             b6 = (g_enc, xs, ps, p0, w[1], w[2], w[3], nh)
+            b7 = (g_enc, x, *w, nh)
             b9 = (g_stack, xm, lens, *w[1:], nh)
             for kind, args, kernel, plain, ref in (
                 ("B6", b6, fe.fused_history_encoder_bwd, fe.fused_history_encoder_bwd_plain,
                  fe.fused_history_encoder_bwd_f64_sums),
+                ("B7", b7, fe.fused_history_encoder_bwd_recompute,
+                 fe.fused_history_encoder_bwd_recompute_plain,
+                 fe.fused_history_encoder_bwd_recompute_f64_sums),
                 ("B9", b9, fe.fused_attn_stack_bwd, fe.fused_attn_stack_bwd_plain,
                  fe.fused_attn_stack_bwd_f64_sums),
             ):
@@ -116,6 +123,14 @@ def main() -> int:
                         grads = fe._launch_bwd_fma("fused_history_encoder_bwd",
                                                    fe._res_bwd_inputs(*args), dx,
                                                    fe._grad_shapes(h, d, nl, True), nh, nl)
+                        fma = (dx, grads[-1], *grads[:-1])
+                    elif kind == "B7":
+                        grads = fe._launch_bwd_fma(
+                            "fused_history_encoder_bwd_recompute",
+                            fe._recompute_bwd_inputs(g_enc, x, fe._pe(w[0], x), *w[1:], nh,
+                                                     enc=True),
+                            dx, fe._grad_shapes(h, d, nl, True), nh, nl,
+                            fe._res_floats(h, d, nh, nl))
                         fma = (dx, grads[-1], *grads[:-1])
                     else:
                         fma = (dx, *fe._launch_bwd_fma(

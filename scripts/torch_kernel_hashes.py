@@ -1,9 +1,12 @@
 """SHA-256 of the port's kernels' outputs at the cells.
 
 Hashes, for the checkout it is run from, what B13 (``fused_mha_fwd``), B14
-(``fused_mha_bwd``), B1, B5 and B8 (the whole-encoder forward) return at
-the cells' shape (B = 4096, H = 32, D = 64, four heads, three layers, bf16),
-without and with per-example lengths, and what B2 (``tile_max_scores``) and
+(``fused_mha_bwd``), B1, B5 and B8 (the whole-encoder forward), B6, B7 and
+B9 (its backward, B6 on B5's residuals) return at the cells' shape (B =
+4096, H = 32, D = 64, four heads, three layers, bf16), without and with
+per-example lengths, what B10 (``in_batch_ce_fwd``, with the diagonal) and
+B11 + B12 (``in_batch_ce_bwd``) return at the flagship step's (B = C =
+4096, D = 64, f32, finite inputs), and what B2 (``tile_max_scores``) and
 B4 (``gather_rescore``) return at the serving cell's (B = 1024, C = 2^20,
 D = 64, k = 100, ``valid`` inside the last tile; B4 on the tiles the
 pipeline selects from B2's output and on a skewed selection, every query
@@ -44,6 +47,7 @@ def main() -> int:
         return 2
     from two_tower_models_tpu_torch.ops import fused_encoder as fe
     from two_tower_models_tpu_torch.ops import fused_mha as fm
+    from two_tower_models_tpu_torch.ops import fused_softmax as fs
     from two_tower_models_tpu_torch.ops import mips_topk as mt
 
     dev = torch.device("cuda")
@@ -64,9 +68,20 @@ def main() -> int:
         out["B13" + tag] = digest(fm.fused_mha_fwd(x, ln, *layer, nh))
         out["B14" + tag] = digest(*fm.fused_mha_bwd(g, x, ln, *layer, nh))
     out["B1"] = digest(fe.fused_history_encoder(x, pe, *w, nh))
-    out["B5"] = digest(*fe.fused_history_encoder_res(x, pe, *w, nh))
+    res = fe.fused_history_encoder_res(x, pe, *w, nh)
+    out["B5"] = digest(*res)
     out["B8"] = digest(fe.fused_attn_stack_fwd(xm, lens, *w, nh))
-    del x, g, xm
+    g_enc = t(r.normal(size=(b, 2, d)) * 0.1).to(torch.bfloat16)
+    g_stack = t(r.normal(size=(b, d)) * 0.1).to(torch.bfloat16)
+    out["B6"] = digest(*fe.fused_history_encoder_bwd(g_enc, *res[1:], *w[:3], nh))
+    out["B7"] = digest(*fe.fused_history_encoder_bwd_recompute(g_enc, x, pe, *w, nh))
+    out["B9"] = digest(*fe.fused_attn_stack_bwd(g_stack, xm, lens, *w, nh))
+    del x, g, xm, res
+    u, it = t(r.normal(size=(b, d)) * 0.3), t(r.normal(size=(b, d)) * 0.3)
+    ce, lse = fs.in_batch_ce_fwd(u, it)
+    out["B10"] = digest(ce, lse)
+    out["B11_B12"] = digest(*fs.in_batch_ce_bwd(u, it, lse, t(r.normal(size=b)) / b))
+    del u, it, ce, lse
     nb, c, k = 1024, 1 << 20, 100
     q = t(r.normal(size=(nb, d)))
     corpus = t(r.normal(size=(c, d)))

@@ -1,8 +1,8 @@
 """PyTorch port: the CUDA kernels against their plain PyTorch versions on
 the card, at shapes the main paths do not reach (ragged corpora, padded
 rows, odd batches, other encoder widths, hierarchical selects, D = 65, 640
-and 1024 and C != B for the CE kernels, NaN rows), and the encoder's
-autograd route.
+and 1024 and C != B for the CE kernels, NaN rows, rows with a +inf score
+or only -inf scores), and the encoder's autograd route.
 
 Needs an NVIDIA GPU with ``nvcc``; skips elsewhere.  It imports neither JAX
 nor the JAX package, so on a machine without JAX run it without the suite's
@@ -28,7 +28,9 @@ that rare); the encoder backward at 1e-4 (f32) and 3e-2 (bf16)
 of each output's largest magnitude, since a bf16 rounding point that flips
 by one ulp between two sum orders carries into the sums over the batch;
 selections exactly.  The stack's backward (B9) and the recompute encoder
-backward (B7) as the encoder backward.  The row scatter-add (B18) at 1e-5 (f32 sums in another order),
+backward (B7) as the encoder backward (B6), each on the tensor cores also
+against the same function with f64 sums over ten seeds.  On infinite
+scores the CE kernels' NaNs and infinities in the plain version's places.  The row scatter-add (B18) at 1e-5 (f32 sums in another order),
 and exactly on sums of ones; the in-place row write (B19) exactly.
 """
 
@@ -564,6 +566,85 @@ def test_ce_kernels_propagate_nan_like_plain(dev):
     assert int(du.isnan().any(1).sum()) == 1 and bool(di.isnan().all())
 
 
+def _infinite_ce_inputs(case, b, c, d, dev):
+    """U, I normal at scale 0.3 (``_randn``) with rows of U whose scores are
+    not all finite, each the same in every sum order (as
+    tests/test_torch_ce_forward.py:_infinite_inputs makes them): "overflow"
+    row 5 has u = 1e38 at d = 0, where I is 4 + |n| in the third 64-column
+    tile, so its scores are +inf there and finite (up to about 1e38)
+    elsewhere; "inf" row 6 has u = +inf at d = 0 (scores +-inf by the sign
+    of I's d 0); "neg-overflow" row 7 has u = -1e38 at d = 1, where every
+    row of I is 4 + |n| (all scores -inf); "neg-inf" row 8 has u = -inf at
+    d = 2, where I is 4 + |n| too; "all" has the four rows; "inf-item" has
+    I = +inf at row 150, d = 3 instead (column 150's scores +-inf by the
+    sign of U's d 3, so every row whose u there is positive has a +inf
+    score)."""
+    u, i = _randn(60, b, d, dev=dev) * 0.3, _randn(61, c, d, dev=dev) * 0.3
+    pos = lambda seed, n: 4 + _randn(seed, n, dev=dev).abs()
+    i[128:192, 0] = pos(62, len(i[128:192]))
+    i[:, 1], i[:, 2] = pos(63, c), pos(64, c)
+    rows = {"overflow": (5, 0, 1e38), "inf": (6, 0, math.inf), "neg-overflow": (7, 1, -1e38),
+            "neg-inf": (8, 2, -math.inf)}
+    for name, (r, k, v) in rows.items():
+        if case in (name, "all"):
+            u[r, k] = v
+    if case == "inf-item":
+        i[150, 3] = math.inf
+    return u, i
+
+
+def _same_class_close(got, want, tol, floor=1e-30):
+    """NaN, +inf and -inf in the same places, the finite values within
+    ``tol`` of max(the finite values' largest magnitude, ``floor``)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(f(got), f(want))
+    fin = want.isfinite()
+    if bool(fin.any()):
+        scale = max(float(want[fin].abs().max()), floor)
+        assert float((got[fin] - want[fin]).abs().max()) <= tol * scale
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+# every kind of row at B = C (four column tiles, four splits), C != B, and D
+# = 80 (two staged d chunks, U's row tile in the ring); each kind alone
+@pytest.mark.parametrize("case,b,c,d,diag", [
+    ("all", 200, 200, 64, True), ("all", 200, 300, 64, False), ("all", 130, 130, 80, True),
+    ("overflow", 200, 200, 64, True), ("inf", 200, 200, 64, True),
+    ("neg-overflow", 200, 200, 64, True), ("neg-inf", 200, 300, 64, False),
+    ("inf-item", 200, 200, 64, True), ("inf-item", 200, 200, 80, False),
+])
+def test_ce_kernels_match_plain_on_infinite_scores(dev, case, b, c, d, diag):
+    """B10 on rows with a +inf score (lse +inf) and rows of -inf scores (lse
+    -inf), ce = lse - diag in IEEE arithmetic (inf - inf is NaN), as
+    ``in_batch_ce_fwd_plain`` (torch.logsumexp) gives them; then B11 + B12
+    with the same lse against ``in_batch_ce_bwd_plain``: NaN and infinities
+    in the same places, the finite values within 1e-5 of scale; both
+    bit-equal on repeat."""
+    u, i = _infinite_ce_inputs(case, b, c, d, dev)
+    g = _randn(65, b, dev=dev)
+    ce, lse = fs.in_batch_ce_fwd(u, i, diag)
+    ce_p, lse_p = fs.in_batch_ce_fwd_plain(u, i, diag)
+    special = {"overflow": [5], "inf": [6], "neg-overflow": [7], "neg-inf": [8],
+               "inf-item": (u[:, 3] > 0).nonzero()[:, 0].tolist()}.get(case, [5, 6, 7, 8])
+    assert int((~lse_p.isfinite()).sum()) == len(special)
+    _same_class_close(lse, lse_p, 1e-5)
+    _same_class_close(ce, ce_p, 1e-5)
+    again = fs.in_batch_ce_fwd(u, i, diag)
+    assert _bits_equal(ce, again[0]) and _bits_equal(lse, again[1])
+    du, di = fs.in_batch_ce_bwd(u, i, lse_p, g, diag)
+    du_p, di_p = fs.in_batch_ce_bwd_plain(u, i, lse_p, g, diag)
+    normal = torch.ones(b, dtype=torch.bool, device=dev)
+    normal[special] = False
+    _same_class_close(du, du_p, 1e-5, _term(g, i[i.isfinite().all(1)]))
+    _same_class_close(di, di_p, 1e-5, _term(g, u[normal]))
+    du2, di2 = fs.in_batch_ce_bwd(u, i, lse_p, g, diag)
+    assert _bits_equal(du, du2) and _bits_equal(di, di2)
+
+
 def test_ce_autograd_matches_plain_route(dev):
     """The two autograd Functions on the card against the CPU route; each
     backward is one launch of the fused kernel and one of its reduce."""
@@ -998,12 +1079,92 @@ def test_encoder_bwd_tc_at_unaligned_addresses(dev):
         fe.fused_attn_stack_bwd(go, xo, lens, wio, w[1], woo, w[3], 4), got))
 
 
+# B7 on the tensor cores alone: the cells' shape at B at the edges of a
+# tile of four examples (1, 5), not a multiple of it (1000) and the
+# training batch (4096); the thin layer alone; D = 32 (H = 16, eight
+# examples a tile); H = 20 (Hp = 32, padded rows in every example) and 40
+# (Hp = 48, two examples a tile)
+_B7_TC_SHAPES = [
+    (1, 32, 64, 4, 3), (5, 32, 64, 4, 3), (1000, 32, 64, 4, 3), (4096, 32, 64, 4, 3),
+    (20, 32, 64, 4, 1), (33, 16, 32, 2, 3), (9, 20, 64, 4, 3), (9, 40, 64, 4, 3),
+]
+
+
+def _b7_fma(g, x, w, nh):
+    """B7 forced onto the FMA kernel (``encoder_bwd_kernel<MODE_ENC>``): its
+    outputs in the wrapper's order (dx, dpe, then the four grads)."""
+    b, h, d = x.shape
+    nl = w[1].shape[0]
+    inputs = fe._recompute_bwd_inputs(g, x, fe._pe(w[0], x), *w[1:], nh, enc=True)
+    out = _fma_bwd("fused_history_encoder_bwd_recompute", inputs, b, h, d, nh, nl, True,
+                   fe._res_floats(h, d, nh, nl))
+    return (out[0], out[-1], *out[1:-1])
+
+
+@pytest.mark.parametrize("b,h,d,nh,nl", _B7_TC_SHAPES)
+def test_encoder_recompute_bwd_tc_route_alone(dev, b, h, d, nh, nl):
+    """B7 on the tensor cores (``encoder_bwd_tc_kernel<MODE_ENC>``): one
+    launch of each counter; dx, dPE and the four weight grads within 3e-2
+    of scale of the plain version's and of the FMA kernel's, as the FMA
+    kernel is of the plain version's, where it takes the shape
+    (``_fma_bwd_fits``); bit-equal on repeat; and on batches of at least
+    2^23 values of dx against the backward with f64 sums
+    (``fused_history_encoder_bwd_recompute_f64_sums``, ``_bwd_vs_f64`` over
+    the ten ``_F64_SEEDS``)."""
+    assert fe._enc_bwd_route(torch.bfloat16, h, d, nh, nl) == "tc"
+    x, w, g = _encoder_inputs(b, h, d, nh, nl, torch.bfloat16, dev, seed=b + h + 15)
+    args = (g, x, *w, nh)
+    names = ["fused_history_encoder_bwd_recompute", "fused_history_encoder_bwd_recompute_tc",
+             "fused_history_encoder_bwd_recompute_reduce"]
+    before = dict(_lib.launches)
+    got = fe.fused_history_encoder_bwd_recompute(*args)
+    assert _counts(names, before) == [1, 1, 1]
+    again = fe.fused_history_encoder_bwd_recompute(*args)
+    assert all(torch.equal(a, e) for a, e in zip(got, again))
+    want = fe.fused_history_encoder_bwd_recompute_plain(*args)
+    for a, e in zip(got, want):
+        assert a.shape == e.shape and a.dtype == e.dtype
+        _scaled_close(a, e, 3e-2)
+    if _fma_bwd_fits(h, d, nh):
+        fma = _b7_fma(g, x, w, nh)
+        for f, a, e in zip(fma, got, want):
+            _scaled_close(f, e, 3e-2)
+            _scaled_close(a, f, 3e-2)
+    runs = []
+    for seed in _F64_SEEDS:
+        xb, wb, gb = _encoder_inputs(max(b, -(-(1 << 23) // (h * d))), h, d, nh, nl,
+                                     torch.bfloat16, dev, seed=b + h + 15 + seed)
+        big = (gb, xb, *wb, nh)
+        runs.append((fe.fused_history_encoder_bwd_recompute(*big),
+                     fe.fused_history_encoder_bwd_recompute_plain(*big),
+                     fe.fused_history_encoder_bwd_recompute_f64_sums(*big)))
+    _bwd_vs_f64(runs)
+
+
+def test_encoder_recompute_bwd_tc_at_unaligned_addresses(dev):
+    """B7's tensor-core kernel reads g, x, the PE and the weights in 16-byte
+    chunks; copies at addresses that are not 16-byte aligned (the wrapper
+    clones them) give the same results bit for bit."""
+
+    def odd(t):  # a copy at an address 16-byte aligned no more
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return o.copy_(t)
+
+    x, w, g = _encoder_inputs(300, 32, 64, 4, 3, torch.bfloat16, dev, seed=16)
+    got = fe.fused_history_encoder_bwd_recompute(g, x, *w, 4)
+    go, xo, peo, wio, woo = (odd(t) for t in (g, x, w[0], w[1], w[3]))
+    assert all(t.data_ptr() % 16 for t in (go, xo, peo, wio, woo))
+    assert all(torch.equal(a, e) for a, e in zip(
+        fe.fused_history_encoder_bwd_recompute(go, xo, peo, wio, w[2], woo, w[4], 4), got))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,h,d,nh,nl", _ENC_SHAPES)
 def test_encoder_recompute_bwd_kernel_matches_plain_and_b6(dev, dtype, b, h, d, nh, nl):
     """B7 and its reduce against its plain version (1e-4 f32, 3e-2 bf16 of
     each output's scale), and against B6 on the same input, which computes
-    the same VJP but rounds p: within 3e-2 of each output's scale."""
+    the same VJP but rounds p: within 3e-2 of each output's scale.  f32
+    takes the FMA kernel; bf16 the tensor cores but at head width 8."""
     x, w, g = _encoder_inputs(b, h, d, nh, nl, dtype, dev, seed=b + h + 3)
     before = dict(_lib.launches)
     got = fe.fused_history_encoder_bwd_recompute(g, x, *w, nh)
@@ -1050,8 +1211,10 @@ def test_encoder_recompute_route_launches_b1_and_b7(dev, monkeypatch):
     (fe.fused_history_encoder(*leaves, 4).float() * g.float()).sum().backward()
     counts = {k: _lib.launches[k] - before.get(k, 0) for k in (
         "fused_history_encoder", "fused_history_encoder_bwd_recompute",
-        "fused_history_encoder_res", "fused_history_encoder_bwd")}
+        "fused_history_encoder_bwd_recompute_tc", "fused_history_encoder_res",
+        "fused_history_encoder_bwd")}
     assert counts == {"fused_history_encoder": 1, "fused_history_encoder_bwd_recompute": 1,
+                      "fused_history_encoder_bwd_recompute_tc": 1,
                       "fused_history_encoder_res": 0, "fused_history_encoder_bwd": 0}
 
 

@@ -1,24 +1,30 @@
-"""PyTorch port: what the tensor-core backward of the whole encoder (B6) and
-of the length-masked stack (B9), ``encoder_bwd_tc_kernel``, relies on, on
-the CPU.
+"""PyTorch port: what the tensor-core backward of the whole encoder from its
+residuals (B6) or by recompute (B7) and of the length-masked stack (B9),
+``encoder_bwd_tc_kernel``, relies on, on the CPU.
 
-``ops/fused_encoder.py`` sends a backward to the tensor-core kernel or to
-the FMA kernel by ``_enc_bwd_route``, a function of dtype and shape alone,
-and sizes a tensor-core launch by ``_enc_bwd_tc_plan``; both are checked
-here without a card.  The card's checks measure the kernel and the plain
-versions against the same functions with every sum in f64
-(``fused_history_encoder_bwd_f64_sums``, ``fused_attn_stack_bwd_f64_sums``):
-those are held here against the plain versions (f32 input, where nothing
-rounds: 1e-5 of each output's largest magnitude; bf16 input: at most 0.5%
-of dx's values beyond one bf16 step, since an f32 sum and an f64 sum can
-round a bf16 operand to its two neighbours, and the grads within 1e-3 of
-scale) and, on f32 input, against ``jax.vjp`` of the JAX package's
-``fused_history_encoder`` and ``fused_attn_stack`` (their Pallas kernels in
-interpret mode, as its own tests run them) at 1e-5 of scale.  The plain
-versions are held to JAX by ``tests/test_torch_train_kernels.py`` and
-``tests/test_torch_attn_stack.py``; here also B9's on histories padded
-with zero rows, as the kernel pads them to Hp.
+``ops/fused_encoder.py`` sends each of the three backwards to the
+tensor-core kernel or to the FMA kernel by ``_enc_bwd_route``, a function of
+dtype and shape alone (``_launch_backward`` is checked here to take it for
+every name, its launchers stubbed), and sizes a tensor-core launch by
+``_enc_bwd_tc_plan``; both are checked here without a card.  The card's
+checks measure the kernel and the plain versions against the same
+functions with every sum in f64 (``fused_history_encoder_bwd_f64_sums``,
+``fused_history_encoder_bwd_recompute_f64_sums``,
+``fused_attn_stack_bwd_f64_sums``): those are held here against the plain
+versions (f32 input, where nothing rounds: 1e-5 of each output's largest
+magnitude; bf16 input: at most 0.5% of dx's values beyond one bf16 step,
+since an f32 sum and an f64 sum can round a bf16 operand to its two
+neighbours, and the grads within 1e-3 of scale) and, on f32 input, against
+``jax.vjp`` of the JAX package's ``fused_history_encoder`` (with its stored
+residuals, and with ``_RESIDUAL_BWD`` False) and ``fused_attn_stack`` (their
+Pallas kernels in interpret mode, as its own tests run them) at 1e-5 of
+scale.  The plain versions are held to JAX by
+``tests/test_torch_train_kernels.py`` and ``tests/test_torch_attn_stack.py``;
+here also B9's on histories padded with zero rows, as the kernel pads them
+to Hp.
 """
+
+import collections
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +33,7 @@ import pytest
 import torch
 
 from two_tower_models_tpu.ops.pallas import fused_encoder as jfe
+from two_tower_models_tpu_torch.ops import _lib
 from two_tower_models_tpu_torch.ops import fused_encoder as tfe
 
 
@@ -107,6 +114,19 @@ def test_encoder_bwd_f64_sums_match_plain(dt, b, h, d, nh, nl):
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,h,d,nh,nl", _SHAPES)
+def test_encoder_recompute_bwd_f64_sums_match_plain(dt, b, h, d, nh, nl):
+    """B7 with f64 sums against its plain version on the encoder's inputs:
+    dx, dPE and the four weight grads."""
+    x, pe, w, _, g, _ = _inputs(b, h, d, nl, seed=b + h + 4)
+    args = (torch.from_numpy(g).to(dt), torch.from_numpy(x).to(dt), torch.from_numpy(pe),
+            *map(torch.from_numpy, w), nh)
+    got = tfe.fused_history_encoder_bwd_recompute_f64_sums(*args)
+    assert got[0].dtype == dt and all(t.dtype == torch.float64 for t in got[1:])
+    _check_bwd(got, tfe.fused_history_encoder_bwd_recompute_plain(*args), dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,d,nh,nl", _SHAPES)
 def test_attn_stack_bwd_f64_sums_match_plain(dt, b, h, d, nh, nl):
     """B9 with f64 sums against its plain version: dx, zero past each
     length in both, and the four weight grads."""
@@ -147,6 +167,31 @@ def test_bwd_f64_sums_match_jax_vjp(h, nl):
                                             torch.from_numpy(lens), *tw, nh)
     assert len(got) == 5 and len(want) == 5
     for a, e in zip(got, want):
+        _scaled(a, e, 1e-5)
+
+
+# shapes no other test traces the JAX encoder at, so no trace made with the
+# residual backward is reused under the patched flag
+@pytest.mark.parametrize("b,h,d,nh,nl", [(5, 9, 32, 2, 2), (4, 6, 16, 1, 1)])
+def test_recompute_bwd_f64_sums_match_jax_vjp(monkeypatch, b, h, d, nh, nl):
+    """On f32 input B7's f64-sum backward is jax.vjp of the JAX package's
+    ``fused_history_encoder`` with its module's ``_RESIDUAL_BWD`` set False
+    (its recompute backward, ``_enc_bwd_kernel``): dx, dPE and the four
+    weight grads."""
+    x, pe, w, _, g, _ = _inputs(b, h, d, nl, seed=900 + h + nl)
+    calls = []
+    recompute_bwd = jfe._vjp_bwd
+    monkeypatch.setattr(jfe, "_RESIDUAL_BWD", False)
+    monkeypatch.setattr(jfe, "_vjp_bwd", lambda *a: calls.append(1) or recompute_bwd(*a))
+    _, vjp = jax.vjp(lambda xx, pp, *ww: jfe.fused_history_encoder(xx, pp, *ww, nh),
+                     jnp.asarray(x), jnp.asarray(pe), *map(jnp.asarray, w))
+    want = vjp(jnp.asarray(g))
+    assert calls == [1]  # the JAX side took its recompute backward
+    got = tfe.fused_history_encoder_bwd_recompute_f64_sums(
+        torch.from_numpy(g), torch.from_numpy(x), torch.from_numpy(pe),
+        *map(torch.from_numpy, w), nh)
+    assert len(got) == 6 and len(want) == 6
+    for a, e in zip(got, want):  # dx, dPE, dW_in, db_in, dW_out, db_out
         _scaled(a, e, 1e-5)
 
 
@@ -195,10 +240,44 @@ def test_zero_padded_rows_leave_the_stack_backward_unchanged(dt, h, nl):
     (torch.bfloat16, 16, 96, 2, 2, "fma"),  # D = 96
     (torch.bfloat16, 65, 64, 4, 3, "fma"),  # Hp = 80, above the kernel's limit
 ], ids=["cell", "h64", "h1", "h40", "d32", "nh1", "l6", "l12", "f32", "hd8", "d128", "d96", "h65"])
-def test_enc_bwd_route(dtype, h, d, nh, nl, route):
+def test_enc_bwd_route(monkeypatch, dtype, h, d, nh, nl, route):
+    """``_enc_bwd_route`` at each shape, and ``_launch_backward`` sending
+    each of the three backwards (B6, B7, B9) to that route's launcher and
+    counting the launch (and ``name_tc`` on the tensor cores)."""
     assert tfe._enc_bwd_route(dtype, h, d, nh, nl) == route
     if nl >= 6:
         assert tfe._enc_route(dtype, h, d, nh, nl) == "fma"
+    for name in _BWD_NAMES:
+        assert _dispatched(monkeypatch, name, dtype, h, d, nh, nl) == route
+
+
+_BWD_NAMES = ("fused_history_encoder_bwd", "fused_history_encoder_bwd_recompute",
+              "fused_attn_stack_bwd")
+
+
+def _dispatched(monkeypatch, name, dtype, h, d, nh, nl) -> str:
+    """The launcher ``_launch_backward`` calls for backward ``name`` (its
+    launchers and the FMA kernel's shared-memory check stubbed, so no card
+    is needed): "tc" or "fma", after checking the launch counts."""
+    took = []
+
+    def launcher(route):
+        def fake(name_, inputs, dx, shapes, *rest):
+            took.append(route)
+            return [torch.zeros(s) for s in shapes]
+        return fake
+
+    monkeypatch.setattr(tfe, "_launch_bwd_tc", launcher("tc"))
+    monkeypatch.setattr(tfe, "_launch_bwd_fma", launcher("fma"))
+    monkeypatch.setattr(tfe, "_check_bwd_smem", lambda *a: None)
+    monkeypatch.setattr(_lib, "launches", collections.Counter())
+    with_pe = name != "fused_attn_stack_bwd"
+    out = tfe._launch_backward(name, [], 3, h, d, nh, nl, dtype, torch.device("cpu"), with_pe)
+    assert out[0].shape == (3, h, d) and len(out) == (6 if with_pe else 5)
+    assert len(took) == 1
+    assert dict(_lib.launches) == {name: 1, name + "_reduce": 1,
+                                   **({name + "_tc": 1} if took[0] == "tc" else {})}
+    return took[0]
 
 
 @pytest.mark.parametrize("b", [1, 3, 5, 1000, 4096])

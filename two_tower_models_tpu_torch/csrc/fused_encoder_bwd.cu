@@ -60,17 +60,17 @@
 // bytes at the flagship's L = 3), go to an f32 scratch [B, R] in device
 // memory, written once and read once.
 
-// B6 and B9 on the tensor cores (encoder_bwd_tc_kernel<MODE, HPB, D>)
-// replace the same two Pallas kernels (calls at :618 and :893) for bf16
-// with D 32 or 64, the head width a multiple of 16 and Hp = round_up(H, 16)
-// <= 64 (ops/fused_encoder.py:_enc_bwd_route; f32, head width 8, D = 128
-// and longer histories keep encoder_bwd_kernel above, as B7 does), at the
-// rounding points listed above, every product on mma.sync m16n8k16 with
-// each k16 step of a projection added rounded (tt::mma_bf16_add).
+// B6, B7 and B9 on the tensor cores (encoder_bwd_tc_kernel<MODE, HPB, D>)
+// replace the same three Pallas kernels (calls at :618, :700 and :893) for
+// bf16 with D 32 or 64, the head width a multiple of 16 and Hp =
+// round_up(H, 16) <= 64 (ops/fused_encoder.py:_enc_bwd_route; f32, head
+// width 8, D = 128 and longer histories keep encoder_bwd_kernel above), at
+// the rounding points listed above, every product on mma.sync m16n8k16
+// with each k16 step of a projection added rounded (tt::mma_bf16_add).
 // Bound on the H100: bytes, by a little (at B = 4096, H = 32, D = 64,
 // L = 3, B6 reads 119 MB of residuals and writes 17 MB of dx, 0.041 ms at
-// 3.35 TB/s, against 36 GFLOP, 0.036 ms at the bf16 tensor-core rate; B9
-// has no residuals to read and recomputes the forward: operations).
+// 3.35 TB/s, against 36 GFLOP, 0.036 ms at the bf16 tensor-core rate; B7
+// and B9 have no residuals to read and recompute the forward: operations).
 // Design: B14's tensor-core tile (csrc/fused_mha.cu, helpers in
 // csrc/mha_tc.cuh) walked over the layers:
 // - tiles of E examples of Hp rows (about 128 rows), one persistent block
@@ -101,11 +101,16 @@
 //   slab of p is filled with cp.async, the first (example, head)'s behind
 //   the tile's projections, the next one's behind the last one's dk and
 //   dq.  No scores, no exponentials, no denominators;
-// - B9 first runs the forward over its tiles, first layer to last, with
-//   B8's helpers (band_attention), and writes each layer's input round(x_l),
-//   l >= 1, to a bf16 scratch [L-1, B, H, D] (cp.async.cg reads it back,
-//   through L2).  Its backward recomputes S and the softmax as B14 does,
-//   p in f32 unrounded in dp p and ds;
+// - B7 and B9 first run the forward over their tiles, first layer to last,
+//   with B8's helpers (band_attention), and write each layer's input
+//   round(x_l), l >= 1, to a bf16 scratch [L-1, B, H, D] (cp.async.cg reads
+//   it back, through L2).  Their backward recomputes S and the softmax as
+//   B14 does, p in f32 unrounded in dp p and ds.  B7's layer 0 input is
+//   round(x + PE), the f32 sum rounded once as B1 makes it: the tile's x
+//   lands and becomes that in place, in the first pass and again in the
+//   backward's layer 0 (a pass over the tile in shared memory, the PE read
+//   from device memory through L1), so its scratch is B9's; storing layer
+//   0's input there too would write and read another B H D bf16;
 // - a full layer is B14's tile: q | k | v and do by warp_gemm, a warp per
 //   (example, head) with round(p) and ds in its slabs, dv, dk and dq from
 //   them, the weight grads in each warp's register slices, dx =
@@ -114,8 +119,8 @@
 //   B9: the other rows' p is set to 0), so ds and the output are zero
 //   there and dq is zero past row 0, as in _thin_bwd;
 // - layer 0 stages its f32 dx over g2 and do, then writes dx in x's dtype
-//   16 bytes a store: B6 adds gmean / H and adds dPE, summed over the
-//   tile's examples, to its slice of ws; B9 writes exact zeros past each
+//   16 bytes a store: B6 and B7 add gmean / H and add dPE, summed over the
+//   tile's examples, to their slice of ws; B9 writes exact zeros past each
 //   length (a select, never a product with 0).
 // No float atomics and every sum in a fixed order: bit-equal on repeat.
 // Shared memory at the cells (H = 32, D = 64, E = 4) 218,112 bytes, one
@@ -512,7 +517,7 @@ int launch_bwd(const void* g, const void* xs, const void* ps, const void* p0,
   return (int)cudaGetLastError();
 }
 
-// ---- B6 and B9 on the tensor cores -------------------------------------------
+// ---- B6, B7 and B9 on the tensor cores ---------------------------------------
 
 namespace tc {
 
@@ -542,21 +547,24 @@ __device__ __forceinline__ int fresh_tid() {
   return t;
 }
 
-// MODE_STORED (B6) or MODE_STACK (B9); HPB = Hp / 16; D 32 or 64, so that
-// each warp's slice of a layer's weight grads has a fixed shape in
-// registers.  x is B6's xs [L, B, H, D] or B9's x [B, H, D]; xr (B9, L > 1)
-// and dy are scratch in device memory that the block writes and reads
-// again in this launch, so neither is read through the read-only path.
+// MODE_STORED (B6), MODE_ENC (B7) or MODE_STACK (B9); HPB = Hp / 16; D 32 or
+// 64, so that each warp's slice of a layer's weight grads has a fixed shape
+// in registers.  x is B6's xs [L, B, H, D] or B7's and B9's x [B, H, D]; pe
+// B7's [H, D]; xr (B7 and B9, L > 1) and dy are scratch in device memory
+// that the block writes and reads again in this launch, so neither is read
+// through the read-only path.
 template <int MODE, int HPB, int D>
 __global__ void __launch_bounds__(THREADS, 1)
 encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
                       const bf16* __restrict__ ps, const bf16* __restrict__ p0,
+                      const float* __restrict__ pe,
                       const int* __restrict__ lens, const float* __restrict__ w_in,
                       const float* __restrict__ b_in, const float* __restrict__ w_out,
                       const float* __restrict__ b_out, bf16* __restrict__ dx, bf16* xr,
                       float* dy, float* __restrict__ ws, int B, int H, int NH, int L, int E,
                       float scale) {
   constexpr bool STACK = MODE == MODE_STACK;
+  constexpr bool RECOMPUTE = MODE != MODE_STORED;  // B7, B9: the forward rebuilt here
   constexpr int Hp = 16 * HPB, D3 = 3 * D;
   constexpr int SWI = D3 + PAD, SWO = D + PAD, SX = D + PAD, SQ = D3 + PAD, SP = Hp + PAD;
   constexpr int DS = D + 8;               // f32 row stride of layer 0's dx stage
@@ -572,13 +580,13 @@ encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
   bf16* Wi = (bf16*)smem_raw;   // [D][SWI] round(W_in) of the layer
   bf16* Wo = Wi + D * SWI;      // [D][SWO] round(W_out)
   bf16* X = Wo + D * SWO;       // [rows][SX] round(x), the layer's input
-  bf16* G = X + rows * SX;      // [rows][SX] g2 = round(dy); B9's first pass: the other x buffer
+  bf16* G = X + rows * SX;      // [rows][SX] g2 = round(dy); the first pass: the other x buffer
   bf16* DO = G + rows * SX;     // [rows][SX] do; dk of each (example, head) after dv
   bf16* OUT = DO + rows * SX;   // [rows][SX] the attention output
   bf16* QKV = OUT + rows * SX;  // [rows][SQ] q | k | v, then dq | dk | dv
   bf16* SL = QKV + rows * SQ;   // [warp][2][Hp][SP] round(p), ds
   float* bi = (float*)(SL + min(WARPS, E * RB) * 2 * Hp * SP);  // [3D]
-  float* bo = bi + D3;          // [D] (B9's first pass)
+  float* bo = bi + D3;          // [D] (B7's and B9's first pass)
   float* GO = bo + D;           // [D][D] the block's dW_out of the layer
   float* STG = (float*)G;       // [rows][DS] layer 0's f32 dx, over g2 and do
   __shared__ int sl[TILE_ROWS / 16];  // the tile's lengths
@@ -587,7 +595,7 @@ encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
   const size_t lsz = (size_t)B * H * D;  // one layer of xs or xr
   const size_t wsz = (size_t)L * (4 * D * D + 4 * D) + (STACK ? 0 : (size_t)H * D);
   float* wsb = ws + (size_t)blockIdx.x * wsz;  // this block's slice of the partial grads
-  float* dpe = wsb + (size_t)L * (4 * D * D + 4 * D);  // its dPE [H][D] (B6)
+  float* dpe = wsb + (size_t)L * (4 * D * D + 4 * D);  // its dPE [H][D] (B6, B7)
 
   // layer l's round(W_in), round(W_out) as bf16 (16 bytes a load), b_in (and b_out) as f32
   auto stage = [&](int l) {
@@ -605,15 +613,36 @@ encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
           make_uint2(tt::pack_bf16x2(v.x, v.y), tt::pack_bf16x2(v.z, v.w));
     }
     for (int i = t; i < D3; i += THREADS) bi[i] = b_in[(size_t)l * D3 + i];
-    if (STACK)
+    if (RECOMPUTE)
       for (int i = t; i < D; i += THREADS) bo[i] = b_out[(size_t)l * D + i];
   };
   auto set_lens = [&](int tile) {
     const int ex = tile * E + t;
     if (t < E) sl[t] = STACK && ex < B ? lens[ex] : H;
   };
+  // B7: the tile's x, landed in Xt, becomes layer 0's input round(x + PE)
+  // in place at rows < H of examples < B (the rest stay zeros), 16 bytes a
+  // thread at a time
+  auto add_pe = [&](bf16* Xt, int tile) {
+    for (int i = fresh_tid(); i < rows * (D / 8); i += THREADS) {
+      const int r = i / (D / 8), c = 8 * (i - r * (D / 8)), e = r / Hp, hi = r - e * Hp;
+      if (hi >= H || tile * E + e >= B) continue;
+      uint4* p = (uint4*)(Xt + r * SX + c);
+      uint4 v = *p;
+      unsigned* u = (unsigned*)&v;
+      const float4* q = (const float4*)(pe + (size_t)hi * D + c);
+      const float4 a = q[0], b = q[1];
+      const float f[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 xv = __bfloat1622float2(*(const __nv_bfloat162*)&u[k]);
+        u[k] = tt::pack_bf16x2(xv.x + f[2 * k], xv.y + f[2 * k + 1]);
+      }
+      *p = v;
+    }
+  };
 
-  if constexpr (STACK) {
+  if constexpr (RECOMPUTE) {
     // the forward, first layer to last, over this block's tiles (B8's
     // layers on B8's helpers): round(x_l) of layers 1 .. L-1 into xr
     for (int l = 0; l + 1 < L; ++l) {
@@ -631,6 +660,10 @@ encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
         __syncthreads();  // x landed, weights and lengths staged, the last tile's output stored
         if (next < tiles) load_x(it & 1 ? X : G, src, next, E, Hp, H, D, B);
         tt::cp_commit();
+        if (MODE == MODE_ENC && l == 0) {
+          add_pe(Xc, tile);
+          __syncthreads();  // layer 0's input complete
+        }
         warp_gemm<2>(rows, D3, D, Xc, SX, Wi, SWI, [&](int r, int c, float v0, float v1) {
           *(unsigned*)(QKV + r * SQ + c) = tt::pack_bf16x2(v0 + bi[c], v1 + bi[c + 1]);
         });
@@ -652,15 +685,15 @@ encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
         store_rows<THREADS>(xr + (size_t)l * lsz, Xc, tile, E, Hp, H, D, B);
       }
     }
-  } else {  // dPE [H][D], after the four grads in the block's slice: summed there at layer 0
-    for (int i = t; i < H * D; i += THREADS) dpe[i] = 0.0f;
   }
+  if constexpr (!STACK)  // dPE [H][D], after the four grads in the block's slice: summed there at layer 0
+    for (int i = t; i < H * D; i += THREADS) dpe[i] = 0.0f;
 
   // the backward, last layer to first
   const int m0 = 16 * (warp % RB), ni0 = (warp / RB) * 8 * NTI, no0 = (warp / RB) * 8 * NTO;
   for (int l = L - 1; l >= 0; --l) {
     const bool thin = l == L - 1;
-    const bf16* src = !STACK ? x + (size_t)l * lsz : l == 0 ? x : xr + (size_t)(l - 1) * lsz;
+    const bf16* src = !RECOMPUTE ? x + (size_t)l * lsz : l == 0 ? x : xr + (size_t)(l - 1) * lsz;
     // this warp's slice of dW_in in registers across the tiles: rows m0 ..
     // m0 + 15, columns ni0 ..; its slice of dW_out (columns no0 ..) in GO;
     // db_in column t (t < 3D)
@@ -711,13 +744,13 @@ encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
         bf16* Oh = OUT + e * Hp * SX + h * hd;
         bf16* Ps = SL + warp * 2 * Hp * SP;  // round(p) [Hp][SP]
         bf16* Ss = Ps + Hp * SP;             // ds [Hp][SP]
-        if constexpr (!STACK) {  // this (example, head)'s probabilities landed
+        if constexpr (!RECOMPUTE) {  // this (example, head)'s probabilities landed
           tt::cp_wait<0>();
           __syncwarp();
         }
         for (int qb = 0; qb < NQB; ++qb) {
           float s[2 * HPB][4];  // p in f32 in the S accumulators' layout
-          if constexpr (STACK) {  // recomputed, as B8 computes it
+          if constexpr (RECOMPUTE) {  // recomputed, as B1 and B8 compute it
             band_probs<HPB>(s, Qh + qb * 16 * SQ, Kh, SQ, hd, H, sl[e], scale);
             if constexpr (THIN)  // row 0 alone
 #pragma unroll
@@ -737,7 +770,7 @@ encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
             }
           }
           unsigned pa[HPB][4];
-          pack_probs<HPB>(pa, s, STACK ? Ps + qb * 16 * SP : nullptr, SP);
+          pack_probs<HPB>(pa, s, RECOMPUTE ? Ps + qb * 16 * SP : nullptr, SP);
           band_bwd<HPB>(s, pa, Vh, SQ, Dh + qb * 16 * SX, SX, Oh + qb * 16 * SX, SX,
                         Ss + qb * 16 * SP, SP, hd, scale);
         }
@@ -745,7 +778,7 @@ encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
           for (int i = lane; i < (Hp - 16) * (hd / 8); i += 32)
             *(uint4*)(Oh + (16 + i / (hd / 8)) * SX + 8 * (i % (hd / 8))) = make_uint4(0, 0, 0, 0);
         head_grads<HPB, NQB>(Ps, Ss, SP, Qh, Kh, Vh, SQ, Dh, SX, hd, [&] {
-          if constexpr (!STACK) {  // the next (example, head)'s probabilities, behind dk and dq
+          if constexpr (!RECOMPUTE) {  // the next (example, head)'s probabilities, behind dk and dq
             if (u + WARPS < E * NH) load_probs(tile, u + WARPS);
             tt::cp_commit();
           }
@@ -756,7 +789,7 @@ encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
     for (int tile = blockIdx.x; tile < tiles; tile += (int)gridDim.x) {
       const int next = tile + (int)gridDim.x;
       set_lens(tile);
-      if constexpr (!STACK) {  // the first (example, head) of this warp, behind the projections
+      if constexpr (!RECOMPUTE) {  // the first (example, head) of this warp, behind the projections
         if (warp < E * NH) load_probs(tile, warp);
         tt::cp_commit();
       }
@@ -789,8 +822,12 @@ encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
             *(unsigned*)(G + (e * Hp + hi) * SX + 2 * cp) = tt::pack_bf16x2(v[i].x, v[i].y);
         }
       }
-      tt::cp_wait<STACK ? 0 : 1>();
+      tt::cp_wait<RECOMPUTE ? 0 : 1>();
       __syncthreads();  // x landed, g2 complete, lengths and weights staged
+      if (MODE == MODE_ENC && l == 0) {
+        add_pe(X, tile);
+        __syncthreads();  // layer 0's input complete
+      }
       qkv_and_do<NTG>(rows, D, X, SX, Wi, SWI, bi, QKV, SQ, G, Wo, SWO, DO);
       __syncthreads();  // q | k | v and do complete
       if (thin)
@@ -827,8 +864,8 @@ encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
         continue;
       }
       // layer 0: dx staged in f32 over g2 and do, then written in x's dtype
-      // 16 bytes a store (B6: + gmean / H; B9: zeros past each length),
-      // and B6's dPE summed over the tile's examples in order
+      // 16 bytes a store (B6, B7: + gmean / H; B9: zeros past each length),
+      // and B6's and B7's dPE summed over the tile's examples in order
       warp_gemm<NTG, true>(rows, D, D3, QKV, SQ, Wi, SWI, [&](int r, int c, float v0, float v1) {
         *(float2*)(STG + r * DS + c) = make_float2(v0, v1);
       });
@@ -918,18 +955,19 @@ encoder_bwd_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
 }
 
 template <int MODE, int HPB, int D>
-int launch(const void* g, const void* x, const void* ps, const void* p0, const void* lens,
-           const void* w_in, const void* b_in, const void* w_out, const void* b_out, void* dx,
-           void* xr, void* dy, void* ws, int B, int H, int NH, int L, int E, int grid,
-           void* stream) {
+int launch(const void* g, const void* x, const void* ps, const void* p0, const void* pe,
+           const void* lens, const void* w_in, const void* b_in, const void* w_out,
+           const void* b_out, void* dx, void* xr, void* dy, void* ws, int B, int H, int NH, int L,
+           int E, int grid, void* stream) {
   const size_t smem = smem_bytes(E * 16 * HPB, 16 * HPB, D);
   cudaError_t err = cudaFuncSetAttribute(encoder_bwd_tc_kernel<MODE, HPB, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const float scale = (float)(1.0 / sqrt((double)(D / NH)));
   encoder_bwd_tc_kernel<MODE, HPB, D><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)g, (const bf16*)x, (const bf16*)ps, (const bf16*)p0, (const int*)lens,
-      (const float*)w_in, (const float*)b_in, (const float*)w_out, (const float*)b_out,
+      (const bf16*)g, (const bf16*)x, (const bf16*)ps, (const bf16*)p0, (const float*)pe,
+      (const int*)lens, (const float*)w_in, (const float*)b_in, (const float*)w_out,
+      (const float*)b_out,
       (bf16*)dx, (bf16*)xr, (float*)dy, (float*)ws, B, H, NH, L, E, scale);
   return (int)cudaGetLastError();
 }
@@ -937,17 +975,18 @@ int launch(const void* g, const void* x, const void* ps, const void* p0, const v
 // Checks the shape and plan (ops/fused_encoder.py:_enc_bwd_tc_plan) and
 // launches the instance of D and H's key bands.
 template <int MODE>
-int launch_shape(const void* g, const void* x, const void* ps, const void* p0, const void* lens,
-                 const void* w_in, const void* b_in, const void* w_out, const void* b_out,
-                 void* dx, void* xr, void* dy, void* ws, int B, int H, int D, int NH, int L,
-                 int ept, int grid, void* stream) {
+int launch_shape(const void* g, const void* x, const void* ps, const void* p0, const void* pe,
+                 const void* lens, const void* w_in, const void* b_in, const void* w_out,
+                 const void* b_out, void* dx, void* xr, void* dy, void* ws, int B, int H, int D,
+                 int NH, int L, int ept, int grid, void* stream) {
   const int hpb = (H + 15) / 16;
-  const bool deep = MODE == MODE_STACK ? xr != nullptr : ps != nullptr;  // the full layers' inputs
+  // the full layers' inputs: stored (B6), or rebuilt into xr from layer 1 on (B7, B9)
+  const bool deep = MODE == MODE_STORED ? ps != nullptr : xr != nullptr;
   if (B < 1 || H < 1 || NH < 1 || L < 1 || (D != 32 && D != 64) || D % NH != 0 ||
       (D / NH) % 16 != 0 || hpb > 4 || ept < 1 || (ept * 16 * hpb) % 32 != 0 ||
       ept * 16 * hpb > TILE_ROWS || grid < 1 || grid > (B + ept - 1) / ept || deep != (L > 1))
     return (int)cudaErrorInvalidValue;
-#define TT_ARGS g, x, ps, p0, lens, w_in, b_in, w_out, b_out, dx, xr, dy, ws, B, H, NH, L, ept, grid, stream
+#define TT_ARGS g, x, ps, p0, pe, lens, w_in, b_in, w_out, b_out, dx, xr, dy, ws, B, H, NH, L, ept, grid, stream
   switch (hpb + 4 * (D == 64)) {
     case 1: return launch<MODE, 1, 32>(TT_ARGS);
     case 2: return launch<MODE, 2, 32>(TT_ARGS);
@@ -1022,8 +1061,21 @@ extern "C" int tt_fused_history_encoder_bwd_tc(
     const void* g, const void* xs, const void* ps, const void* p0, const void* w_in,
     const void* b_in, const void* w_out, void* dx, void* dy_scratch, void* ws, int B, int H,
     int D, int NH, int L, int ept, int grid, void* stream) {
-  return tc::launch_shape<MODE_STORED>(g, xs, ps, p0, nullptr, w_in, b_in, w_out, nullptr, dx,
-                                       nullptr, dy_scratch, ws, B, H, D, NH, L, ept, grid, stream);
+  return tc::launch_shape<MODE_STORED>(g, xs, ps, p0, nullptr, nullptr, w_in, b_in, w_out, nullptr,
+                                       dx, nullptr, dy_scratch, ws, B, H, D, NH, L, ept, grid,
+                                       stream);
+}
+
+// B7 on the tensor cores: g [B, 2, D] and x [B, H, D] bf16, pe [H, D] and
+// the weights f32 (x, g, pe, W_in and W_out 16-byte aligned); xr, dy and ws
+// as B9's (xr [L-1, B, H, D] bf16, null when L == 1; ws [grid, L (4D^2 +
+// 4D) + H D] as B6's).
+extern "C" int tt_fused_history_encoder_bwd_recompute_tc(
+    const void* g, const void* x, const void* pe, const void* w_in, const void* b_in,
+    const void* w_out, const void* b_out, void* dx, void* xr, void* dy_scratch, void* ws, int B,
+    int H, int D, int NH, int L, int ept, int grid, void* stream) {
+  return tc::launch_shape<MODE_ENC>(g, x, nullptr, nullptr, pe, nullptr, w_in, b_in, w_out, b_out,
+                                    dx, xr, dy_scratch, ws, B, H, D, NH, L, ept, grid, stream);
 }
 
 // B9 on the tensor cores: g [B, D], x [B, H, D] bf16 (16-byte aligned),
@@ -1033,6 +1085,7 @@ extern "C" int tt_fused_attn_stack_bwd_tc(
     const void* g, const void* x, const void* lens, const void* w_in, const void* b_in,
     const void* w_out, const void* b_out, void* dx, void* xr, void* dy_scratch, void* ws, int B,
     int H, int D, int NH, int L, int ept, int grid, void* stream) {
-  return tc::launch_shape<MODE_STACK>(g, x, nullptr, nullptr, lens, w_in, b_in, w_out, b_out, dx,
-                                      xr, dy_scratch, ws, B, H, D, NH, L, ept, grid, stream);
+  return tc::launch_shape<MODE_STACK>(g, x, nullptr, nullptr, nullptr, lens, w_in, b_in, w_out,
+                                      b_out, dx, xr, dy_scratch, ws, B, H, D, NH, L, ept, grid,
+                                      stream);
 }

@@ -58,6 +58,14 @@
 //    sum, so the row's lse and ce are NaN as the plain version's), padded
 //    columns selected out, the diagonal score taken from the same
 //    accumulators; (max, sum) start at (-1e30, 0) as the Pallas kernel's.
+//    An infinite max is replaced by 0 where it is subtracted, as
+//    torch.logsumexp does (base below), and tt::tf32_split_any gives an
+//    infinite input an infinite score: a row with a +inf score has lse
+//    +inf and a row of -inf scores -inf, as the plain version, where the
+//    Pallas kernel gives NaN for the first.  I's chunks are split by it,
+//    once for the block, U's fragments only where the block's U holds a
+//    value whose TF32 rounding is infinite (found as U lands), so that
+//    elsewhere the inner loop is the finite split's.
 //    The four lanes of a quad merge by shuffles, each merge rescaling both
 //    sums with expf and adding them rounded (the same bits either way).
 // At the cell: 256 threads, 128 registers and 104,448 bytes of shared
@@ -147,13 +155,16 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int row
   }
 }
 
-// c[nt] += the chunk's scores of the 16 rows at a (f32, split here) against
-// column band nt of the staged tile (TF32 hi at b, lo at bl).  Per k8 step
-// the three products hi.lo, lo.hi, hi.hi of four bands at a time go into
-// fresh accumulators, which are then added to c rounded to nearest:
-// mma.sync adds into the accumulator it is given without rounding to
-// nearest, which over a chain of 24 products would bias a score toward zero
-// by up to 24 of its ulps, and the gradients read exp(s - lse).
+// c[nt] += the chunk's scores of the 16 rows at a (f32, split here, by
+// tt::tf32_split_any with ANY: the block's U holds a value whose TF32
+// rounding is infinite) against column band nt of the staged tile (TF32 hi
+// at b, lo at bl).  Per k8 step the three products hi.lo, lo.hi, hi.hi of
+// four bands at a time go into fresh accumulators, which are then added to
+// c rounded to nearest: mma.sync adds into the accumulator it is given
+// without rounding to nearest, which over a chain of 24 products would bias
+// a score toward zero by up to 24 of its ulps, and the gradients read
+// exp(s - lse).
+template <bool ANY>
 __device__ __forceinline__ void chunk_products(float (&c)[8][4], const float* a, const float* b,
                                                const float* bl, int nks, int lane) {
   // ldmatrix.x4, lane L giving a row address of matrix L / 8.  A: row
@@ -168,7 +179,12 @@ __device__ __forceinline__ void chunk_products(float (&c)[8][4], const float* a,
     unsigned ar[4], ahi[4], alo[4];
     tt::ldmatrix_x4<false>(ar, a + offa + ks * 8);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) tt::tf32_split(__uint_as_float(ar[q]), ahi[q], alo[q]);
+    for (int q = 0; q < 4; ++q) {
+      if (ANY)
+        tt::tf32_split_any(__uint_as_float(ar[q]), ahi[q], alo[q]);
+      else
+        tt::tf32_split(__uint_as_float(ar[q]), ahi[q], alo[q]);
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       unsigned hi[2][4], lo[2][4];
@@ -197,6 +213,14 @@ __device__ __forceinline__ void chunk_products(float (&c)[8][4], const float* a,
   }
 }
 
+// The max a part's sum of exps is taken against: its max m, or 0 where m
+// is infinite, as torch.logsumexp takes it.  A part (m, l) stands for the
+// sum exp(base(m)) l, so a row whose max is +inf sums exp(+inf) = +inf (its
+// lse +inf, the plain version's) and not exp(inf - inf) = NaN; m is never
+// -inf (it starts at NEG_BIG), and at a finite m nothing changes, bit for
+// bit.
+__device__ __forceinline__ float base(float m) { return isinf(m) ? 0.0f : m; }
+
 // One tile's scores into the running (m, l) of the thread's rows row and
 // row + 8: its columns c0 + 8 nt + 2t + e below C, max first, then the sum
 // of exps in (nt, e) order; the diagonal score where a column is the row.
@@ -212,14 +236,14 @@ __device__ __forceinline__ void softmax_tile(const float (&c)[8][4], int c0, int
 #pragma unroll
       for (int e = 0; e < 2; ++e)
         if (full || c0 + 8 * nt + 2 * t + e < C) tmax = fmaxf(tmax, c[nt][2 * h + e]);
-    const float mn = fmaxf(m[h], tmax);
+    const float mn = fmaxf(m[h], tmax), bn = base(mn);
     float sum = 0.0f;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e)
-        if (full || c0 + 8 * nt + 2 * t + e < C) sum += __expf(c[nt][2 * h + e] - mn);
-    l[h] = __fadd_rn(__fmul_rn(l[h], expf(m[h] - mn)), sum);
+        if (full || c0 + 8 * nt + 2 * t + e < C) sum += __expf(c[nt][2 * h + e] - bn);
+    l[h] = __fadd_rn(__fmul_rn(l[h], expf(base(m[h]) - bn)), sum);
     m[h] = mn;
     const int r = row + 8 * h;
     if (with_diag && r >= c0 && r < c0 + BN) {
@@ -233,11 +257,11 @@ __device__ __forceinline__ void softmax_tile(const float (&c)[8][4], int c0, int
 }
 
 // (m, l) of one part merged into (M, L): the two sums rescaled to the
-// larger max, each product rounded, then added (the same bits whichever
-// part is which).
+// larger max's base, each product rounded, then added (the same bits
+// whichever part is which).
 __device__ __forceinline__ void merge(float& M, float& L, float m, float l) {
-  const float mn = fmaxf(M, m);
-  L = __fadd_rn(__fmul_rn(L, expf(M - mn)), __fmul_rn(l, expf(m - mn)));
+  const float mn = fmaxf(M, m), bn = base(mn);
+  L = __fadd_rn(__fmul_rn(L, expf(base(M) - bn)), __fmul_rn(l, expf(base(m) - bn)));
   M = mn;
 }
 
@@ -276,6 +300,7 @@ ce_fwd_tc_kernel(const float* __restrict__ U, const float* __restrict__ I,
   }
   float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.0f, 0.0f}, dg[2] = {0.0f, 0.0f};
   float acc[8][4];
+  bool any = false;  // the block's U holds a value whose TF32 rounding is infinite
   for (int j = 0; j < J; ++j) {
     tt::cp_wait<NS - 2>();
     __syncthreads();  // item j has landed; every warp is done with item j - 1's stage
@@ -284,16 +309,35 @@ ce_fwd_tc_kernel(const float* __restrict__ U, const float* __restrict__ I,
     float* b = ring + (j % NS) * STAGE;
     const int ct = ct0 + j / nkc, kc = j % nkc;
     const int nks = (min(D - kc * DK, DK) + 7) / 8;
-    for (int e = threadIdx.x; e < BN * DK; e += NT) {  // I's chunk to TF32 hi in place, lo beside
-      const int r = e / DK, q = e % DK;
+#pragma unroll 4  // a thread's four items (unrolled by 2 or not at all: 12 bytes spilled)
+    for (int e = threadIdx.x; e < BN * DK / 4; e += NT) {  // I's chunk to TF32 hi in place, lo beside
+      const int r = e / (DK / 4), q = 4 * (e % (DK / 4));
       if (q < 8 * nks) {
-        unsigned hi, lo;
-        tt::tf32_split(b[r * SD + q], hi, lo);
-        b[r * SD + q] = __uint_as_float(hi);
-        lo_s[r * SD + q] = __uint_as_float(lo);
+        float4* p = (float4*)(b + r * SD + q);
+        const float4 v = *p;
+        uint4 hi, lo;
+        tt::tf32_split_any(v.x, hi.x, lo.x);
+        tt::tf32_split_any(v.y, hi.y, lo.y);
+        tt::tf32_split_any(v.z, hi.z, lo.z);
+        tt::tf32_split_any(v.w, hi.w, lo.w);
+        *(uint4*)p = hi;
+        *(uint4*)(lo_s + r * SD + q) = lo;
       }
     }
-    __syncthreads();
+    if (MULTI || j == 0) {  // the U this item brings: MULTI's chunk, else the row tile
+      const float* us = MULTI ? b + BN * SD : u_s;
+      int big = 0;
+#pragma unroll 1
+      for (int e = threadIdx.x; e < BM * DK / 4; e += NT) {
+        const int r = e / (DK / 4), q = 4 * (e % (DK / 4));
+        if (q >= 8 * nks) continue;  // not staged
+        const float4 v = *(const float4*)(us + r * SD + q);
+        big |= tt::tf32_big(v.x) | tt::tf32_big(v.y) | tt::tf32_big(v.z) | tt::tf32_big(v.w);
+      }
+      any = __syncthreads_or(big);
+    } else {
+      __syncthreads();
+    }
     if (!active) continue;
     if (kc == 0) {
 #pragma unroll
@@ -301,7 +345,11 @@ ce_fwd_tc_kernel(const float* __restrict__ U, const float* __restrict__ I,
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
     }
-    chunk_products(acc, (MULTI ? b + BN * SD : u_s) + 16 * warp * SD, b, lo_s, nks, lane);
+    const float* a = (MULTI ? b + BN * SD : u_s) + 16 * warp * SD;
+    if (any)
+      chunk_products<true>(acc, a, b, lo_s, nks, lane);
+    else
+      chunk_products<false>(acc, a, b, lo_s, nks, lane);
     if (kc == nkc - 1) softmax_tile(acc, ct * BN, C, rw + g, with_diag, t, m, l, dg);
   }
   // the four lanes of a quad hold parts of the same two rows
@@ -320,7 +368,7 @@ ce_fwd_tc_kernel(const float* __restrict__ U, const float* __restrict__ I,
       const int row = rw + g + 8 * h;
       if (row >= B) continue;
       if (S == 1) {
-        const float v = m[h] + logf(l[h]);
+        const float v = base(m[h]) + logf(l[h]);
         lse[row] = v;
         ce[row] = with_diag ? v - dg[h] : v;
       } else {
@@ -345,7 +393,7 @@ ce_fwd_tc_kernel(const float* __restrict__ U, const float* __restrict__ I,
       merge(M, L, __ldcg(ws + (size_t)s * B + row), __ldcg(ws + (size_t)(S + s) * B + row));
       G += __ldcg(ws + (size_t)(2 * S + s) * B + row);
     }
-    const float v = M + logf(L);
+    const float v = base(M) + logf(L);
     lse[row] = v;
     ce[row] = with_diag ? v - G : v;
   }

@@ -93,10 +93,34 @@ __device__ __forceinline__ unsigned tf32_rna(float x) {
 }
 
 // The 3xTF32 split: x = hi + lo + a remainder of at most 2^-22 |x|, hi and lo
-// TF32; x - hi is exact in f32.
+// TF32; x - hi is exact in f32.  For an x whose TF32 rounding is finite.
 __device__ __forceinline__ void tf32_split(float x, unsigned& hi, unsigned& lo) {
   hi = tf32_rna(x);
   lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// Whether x's TF32 rounding is infinite: x = +-inf, or a finite x with |x|
+// >= (2 - 2^-11) 2^127.
+__device__ __forceinline__ bool tf32_big(float x) {
+  return (tf32_rna(x) & 0x7fffffffu) == 0x7f800000u;
+}
+
+// tf32_split for any x.  Where hi would be infinite, the split is hi = 0
+// and lo = x cut to TF32 (its low 13 bits cleared: inf stays inf, such a
+// finite x becomes the largest TF32 below it), so of the products hi.lo',
+// lo.hi' and hi.hi' only lo.hi' is not 0: x times the other operand's hi,
+// which has that operand's sign and is 0 only for a 0.  An infinite input
+// then gives an infinite score where f32 gives one (with hi = inf and lo =
+// 0, hi.lo' would be inf times the other operand's lo, whose sign is that
+// of a rounding error, and NaN where that lo is 0), and such a finite x
+// keeps 11 bits of its products, not 24.  Only an infinite x meeting an
+// infinite value in the same place gives NaN (0 . inf) where f32 gives
+// +-inf.  NaN stays NaN.  Elsewhere the bits are tf32_split's.
+__device__ __forceinline__ void tf32_split_any(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(x);
+  const bool big = (hi & 0x7fffffffu) == 0x7f800000u;
+  lo = big ? __float_as_uint(x) & 0xffffe000u : tf32_rna(x - __uint_as_float(hi));
+  hi = big ? 0u : hi;
 }
 
 // c += a . b, mma.sync m16n8k8, row.col, TF32 in, f32 accumulate: for

@@ -62,6 +62,7 @@ _SIGNATURES = {
     "tt_fused_history_encoder_bwd_recompute": [_P] * 11 + [_I] * 7 + [_P],
     "tt_fused_attn_stack_bwd": [_P] * 11 + [_I] * 7 + [_P],
     "tt_fused_history_encoder_bwd_tc": [_P] * 10 + [_I] * 7 + [_P],
+    "tt_fused_history_encoder_bwd_recompute_tc": [_P] * 11 + [_I] * 7 + [_P],
     "tt_fused_attn_stack_bwd_tc": [_P] * 11 + [_I] * 7 + [_P],
     "tt_in_batch_ce_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "tt_in_batch_ce_bwd": [_P] * 6 + [_I] * 5 + [_P],

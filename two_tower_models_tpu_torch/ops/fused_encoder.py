@@ -40,13 +40,15 @@ than the plain version, so ``fused_history_encoder_f64_sums``,
 (the same functions with every sum in f64) are the yardstick both are
 measured against on the card.
 
-B6 and B9 run on one of two kernels too, chosen by ``_enc_bwd_route``:
+B6, B7 and B9 run on one of two kernels too, chosen by ``_enc_bwd_route``:
 bf16 encoders of D 32 or 64, head width 16k and H up to 64 go to
 ``encoder_bwd_tc_kernel`` (the tensor cores, one layer's weights staged at
-a time, the layers walked last to first over each block's own tiles), the
-rest to ``encoder_bwd_kernel`` (the CUDA cores); B7 stays on the CUDA cores.
-``fused_history_encoder_bwd_f64_sums`` and ``fused_attn_stack_bwd_f64_sums``
-are the backwards' yardsticks.
+a time, the layers walked last to first over each block's own tiles; B7
+and B9 first rebuild the forward there), the rest to
+``encoder_bwd_kernel`` (the CUDA cores).
+``fused_history_encoder_bwd_f64_sums``,
+``fused_history_encoder_bwd_recompute_f64_sums`` and
+``fused_attn_stack_bwd_f64_sums`` are the backwards' yardsticks.
 
 Residual layouts (any layout will do, as long as kernel and plain agree):
 xs [L, B, H, D], ps [L-1, B, NH, H, H] (None when L == 1) and p0
@@ -370,18 +372,36 @@ def _backward_f64_sums(dy, xs, ps, w_in, b_in, w_out, num_heads, rb):
     return dy, [torch.stack(t) for t in grads]
 
 
+def _encoder_grads_f64_sums(g, xs, ps, w_in, b_in, w_out, num_heads, dtype):
+    """``_encoder_grads`` with every sum in f64 (``_backward_f64_sums``; xs
+    and ps f64): dx in ``dtype``, dpe and the grads f64."""
+    g = g.to(dtype).double()
+    dy, grads = _backward_f64_sums(g[:, :1], xs, ps, w_in, b_in, w_out, num_heads,
+                                   _rounder(dtype))
+    return ((dy + g[:, 1:] / dy.shape[1]).to(dtype), dy.sum(dim=0), *grads)
+
+
 def fused_history_encoder_bwd_f64_sums(g, xs, ps, p0, w_in, b_in, w_out, num_heads):
     """B6's function (``fused_history_encoder_bwd_plain``) at the same
     rounding points with every sum in f64: (dx in the residuals' dtype, dpe,
     dw_in, db_in, dw_out, db_out f64), the yardstick of the backward as
     ``fused_history_encoder_res_f64_sums`` is the forward's."""
-    dt, rb = xs.dtype, _rounder(xs.dtype)
     num_layers = xs.shape[0]
     probs = [ps[l].double() for l in range(num_layers - 1)] + [p0.double()[:, :, None, :]]
-    g = g.to(dt).double()
-    dy, grads = _backward_f64_sums(g[:, :1], list(xs.double()), probs, w_in, b_in, w_out,
-                                   num_heads, rb)
-    return ((dy + g[:, 1:] / dy.shape[1]).to(dt), dy.sum(dim=0), *grads)
+    return _encoder_grads_f64_sums(g, list(xs.double()), probs, w_in, b_in, w_out, num_heads,
+                                   xs.dtype)
+
+
+def fused_history_encoder_bwd_recompute_f64_sums(g, hist_emb, pe, w_in, b_in, w_out, b_out,
+                                                  num_heads):
+    """B7's function (``fused_history_encoder_bwd_recompute_plain``) with
+    every sum in f64, the forward recomputed in f64 (``_layers_f64_sums``)
+    from round(x + PE): (dx in the input dtype, dpe, dw_in, db_in, dw_out,
+    db_out f64)."""
+    rb = _rounder(hist_emb.dtype)
+    _, xs, ps = _layers_f64_sums(rb(hist_emb.double() + pe.double()), w_in, b_in, w_out, b_out,
+                                 num_heads, rb)
+    return _encoder_grads_f64_sums(g, xs, ps, w_in, b_in, w_out, num_heads, hist_emb.dtype)
 
 
 def fused_attn_stack_bwd_f64_sums(g, x, lengths, w_in, b_in, w_out, b_out, num_heads):
@@ -520,7 +540,7 @@ def _enc_bwd_tc_tile(h: int, d: int) -> int | None:
 
 @functools.lru_cache(maxsize=64)
 def _enc_bwd_route(dtype, h: int, d: int, nh: int, num_layers: int) -> str:
-    """B6's and B9's kernel, a function of the dtype and shape alone: "tc"
+    """B6's, B7's and B9's kernel, a function of the dtype and shape alone: "tc"
     (the tensor cores: bf16, D 32 or 64, the head width a multiple of 16,
     round_up(H, 16) <= 64, a tile in shared memory) or "fma" (the CUDA
     cores: f32, which the Pallas kernel computes in f32 and TF32 would not
@@ -700,20 +720,21 @@ def _launch_bwd_fma(name, inputs, dx, shapes, num_heads, num_layers, res_floats:
 
 
 def _launch_bwd_tc(name, inputs, dx, shapes, num_heads, num_layers):
-    """Backward ``name`` (B6 or B9) on the tensor cores
+    """Backward ``name`` (B6, B7 or B9) on the tensor cores
     (``encoder_bwd_tc_kernel``, bf16) over the plan's grid, then the
-    reduce: writes dx and returns the grads, as ``_launch_bwd_fma``.  B9
-    gets a bf16 scratch [L-1, B, H, D] for the layers' rebuilt inputs.
+    reduce: writes dx and returns the grads, as ``_launch_bwd_fma``.  B7
+    and B9 get a bf16 scratch [L-1, B, H, D] for the layers' rebuilt inputs
+    from layer 1 on (B7 rebuilds layer 0's, round(x + PE), from x).
     Counts nothing."""
     b, h, d = dx.shape
-    # the kernel reads x, g, the probabilities and the weights in 16-byte chunks
+    # the kernel reads x, g, the PE, the probabilities and the weights in 16-byte chunks
     inputs = [t.clone() if t is not None and t.data_ptr() % 16 else t for t in inputs]
     ept, _, _, grid = _enc_bwd_tc_plan(b, h, d, num_layers, _lib.sm_count(dx.device.index))
     ws = torch.empty((grid, sum(math.prod(s) for s in shapes)), dtype=torch.float32,
                      device=dx.device)
     dy = torch.empty((b, h, d), dtype=torch.float32, device=dx.device)
     scratch = []
-    if name == "fused_attn_stack_bwd":
+    if name != "fused_history_encoder_bwd":  # B7, B9: the forward rebuilt in the kernel
         scratch = [torch.empty((num_layers - 1, b, h, d), dtype=dx.dtype, device=dx.device)
                    if num_layers > 1 else None]
     err = getattr(_lib.library(), f"tt_{name}_tc")(
@@ -749,16 +770,15 @@ def _reduce_partials(ws, name: str) -> torch.Tensor:
 
 def _launch_backward(name, inputs, b, h, d, num_heads, num_layers, dtype, dev,
                      with_pe: bool, res_floats: int = 0):
-    """Launch backward ``name`` (B6, B7 or B9), B6 and B9 on the route
-    ``_enc_bwd_route`` gives the dtype and shape (B7 on the CUDA cores),
-    then the reduce that sums the per-block partial grads in block order.
+    """Launch backward ``name`` (B6, B7 or B9) on the route
+    ``_enc_bwd_route`` gives the dtype and shape, then the reduce that sums
+    the per-block partial grads in block order.
     Every launch counts as ``name`` and ``name_reduce``, one on the tensor
     cores also as ``name_tc``.  ``inputs`` are the kernel's leading tensor
     arguments (None for a null pointer).  Returns (dx, dw_in, db_in,
     dw_out, db_out[, dpe])."""
     shapes = _grad_shapes(h, d, num_layers, with_pe)
-    tc = (name != "fused_history_encoder_bwd_recompute"
-          and _enc_bwd_route(dtype, h, d, num_heads, num_layers) == "tc")
+    tc = _enc_bwd_route(dtype, h, d, num_heads, num_layers) == "tc"
     if not tc:
         _check_bwd_smem(h, d, num_heads)
     dx = torch.empty((b, h, d), dtype=dtype, device=dev)
@@ -843,7 +863,8 @@ def _launch_recompute_bwd(name, g, x, side, w_in, b_in, w_out, b_out, num_heads,
 def fused_history_encoder_bwd_recompute(g, hist_emb, pe, w_in, b_in, w_out, b_out, num_heads):
     """(dx, dpe, dw_in, db_in, dw_out, db_out); see
     ``fused_history_encoder_bwd_recompute_plain``.  A CPU tensor takes the
-    plain version; a CUDA tensor launches kernel B7 and its reduce."""
+    plain version; a CUDA tensor launches kernel B7, on the route
+    ``_enc_bwd_route`` gives, and its reduce."""
     if hist_emb.device.type == "cpu":
         return fused_history_encoder_bwd_recompute_plain(
             g, hist_emb, pe, w_in, b_in, w_out, b_out, num_heads
