@@ -10,8 +10,9 @@ Phases, in the order they run; any failure exits non-zero:
      first use; cached under two_tower_models_tpu_torch/_build/); beside the
      build, nvcc -Xptxas -v on csrc/fused_softmax.cu, csrc/fused_mha.cu,
      csrc/select_topk.cu, csrc/rows_write.cu, csrc/fused_encoder.cu,
-     csrc/fused_encoder_bwd.cu, csrc/tile_max.cu and csrc/gather_rescore.cu
-     for the registers, stack and spills of the CE forward (B10:
+     csrc/fused_encoder_bwd.cu, csrc/tile_max.cu, csrc/gather_rescore.cu and
+     csrc/history_attention.cu for the registers, stack and spills of each
+     instance of B15's tensor-core kernel, of the CE forward (B10:
      ce_fwd_tc_kernel<MULTI>, MULTI for D > 64) and backward, of B13's and
      B14's tensor-core kernels (each instance, by key bands), of both select
      kernels, of each row-write instance, of each instance of the
@@ -157,17 +158,24 @@ Phases, in the order they run; any failure exits non-zero:
      beside phase 4's.
   7. the blockwise attention tier (HistoryEncoderConfig blockwise_kernel=True,
      fused_encoder=False: each layer's attention through B15, and B16 and B17
-     for the gradient, between plain projections).  7a: B15 against its plain
-     version on layer 0's folded q, k, v of the serving batch (with and without
-     lengths) and of the training batch, B16 and B17 there twice (bit-equal),
-     and a long-history leg at N=4, H=4096 with and without lengths, whose
-     peak memory of forward and backward must stay under a quarter of the
-     plain dense autograd's; each timed beside its plain version, its bound
-     and F.scaled_dot_product_attention (B16, B17: its autograd backward).
+     for the gradient, between plain projections).  7a: B15's two kernels
+     (the tensor cores' attn_fwd_tc_kernel, twice: bit-equal, and the FMA
+     kernel, each forced) against their plain version on layer 0's folded q,
+     k, v of the serving batch (with and without lengths) and of the
+     training batch, the tensor cores also at 30 sigma (1e-3 / 1e-4), B16
+     and B17 there twice (bit-equal), and a long-history leg at N=4, H=4096
+     with and without lengths, whose forward and backward through
+     blockwise_self_attention must launch B15 on the tensor cores (the
+     route's kernel there; counts zeroed around it) and keep its peak
+     memory under a quarter of the plain dense autograd's; B15's kernels
+     timed at the five shapes beside its plain version, its bounds (bytes,
+     f32 FMA, 3xTF32) and F.scaled_dot_product_attention, B16 and B17
+     beside their plain version, bound and that call's autograd backward.
      7b: phase 3's configuration and seed on this tier, ten batches with full
      histories (serve-1M-exact-blockwise) and ten with lengths (-varlen):
-     three B15 a batch, none of B1, B8 or B13, indices and user embeddings
-     checked as in phase 3.  7c: phase 4's configuration on this tier, 3
+     three B15 a batch (on the route's kernel: the FMA kernel at H = 32),
+     none of B1, B8 or B13, indices and user embeddings checked as in
+     phase 3.  7c: phase 4's configuration on this tier, 3
      warm-up and 20 timed steps on the fixed batch (train-65k-blockwise) and
      on make_synthetic_data's variable-length histories (-varlen): three
      each of B15, B16 and B17 a step, the CE kernels once, none of B1, B5-B9,
@@ -1985,20 +1993,28 @@ def attn_lib(torch, q, k, v, lens):
 
 
 def attn_checks(torch, label, q, k, v, lens, g):
-    """B15 (and, with a cotangent ``g``, B16 and B17, twice) against their
-    plain versions: out and lse within rtol 1e-4 and atol 1e-5 of each
-    output's scale, the grads within 1e-4 of each one's scale or of one
-    |do| |v| term; masked keys' dk and dv exactly 0.  Returns (ok,
-    max_abs_err of out, of the grads)."""
+    """B15 on the tensor cores (twice: bit-equal) and on its FMA kernel,
+    each forced by ``_route`` (and, with a cotangent ``g``, B16 and B17,
+    twice) against their plain versions: out and lse within rtol 1e-4 and atol 1e-5 of each output's
+    scale, the grads within 1e-4 of each one's scale or of one |do| |v|
+    term; masked keys' dk and dv exactly 0.  Returns (ok, max_abs_err of
+    out, of the grads)."""
     from two_tower_models_tpu_torch.ops import history_attention as ha
 
     n, h, _ = q.shape
     lk = torch.full((n,), h, dtype=torch.int32, device=q.device) if lens is None else lens
-    out, lse = ha.blockwise_attn_fwd(q, k, v, lk)
+    out, lse = ha.blockwise_attn_fwd(q, k, v, lk, _route="tc")
+    again = ha.blockwise_attn_fwd(q, k, v, lk, _route="tc")
+    fma = ha.blockwise_attn_fwd(q, k, v, lk, _route="fma")
     want = ha.blockwise_attn_fwd_plain(q, k, v, lk)
     checks = [close(a, e, 1e-4, 1e-5 * float(e.abs().max())) for a, e in zip((out, lse), want)]
-    ok, err, gerr = all(c for c, _ in checks), checks[0][1], 0.0
-    line = f"{label}: B15 out, lse max_abs_err {[float(f'{e:.3g}') for _, e in checks]}"
+    fchecks = [close(a, e, 1e-4, 1e-5 * float(e.abs().max())) for a, e in zip(fma, want)]
+    repeat15 = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ok = all(c for c, _ in checks + fchecks) and repeat15
+    err, gerr = checks[0][1], 0.0
+    line = (f"{label}: B15 (tensor cores) out, lse max_abs_err "
+            f"{[float(f'{e:.3g}') for _, e in checks]}, bit-equal on repeat={repeat15}; its FMA "
+            f"kernel {[float(f'{e:.3g}') for _, e in fchecks]} (tol 1e-4, 1e-5 of scale)")
     if g is not None:
         delta = (g * want[0]).sum(-1)
         args = (q, k, v, g, want[1], delta, lk)
@@ -2015,6 +2031,70 @@ def attn_checks(torch, label, q, k, v, lens, g):
                  f"(tol 1e-4 of scale); masked keys zero={zero}; bit-equal on repeat={repeat}")
     print(line + f"; ok={ok}", flush=True)
     return ok, err, gerr
+
+
+def attn_extreme(torch, dev) -> bool:
+    """B15 on the tensor cores on the card tests' extreme input (64
+    examples, H = 256, Dh = 16, q and k at 30 sigma: scores of some
+    thousands, lengths in [1, 256]): finite, within rtol 1e-3, atol 1e-4 of
+    the plain version (the JAX package's extreme-score tolerance), bit-equal
+    on repeat."""
+    from two_tower_models_tpu_torch.ops import history_attention as ha
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    q, k = (torch.randn(64, 256, 16, generator=gen, device=dev) * 30 for _ in range(2))
+    v = torch.randn(64, 256, 16, generator=gen, device=dev)
+    lens = torch.randint(1, 257, (64,), generator=gen, device=dev, dtype=torch.int32)
+    runs = [ha.blockwise_attn_fwd(q, k, v, lens, _route="tc") for _ in range(2)]
+    want = ha.blockwise_attn_fwd_plain(q, k, v, lens)
+    checks = [close(a, e, 1e-3, 1e-4) for a, e in zip(runs[0], want)]
+    repeat = all(torch.equal(a, b) for a, b in zip(*runs))
+    finite_ = all(bool(t.isfinite().all()) for t in runs[0])
+    ok = repeat and finite_ and all(c for c, _ in checks)
+    print(f"blockwise extreme scores (q, k at 30 sigma, N=64, H=256): B15 out, lse max_abs_err "
+          f"{[float(f'{e:.3g}') for _, e in checks]} (tol 1e-3, 1e-4); finite={finite_}; "
+          f"bit-equal on repeat={repeat}; ok={ok}", flush=True)
+    return ok
+
+
+def b15_times(torch, smi, e, key, q, k, v, lens, ptxas: str) -> None:
+    """B15 at one shape, into ``e`` under the prefix ``key``: the
+    tensor-core kernel and the FMA kernel in the same call (``tc_*``,
+    ``fma_*``), each by CUDA events and alone from torch.profiler
+    (``*device_ms``), ``ms`` and ``device_ms`` the kernel the route takes
+    there (``route``); the plain version and F.scaled_dot_product_attention;
+    the bounds: bytes, f32 FMA on the CUDA cores (two products) and 3xTF32
+    on the tensor cores (three times the operations at the TF32 rate),
+    ``bound_ms`` the larger of bytes and the routed kernel's operations."""
+    from two_tower_models_tpu_torch.ops import history_attention as ha
+
+    n, h, dh = q.shape
+    lk = torch.full((n,), h, dtype=torch.int32, device=q.device) if lens is None else lens
+    row_b, lse_b, fl = attn_counts(n, h, dh, lens)
+    nbytes = 4 * row_b + lse_b + (0 if lens is None else n * 4)
+    slow = 3 if h > 1024 else 10
+    route = ha._fwd_route(h)
+    t = {"route": route}
+    for name, kernel in (("tc", "attn_fwd_tc_kernel"), ("fma", "attn_fwd_kernel")):
+        fn = lambda r=name: ha.blockwise_attn_fwd(q, k, v, lk, _route=r)  # noqa: E731
+        t[f"{name}_ms"], t[f"{name}_device_ms"] = time_ms(torch, fn), device_ms(torch, fn, kernel)
+    t["ms"], t["device_ms"] = t[f"{route}_ms"], t[f"{route}_device_ms"]
+    t.update({"plain_ms": time_ms(torch, lambda: ha.blockwise_attn_fwd_plain(q, k, v, lk), slow),
+              "library_ms": time_ms(torch, attn_lib(torch, q, k, v, lens), slow),
+              "bytes_bound_ms": nbytes / HBM_BPS * 1e3, "f32_bound_ms": 4 * fl / F32_FLOPS * 1e3,
+              "tf32_bound_ms": 12 * fl / TF32_FLOPS * 1e3})
+    t["bound_ms"], t["bound_by"] = (bound(nbytes, 12 * fl, TF32_FLOPS) if route == "tc"
+                                    else bound(nbytes, 4 * fl, F32_FLOPS))
+    e.update({key + name: val for name, val in t.items()})
+    print(f"B15 at N={n}, H={h}, Dh={dh}{'' if lens is None else ' with lengths'} on "
+          f"{torch.cuda.get_device_name(0)} ({smi}): route {route}; tensor cores "
+          f"{t['tc_ms']:.4f} ms (device {t['tc_device_ms']:.4f}), the FMA kernel "
+          f"{t['fma_ms']:.4f} (device {t['fma_device_ms']:.4f}); plain {t['plain_ms']:.4f}; "
+          f"library {t['library_ms']:.4f}; bounds: bytes {t['bytes_bound_ms']:.4f}, f32 FMA "
+          f"{t['f32_bound_ms']:.4f}, 3xTF32 {t['tf32_bound_ms']:.4f} (the routed kernel at "
+          f"{t['bound_ms'] / max(t['device_ms'], 1e-9):.1%} of its bound); ptxas {ptxas}",
+          flush=True)
 
 
 def attn_memory(torch, q, k, v, lens, g):
@@ -2038,12 +2118,15 @@ def attn_memory(torch, q, k, v, lens, g):
     return peaks
 
 
-def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, layer_legs) -> None:
+def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, layer_legs,
+                    b15_ptxas) -> None:
     """Phase 7: the blockwise attention tier (HistoryEncoderConfig with
     blockwise_kernel=True, fused_encoder=False) at the cells' full width,
-    and the long-history leg of its kernels."""
+    and the long-history leg of its kernels; ``b15_ptxas`` is phase 1's
+    report of B15's tensor-core instances by plan."""
     from two_tower_models_tpu_torch.config import DataConfig, TrainConfig
     from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.ops import _lib
     from two_tower_models_tpu_torch.ops import history_attention as ha
     from two_tower_models_tpu_torch.serving import RetrievalEngine
     from two_tower_models_tpu_torch.training.data import gather_batch, make_synthetic_data
@@ -2081,31 +2164,35 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
     (qv, kv, vv), lv = folded_qkv(torch, model, var_batches[0][2], var_batches[0][3], nh, cd)
     ok, err, _ = attn_checks(torch, "blockwise serve", q, k, v, None, None)
     ok_v, err_v, _ = attn_checks(torch, "blockwise serve varlen", qv, kv, vv, lv, None)
+    ok_x = attn_extreme(torch, dev)
     full = torch.full((q.shape[0],), HIST, dtype=torch.int32, device=dev)
     row_b, lse_b, fl = attn_counts(q.shape[0], HIST, dh, None)
     entry(
-        "blockwise_attn_fwd", src, rep + "144", ok and ok_v, max(err, err_v),
+        "blockwise_attn_fwd", src, rep + "144", ok and ok_v and ok_x, max(err, err_v),
         time_ms(torch, lambda: ha.blockwise_attn_fwd(q, k, v, full)),
         time_ms(torch, lambda: ha.blockwise_attn_fwd_plain(q, k, v, full)),
-        4 * row_b + lse_b, 4 * fl, F32_FLOPS, time_ms(torch, attn_lib(torch, q, k, v, None)),
+        4 * row_b + lse_b, 12 * fl, TF32_FLOPS, time_ms(torch, attn_lib(torch, q, k, v, None)),
     )
     e15 = entries["blockwise_attn_fwd"]
-    row_b, lse_b, fl = attn_counts(qv.shape[0], HIST, dh, lv)
-    e15["varlen_ms"] = time_ms(torch, lambda: ha.blockwise_attn_fwd(qv, kv, vv, lv))
-    e15["varlen_plain_ms"] = time_ms(torch, lambda: ha.blockwise_attn_fwd_plain(qv, kv, vv, lv))
-    e15["varlen_bound_ms"] = bound(4 * row_b + lse_b + lv.numel() * 4, 4 * fl, F32_FLOPS)[0]
-    e15["varlen_library_ms"] = time_ms(torch, attn_lib(torch, qv, kv, vv, lv))
+    e15["kernel_route"] = {str(h_): ha._fwd_route(h_) for h_ in (HIST, LONG_H)}
+    e15["plan"] = {str(h_): ha.tc_shape(ha._fwd_tc_plan(h_), dh) for h_ in (HIST, LONG_H)}
+    e15["ptxas"] = b15_ptxas
+    b15_times(torch, smi, e15, "", q, k, v, None, b15_ptxas)
+    b15_times(torch, smi, e15, "varlen_", qv, kv, vv, lv, b15_ptxas)
     del q, k, v, qv, kv, vv
     cpu_model = copy.deepcopy(model).cpu()
     others = {"fused_history_encoder": 0, "fused_attn_stack": 0, "fused_mha_fwd": 0,
               **MIPS_ROUTE, **ENC_TC}
+    tc_cells = nl * (ha._fwd_route(HIST) == "tc")  # B15's tensor-core launches a batch or step
     legs = {}
     for label, bts in (("serve-1M-exact-blockwise", batches),
                        ("serve-1M-exact-blockwise-varlen", var_batches)):
         counts, legs[label] = serve_leg(torch, label, engine, model, cpu_model, cfg, bts,
-                                        {"blockwise_attn_fwd": nl, **others}, [], entries,
-                                        failures, smi)
+                                        {"blockwise_attn_fwd": nl,
+                                         "blockwise_attn_fwd_tc": tc_cells, **others}, [],
+                                        entries, failures, smi)
         e15[f"launches_{label}"] = counts.get("blockwise_attn_fwd", 0)
+        e15[f"tc_launches_{label}"] = counts.get("blockwise_attn_fwd_tc", 0)
     e15["launches"] = e15["launches_serve-1M-exact-blockwise"]
     del engine, model, cpu_model, batches, var_batches, catalog_feats
     torch.cuda.empty_cache()
@@ -2126,17 +2213,13 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
     out, lse = ha.blockwise_attn_fwd(q, k, v, full)
     delta = (g * out).sum(-1)
     bargs = (q, k, v, g, lse, delta, full)
-    lib = attn_lib(torch, q, k, v, None)
     with torch.enable_grad():
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         lib_out = attn_lib(torch, *leaves, None)()
         lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True))
     del lib_out, leaves
     row_b, lse_b, fl = attn_counts(q.shape[0], HIST, dh, None)
-    e15["train_ms"] = time_ms(torch, lambda: ha.blockwise_attn_fwd(q, k, v, full))
-    e15["train_plain_ms"] = time_ms(torch, lambda: ha.blockwise_attn_fwd_plain(q, k, v, full))
-    e15["train_bound_ms"] = bound(4 * row_b + lse_b, 4 * fl, F32_FLOPS)[0]
-    e15["train_library_ms"] = time_ms(torch, lib)
+    b15_times(torch, smi, e15, "train_", q, k, v, None, b15_ptxas)
     plain_bwd_ms = time_ms(torch, lambda: ha.blockwise_attn_bwd_plain(*bargs))
     entry("blockwise_attn_dq", src, rep + "277", ok, gerr,
           time_ms(torch, lambda: ha.blockwise_attn_dq(*bargs)), plain_bwd_ms,
@@ -2151,11 +2234,17 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
             "F.scaled_dot_product_attention (f32), for B16 and B17 together; long_* at N=4, "
             "H=4096")
     e15["note"] = (
-        "ms, plain_ms, bound_ms, library_ms at the serving batch's layer 0 (N=4096, H=32, "
-        "Dh=16), varlen_* there with lengths (bound counting valid keys only), train_* at the "
-        "training batch (N=16384), long_* at N=4, H=4096 (long_varlen_*: lengths uniform in "
-        "[1, 4096]); library_ms is F.scaled_dot_product_attention (f32, boolean key mask)")
-    del q, k, v, g, out, lse, delta, bargs, lib
+        "the tensor-core kernel (attn_fwd_tc_kernel, 3xTF32; kernel_route, plan by H: warps on "
+        "the leading index, keys a tile, ring stages); ms, plain_ms, "
+        "bound_ms, library_ms at the serving batch's layer 0 (N=4096, H=32, Dh=16), varlen_* "
+        "there with lengths (bounds counting valid keys only), train_* at the training batch "
+        "(N=16384), long_* at N=4, H=4096 (long_varlen_*: lengths uniform in [1, 4096]); "
+        "device_ms the kernel alone (torch.profiler); fma_* the FMA kernel (attn_fwd_kernel) on "
+        "the same inputs in the same call; bound_ms the larger of bytes_bound_ms and "
+        "tf32_bound_ms (3xTF32 at the TF32 rate), f32_bound_ms one f32 FMA pass on the CUDA "
+        "cores; library_ms is F.scaled_dot_product_attention (f32, boolean key mask); "
+        "tc_launches the launches on the tensor cores")
+    del q, k, v, g, out, lse, delta, bargs
     torch.cuda.empty_cache()
 
     long_ok, mem = True, {}
@@ -2169,10 +2258,8 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
         out, lse = ha.blockwise_attn_fwd(q, k, v, lk)
         bargs = (q, k, v, g, lse, (g * out).sum(-1), lk)
         row_b, lse_b, fl = attn_counts(LONG_N, LONG_H, dh, lens)
-        lib = attn_lib(torch, q, k, v, lens)
+        b15_times(torch, smi, e15, f"{tag}_", q, k, v, lens, b15_ptxas)
         for name, fn, plain, nbytes, nfl in (
-            ("blockwise_attn_fwd", lambda: ha.blockwise_attn_fwd(q, k, v, lk),
-             lambda: ha.blockwise_attn_fwd_plain(q, k, v, lk), 4 * row_b + lse_b, 4 * fl),
             ("blockwise_attn_dq", lambda: ha.blockwise_attn_dq(*bargs),
              lambda: ha.blockwise_attn_bwd_plain(*bargs), 5 * row_b + 2 * lse_b, 6 * fl),
             ("blockwise_attn_dkv", lambda: ha.blockwise_attn_dkv(*bargs),
@@ -2182,7 +2269,6 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
             e[f"{tag}_ms"] = time_ms(torch, fn)
             e[f"{tag}_plain_ms"] = time_ms(torch, plain, 3)
             e[f"{tag}_bound_ms"], e[f"{tag}_bound_by"] = bound(nbytes, nfl, F32_FLOPS)
-        e15[f"{tag}_library_ms"] = time_ms(torch, lib, 3)
         with torch.enable_grad():
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             lib_out = attn_lib(torch, *leaves, lens)()
@@ -2191,7 +2277,18 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
         del lib_out, leaves
         for name in ("blockwise_attn_dq", "blockwise_attn_dkv"):
             entries[name][f"{tag}_library_ms"] = lib_bwd
+        # the long history's own path: blockwise_self_attention forward and
+        # backward, the counts zeroed just before and read just after
+        _lib.reset_launch_counts()
         peaks = attn_memory(torch, q, k, v, lk, g)
+        counts = dict(_lib.launches)
+        e15[f"launches_{tag}"] = counts.get("blockwise_attn_fwd", 0)
+        e15[f"tc_launches_{tag}"] = counts.get("blockwise_attn_fwd_tc", 0)
+        want = {"blockwise_attn_fwd": 1, "blockwise_attn_dq": 1, "blockwise_attn_dkv": 1,
+                "blockwise_attn_fwd_tc": int(ha._fwd_route(LONG_H) == "tc")}
+        print(f"launches on the blockwise {tag} path (forward and backward): "
+              f"{json.dumps(counts)}", flush=True)
+        check_launches(counts, want, 1, failures, f"blockwise {tag}")
         mem[tag] = peaks
         long_ok &= ok_l and peaks[0] < peaks[1] / 4
         print(f"blockwise {tag}: peak memory of forward + backward above the inputs: blockwise "
@@ -2199,14 +2296,16 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
               f"({peaks[0] / peaks[1]:.4f}, needs < 0.25); B15 {e15[f'{tag}_ms']:.4f} ms, "
               f"B16 {entries['blockwise_attn_dq'][f'{tag}_ms']:.4f} ms, B17 "
               f"{entries['blockwise_attn_dkv'][f'{tag}_ms']:.4f} ms", flush=True)
-        del q, k, v, g, out, lse, bargs, lib
+        del q, k, v, g, out, lse, bargs
         torch.cuda.empty_cache()
     e15["long_memory_bytes"] = mem
+    e15["tc_launches"] = e15["tc_launches_long"]
     if not long_ok:
         failures.append("blockwise long history")
 
     # -- 7c: training.  phase 4's configuration on the blockwise tier
-    expect = {"blockwise_attn_fwd": nl, "blockwise_attn_dq": nl, "blockwise_attn_dkv": nl,
+    expect = {"blockwise_attn_fwd": nl, "blockwise_attn_fwd_tc": tc_cells,
+              "blockwise_attn_dq": nl, "blockwise_attn_dkv": nl,
               "fused_in_batch_ce": 1, "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1,
               "fused_history_encoder": 0, "fused_history_encoder_res": 0,
               "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
@@ -2231,9 +2330,10 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
         check_launches(counts, expect, TRAIN_STEPS, failures, label)
         for name in ("blockwise_attn_fwd", "blockwise_attn_dq", "blockwise_attn_dkv"):
             entries[name][f"launches_{label}"] = counts.get(name, 0)
+        e15[f"tc_launches_{label}"] = counts.get("blockwise_attn_fwd_tc", 0)
         if not finite(torch, metrics):
             failures.append(f"{label} metrics not finite")
-        kern = nl * (e15["train_ms"] + entries["blockwise_attn_dq"]["ms"]
+        kern = nl * (e15["train_device_ms"] + entries["blockwise_attn_dq"]["ms"]
                      + entries["blockwise_attn_dkv"]["ms"])
         print(
             f"{label} on {torch.cuda.get_device_name(0)} ({smi}): {TRAIN_STEPS} steps of B={bt}: "
@@ -2512,7 +2612,7 @@ def main() -> int:
          "-o", str(_lib.BUILD_DIR / f"ptxas_{src}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src in ("fused_softmax", "fused_mha", "select_topk", "rows_write", "fused_encoder",
-                    "fused_encoder_bwd", "tile_max", "gather_rescore")]
+                    "fused_encoder_bwd", "tile_max", "gather_rescore", "history_attention")]
     _lib.library()
     ptxas_log = "\n".join(p.communicate(timeout=600)[0] for p in ptxas)
     print(smi, flush=True)
@@ -2525,6 +2625,7 @@ def main() -> int:
     )
     from two_tower_models_tpu_torch.ops import fused_mha as fm
     from two_tower_models_tpu_torch.ops import fused_softmax as fs
+    from two_tower_models_tpu_torch.ops import history_attention as ha
 
     ept = fm._fwd_tc_tile(HIST, 64)
     enc_smem = fe._enc_tc_plan(TRAIN_BATCH, HIST, 64, 3, 1)[2]
@@ -2535,7 +2636,7 @@ def main() -> int:
                     "select_radix_kernel", "select_topk_kernel", "rows_write_kernel",
                     "encoder_tc_kernel", "encoder_bwd_tc_kernel", "tile_max_kernel",
                     "rescore_kernel", "invert_count_kernel", "invert_scan_kernel",
-                    "invert_scatter_kernel"], {
+                    "invert_scatter_kernel", "attn_fwd_tc_kernel"], {
             # B10 (<MULTI>: D > 64), fwd::smem_bytes in csrc/fused_softmax.cu
             **{f"ce_fwd_tc_kernel<{m}>": fs.fwd_smem_bytes(m) for m in (0, 1)},
             # bwd::SMEM_FLOATS in csrc/fused_softmax.cu
@@ -2554,6 +2655,10 @@ def main() -> int:
             "tile_max_kernel": mt._tile_max_smem_bytes(64),
             "rescore_kernel": mt._rescore_smem_bytes(64),
             **{f"invert_{k}_kernel": 0 for k in ("count", "scan", "scatter")},
+            # B15 on the tensor cores (<DH, warps on the n, keys a tile, stages>)
+            **{f"attn_fwd_tc_kernel<{dh}, {', '.join(map(str, ha.tc_shape(i, dh)))}>":
+               ha.fwd_tc_smem_bytes(i, dh) for i in range(len(ha._TC_PLANS))
+               for dh in ha.HEAD_DIMS},
         })
     dev = torch.device(DEVICE)
 
@@ -2769,7 +2874,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 7: the blockwise attention tier ---------------------------
-    phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, layer_legs)
+    phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, layer_legs,
+                    " | ".join(f"plan {i} (H {('<= 64', '> 64')[i]}): "
+                               + "; ".join(ptxas_lines.get(
+                                   f"attn_fwd_tc_kernel<16, {', '.join(map(str, ha.tc_shape(i, 16)))}>",
+                                   []))
+                               for i in range(len(ha._TC_PLANS))))
 
     # ---- phase 8: fused Adam ---------------------------------------------
     phase_fused_adam(torch, args, smi, dev, entry, entries, failures, ms_packed)

@@ -10,7 +10,11 @@ B11 + B12 (``in_batch_ce_bwd``) return at the flagship step's (B = C =
 B4 (``gather_rescore``) return at the serving cell's (B = 1024, C = 2^20,
 D = 64, k = 100, ``valid`` inside the last tile; B4 on the tiles the
 pipeline selects from B2's output and on a skewed selection, every query
-on the same 100 tiles), on inputs made from a numpy seed.
+on the same 100 tiles), and what B15 (``blockwise_attn_fwd``: the route
+the checkout takes, and its FMA kernel), B16 and B17 (given the plain
+version's lse and delta) return at the blockwise training batch's layer 0
+(N = 16384, H = 32, Dh = 16, lengths in [1, 32]), on inputs made from a
+numpy seed.
 Two checkouts whose kernels compute the same values bit for bit print the
 same hashes, so one copy of this script compares two commits on one card:
 
@@ -21,6 +25,7 @@ Prints the card's name and power limit, then one JSON line.  Needs a GPU.
 """
 
 import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -48,6 +53,7 @@ def main() -> int:
     from two_tower_models_tpu_torch.ops import fused_encoder as fe
     from two_tower_models_tpu_torch.ops import fused_mha as fm
     from two_tower_models_tpu_torch.ops import fused_softmax as fs
+    from two_tower_models_tpu_torch.ops import history_attention as ha
     from two_tower_models_tpu_torch.ops import mips_topk as mt
 
     dev = torch.device("cuda")
@@ -93,6 +99,17 @@ def main() -> int:
     out["B2"] = digest(m)
     out["B4"] = digest(mt.gather_rescore(q, corpus, tiles, mt.TILE))
     out["B4_skewed"] = digest(mt.gather_rescore(q, corpus, skew, mt.TILE))
+    del q, corpus, m, tiles, skew
+    qa, ka, va, da = (t(r.normal(size=(16384, 32, 16))) for _ in range(4))
+    la = torch.from_numpy(r.integers(1, 33, size=16384).astype(np.int32)).to(dev)
+    out["B15"] = digest(*ha.blockwise_attn_fwd(qa, ka, va, la))
+    routed = "_route" in inspect.signature(ha.blockwise_attn_fwd).parameters
+    out["B15_fma"] = digest(*(ha.blockwise_attn_fwd(qa, ka, va, la, _route="fma") if routed
+                              else ha.blockwise_attn_fwd(qa, ka, va, la)))
+    o_p, lse_p = ha.blockwise_attn_fwd_plain(qa, ka, va, la)
+    bargs = (qa, ka, va, da, lse_p, (da * o_p).sum(-1), la)
+    out["B16"] = digest(ha.blockwise_attn_dq(*bargs))
+    out["B17"] = digest(*ha.blockwise_attn_dkv(*bargs))
     torch.cuda.synchronize()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

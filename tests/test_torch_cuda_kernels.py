@@ -31,7 +31,12 @@ selections exactly.  The stack's backward (B9) and the recompute encoder
 backward (B7) as the encoder backward (B6), each on the tensor cores also
 against the same function with f64 sums over ten seeds.  On infinite
 scores the CE kernels' NaNs and infinities in the plain version's places.  The row scatter-add (B18) at 1e-5 (f32 sums in another order),
-and exactly on sums of ones; the in-place row write (B19) exactly.
+and exactly on sums of ones; the in-place row write (B19) exactly.  The
+blockwise forward (B15) on both its kernels (the tensor cores' 3xTF32 and
+the FMA kernel) at rtol 1e-4, atol 1e-5 (1e-3, 1e-4 at 30 sigma),
+bit-equal on repeat, and with NaN in q or k NaN where the plain version
+has it; B15-B17 on inputs at an address that is not 16-byte aligned bit
+for bit as on aligned ones.
 """
 
 import math
@@ -1756,8 +1761,10 @@ def test_blockwise_attn_fwd_kernel_matches_plain(dev, n, h, dh, lens_kind):
     JAX package's tolerance for the blockwise kernel)."""
     q, k, v, _, lens = _attn_case(n, h, dh, dev, n + h, lens_kind)
     before = _lib.launches["blockwise_attn_fwd"]
+    before_tc = _lib.launches["blockwise_attn_fwd_tc"]
     out, lse = ha.blockwise_attn_fwd(q, k, v, lens)
     assert _lib.launches["blockwise_attn_fwd"] == before + 1
+    assert _lib.launches["blockwise_attn_fwd_tc"] == before_tc + (ha._fwd_route(h) == "tc")
     want_out, want_lse = ha.blockwise_attn_fwd_plain(q, k, v, lens)
     _assert_close(out, want_out, 1e-4, 1e-5)
     _assert_close(lse, want_lse, 1e-4, 1e-5)
@@ -1779,6 +1786,77 @@ def test_blockwise_attn_bwd_kernels_match_plain(dev, n, h, dh, lens_kind):
     assert bool((dk[masked] == 0).all()) and bool((dv[masked] == 0).all())
 
 
+@pytest.mark.parametrize("n,h,dh,lens_kind", _ATTN_SHAPES + [(4, 4096, 16, "full"),
+                                                              (4, 4096, 16, "mix")])
+def test_blockwise_attn_fwd_tc_route_alone(dev, n, h, dh, lens_kind):
+    """B15 on the tensor cores and on the FMA kernel, each forced by
+    ``_route``, against the plain version (rtol 1e-4, atol 1e-5), out on
+    every row and the lse, at the edge shapes and the long history (N = 4,
+    H = 4096); one launch counted on each route, the tensor-core one also
+    as ``_tc``; bit-equal on repeat."""
+    q, k, v, _, lens = _attn_case(n, h, dh, dev, n + h + 2, lens_kind)
+    want = ha.blockwise_attn_fwd_plain(q, k, v, lens)
+    for route in ("tc", "fma"):
+        before = dict(_lib.launches)
+        got = ha.blockwise_attn_fwd(q, k, v, lens, _route=route)
+        assert _lib.launches["blockwise_attn_fwd"] == before.get("blockwise_attn_fwd", 0) + 1
+        tc_count = _lib.launches["blockwise_attn_fwd_tc"] - before.get("blockwise_attn_fwd_tc", 0)
+        assert tc_count == (route == "tc")
+        for a, e in zip(got, want):
+            _assert_close(a, e, 1e-4, 1e-5)
+        again = ha.blockwise_attn_fwd(q, k, v, lens, _route=route)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_blockwise_attn_kernels_at_unaligned_addresses(dev):
+    """B15 (both routes), B16 and B17 on copies of their inputs at an
+    address 4 bytes past a 16-byte boundary give the aligned inputs' bits
+    (the wrappers copy such inputs; the kernels read 16 bytes at a time)."""
+    q, k, v, g, lens = _attn_case(9, 40, 32, dev, 14, "mix")
+
+    def odd(t):  # a copy at an address 16-byte aligned no more
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return o.copy_(t)
+
+    for route in ("tc", "fma"):
+        want = ha.blockwise_attn_fwd(q, k, v, lens, _route=route)
+        qo, ko, vo = odd(q), odd(k), odd(v)
+        assert all(t.data_ptr() % 16 for t in (qo, ko, vo))
+        got = ha.blockwise_attn_fwd(qo, ko, vo, lens, _route=route)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    args = _attn_bwd_inputs(q, k, v, g, lens)
+    odd_args = (*map(odd, args[:-1]), lens)
+    assert all(t.data_ptr() % 16 for t in odd_args[:-1])
+    assert torch.equal(ha.blockwise_attn_dq(*odd_args), ha.blockwise_attn_dq(*args))
+    for a, b in zip(ha.blockwise_attn_dkv(*odd_args), ha.blockwise_attn_dkv(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("h,dh", [(128, 16), (256, 64)])
+@pytest.mark.parametrize("where", ["query", "key"])
+def test_blockwise_attn_fwd_nan_like_plain(dev, h, dh, where):
+    """B15 on both routes with the card's NaN (0x7fffffff, what every f32
+    operation that makes a NaN gives here) in one query row, or in one
+    valid key and in one key past its length: NaN in out and lse exactly
+    where the plain version has it, the other values within rtol 1e-4,
+    atol 1e-5.  (The tensor-core kernel's split reads this NaN as zeros, so
+    its guard must send such a tile to the FMA chain.)"""
+    q, k, v, _, lens = _attn_case(3, h, dh, dev, 23, "mix")  # lens[0] = H, lens[1] = 1
+    nan = torch.tensor([0x7FFFFFFF], dtype=torch.int32, device=dev).view(torch.float32)[0]
+    if where == "query":
+        q[2, 5, 3] = nan
+    else:
+        k[0, 70, 3] = nan  # valid
+        k[1, 100, 0] = nan  # past the length: not read
+    want = ha.blockwise_attn_fwd_plain(q, k, v, lens)
+    for route in ("tc", "fma"):
+        got = ha.blockwise_attn_fwd(q, k, v, lens, _route=route)
+        for a, e in zip(got, want):
+            assert bool(e.isnan().any())
+            assert torch.equal(a.isnan(), e.isnan())
+            _assert_close(torch.nan_to_num(a, 0.0), torch.nan_to_num(e, 0.0), 1e-4, 1e-5)
+
+
 def test_blockwise_attn_kernels_are_deterministic_and_stable(dev):
     """Two runs give bit-equal outputs and grads (no atomics); scores of
     some thousands (q and k at 30 sigma) stay finite, as the JAX package's
@@ -1786,8 +1864,10 @@ def test_blockwise_attn_kernels_are_deterministic_and_stable(dev):
     key overflows there)."""
     args = _attn_case(64, 256, 16, dev, 11, "mix", mag=30.0)
     q, k, v, g, lens = args
+    before_tc = _lib.launches["blockwise_attn_fwd_tc"]
     runs = [(*ha.blockwise_attn_fwd(q, k, v, lens), ha.blockwise_attn_dq(*_attn_bwd_inputs(*args)),
              *ha.blockwise_attn_dkv(*_attn_bwd_inputs(*args))) for _ in range(2)]
+    assert _lib.launches["blockwise_attn_fwd_tc"] == before_tc + 2 * (ha._fwd_route(256) == "tc")
     for a, b in zip(*runs):
         assert torch.equal(a, b) and bool(a.isfinite().all())
     _assert_close(runs[0][0], ha.blockwise_attn_fwd_plain(q, k, v, lens)[0], 1e-3, 1e-4)
@@ -1833,6 +1913,7 @@ def test_blockwise_tier_launches_b15_b16_b17(dev):
             he.history_encoder_apply(enc, x, cfg, torch.bfloat16, lengths)
         counts = dict(_lib.launches)
         assert counts.get("blockwise_attn_fwd") == 6
+        assert counts.get("blockwise_attn_fwd_tc", 0) == 6 * (ha._fwd_route(32) == "tc")
         assert counts.get("blockwise_attn_dq") == 3 and counts.get("blockwise_attn_dkv") == 3
         assert not any(counts.get(n) for n in others)
 

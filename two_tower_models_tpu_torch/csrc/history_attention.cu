@@ -11,28 +11,98 @@
 //   with p = exp(s - lse), ds = p (do . v - delta), and delta =
 //   rowsum(do * out) taken outside the kernels (ops/history_attention.py).
 // Layout: q, k, v, out, do, dq, dk, dv [N, H, Dh] f32 with the heads folded
-// into N; lse, delta [N, H] f32; lens [N] int32 in [1, H]; Dh in {16, 32, 64}.
+// into N; lse, delta [N, H] f32; lens [N] int32 in [1, H]; Dh in {16, 32, 64};
+// every [N, H, Dh] tensor 16-byte aligned (the wrappers copy one that is
+// not).
 //
 // Bound on the H100: at the flagship shape (H = 32, Dh = 16, N = 4096 or
 // 16384) bytes: each kernel reads and writes a few [N, H, Dh] tensors and
 // does 32 x 16 multiply-adds per element pair (B15 ~0.04 ms at N = 16384).
-// At a long history (H = 4096) operations: 4-8 N H^2 Dh f32 FLOP.  Design
-// for a first version that is simple and right: one warp owns 32
-// consecutive rows of one n (query rows in B15 and B16, key rows in B17),
-// one row per lane, with the row and its f32 accumulators in registers.
-// The other side's rows (k and v; or q, do, lse and delta) are staged 32 at
-// a time in the warp's own slice of shared memory by 16-byte loads, and
-// every lane reads the same staged row: a broadcast, free of bank
+// At a long history (H = 4096) operations: 4-8 N H^2 Dh f32 FLOP.
+//
+// B15 runs on the tensor cores (attn_fwd_tc_kernel, below) for histories of
+// 64 keys or more, and on its FMA kernel (attn_fwd_kernel) for shorter
+// ones, the cells' H = 32 among them (ops/history_attention.py _fwd_route:
+// there the two were measured within 3% of each other, the FMA kernel 15%
+// ahead with lengths).  The FMA kernels (attn_fwd_kernel, B16, B17) are a first
+// version that is simple and right:
+// one warp owns 32 consecutive rows of one n (query rows in B15 and B16, key
+// rows in B17), one row per lane, with the row and its f32 accumulators in
+// registers.  The other side's rows (k and v; or q, do, lse and delta) are
+// staged 32 at a time in the warp's own slice of shared memory by 16-byte
+// loads, and every lane reads the same staged row: a broadcast, free of bank
 // conflicts.  So the [H, H] scores never exist, each input row is read
 // once per warp, a warp needs no barrier but its own, and with H = 32 one
 // warp covers a whole n (several n per block: 4 warps).  Keys past
 // lens[n] are neither staged nor scored: the Pallas kernels add exactly 0
 // for them.  No atomics: every sum is taken in one fixed order, so the
-// results are bit-equal on repeat.  Left for later: tensor cores (wgmma),
-// TMA staging, and more than one lane per row at long H (B17's four
-// register rows spill at Dh = 64).
+// results are bit-equal on repeat.  Left for later in B16 and B17: tensor
+// cores, and more than one lane per row at long H (B17's four register rows
+// spill at Dh = 64).
+//
+// B15 on the tensor cores (attn_fwd_tc_kernel<DH, QW, BK, NS>).  What
+// held the FMA kernel: one lane a row does Dh FMAs per key per product on the
+// CUDA cores, its copies do not overlap its math, and at H = 4096, N = 4 only
+// 512 warps exist (about 4 an SM, each walking 128 tiles in series). Here a
+// warp owns 16 query rows of one n and both products are mma.sync m16n8k8 in
+// 3xTF32: each operand split into TF32 hi + lo (V by tt::tf32_split_any; P, in
+// [0, 1], and q and k, which reach the tensor cores only below the guard's
+// bound, by split_fin), and per k8 step hi.lo', lo.hi', hi.hi' into a fresh
+// accumulator that is then added to the running sum rounded to nearest
+// (mma.sync adds into its accumulator without rounding to nearest; B10 in
+// csrc/fused_softmax.cu does the same).  S's accumulator feeds P.V's A operand
+// without shuffles: inside a k8 step the order of the keys is free, so k-slot
+// t takes key 2t and slot t + 4 key 2t + 1; then the C fragment (c0 (g, 2t),
+// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)) is the A fragment (a0 (g, t), a1
+// (g+8, t), a2 (g, t+4), a3 (g+8, t+4)) as c0, c2, c1, c3, and V is stored
+// transposed with each k8 step's keys in the order 0 2 4 6 1 3 5 7, so that
+// ldmatrix hands every lane b0 = V[2t][g] and b1 = V[2t+1][g].  The online
+// softmax runs in registers: a thread holds rows g and g + 8 of its warp's 16,
+// the tile max is reduced over the quad by two shuffles, each lane keeps its
+// own partial sum (against the quad's common max) until the end, where the
+// quad adds them in butterfly order. A key at or past lens[n] gets -1e30 by
+// select, so exp gives exactly 0, and the first tile's rescale exp(-1e30 - m)
+// is 0.
+//   Blocks: QW warps on one leading index n (an item: its RQ = 16 QW query
+// rows), one launch plan for each length (ops/history_attention.py
+// _fwd_tc_plan): 64 rows up to H = 64, 128 beyond, as at a long history (H =
+// 4096, N = 4), walking the keys in 64-key tiles (32 at Dh = 64).  The grid
+// is the blocks the card holds at once, each walking items b, b + grid, ...;
+// a block's key tiles of all its items are one sequence of steps through a
+// cp.async ring of three stages (as many slots for the items' Q tiles), so
+// that the next two steps' copies land while step u is split and scored.
+// Keys are never split across blocks (no merge pass).  Each tile lands raw (rows past lens[n] zero-filled by 16-byte
+// cp.async of source size 0, so 0 * garbage never reaches O; a tile wholly
+// past the length is neither loaded nor scored); then the block splits it once
+// for all its warps into K hi, K lo, V^T hi and V^T lo, and each key's |k|^2.
+// Query rows past H are zero-filled, not stored; rows past lens[n] are
+// computed like the others.  Row strides of DH + 4 and BK + 4 floats put the
+// eight rows of every ldmatrix matrix, and the FMA path's rows 2t, in distinct
+// banks.
+//   Large scores: any order of the score's sum other than the plain version's
+// (the d-ordered f32 FMA chain that the FMA kernel and the matmul compute)
+// moves exp(s - m) by the score's rounding, and at scores of some thousands (q
+// and k at 30 sigma) even the correctly rounded score misses the plain version
+// by 2.7 times the 1e-3 / 1e-4 tolerance of the extreme-score test
+// (tests/test_torch_blockwise_tc.py).  So a warp scores a tile in 3xTF32 only
+// where scale |q| |k| <= SCORE_BOUND for its rows and the tile's keys (|s| <=
+// 32, the 3xTF32 error below 2^-15 of a score), and otherwise takes that
+// tile's scores by the plain version's f32 FMA chain from the raw tile; P.V
+// stays on the tensor cores.  The guard's maxima keep a NaN (tt::max_nan), so
+// a NaN or an infinity in q or k takes the FMA chain too, and the output has
+// NaN where the plain version's has.  No atomics; every sum in one fixed
+// order, bit-equal on repeat.
+//   What a step costs: its split, the Q fragments, the guard's reductions, the
+// softmax's shuffles, two barriers and the output take about as many
+// instructions as the products they feed at 32 keys of Dh = 16, where one f32
+// FMA chain per score is only 32 multiply-adds; the tensor cores gain only
+// where a query meets many keys (1.1 times the FMA kernel at H = 64, 3.0 at
+// H = 4096), so the route leaves shorter histories to the FMA kernel.
+
+#include <algorithm>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -256,6 +326,414 @@ attn_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- B15 on the tensor cores ----
+
+namespace tc {
+
+constexpr float SCORE_BOUND = 32.0f;  // see the header: the 3xTF32 scores' range
+
+// A launch plan's shape: QW warps on one leading index, 16 query rows a
+// warp, key tiles of BK keys.  An item is one leading index's RQ query
+// rows; a step one key tile of an item.  NS ring stages of K and V tiles,
+// NS slots of Q tiles (a step's copies land NS - 1 steps ahead).
+template <int DH, int QW, int BK, int NS>
+struct Shape {
+  static constexpr int NT = 32 * QW;
+  static constexpr int RQ = 16 * QW;  // query rows an item holds
+  static constexpr int SD = DH + 4;   // Q, K, V tile row stride (floats)
+  static constexpr int SKV = BK + 4;  // V^T row stride
+  static constexpr int KV = BK * SD;  // a K (or V) tile
+  static constexpr int STAGE = 2 * KV;  // a ring stage: K, then V
+  static constexpr int QF = RQ * SD;    // an item's Q tile
+  // the split tile: K hi, K lo [BK][SD], V^T hi, V^T lo [DH][SKV], |k|^2 [BK]
+  static constexpr int SPLIT = 2 * KV + 2 * DH * SKV + BK;
+  static constexpr size_t SMEM = sizeof(float) * (NS * ((size_t)QF + STAGE) + SPLIT);
+  static_assert((BK * DH / 4) % NT == 0 && (RQ * DH / 4) % NT == 0,
+                "each thread copies and splits the same number of chunks");
+};
+
+// tt::tf32_split of a finite x by integer operations: rounding to TF32 to
+// nearest, ties away from zero, is adding half of the 13 dropped bits' unit
+// to the bit pattern and clearing them (a carry out of the mantissa steps
+// the exponent; one past the largest finite value gives inf, as cvt.rna
+// does).  The same bits as tt::tf32_split for every x but a NaN, in five
+// operations.  A NaN's add may carry into the sign bit and give hi = lo =
+// -0 (0x7fffffff, the card's NaN, does): q and k meet it only below the
+// guard's bound, which a NaN fails; a NaN p makes its row's sum l NaN, and
+// so the row's out and lse.
+__device__ __forceinline__ void split_fin(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// split_fin (ANY: tt::tf32_split_any) of four values.
+template <bool ANY>
+__device__ __forceinline__ void split4(const float4& x, uint4& hi, uint4& lo) {
+  if constexpr (ANY) {
+    tt::tf32_split_any(x.x, hi.x, lo.x);
+    tt::tf32_split_any(x.y, hi.y, lo.y);
+    tt::tf32_split_any(x.z, hi.z, lo.z);
+    tt::tf32_split_any(x.w, hi.w, lo.w);
+  } else {
+    split_fin(x.x, hi.x, lo.x);
+    split_fin(x.y, hi.y, lo.y);
+    split_fin(x.z, hi.z, lo.z);
+    split_fin(x.w, hi.w, lo.w);
+  }
+}
+
+// Item it: leading index n, query rows r0 .. r0 + RQ - 1; T key tiles of
+// its length (at least one).  Kept in registers: a length read from memory
+// where a copy is issued would put a load's latency before every copy.
+struct Item {
+  int n, r0, T, len;
+};
+
+template <int BK>
+__device__ __forceinline__ Item item_at(int it, int qtiles, int RQ, const int* lens) {
+  Item r;
+  r.n = it / qtiles;
+  r.r0 = (it % qtiles) * RQ;
+  r.len = __ldg(lens + r.n);
+  r.T = max(1, (r.len + BK - 1) / BK);
+  return r;
+}
+
+// Block b walks items b, b + gridDim.x, ... (the grid is what the card
+// holds at once, so at a long history each block holds one), each item's
+// key tiles in order, as one sequence of steps: the copies of steps u + 1
+// .. u + NS - 1 (their K and V tiles, and at an item's first tile its Q
+// tile) are in flight while step u is split and scored.  Warp w takes rows
+// r0 + 16 w ...
+template <int DH, int QW, int BK, int NS>
+__global__ void __launch_bounds__(32 * QW, BK <= 32 ? 2 : 1)
+attn_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const int* __restrict__ lens,
+                   float* __restrict__ out, float* __restrict__ lse, int H, int qtiles,
+                   int items, float scale) {
+  using S = Shape<DH, QW, BK, NS>;
+  constexpr int SD = S::SD, SKV = S::SKV, NT = S::NT, RQ = S::RQ;
+  constexpr int KS = DH / 8, NB = BK / 8, DB = DH / 8, C4 = DH / 4;
+  // Q's split fragments stay in registers through an item's key tiles
+  // where it has many (BK = 64) and they fit (DH <= 32: at 64, 64 more
+  // registers would spill); else they are split from the staged tile where
+  // they are used.  Q and K are split by split_fin: a tile reaches the
+  // tensor cores only when the guard's |q|^2 and |k|^2 are finite (its
+  // maxima keep a NaN), so every TF32 rounding there is finite; V by
+  // tt::tf32_split_any.
+  constexpr bool QREG = DH <= 32 && BK == 64;
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // NS slots of [RQ][SD]
+  float* ring = qs + NS * S::QF;                // NS stages
+  float* split = ring + NS * S::STAGE;          // the split tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wq = 16 * warp;
+
+  // the issue side: step `iu` is tile ij of the block's item number iq (ii)
+  int ii = blockIdx.x, ij = 0, iq = 0, iu = 0;
+  Item iI = item_at<BK>(ii, qtiles, RQ, lens);
+  // Each thread copies and splits the 16-byte chunks tid, tid + NT, ... of
+  // the tiles: loops of fixed trip counts, so that which tensor a copy
+  // belongs to is known where it is compiled.
+  auto issue = [&]() {  // one step's copies, one commit group; then the issue side moves on
+    if (ii < items) {
+      if (ij == 0) {  // the item's Q; rows past H zero-filled
+        float* dst = qs + (iq % NS) * S::QF;
+        const float* src = q + ((size_t)iI.n * H + iI.r0) * DH;
+#pragma unroll
+        for (int x = 0; x < RQ * C4 / NT; ++x) {
+          const int e = threadIdx.x + x * NT, row = e / C4, c4 = e % C4;
+          const bool ok = iI.r0 + row < H;
+          tt::cp_async16(dst + row * SD + 4 * c4, src + (ok ? row * DH + 4 * c4 : 0), ok ? 16 : 0);
+        }
+      }
+      float* st = ring + (iu % NS) * S::STAGE;
+      if (ij * BK < iI.len) {  // else wholly past the length: not loaded
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          const float* src = (kv ? v : k) + ((size_t)iI.n * H + ij * BK) * DH;
+#pragma unroll
+          for (int x = 0; x < BK * C4 / NT; ++x) {
+            const int e = threadIdx.x + x * NT, row = e / C4, c4 = e % C4;
+            const bool ok = ij * BK + row < iI.len;  // keys at or past the length zero-filled
+            tt::cp_async16(st + kv * S::KV + row * SD + 4 * c4,
+                           src + (ok ? row * DH + 4 * c4 : 0), ok ? 16 : 0);
+          }
+        }
+      }
+      if (++ij == iI.T) {
+        ij = 0;
+        ++iq;
+        ii += gridDim.x;
+        if (ii < items) iI = item_at<BK>(ii, qtiles, RQ, lens);
+      }
+    }
+    tt::cp_commit();
+    ++iu;
+  };
+
+  // the compute side: step u is tile j of item number cq (it); cN the next
+  // item, read while this one is scored
+  int it = blockIdx.x, j = 0, cq = 0;
+  Item cI = iI, cN = iI;
+  float m[2], l[2], o[DB][4];
+  auto reset = [&]() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) m[h] = NEG_INF, l[h] = 0.f;
+#pragma unroll
+    for (int db = 0; db < DB; ++db)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[db][c] = 0.f;
+  };
+  reset();
+  unsigned qhi[QREG ? KS : 1][4], qlo[QREG ? KS : 1][4];
+  float qn2 = 0.f;  // the largest |q|^2 of the warp's rows (NaN if one is)
+  // ldmatrix.x4 row addresses (B10's): A, lane L: row L % 8 + 8 ((L / 8) % 2),
+  // k half L / 16, landing as a0 .. a3; B (K by row, or V^T), lane L: band
+  // 2p + L / 16, row L % 8 of it, k half (L / 8) % 2, landing as b0, b1 of
+  // band 2p, then of band 2p + 1
+  const int offa = ((lane & 7) + 8 * ((lane >> 3) & 1)) * SD + 4 * (lane >> 4);
+  const int offb = ((lane >> 4) * 8 + (lane & 7)) * SD + ((lane >> 3) & 1) * 4;
+  const int offv = ((lane >> 4) * 8 + (lane & 7)) * SKV + ((lane >> 3) & 1) * 4;
+
+#pragma unroll
+  for (int x = 0; x < NS - 1; ++x) issue();
+  for (int u = 0; it < items; ++u) {
+    tt::cp_wait<NS - 2>();
+    __syncthreads();  // step u landed; every warp is done with step u - 1
+    issue();          // step u + NS - 1, into the stage step u - 1 left (its Q slot: an item done)
+    const float* st = ring + (u % NS) * S::STAGE;
+    const float* qa = qs + (cq % NS) * S::QF + wq * SD;
+    const int n = cI.n, rw = cI.r0 + wq, len = cI.len;
+    const bool active = rw < H;  // warp-uniform
+    if (j == 0 && it + (int)gridDim.x < items) cN = item_at<BK>(it + gridDim.x, qtiles, RQ, lens);
+    // the split, once for the block: the K tile into hi and lo, the V tile
+    // into V^T hi and lo with each k8 step's keys in the order 0 2 4 6 1 3
+    // 5 7, and each key's |k|^2 (the C4 lanes of a key summed)
+    if (j * BK < len) {
+#pragma unroll
+      for (int x = 0; x < BK * C4 / NT; ++x) {
+        const int e = threadIdx.x + x * NT, c = e / C4, c4 = e % C4;
+        const float4 kx = *reinterpret_cast<const float4*>(st + c * SD + 4 * c4);
+        const float4 vx = *reinterpret_cast<const float4*>(st + S::KV + c * SD + 4 * c4);
+        uint4 hi, lo;
+        split4<false>(kx, hi, lo);
+        *reinterpret_cast<uint4*>(split + c * SD + 4 * c4) = hi;
+        *reinterpret_cast<uint4*>(split + S::KV + c * SD + 4 * c4) = lo;
+        split4<true>(vx, hi, lo);
+        unsigned* vt = reinterpret_cast<unsigned*>(split + 2 * S::KV) + 4 * c4 * SKV +
+                       ((c & ~7) | ((c & 1) << 2) | ((c & 7) >> 1));
+        vt[0] = hi.x;
+        vt[SKV] = hi.y;
+        vt[2 * SKV] = hi.z;
+        vt[3 * SKV] = hi.w;
+        vt += DH * SKV;
+        vt[0] = lo.x;
+        vt[SKV] = lo.y;
+        vt[2 * SKV] = lo.z;
+        vt[3 * SKV] = lo.w;
+        float k2 = kx.x * kx.x + kx.y * kx.y + kx.z * kx.z + kx.w * kx.w;
+#pragma unroll
+        for (int off = 1; off < C4; off <<= 1) k2 += __shfl_xor_sync(FULL, k2, off);
+        if (c4 == 0) split[2 * S::KV + 2 * DH * SKV + c] = k2;
+      }
+    }
+    if (j == 0 && active) {  // the warp's Q fragments, split, and its rows' largest |q|^2
+      if constexpr (QREG) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          unsigned ar[4];
+          tt::ldmatrix_x4<false>(ar, qa + offa + ks * 8);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) split_fin(__uint_as_float(ar[c]), qhi[ks][c], qlo[ks][c]);
+        }
+      }
+      const float4* qr = reinterpret_cast<const float4*>(qa + (lane & 15) * SD + (lane >> 4) * (DH / 2));
+      qn2 = 0.f;
+#pragma unroll
+      for (int d4 = 0; d4 < DH / 8; ++d4) {
+        const float4 x = qr[d4];
+        qn2 = fmaf(x.x, x.x, fmaf(x.y, x.y, fmaf(x.z, x.z, fmaf(x.w, x.w, qn2))));
+      }
+      qn2 += __shfl_xor_sync(FULL, qn2, 16);
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) qn2 = tt::max_nan(qn2, __shfl_xor_sync(FULL, qn2, off));
+    }
+    __syncthreads();  // the split tile is written
+
+    if (active && j * BK < len) {
+      float k2 = 0.f;  // the tile's largest |k|^2 (NaN if one is)
+#pragma unroll
+      for (int c = lane; c < BK; c += 32) k2 = tt::max_nan(k2, split[2 * S::KV + 2 * DH * SKV + c]);
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) k2 = tt::max_nan(k2, __shfl_xor_sync(FULL, k2, off));
+      // keys of the tile below the length: bands past them are neither
+      // scored nor multiplied (their scores are -1e30 below, exp 0)
+      const int live = len - j * BK;
+      float s[NB][4];
+      // false for a NaN or an infinite |q|^2 or |k|^2 (inf . 0 is NaN)
+      if (scale * scale * qn2 * k2 <= SCORE_BOUND * SCORE_BOUND) {  // 3xTF32
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[nb][c] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {  // each score's k8 steps in d order
+          unsigned ahi[4], alo[4];
+          if constexpr (QREG) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) ahi[c] = qhi[ks][c], alo[c] = qlo[ks][c];
+          } else {
+            unsigned ar[4];
+            tt::ldmatrix_x4<false>(ar, qa + offa + ks * 8);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) split_fin(__uint_as_float(ar[c]), ahi[c], alo[c]);
+          }
+#pragma unroll
+          for (int p = 0; p < NB / 2; ++p) {
+            if (16 * p >= live) continue;
+            unsigned bh[4], bl[4];
+            tt::ldmatrix_x4<false>(bh, split + offb + p * 16 * SD + ks * 8);
+            tt::ldmatrix_x4<false>(bl, split + S::KV + offb + p * 16 * SD + ks * 8);
+            float f[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+            for (int b = 0; b < 2; ++b) tt::mma_tf32(f[b], ahi, bl[2 * b], bl[2 * b + 1]);
+#pragma unroll
+            for (int b = 0; b < 2; ++b) tt::mma_tf32(f[b], alo, bh[2 * b], bh[2 * b + 1]);
+#pragma unroll
+            for (int b = 0; b < 2; ++b) tt::mma_tf32(f[b], ahi, bh[2 * b], bh[2 * b + 1]);
+#pragma unroll
+            for (int b = 0; b < 2; ++b)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) s[2 * p + b][c] += f[b][c];
+          }
+        }
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[nb][c] *= scale;
+      } else {  // the plain version's f32 FMA chain in d order, from the raw tile
+        const float4* q0 = reinterpret_cast<const float4*>(qa + g * SD);
+        const float4* q1 = reinterpret_cast<const float4*>(qa + (g + 8) * SD);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          if (8 * nb >= live) continue;
+          const float4* k0 = reinterpret_cast<const float4*>(st + (8 * nb + 2 * t) * SD);
+          const float4* k1 = reinterpret_cast<const float4*>(st + (8 * nb + 2 * t + 1) * SD);
+          float a[4] = {0.f, 0.f, 0.f, 0.f};
+          // not unrolled: unrolled, the two q rows would be held in registers across the bands
+#pragma unroll 1
+          for (int d4 = 0; d4 < C4; ++d4) {
+            const float4 x0 = q0[d4], x1 = q1[d4], y0 = k0[d4], y1 = k1[d4];
+            a[0] = fmaf(x0.x, y0.x, a[0]); a[0] = fmaf(x0.y, y0.y, a[0]);
+            a[0] = fmaf(x0.z, y0.z, a[0]); a[0] = fmaf(x0.w, y0.w, a[0]);
+            a[1] = fmaf(x0.x, y1.x, a[1]); a[1] = fmaf(x0.y, y1.y, a[1]);
+            a[1] = fmaf(x0.z, y1.z, a[1]); a[1] = fmaf(x0.w, y1.w, a[1]);
+            a[2] = fmaf(x1.x, y0.x, a[2]); a[2] = fmaf(x1.y, y0.y, a[2]);
+            a[2] = fmaf(x1.z, y0.z, a[2]); a[2] = fmaf(x1.w, y0.w, a[2]);
+            a[3] = fmaf(x1.x, y1.x, a[3]); a[3] = fmaf(x1.y, y1.y, a[3]);
+            a[3] = fmaf(x1.z, y1.z, a[3]); a[3] = fmaf(x1.w, y1.w, a[3]);
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[nb][c] = a[c] * scale;
+        }
+      }
+      if ((j + 1) * BK > len) {  // keys at or past the length: -1e30 by select
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (j * BK + 8 * nb + 2 * t + e >= len) s[nb][e] = s[nb][2 + e] = NEG_INF;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // the online softmax of rows g and g + 8
+        float tm = NEG_INF;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) tm = fmaxf(tm, fmaxf(s[nb][2 * h], s[nb][2 * h + 1]));
+        tm = fmaxf(tm, __shfl_xor_sync(FULL, tm, 1));
+        tm = fmaxf(tm, __shfl_xor_sync(FULL, tm, 2));
+        const float mn = fmaxf(m[h], tm);
+        const float alpha = __expf(m[h] - mn);
+        float sum = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = __expf(s[nb][2 * h + e] - mn);
+            s[nb][2 * h + e] = p;
+            sum += p;
+          }
+        l[h] = __fadd_rn(__fmul_rn(l[h], alpha), sum);
+        m[h] = mn;
+#pragma unroll
+        for (int db = 0; db < DB; ++db) {
+          o[db][2 * h] *= alpha;
+          o[db][2 * h + 1] *= alpha;
+        }
+      }
+      const float* vh = split + 2 * S::KV;
+      const float* vl = vh + DH * SKV;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {  // O += P V, key band nb as one k8 step
+        if (8 * nb >= live) continue;
+        unsigned ph[4], pl[4];
+        split_fin(s[nb][0], ph[0], pl[0]);  // a0: row g, slot t = key 2t
+        split_fin(s[nb][2], ph[1], pl[1]);  // a1: row g + 8, key 2t
+        split_fin(s[nb][1], ph[2], pl[2]);  // a2: row g, slot t + 4 = key 2t + 1
+        split_fin(s[nb][3], ph[3], pl[3]);  // a3: row g + 8, key 2t + 1
+#pragma unroll
+        for (int dp = 0; dp < DH / 16; ++dp) {
+          unsigned bh[4], bl[4];
+          tt::ldmatrix_x4<false>(bh, vh + offv + dp * 16 * SKV + nb * 8);
+          tt::ldmatrix_x4<false>(bl, vl + offv + dp * 16 * SKV + nb * 8);
+          float f[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+          for (int b = 0; b < 2; ++b) tt::mma_tf32(f[b], ph, bl[2 * b], bl[2 * b + 1]);
+#pragma unroll
+          for (int b = 0; b < 2; ++b) tt::mma_tf32(f[b], pl, bh[2 * b], bh[2 * b + 1]);
+#pragma unroll
+          for (int b = 0; b < 2; ++b) tt::mma_tf32(f[b], ph, bh[2 * b], bh[2 * b + 1]);
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) o[2 * dp + b][c] += f[b][c];
+        }
+      }
+    }
+
+    if (++j == cI.T) {  // the item's last tile: its rows out, then the next item
+      if (active) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // the quad's partial sums, in butterfly order
+          l[h] += __shfl_xor_sync(FULL, l[h], 1);
+          l[h] += __shfl_xor_sync(FULL, l[h], 2);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rw + g + 8 * h;
+          if (r >= H) continue;
+          float* orow = out + ((size_t)n * H + r) * DH + 2 * t;
+          const float inv = 1.0f / l[h];  // one division a row, then products
+#pragma unroll
+          for (int db = 0; db < DB; ++db)
+            *reinterpret_cast<float2*>(orow + 8 * db) =
+                make_float2(o[db][2 * h] * inv, o[db][2 * h + 1] * inv);
+          if (t == 0) lse[(size_t)n * H + r] = m[h] + logf(l[h]);
+        }
+      }
+      reset();
+      j = 0;
+      ++cq;
+      it += gridDim.x;
+      cI = cN;
+    }
+  }
+}
+
+
+}  // namespace tc
+
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -277,6 +755,47 @@ cudaError_t fwd(const float* q, const float* k, const float* v, const int* lens,
   attn_fwd_kernel<DH><<<blocks_of(N, tiles), WARPS * 32, smem, stream>>>(
       q, k, v, lens, out, lse, N, H, tiles, scale_of(DH));
   return cudaGetLastError();
+}
+
+template <int DH, int QW, int BK, int NS>
+cudaError_t fwd_tc(const float* q, const float* k, const float* v, const int* lens, float* out,
+                   float* lse, int N, int H, cudaStream_t stream) {
+  using S = tc::Shape<DH, QW, BK, NS>;
+  const auto kernel = tc::attn_fwd_tc_kernel<DH, QW, BK, NS>;
+  static int grid_max[64] = {};  // by device: the blocks the card holds at once, asked once
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = prepare(kernel, S::SMEM);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!grid_max[dev]) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S::NT, S::SMEM);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    grid_max[dev] = per_sm * sms;
+  }
+  const int qtiles = (H + S::RQ - 1) / S::RQ;
+  const long long items = (long long)N * qtiles;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)std::min<long long>(items, grid_max[dev]), S::NT, S::SMEM, stream>>>(
+      q, k, v, lens, out, lse, H, qtiles, (int)items, scale_of(DH));
+  return cudaGetLastError();
+}
+
+// The launch plans (ops/history_attention.py _TC_PLANS, tc_shape): <QW, BK,
+// NS>; at DH = 64 key tiles of at most 32 keys (64 spill).
+template <int DH>
+cudaError_t fwd_tc_plan(int plan, const float* q, const float* k, const float* v, const int* lens,
+                        float* out, float* lse, int N, int H, cudaStream_t stream) {
+  constexpr int BKL = DH == 64 ? 32 : 64;
+  switch (plan) {
+    case 0: return fwd_tc<DH, 4, BKL, 3>(q, k, v, lens, out, lse, N, H, stream);
+    case 1: return fwd_tc<DH, 8, BKL, 3>(q, k, v, lens, out, lse, N, H, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int DH>
@@ -312,6 +831,21 @@ extern "C" int tt_blockwise_attn_fwd(const void* q, const void* k, const void* v
                                      int Dh, void* stream) {
 #define TT_CALL(D) fwd<D>((const float*)q, (const float*)k, (const float*)v, (const int*)lens, \
                           (float*)out, (float*)lse, N, H, (cudaStream_t)stream)
+  switch (Dh) {
+    case 16: return (int)TT_CALL(16);
+    case 32: return (int)TT_CALL(32);
+    case 64: return (int)TT_CALL(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TT_CALL
+}
+
+extern "C" int tt_blockwise_attn_fwd_tc(const void* q, const void* k, const void* v,
+                                        const void* lens, void* out, void* lse, int N, int H,
+                                        int Dh, int plan, void* stream) {
+#define TT_CALL(D) fwd_tc_plan<D>(plan, (const float*)q, (const float*)k, (const float*)v, \
+                                  (const int*)lens, (float*)out, (float*)lse, N, H,          \
+                                  (cudaStream_t)stream)
   switch (Dh) {
     case 16: return (int)TT_CALL(16);
     case 32: return (int)TT_CALL(32);

@@ -71,13 +71,6 @@ __device__ __forceinline__ float value_of(int k) {
   return __int_as_float(k < 0 ? (k ^ 0x7fffffff) : k);
 }
 
-// max(a, b), NaN if either is NaN.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
 // One step of a transposed butterfly over the lanes `off` apart: a lane
 // keeps the upper half of its N values where its `off` bit is set, the
 // lower half elsewhere, each the max with its partner's copy.  After the
@@ -194,7 +187,7 @@ tile_max_kernel(const float* __restrict__ q, const float* __restrict__ c,
         // is NaN (max.NaN gives a NaN then) or the max is a zero (-0 < +0)
         float mf = acc[i][0];
 #pragma unroll
-        for (int j = 1; j < RC; ++j) mf = max_nan(mf, acc[i][j]);
+        for (int j = 1; j < RC; ++j) mf = tt::max_nan(mf, acc[i][j]);
         best[i] = key_of(mf);
         if (!full || mf != mf || mf == 0.0f) {
           best[i] = key_of(-INFINITY);

@@ -75,6 +75,7 @@ _SIGNATURES = {
     "tt_fused_mha_bwd_tc": [_P] * 8 + [_I] * 6 + [_P],
     "tt_fused_mha_bwd_reduce": [_P, _P, _I, _I, _P],
     "tt_blockwise_attn_fwd": [_P] * 6 + [_I] * 3 + [_P],
+    "tt_blockwise_attn_fwd_tc": [_P] * 6 + [_I] * 4 + [_P],
     "tt_blockwise_attn_dq": [_P] * 8 + [_I] * 3 + [_P],
     "tt_blockwise_attn_dkv": [_P] * 9 + [_I] * 3 + [_P],
     "tt_fused_adam": [_P] * 5 + [_F] * 6 + [_I] * 3 + [ctypes.c_longlong, _P],
@@ -155,6 +156,13 @@ def library() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def aligned(t):
+    """``t`` contiguous at a 16-byte aligned address (the kernels' float4
+    and cp.async reads): ``t`` itself where it is, else a copy."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_ptr(t) -> int:

@@ -6,7 +6,12 @@ Port of ``two_tower_models_tpu/ops/pallas/history_attention.py``:
 - B15, ``_attn_kernel`` (``pallas_call`` at :144): ``blockwise_attn_fwd``,
   softmax(q kᵀ / √Dh) v with an online softmax over key tiles, keys at or
   past each leading index's length scored −1e30, and the per-row
-  lse = m + log l saved for the backward (``csrc/history_attention.cu``);
+  lse = m + log l saved for the backward (``csrc/history_attention.cu``:
+  ``attn_fwd_tc_kernel``, both products in 3xTF32 on the tensor cores,
+  on ``_fwd_tc_plan``'s launch plan, for histories of 64 keys or more;
+  the FMA kernel ``attn_fwd_kernel`` for shorter ones, the cells' among
+  them: ``_fwd_route``; ``chip_smoke.py`` and the card tests time and hold
+  both kernels through the private ``_route``);
 - B16, ``_dq_kernel`` (:277): ``blockwise_attn_dq``;
 - B17, ``_dkv_kernel`` (:295): ``blockwise_attn_dkv``.
 
@@ -21,9 +26,11 @@ Layout [N, H, Dh], the heads folded into N (``nn.attention.mha_apply``);
 lse and delta are [N, H] f32 (the TPU's [N, 1, H] padding is a layout of
 its lanes).  The TPU's ``q_tile``/``kv_tile`` and its padding of Dh to 128
 lanes are Mosaic tiling, not semantics: the CUDA kernels pick their own
-tiles and take Dh in {16, 32, 64}.  Each kernel has a plain PyTorch
-version beside it (dense, the [N, H, H] scores materialised): the CPU
-path, and the reference the kernel is held against on the card.
+tiles and take Dh in {16, 32, 64}, and every [N, H, Dh] operand at a
+16-byte aligned address: the wrappers copy one that is not.  Each kernel
+has a plain PyTorch version beside it (dense, the [N, H, H] scores
+materialised): the CPU path, and the reference the kernel is held against
+on the card.
 """
 
 from __future__ import annotations
@@ -94,22 +101,86 @@ def _check(name: str, lens: torch.Tensor, full, rows=()) -> None:
         raise ValueError(f"{name}: lengths must be int32 [{q.shape[0]}] on {q.device}")
 
 
-def blockwise_attn_fwd(q, k, v, lens):
-    """(out, lse); see ``blockwise_attn_fwd_plain``.  A CPU tensor takes
-    the plain version; a CUDA tensor launches kernel B15."""
-    if q.device.type == "cpu":
-        return blockwise_attn_fwd_plain(q, k, v, lens)
-    _check("blockwise_attn_fwd", lens, (q, k, v))
+# The tensor-core B15's launch plans (csrc/history_attention.cu fwd_tc_plan):
+# (warps on the leading index, keys a tile, ring stages).  A warp owns 16
+# query rows.
+_TC_PLANS = ((4, 64, 3), (8, 64, 3))
+
+
+def tc_shape(plan: int, dh: int) -> tuple[int, int, int]:
+    """Plan ``plan``'s (warps on the leading index, keys a tile, ring
+    stages) at head dim ``dh``: key tiles of at most 32 keys at Dh = 64,
+    where 64 spill registers."""
+    qw, bk, ns = _TC_PLANS[plan]
+    return qw, min(bk, 32) if dh == 64 else bk, ns
+
+
+def _fwd_tc_plan(h: int) -> int:
+    """The index in ``_TC_PLANS`` of B15's launch at history length ``h``:
+    a query tile of one leading index walking 64-key tiles through a ring
+    of three stages, 64 rows up to h = 64 and 128 rows beyond, each the
+    faster of the two at those lengths (PERF.md §6)."""
+    return 0 if h <= 64 else 1
+
+
+def fwd_tc_smem_bytes(plan: int, dh: int) -> int:
+    """Dynamic shared memory of a tensor-core B15 block on plan ``plan`` at
+    head dim ``dh`` (``tc::Shape::SMEM``): a query tile and raw K and V
+    tiles for each ring stage, and the split tile (K hi and lo, V^T hi and
+    lo, |k|^2); rows of Dh + 4 floats, V^T rows of keys + 4."""
+    qw, bk, ns = tc_shape(plan, dh)
+    sd, kv = dh + 4, bk * (dh + 4)
+    return 4 * (ns * (16 * qw * sd + 2 * kv) + 2 * kv + 2 * dh * (bk + 4) + bk)
+
+
+def _fwd_route(h: int) -> str:
+    """B15's kernel at history length ``h``: "tc" (``attn_fwd_tc_kernel``)
+    from 64 keys on, where it was measured faster than the FMA kernel (1.1
+    times at H = 64, 1.4 at 128 and 256, 2.2 at 512, 3.0 at 4096; with
+    lengths uniform in [1, H] 1.06, 1.2 and 3.0 at 64, 128 and 4096); "fma"
+    (``attn_fwd_kernel``) below, where at the cells' H = 32 the two were
+    measured within 3% of each other without lengths and the FMA kernel 15%
+    faster with them (PERF.md §6)."""
+    return "tc" if h >= 64 else "fma"
+
+
+def _launch_fwd(route: str, q, k, v, lens, plan: int | None = None):
+    """B15's kernel on the route ``route`` ("tc": ``attn_fwd_tc_kernel`` on
+    ``_fwd_tc_plan``'s plan, or ``plan``; "fma": ``attn_fwd_kernel``) on
+    checked, aligned inputs: (out, lse).  Counts nothing."""
     n, h, dh = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((n, h), dtype=torch.float32, device=q.device)
     if n and h:
-        err = _lib.library().tt_blockwise_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), n, h, dh, _lib.stream_ptr(q),
-        )
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), n, h, dh)
+        if route == "tc":
+            err = _lib.library().tt_blockwise_attn_fwd_tc(
+                *args, _fwd_tc_plan(h) if plan is None else plan, _lib.stream_ptr(q))
+        else:
+            err = _lib.library().tt_blockwise_attn_fwd(*args, _lib.stream_ptr(q))
         _lib.check(err, "blockwise_attn_fwd")
+    return out, lse
+
+
+def blockwise_attn_fwd(q, k, v, lens, *, _route: str | None = None):
+    """(out, lse); see ``blockwise_attn_fwd_plain``.  A CPU tensor takes
+    the plain version; a CUDA tensor launches kernel B15 on the route
+    ``_fwd_route`` gives its history length (``_route``, for timing and
+    tests only, forces one).  Every launch counts as
+    ``blockwise_attn_fwd``, one on the tensor cores also as
+    ``blockwise_attn_fwd_tc``."""
+    if q.device.type == "cpu":
+        return blockwise_attn_fwd_plain(q, k, v, lens)
+    _check("blockwise_attn_fwd", lens, (q, k, v))
+    route = _fwd_route(q.shape[1]) if _route is None else _route
+    if route not in ("tc", "fma"):
+        raise ValueError(f"blockwise_attn_fwd: no route {route!r}")
+    out, lse = _launch_fwd(route, *map(_lib.aligned, (q, k, v)), lens)
+    if q.shape[0] and q.shape[1]:
         _lib.launches["blockwise_attn_fwd"] += 1
+        if route == "tc":
+            _lib.launches["blockwise_attn_fwd_tc"] += 1
     return out, lse
 
 
@@ -119,6 +190,7 @@ def blockwise_attn_dq(q, k, v, do, lse, delta, lens):
     if q.device.type == "cpu":
         return blockwise_attn_bwd_plain(q, k, v, do, lse, delta, lens)[0]
     _check("blockwise_attn_dq", lens, (q, k, v, do), (lse, delta))
+    q, k, v, do, lse, delta = map(_lib.aligned, (q, k, v, do, lse, delta))
     n, h, dh = q.shape
     dq = torch.empty_like(q)
     if n and h:
@@ -137,6 +209,7 @@ def blockwise_attn_dkv(q, k, v, do, lse, delta, lens):
     if q.device.type == "cpu":
         return blockwise_attn_bwd_plain(q, k, v, do, lse, delta, lens)[1:]
     _check("blockwise_attn_dkv", lens, (q, k, v, do), (lse, delta))
+    q, k, v, do, lse, delta = map(_lib.aligned, (q, k, v, do, lse, delta))
     n, h, dh = q.shape
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     if n and h:

@@ -137,13 +137,6 @@ def _tile_max_plan(b: int, c: int, d: int, sms: int) -> tuple[int, int, int, int
     return qblocks, runs, per_sm, smem
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous at a 16-byte aligned address (the kernels' float4
-    and cp.async reads)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def tile_max_scores(
     query: torch.Tensor,  # [B, D] f32
     corpus: torch.Tensor,  # [C, D] f32
@@ -160,7 +153,7 @@ def tile_max_scores(
     c = corpus.shape[0]
     if tile != TILE or corpus.shape[1] != d or d % 4 or not 0 < d <= 200:
         raise ValueError(f"tile_max_scores takes tile={TILE}, D % 4 == 0, D <= 200")
-    q, cc = _aligned(query), _aligned(corpus)
+    q, cc = _lib.aligned(query), _lib.aligned(corpus)
     m = torch.empty((b, -(-c // tile)), dtype=torch.float32, device=q.device)
     if b and c:
         _, runs, _, _ = _tile_max_plan(b, c, d, _lib.sm_count(q.device.index))
@@ -387,7 +380,7 @@ def gather_rescore(
     k = tile_idx.shape[1]
     if tile != TILE or corpus.shape[1] != d or d % 4 or not 0 < d <= 200 or tile_idx.shape[0] != b:
         raise ValueError(f"gather_rescore takes tile={TILE}, D % 4 == 0, D <= 200")
-    q, cc = _aligned(query), _aligned(corpus)
+    q, cc = _lib.aligned(query), _lib.aligned(corpus)
     out = torch.empty((b, k * tile), dtype=torch.float32, device=q.device)
     if b and k:
         n_tiles = max(1, -(-cc.shape[0] // tile))
