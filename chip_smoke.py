@@ -163,14 +163,17 @@ Phases, in the order they run; any failure exits non-zero:
      kernel, each forced) against their plain version on layer 0's folded q,
      k, v of the serving batch (with and without lengths) and of the
      training batch, the tensor cores also at 30 sigma (1e-3 / 1e-4), B16
-     and B17 there twice (bit-equal), and a long-history leg at N=4, H=4096
-     with and without lengths, whose forward and backward through
-     blockwise_self_attention must launch B15 on the tensor cores (the
-     route's kernel there; counts zeroed around it) and keep its peak
-     memory under a quarter of the plain dense autograd's; B15's kernels
-     timed at the five shapes beside its plain version, its bounds (bytes,
-     f32 FMA, 3xTF32) and F.scaled_dot_product_attention, B16 and B17
-     beside their plain version, bound and that call's autograd backward.
+     and B17 there on both their kernels (the tensor cores'
+     attn_bwd_tc_kernel and the FMA kernels, each forced, twice: bit-equal),
+     and a long-history leg at N=4, H=4096 with and without lengths, whose
+     forward and backward through blockwise_self_attention must launch
+     B15, B16 and B17 on the tensor cores (the routes' kernels there; counts
+     zeroed around it) and keep its peak memory under a quarter of the
+     plain dense autograd's; B15's kernels timed at the five shapes beside
+     its plain version, its bounds (bytes, f32 FMA, 3xTF32) and
+     F.scaled_dot_product_attention, B16's and B17's kernels at the
+     training batch and the long history beside their plain version,
+     bounds and that call's autograd backward.
      7b: phase 3's configuration and seed on this tier, ten batches with full
      histories (serve-1M-exact-blockwise) and ten with lengths (-varlen):
      three B15 a batch (on the route's kernel: the FMA kernel at H = 32),
@@ -180,7 +183,14 @@ Phases, in the order they run; any failure exits non-zero:
      on make_synthetic_data's variable-length histories (-varlen): three
      each of B15, B16 and B17 a step, the CE kernels once, none of B1, B5-B9,
      B13 or B14; a trace and card-vs-CPU grads each; the legs beside phases 4
-     and 6;
+     and 6.  7d: train-4k-blockwise, 7c's configuration with histories of
+     4096 items at B=256 (N=1024 heads: dense attention's probabilities
+     would take 64 GiB a layer): on layer 0 of its fixed batch B16 and B17
+     on both kernels against the plain backward of the first four leading
+     indices, and timed with their bounds; 2 warm-up and 5 timed steps,
+     three each of B15, B16 and B17 a step on the tensor cores, the CE
+     kernels once, none of B1, B5-B9, B13 or B14; a trace, and the grads
+     against a CPU copy at B=2;
   8. fused Adam (TrainConfig fused_adam=True) on phase 5's train-4M-packed:
      B20 against its plain version on the state's leaves of 2^16 elements or
      more (the two packed tables), bit for bit over three steps, timed beside
@@ -229,6 +239,10 @@ CHECK_ROWS = 1 << 18  # large-table card-against-CPU check: the scatter window's
 WINDOW_ROWS = (1 << 16, 1 << 18, 1 << 20, 1 << 22)  # B18 against F.embedding's gradient
 BF16_TOL = 1e-2  # tests/test_torch_train_step.py's bf16 tolerance
 LONG_N, LONG_H = 4, 4096  # scripts/tpu_kernel_parity.py:275-293's long history (Dh 16)
+LONG_TRAIN_B = 256  # train-4k-blockwise: B = 256 at H = LONG_H (N = 1024 at 4 heads)
+LONG_TRAIN_STEPS = 5  # its timed steps
+LONG_CHECK_N = 4  # its layer 0's leading indices held against the plain backward
+LONG_CHECK_ROWS = 2  # its card-against-CPU rows: the CPU's dense [8, H, H] takes 512 MiB
 # a serving batch's selects (k = 100): both on the radix route, none on the tournament
 SELECT_ROUTE = {"select_topk_radix": 2, "select_topk": 0}
 # a serving batch's exact MIPS: B2, both selects, B4's inversion and its scoring
@@ -552,15 +566,16 @@ def finite(torch, metrics) -> bool:
     return all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values())
 
 
-def grads_vs_cpu(torch, model, cfg, data, idx, failures, label: str) -> None:
+def grads_vs_cpu(torch, model, cfg, data, idx, failures, label: str,
+                 rows: int = CHECK_BATCH) -> None:
     """train_loss and every grad leaf on the card against a CPU copy of the
-    model, on the first CHECK_BATCH rows of idx, at BF16_TOL of each leaf's
+    model, on the first ``rows`` rows of idx, at BF16_TOL of each leaf's
     scale (the zero-gradient leaves against ZERO_GRAD_FLOOR of the top)."""
     from two_tower_models_tpu_torch.models import two_tower as tt
     from two_tower_models_tpu_torch.training.data import gather_batch
 
     cpu_model = copy.deepcopy(model).cpu()
-    sub = gather_batch(data, idx[:CHECK_BATCH])
+    sub = gather_batch(data, idx[:rows])
     sub_cpu = type(sub)(*(None if t is None else t.cpu() for t in sub))
     results = []
     with torch.enable_grad():
@@ -584,7 +599,7 @@ def grads_vs_cpu(torch, model, cfg, data, idx, failures, label: str) -> None:
     for k, v in m_cpu.items():
         if not abs(m_gpu[k] - v) <= BF16_TOL * max(abs(v), 1.0):
             failures.append(f"{label} metric {k} card vs CPU: {m_gpu[k]} vs {v}")
-    print(f"{label}: train_loss B={CHECK_BATCH} card vs CPU: loss {m_gpu['loss']:.6f} vs "
+    print(f"{label}: train_loss B={rows} card vs CPU: loss {m_gpu['loss']:.6f} vs "
           f"{m_cpu['loss']:.6f}; worst grad leaf {worst_leaf} at {worst:.3g} of its "
           f"scale (tol {BF16_TOL})", flush=True)
 
@@ -1963,7 +1978,7 @@ def folded_qkv(torch, model, hist, lens, nh, cd):
 
     if lens is None:
         emb = model.item_id_table.detach()[hist]
-        x = emb + sinusoidal_positional_encoding(HIST, emb.shape[-1], emb.device)
+        x = emb + sinusoidal_positional_encoding(hist.shape[1], emb.shape[-1], emb.device)
     else:
         x = stack_input(torch, model, hist, lens)
     b, h, d = x.shape
@@ -2016,21 +2031,40 @@ def attn_checks(torch, label, q, k, v, lens, g):
             f"{[float(f'{e:.3g}') for _, e in checks]}, bit-equal on repeat={repeat15}; its FMA "
             f"kernel {[float(f'{e:.3g}') for _, e in fchecks]} (tol 1e-4, 1e-5 of scale)")
     if g is not None:
-        delta = (g * want[0]).sum(-1)
-        args = (q, k, v, g, want[1], delta, lk)
-        runs = [(ha.blockwise_attn_dq(*args), *ha.blockwise_attn_dkv(*args)) for _ in range(2)]
-        repeat = all(torch.equal(a, b) for a, b in zip(*runs))
-        term = float(g.abs().max() * v.abs().max())
-        gchecks = [close(a, e, 0.0, 1e-4 * max(float(e.abs().max()), term))
-                   for a, e in zip(runs[0], ha.blockwise_attn_bwd_plain(*args))]
-        masked = torch.arange(h, device=q.device)[None, :] >= lk[:, None]
-        zero = bool((runs[0][1][masked] == 0).all()) and bool((runs[0][2][masked] == 0).all())
-        gerr = max(e for _, e in gchecks)
-        ok = ok and repeat and zero and all(c for c, _ in gchecks)
-        line += (f"; B16, B17 dq, dk, dv max_abs_err {[float(f'{e:.3g}') for _, e in gchecks]} "
-                 f"(tol 1e-4 of scale); masked keys zero={zero}; bit-equal on repeat={repeat}")
+        args = (q, k, v, g, want[1], (g * want[0]).sum(-1), lk)
+        bok, gerr, bline = attn_bwd_checks(torch, args, ha.blockwise_attn_bwd_plain(*args))
+        ok = ok and bok
+        line += bline
     print(line + f"; ok={ok}", flush=True)
     return ok, err, gerr
+
+
+def attn_bwd_checks(torch, args, plain, rows: int | None = None):
+    """B16 and B17 on both kernels, each forced by ``_route`` and run
+    twice (bit-equal), against ``plain`` (the plain backward of the leading
+    indices below ``rows``, or of all): the grads within 1e-4 of each
+    one's scale or of one |do| |v| term, masked keys' dk and dv exactly
+    0.  Returns (ok, max_abs_err of the grads, the line's text)."""
+    from two_tower_models_tpu_torch.ops import history_attention as ha
+
+    q, g, v, lk = args[0], args[3], args[2], args[-1]
+    n = q.shape[0] if rows is None else rows
+    term = float(g[:n].abs().max() * v[:n].abs().max())
+    masked = torch.arange(q.shape[1], device=q.device)[None, :] >= lk[:n, None]
+    ok, gerr, text = True, 0.0, ""
+    for route in ("tc", "fma"):
+        runs = [(ha.blockwise_attn_dq(*args, _route=route),
+                 *ha.blockwise_attn_dkv(*args, _route=route)) for _ in range(2)]
+        repeat = all(torch.equal(a, b) for a, b in zip(*runs))
+        checks = [close(a[:n], e, 0.0, 1e-4 * max(float(e.abs().max()), term))
+                  for a, e in zip(runs[0], plain)]
+        zero = bool((runs[0][1][:n][masked] == 0).all()) and bool((runs[0][2][:n][masked] == 0).all())
+        ok = ok and repeat and zero and all(c for c, _ in checks)
+        gerr = max([gerr] + [e for _, e in checks])
+        text += (f"; B16, B17 ({'tensor cores' if route == 'tc' else 'FMA kernels'}) dq, dk, dv "
+                 f"max_abs_err {[float(f'{e:.3g}') for _, e in checks]} (tol 1e-4 of scale); "
+                 f"masked keys zero={zero}; bit-equal on repeat={repeat}")
+    return ok, gerr, text
 
 
 def attn_extreme(torch, dev) -> bool:
@@ -2097,6 +2131,69 @@ def b15_times(torch, smi, e, key, q, k, v, lens, ptxas: str) -> None:
           flush=True)
 
 
+def attn_bwd_times(torch, smi, entries, key, bargs, lens, ptxas: dict, plain: bool = True) -> None:
+    """B16 and B17 at one shape (``bargs``: q, k, v, do, lse, delta and
+    the lengths), into entries["blockwise_attn_dq"] and
+    ["blockwise_attn_dkv"] under the prefix ``key``: both kernels forced
+    (``tc_*``: attn_bwd_tc_kernel, ``fma_*``: attn_dq_kernel and
+    attn_dkv_kernel), each by CUDA events and alone from torch.profiler
+    (``*device_ms``), ``ms`` and ``device_ms`` the kernel the route takes
+    there (``route``); the plain backward and the autograd backward of
+    F.scaled_dot_product_attention, for both together (``plain`` False
+    leaves them out: at N = 1024, H = 4096 their [N, H, H] tensors would
+    take 64 GiB); the bounds: bytes, f32 FMA on the CUDA cores (three
+    products in B16, four in B17) and 3xTF32 on the tensor cores (three
+    times the operations at the TF32 rate), ``bound_ms`` the larger of
+    bytes and the routed kernel's operations; ``ptxas`` phase 1's lines of
+    the tensor-core instances by kernel."""
+    from two_tower_models_tpu_torch.ops import history_attention as ha
+
+    q, _, _, g = bargs[:4]
+    n, h, dh = q.shape
+    row_b, lse_b, fl = attn_counts(n, h, dh, lens)
+    slow = 3 if h > 1024 else 10
+    route = ha._bwd_route(h)
+    shared = {"plain_ms": None, "library_ms": None}
+    if plain:
+        shared["plain_ms"] = time_ms(torch, lambda: ha.blockwise_attn_bwd_plain(*bargs), slow)
+        with torch.enable_grad():
+            leaves = [t.clone().requires_grad_() for t in bargs[:3]]
+            lib_out = attn_lib(torch, *leaves, lens)()
+            shared["library_ms"] = time_ms(
+                torch, lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True), slow)
+        del lib_out, leaves
+    for name, fn, kernels, rows, products in (
+        ("blockwise_attn_dq", ha.blockwise_attn_dq, ("attn_bwd_tc_kernel<0", "attn_dq_kernel"),
+         5, 3),
+        ("blockwise_attn_dkv", ha.blockwise_attn_dkv, ("attn_bwd_tc_kernel<1", "attn_dkv_kernel"),
+         6, 4),
+    ):
+        t = {"route": route, **shared}
+        for r, kernel in zip(("tc", "fma"), kernels):
+            call = lambda r=r: fn(*bargs, _route=r)  # noqa: E731
+            t[f"{r}_ms"] = time_ms(torch, call)
+            t[f"{r}_device_ms"] = device_ms(torch, call, kernel, 10 if h > 1024 else 20)
+        t["ms"], t["device_ms"] = t[f"{route}_ms"], t[f"{route}_device_ms"]
+        nbytes = rows * row_b + 2 * lse_b + (0 if lens is None else n * 4)
+        t.update({"bytes_bound_ms": nbytes / HBM_BPS * 1e3,
+                  "f32_bound_ms": 2 * products * fl / F32_FLOPS * 1e3,
+                  "tf32_bound_ms": 6 * products * fl / TF32_FLOPS * 1e3})
+        t["bound_ms"], t["bound_by"] = (bound(nbytes, 6 * products * fl, TF32_FLOPS) if route == "tc"
+                                        else bound(nbytes, 2 * products * fl, F32_FLOPS))
+        entries[name].update({key + k_: v_ for k_, v_ in t.items()})
+        tag = "B16" if name == "blockwise_attn_dq" else "B17"
+        print(f"{tag} at N={n}, H={h}, Dh={dh}{'' if lens is None else ' with lengths'} on "
+              f"{torch.cuda.get_device_name(0)} ({smi}): route {route}; tensor cores "
+              f"{t['tc_ms']:.4f} ms (device {t['tc_device_ms']:.4f}), the FMA kernel "
+              f"{t['fma_ms']:.4f} (device {t['fma_device_ms']:.4f}); plain (dq, dk, dv) "
+              f"{t['plain_ms'] if plain else 'not measured'}; library (B16 + B17) "
+              f"{t['library_ms'] if plain else 'not measured'}; bounds: bytes "
+              f"{t['bytes_bound_ms']:.4f}, f32 FMA {t['f32_bound_ms']:.4f}, 3xTF32 "
+              f"{t['tf32_bound_ms']:.4f} (the routed kernel at "
+              f"{t['bound_ms'] / max(t['device_ms'], 1e-9):.1%} of its bound); ptxas "
+              f"{ptxas.get(tag, '')}", flush=True)
+
+
 def attn_memory(torch, q, k, v, lens, g):
     """Peak device memory above the inputs of forward + backward through
     autograd: the blockwise tier (B15, B16, B17) and the plain dense
@@ -2119,11 +2216,12 @@ def attn_memory(torch, q, k, v, lens, g):
 
 
 def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, layer_legs,
-                    b15_ptxas) -> None:
+                    b15_ptxas, bwd_ptxas) -> None:
     """Phase 7: the blockwise attention tier (HistoryEncoderConfig with
     blockwise_kernel=True, fused_encoder=False) at the cells' full width,
-    and the long-history leg of its kernels; ``b15_ptxas`` is phase 1's
-    report of B15's tensor-core instances by plan."""
+    the long-history leg of its kernels and the long-history training leg
+    (7d); ``b15_ptxas`` is phase 1's report of B15's tensor-core instances
+    by plan, ``bwd_ptxas`` of B16's and B17's at Dh = 16 by kernel."""
     from two_tower_models_tpu_torch.config import DataConfig, TrainConfig
     from two_tower_models_tpu_torch.models import two_tower as tt
     from two_tower_models_tpu_torch.ops import _lib
@@ -2227,12 +2325,25 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
     entry("blockwise_attn_dkv", src, rep + "295", ok, gerr,
           time_ms(torch, lambda: ha.blockwise_attn_dkv(*bargs)), plain_bwd_ms,
           6 * row_b + 2 * lse_b, 8 * fl, F32_FLOPS, lib_bwd_ms)
+    attn_bwd_times(torch, smi, entries, "train_", bargs, None, bwd_ptxas)
     for name in ("blockwise_attn_dq", "blockwise_attn_dkv"):
-        entries[name]["note"] = (
-            "at the training batch's layer 0 (N=16384, H=32, Dh=16); plain_ms is the plain "
-            "backward (dq, dk and dv together); library_ms the autograd backward of "
-            "F.scaled_dot_product_attention (f32), for B16 and B17 together; long_* at N=4, "
-            "H=4096")
+        e = entries[name]
+        e["kernel_route"] = {str(h_): ha._bwd_route(h_) for h_ in (HIST, LONG_H)}
+        mode = int(name == "blockwise_attn_dkv")
+        e["plan"] = {f"{n_}x{h_}": ha.bwd_tc_shape(ha._bwd_tc_plan(mode, n_, h_), dh)
+                     for n_, h_ in ((bt * nh, HIST), (LONG_N, LONG_H), (LONG_TRAIN_B * nh, LONG_H))}
+        e["ptxas"] = bwd_ptxas["B16" if name == "blockwise_attn_dq" else "B17"]
+        e["note"] = (
+            "ms, plain_ms, library_ms at the training batch's layer 0 (N=16384, H=32, Dh=16) on "
+            "the route's kernel (kernel_route by H; plan by N x H: warps on the leading index, "
+            "rows a tile, ring stages); plain_ms is the plain backward (dq, dk and dv together); "
+            "library_ms the autograd backward of F.scaled_dot_product_attention (f32), for B16 "
+            "and B17 together; train_* there, long_* at N=4, H=4096 (long_varlen_*: lengths "
+            "uniform in [1, 4096]), 4k_* at N=1024, H=4096 (layer 0 of train-4k-blockwise's "
+            "batch); tc_* the tensor-core kernel (attn_bwd_tc_kernel, 3xTF32), fma_* the FMA "
+            "kernel, device_ms the kernel alone (torch.profiler); bound_ms the larger of "
+            "bytes_bound_ms and the routed kernel's operations (tf32_bound_ms: 3xTF32 at the "
+            "TF32 rate; f32_bound_ms: f32 FMA); tc_launches the launches on the tensor cores")
     e15["note"] = (
         "the tensor-core kernel (attn_fwd_tc_kernel, 3xTF32; kernel_route, plan by H: warps on "
         "the leading index, keys a tile, ring stages); ms, plain_ms, "
@@ -2259,24 +2370,7 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
         bargs = (q, k, v, g, lse, (g * out).sum(-1), lk)
         row_b, lse_b, fl = attn_counts(LONG_N, LONG_H, dh, lens)
         b15_times(torch, smi, e15, f"{tag}_", q, k, v, lens, b15_ptxas)
-        for name, fn, plain, nbytes, nfl in (
-            ("blockwise_attn_dq", lambda: ha.blockwise_attn_dq(*bargs),
-             lambda: ha.blockwise_attn_bwd_plain(*bargs), 5 * row_b + 2 * lse_b, 6 * fl),
-            ("blockwise_attn_dkv", lambda: ha.blockwise_attn_dkv(*bargs),
-             lambda: ha.blockwise_attn_bwd_plain(*bargs), 6 * row_b + 2 * lse_b, 8 * fl),
-        ):
-            e = entries[name]
-            e[f"{tag}_ms"] = time_ms(torch, fn)
-            e[f"{tag}_plain_ms"] = time_ms(torch, plain, 3)
-            e[f"{tag}_bound_ms"], e[f"{tag}_bound_by"] = bound(nbytes, nfl, F32_FLOPS)
-        with torch.enable_grad():
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            lib_out = attn_lib(torch, *leaves, lens)()
-            lib_bwd = time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, g,
-                                                                 retain_graph=True), 3)
-        del lib_out, leaves
-        for name in ("blockwise_attn_dq", "blockwise_attn_dkv"):
-            entries[name][f"{tag}_library_ms"] = lib_bwd
+        attn_bwd_times(torch, smi, entries, f"{tag}_", bargs, lens, bwd_ptxas)
         # the long history's own path: blockwise_self_attention forward and
         # backward, the counts zeroed just before and read just after
         _lib.reset_launch_counts()
@@ -2284,8 +2378,13 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
         counts = dict(_lib.launches)
         e15[f"launches_{tag}"] = counts.get("blockwise_attn_fwd", 0)
         e15[f"tc_launches_{tag}"] = counts.get("blockwise_attn_fwd_tc", 0)
+        for name in ("blockwise_attn_dq", "blockwise_attn_dkv"):
+            entries[name][f"launches_{tag}"] = counts.get(name, 0)
+            entries[name][f"tc_launches_{tag}"] = counts.get(name + "_tc", 0)
         want = {"blockwise_attn_fwd": 1, "blockwise_attn_dq": 1, "blockwise_attn_dkv": 1,
-                "blockwise_attn_fwd_tc": int(ha._fwd_route(LONG_H) == "tc")}
+                "blockwise_attn_fwd_tc": int(ha._fwd_route(LONG_H) == "tc"),
+                "blockwise_attn_dq_tc": int(ha._bwd_route(LONG_H) == "tc"),
+                "blockwise_attn_dkv_tc": int(ha._bwd_route(LONG_H) == "tc")}
         print(f"launches on the blockwise {tag} path (forward and backward): "
               f"{json.dumps(counts)}", flush=True)
         check_launches(counts, want, 1, failures, f"blockwise {tag}")
@@ -2304,8 +2403,10 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
         failures.append("blockwise long history")
 
     # -- 7c: training.  phase 4's configuration on the blockwise tier
+    tc_bwd = nl * (ha._bwd_route(HIST) == "tc")  # B16's and B17's tensor-core launches a step
     expect = {"blockwise_attn_fwd": nl, "blockwise_attn_fwd_tc": tc_cells,
               "blockwise_attn_dq": nl, "blockwise_attn_dkv": nl,
+              "blockwise_attn_dq_tc": tc_bwd, "blockwise_attn_dkv_tc": tc_bwd,
               "fused_in_batch_ce": 1, "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1,
               "fused_history_encoder": 0, "fused_history_encoder_res": 0,
               "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
@@ -2330,7 +2431,7 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
         check_launches(counts, expect, TRAIN_STEPS, failures, label)
         for name in ("blockwise_attn_fwd", "blockwise_attn_dq", "blockwise_attn_dkv"):
             entries[name][f"launches_{label}"] = counts.get(name, 0)
-        e15[f"tc_launches_{label}"] = counts.get("blockwise_attn_fwd_tc", 0)
+            entries[name][f"tc_launches_{label}"] = counts.get(name + "_tc", 0)
         if not finite(torch, metrics):
             failures.append(f"{label} metrics not finite")
         kern = nl * (e15["train_device_ms"] + entries["blockwise_attn_dq"]["ms"]
@@ -2345,12 +2446,91 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
         grads_vs_cpu(torch, state.params, cfg, dat, idx, failures, label)
     for name in ("blockwise_attn_dq", "blockwise_attn_dkv"):
         entries[name]["launches"] = entries[name]["launches_train-65k-blockwise"]
+    del state, data, var_data
+    torch.cuda.empty_cache()
+
+    # -- 7d: the long-history training leg
+    legs["train-4k-blockwise"] = phase_train_4k(torch, args, smi, dev, entries, failures,
+                                                bwd_ptxas)
     print(f"blockwise tier on {torch.cuda.get_device_name(0)} ({smi}): "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in legs.items())
           + f"; phase 4's B5+B6 step {b56_ms[0]:.3f}, {b56_ms[1]:.3f} ms; phase 6: "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in layer_legs.items()), flush=True)
-    del state, data, var_data
+
+
+def phase_train_4k(torch, args, smi, dev, entries, failures, bwd_ptxas) -> float:
+    """Phase 7d, train-4k-blockwise: phase 7c's configuration with
+    histories of LONG_TRAIN_H items, B = LONG_TRAIN_B (N = 4 B heads of H =
+    4096 rows, whose dense [N, H, H] probabilities would take 64 GiB a
+    layer).  On layer 0 of its fixed batch, B16 and B17 on both kernels
+    held against the plain backward of the first LONG_CHECK_N leading
+    indices (the plain version of all would take 64 GiB) and timed; then 2
+    warm-up and LONG_TRAIN_STEPS timed steps, three each of B15, B16 and
+    B17 a step on the tensor cores, three profiled steps, and train_loss's
+    grads on LONG_CHECK_ROWS rows against a CPU copy.  Returns ms/step."""
+    import dataclasses
+
+    from two_tower_models_tpu_torch.config import TrainConfig
+    from two_tower_models_tpu_torch.ops import history_attention as ha
+    from two_tower_models_tpu_torch.training.data import gather_batch
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import make_train_step
+
+    label, nh, nl, bt = "train-4k-blockwise", 4, 3, LONG_TRAIN_B
+    cfg = dataclasses.replace(blockwise_cfg(flagship_cfg(TRAIN_ROWS)), history_len=LONG_H)
+    train_cfg = TrainConfig(batch_size=bt, learning_rate=1e-3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 20)
+    state = create_train_state(gen, cfg, train_cfg, device=dev)
+    data = fixed_batch(torch, gen, dev, cfg, bt)
+    idx = torch.arange(bt, device=dev)
+    t0 = time.perf_counter()
+    (q, k, v), _ = folded_qkv(torch, state.params, gather_batch(data, idx).user_history, None,
+                              nh, torch.bfloat16)
+    g = torch.randn(q.shape, generator=gen, device=dev) / bt
+    full = torch.full((q.shape[0],), LONG_H, dtype=torch.int32, device=dev)
+    out, lse = ha.blockwise_attn_fwd(q, k, v, full)
+    bargs = (q, k, v, g, lse, (g * out).sum(-1), full)
+    m = LONG_CHECK_N
+    ok, gerr, text = attn_bwd_checks(torch, bargs, ha.blockwise_attn_bwd_plain(
+        *(t[:m] for t in bargs)), rows=m)
+    print(f"{label} layer 0 (N={q.shape[0]}, H={LONG_H}, the first {m} leading indices against "
+          f"the plain backward){text}; ok={ok}", flush=True)
+    if not ok:
+        failures.append(f"{label} B16, B17 against plain")
+    attn_bwd_times(torch, smi, entries, "4k_", bargs, None, bwd_ptxas, plain=False)
+    del q, k, v, g, out, lse, bargs
     torch.cuda.empty_cache()
+    expect = {"blockwise_attn_fwd": nl, "blockwise_attn_fwd_tc": nl, "blockwise_attn_dq": nl,
+              "blockwise_attn_dkv": nl, "blockwise_attn_dq_tc": nl, "blockwise_attn_dkv_tc": nl,
+              "fused_in_batch_ce": 1, "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1,
+              "fused_history_encoder": 0, "fused_history_encoder_res": 0,
+              "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
+              "fused_attn_stack": 0, "fused_attn_stack_bwd": 0, "fused_mha_fwd": 0,
+              "fused_mha_bwd": 0, "fused_mha_bwd_tc": 0, **ENC_TC}
+    step = make_train_step(cfg, train_cfg)
+    state, metrics, _, _, _ = run_steps(torch, step, state, data, idx, 2)
+    state, timed, ms_step, host_ms, counts = run_steps(torch, step, state, data, idx,
+                                                       LONG_TRAIN_STEPS)
+    metrics += timed
+    print(f"launches on the {label} path ({LONG_TRAIN_STEPS} steps): {json.dumps(counts)}",
+          flush=True)
+    check_launches(counts, expect, LONG_TRAIN_STEPS, failures, label)
+    for name in ("blockwise_attn_fwd", "blockwise_attn_dq", "blockwise_attn_dkv"):
+        entries[name][f"launches_{label}"] = counts.get(name, 0)
+        entries[name][f"tc_launches_{label}"] = counts.get(name + "_tc", 0)
+    if not finite(torch, metrics):
+        failures.append(f"{label} metrics not finite")
+    print(f"{label} on {torch.cuda.get_device_name(0)} ({smi}): {LONG_TRAIN_STEPS} steps of "
+          f"B={bt}, H={LONG_H}: ms/step {ms_step:.3f}, examples/s {bt / ms_step * 1e3:.1f}; host "
+          f"wall {host_ms:.3f} ms/step; loss first {float(metrics[0]['loss']):.5f} last "
+          f"{float(metrics[-1]['loss']):.5f}", flush=True)
+    state, busy = trace_steps(torch, step, state, data, idx, label)
+    grads_vs_cpu(torch, state.params, cfg, data, idx, failures, label, rows=LONG_CHECK_ROWS)
+    print(f"{label}: leg wall {time.perf_counter() - t0:.1f} s", flush=True)
+    del state, data
+    torch.cuda.empty_cache()
+    return ms_step
 
 
 def phase_fused_adam(torch, args, smi, dev, entry, entries, failures, ms_packed) -> None:
@@ -2636,7 +2816,7 @@ def main() -> int:
                     "select_radix_kernel", "select_topk_kernel", "rows_write_kernel",
                     "encoder_tc_kernel", "encoder_bwd_tc_kernel", "tile_max_kernel",
                     "rescore_kernel", "invert_count_kernel", "invert_scan_kernel",
-                    "invert_scatter_kernel", "attn_fwd_tc_kernel"], {
+                    "invert_scatter_kernel", "attn_fwd_tc_kernel", "attn_bwd_tc_kernel"], {
             # B10 (<MULTI>: D > 64), fwd::smem_bytes in csrc/fused_softmax.cu
             **{f"ce_fwd_tc_kernel<{m}>": fs.fwd_smem_bytes(m) for m in (0, 1)},
             # bwd::SMEM_FLOATS in csrc/fused_softmax.cu
@@ -2659,6 +2839,11 @@ def main() -> int:
             **{f"attn_fwd_tc_kernel<{dh}, {', '.join(map(str, ha.tc_shape(i, dh)))}>":
                ha.fwd_tc_smem_bytes(i, dh) for i in range(len(ha._TC_PLANS))
                for dh in ha.HEAD_DIMS},
+            # B16 and B17 on the tensor cores (<MODE: 0 B16, 1 B17; DH, warps
+            # on the n, rows a tile, stages>)
+            **{f"attn_bwd_tc_kernel<{m}, {dh}, {', '.join(map(str, ha.bwd_tc_shape(i, dh)))}>":
+               ha.bwd_tc_smem_bytes(m, i, dh) for m in (0, 1)
+               for i in range(len(ha._BWD_PLANS)) for dh in ha.HEAD_DIMS},
         })
     dev = torch.device(DEVICE)
 
@@ -2879,7 +3064,12 @@ def main() -> int:
                                + "; ".join(ptxas_lines.get(
                                    f"attn_fwd_tc_kernel<16, {', '.join(map(str, ha.tc_shape(i, 16)))}>",
                                    []))
-                               for i in range(len(ha._TC_PLANS))))
+                               for i in range(len(ha._TC_PLANS))),
+                    {tag: " | ".join(
+                        f"plan {i}: " + "; ".join(ptxas_lines.get(
+                            f"attn_bwd_tc_kernel<{m}, 16, "
+                            f"{', '.join(map(str, ha.bwd_tc_shape(i, 16)))}>", []))
+                        for i in range(len(ha._BWD_PLANS))) for m, tag in ((0, "B16"), (1, "B17"))})
 
     # ---- phase 8: fused Adam ---------------------------------------------
     phase_fused_adam(torch, args, smi, dev, entry, entries, failures, ms_packed)

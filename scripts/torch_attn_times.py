@@ -1,6 +1,7 @@
-"""Times of the blockwise attention forward (B15) of the PyTorch port and of
-the blockwise tier's legs, for the checkout it is run from, so that one copy
-of this script compares two commits on the same card:
+"""Times of the blockwise attention forward (B15) and backward (B16, B17)
+of the PyTorch port and of the blockwise tier's legs, for the checkout it
+is run from, so that one copy of this script compares two commits on the
+same card:
 
     python3 scripts/torch_attn_times.py [--kernels-only]
     (cd ../other_checkout && python3 /abs/path/scripts/torch_attn_times.py)
@@ -15,14 +16,19 @@ uniform in [1, H]; on normal q, k, v from a numpy seed.
 For every kernel the checkout has (the tensor-core kernel on each of its
 launch plans, and the FMA kernel), the device time of one
 launch (chip_smoke.py's device_ms: torch.profiler, mean of 20) and a hash
-of (out, lse).  Then the
+of (out, lse).  B16 (dq) and B17 (dk, dv) the same way, at the same
+shapes and at N = 1024, H = 4096 (``4k``: the long-history training
+batch's fold), given a normal cotangent and the routed B15's lse and delta
+= rowsum(do out).  Then the
 blockwise tier's legs, with chip_smoke.py's own configurations, seeds and
 loops: serve-1M-exact-blockwise and -varlen (ten batches through
 RetrievalEngine.query, ms/batch by CUDA events, mean and min) and
 train-65k-blockwise and -varlen (3 warm-up and 10 timed steps: ms/step
 and host ms/step; then three steps under torch.profiler: device-busy ms a
-step), with each leg's launches of B15 and of its tensor-core route;
-``--kernels-only`` leaves the legs out.
+step), with each leg's launches of B15 and of its tensor-core route, and
+train-4k-blockwise (chip_smoke.py phase 7d: B = 256, H = 4096; 2 warm-up
+and 5 timed steps, then three profiled) with its launches of B15-B17 on
+each route; ``--kernels-only`` leaves the legs out.
 
 Prints the card's name and power limit, then one JSON line.  Needs a GPU.
 """
@@ -45,6 +51,8 @@ SHAPES = {"serve": (4096, 32, False), "serve_varlen": (4096, 32, True),
           "train": (16384, 32, False), "long": (4, 4096, False), "long_varlen": (4, 4096, True),
           "h64": (4096, 64, False), "h64_varlen": (4096, 64, True), "h128": (1024, 128, False),
           "h128_varlen": (1024, 128, True), "h256": (256, 256, False), "h512": (64, 512, False)}
+BWD_SHAPES = {**SHAPES, "4k": (1024, 4096, False)}  # B16 and B17 also at train-4k-blockwise's
+LONG_TRAIN_B, LONG_TRAIN_H, LONG_TRAIN_STEPS = 256, 4096, 5  # chip_smoke.py phase 7d
 
 
 def digest(*tensors) -> str:
@@ -64,6 +72,24 @@ def b15_kernels(ha):
     for plan in range(len(ha._TC_PLANS)):
         out.append((f"tc_plan{plan}", "attn_fwd_tc_kernel",
                     lambda q, k, v, lens, p=plan: ha._launch_fwd("tc", q, k, v, lens, p)))
+    return out
+
+
+def bwd_kernels(ha):
+    """{"B16": [(label, kernel name, fn(*bargs)), ...], "B17": [...]} for
+    every B16 and B17 kernel of the checkout: the FMA kernel and, where it
+    has them, the tensor-core kernel on each launch plan."""
+    if "_route" not in inspect.signature(ha.blockwise_attn_dq).parameters:
+        return {"B16": [("fma", "attn_dq_kernel", ha.blockwise_attn_dq)],
+                "B17": [("fma", "attn_dkv_kernel", ha.blockwise_attn_dkv)]}
+    out = {"B16": [("fma", "attn_dq_kernel", lambda *a: ha.blockwise_attn_dq(*a, _route="fma"))],
+           "B17": [("fma", "attn_dkv_kernel",
+                    lambda *a: ha.blockwise_attn_dkv(*a, _route="fma"))]}
+    for plan in range(len(ha._BWD_PLANS)):
+        out["B16"].append((f"tc_plan{plan}", "attn_bwd_tc_kernel<0",
+                           lambda *a, p=plan: ha._launch_dq("tc", *a, plan=p)))
+        out["B17"].append((f"tc_plan{plan}", "attn_bwd_tc_kernel<1",
+                           lambda *a, p=plan: ha._launch_dkv("tc", *a, plan=p)))
     return out
 
 
@@ -149,6 +175,32 @@ def train_legs(cs) -> dict:
                        "finite": cs.finite(torch, metrics)}
     del state, data, var_data
     torch.cuda.empty_cache()
+    # train-4k-blockwise, with this script's own constants (an older
+    # checkout's chip_smoke.py has no phase 7d)
+    import dataclasses
+
+    bt = LONG_TRAIN_B
+    cfg = dataclasses.replace(cs.blockwise_cfg(cs.flagship_cfg(cs.TRAIN_ROWS)),
+                              history_len=LONG_TRAIN_H)
+    train_cfg = TrainConfig(batch_size=bt, learning_rate=1e-3)
+    gen.manual_seed(20)
+    state = create_train_state(gen, cfg, train_cfg, device=dev)
+    data = cs.fixed_batch(torch, gen, dev, cfg, bt)
+    idx = torch.arange(bt, device=dev)
+    label = "train-4k-blockwise"
+    step = make_train_step(cfg, train_cfg)
+    state, _, _, _, _ = cs.run_steps(torch, step, state, data, idx, 2)
+    state, metrics, ms, host_ms, counts = cs.run_steps(torch, step, state, data, idx,
+                                                       LONG_TRAIN_STEPS)
+    state, busy = cs.trace_steps(torch, step, state, data, idx, label)
+    legs[label] = {"ms_step": ms, "host_ms_step": host_ms, "busy_ms_step": busy,
+                   "finite": cs.finite(torch, metrics),
+                   **{f"{tag}_launches": counts.get(name, 0) for tag, name in (
+                       ("b15", "blockwise_attn_fwd"), ("b15_tc", "blockwise_attn_fwd_tc"),
+                       ("b16", "blockwise_attn_dq"), ("b16_tc", "blockwise_attn_dq_tc"),
+                       ("b17", "blockwise_attn_dkv"), ("b17_tc", "blockwise_attn_dkv_tc"))}}
+    del state, data
+    torch.cuda.empty_cache()
     return legs
 
 
@@ -182,6 +234,28 @@ def main() -> int:
             f"{lb} {x['device_ms']:.4f} ms" for lb, x in row.items()), flush=True)
         del q, k, v, lens
     torch.cuda.empty_cache()
+    bwd = bwd_kernels(ha)
+    out["b16"], out["b17"] = {}, {}
+    for tag, (n, h, varlen) in BWD_SHAPES.items():
+        q, k, v, g = (torch.from_numpy(r.normal(size=(n, h, 16)).astype(np.float32)).to(dev)
+                      for _ in range(4))
+        lens = r.integers(1, h + 1, size=n) if varlen else np.full(n, h)
+        lens = torch.from_numpy(lens.astype(np.int32)).to(dev)
+        o, lse = ha.blockwise_attn_fwd(q, k, v, lens)
+        bargs = (q, k, v, g, lse, (g * o).sum(-1), lens)
+        del o
+        for key, kernels in (("b16", bwd["B16"]), ("b17", bwd["B17"])):
+            row = {}
+            for label, name, fn in kernels:
+                row[label] = {"device_ms": cs.device_ms(torch, lambda: fn(*bargs), name,
+                                                        10 if h > 1024 else ITERS)}
+                res = fn(*bargs)
+                row[label]["hash"] = digest(*(res if isinstance(res, tuple) else (res,)))
+            out[key][tag] = row
+            print(f"{key.upper()} {tag} (N={n}, H={h}, Dh=16): " + "; ".join(
+                f"{lb} {x['device_ms']:.4f} ms" for lb, x in row.items()), flush=True)
+        del q, k, v, g, lse, bargs
+        torch.cuda.empty_cache()
     if "--kernels-only" not in sys.argv[1:]:
         out.update(serve_legs(cs))
         torch.set_grad_enabled(True)

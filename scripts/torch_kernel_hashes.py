@@ -12,7 +12,9 @@ D = 64, k = 100, ``valid`` inside the last tile; B4 on the tiles the
 pipeline selects from B2's output and on a skewed selection, every query
 on the same 100 tiles), and what B15 (``blockwise_attn_fwd``: the route
 the checkout takes, and its FMA kernel), B16 and B17 (given the plain
-version's lse and delta) return at the blockwise training batch's layer 0
+version's lse and delta; the route the checkout takes, and, where it has
+them, each kernel forced: ``B16_fma``, ``B16_tc``, ...) return at the
+blockwise training batch's layer 0
 (N = 16384, H = 32, Dh = 16, lengths in [1, 32]), on inputs made from a
 numpy seed.
 Two checkouts whose kernels compute the same values bit for bit print the
@@ -110,6 +112,10 @@ def main() -> int:
     bargs = (qa, ka, va, da, lse_p, (da * o_p).sum(-1), la)
     out["B16"] = digest(ha.blockwise_attn_dq(*bargs))
     out["B17"] = digest(*ha.blockwise_attn_dkv(*bargs))
+    if "_route" in inspect.signature(ha.blockwise_attn_dq).parameters:
+        for route in ("fma", "tc"):
+            out[f"B16_{route}"] = digest(ha.blockwise_attn_dq(*bargs, _route=route))
+            out[f"B17_{route}"] = digest(*ha.blockwise_attn_dkv(*bargs, _route=route))
     torch.cuda.synchronize()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

@@ -36,7 +36,11 @@ blockwise forward (B15) on both its kernels (the tensor cores' 3xTF32 and
 the FMA kernel) at rtol 1e-4, atol 1e-5 (1e-3, 1e-4 at 30 sigma),
 bit-equal on repeat, and with NaN in q or k NaN where the plain version
 has it; B15-B17 on inputs at an address that is not 16-byte aligned bit
-for bit as on aligned ones.
+for bit as on aligned ones.  The blockwise backward (B16, B17) on both
+its kernels (the tensor cores' 3xTF32 and the FMA kernels) within 1e-4 of
+each grad's scale of the plain backward (1e-3 at 30 sigma), at N = 1024,
+H = 4096 on the first four leading indices, bit-equal on repeat, masked
+keys' dk and dv exactly 0, NaN where the plain version has it.
 """
 
 import math
@@ -1855,6 +1859,112 @@ def test_blockwise_attn_fwd_nan_like_plain(dev, h, dh, where):
             assert bool(e.isnan().any())
             assert torch.equal(a.isnan(), e.isnan())
             _assert_close(torch.nan_to_num(a, 0.0), torch.nan_to_num(e, 0.0), 1e-4, 1e-5)
+
+
+def _bwd_route_checks(args, want, rows, tol):
+    """B16 and B17 on both routes, forced, on ``args``: the first ``rows``
+    leading indices within ``tol`` of each grad's scale (or of one |do| |v|
+    term) of ``want``, masked keys' dk and dv exactly 0, bit-equal on
+    repeat, one launch counted on each route and the tensor-core one also
+    as ``_tc``."""
+    g, v, lens = args[3][:rows], args[2][:rows], args[-1][:rows]
+    term = float(g.abs().max() * v.abs().max())
+    masked = torch.arange(args[0].shape[1], device=lens.device)[None, :] >= lens[:, None]
+    for route in ("tc", "fma"):
+        before = dict(_lib.launches)
+        got = (ha.blockwise_attn_dq(*args, _route=route), *ha.blockwise_attn_dkv(*args, _route=route))
+        for name in ("blockwise_attn_dq", "blockwise_attn_dkv"):
+            assert _lib.launches[name] == before.get(name, 0) + 1
+            assert _lib.launches[name + "_tc"] - before.get(name + "_tc", 0) == (route == "tc")
+        for a, e in zip(got, want):
+            _scaled_close(a[:rows], e, tol, floor=term)
+        assert bool((got[1][:rows][masked] == 0).all()) and bool((got[2][:rows][masked] == 0).all())
+        again = (ha.blockwise_attn_dq(*args, _route=route), *ha.blockwise_attn_dkv(*args, _route=route))
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("n,h,dh,lens_kind", _ATTN_SHAPES + [(4, 4096, 16, "full"),
+                                                              (4, 4096, 16, "mix")])
+def test_blockwise_attn_bwd_routes_alone(dev, n, h, dh, lens_kind):
+    """B16 and B17 on the tensor cores and on the FMA kernels, each forced
+    by ``_route``, against the plain backward within 1e-4 of each grad's
+    scale at the edge shapes and the long history (N = 4, H = 4096);
+    masked keys' dk = dv = 0 exactly; bit-equal on repeat; one launch
+    counted on each route, the tensor-core one also as ``_tc``."""
+    args = _attn_bwd_inputs(*_attn_case(n, h, dh, dev, n + h + 3, lens_kind))
+    _bwd_route_checks(args, ha.blockwise_attn_bwd_plain(*args), n, 1e-4)
+
+
+@pytest.mark.parametrize("lens_kind", ["full", "mix"])
+def test_blockwise_attn_bwd_routes_at_the_long_training_batch(dev, lens_kind):
+    """N = 1024, H = 4096 (the long-history training batch's fold): both
+    routes on all of it, held against the plain backward of the first four
+    leading indices (the plain version of all would take 64 GiB) within
+    1e-4 of scale, as test_blockwise_attn_bwd_routes_alone."""
+    q, k, v, g, lens = _attn_case(1024, 4096, 16, dev, 31, lens_kind)
+    out, lse = ha.blockwise_attn_fwd(q, k, v, lens)
+    args = (q, k, v, g, lse, (g * out).sum(-1), lens)
+    del out
+    _bwd_route_checks(args, ha.blockwise_attn_bwd_plain(*(t[:4] for t in args)), 4, 1e-4)
+
+
+def test_blockwise_attn_bwd_routes_at_extreme_scores(dev):
+    """q and k at 30 sigma (scores of some thousands; the tensor cores'
+    guard sends every tile to the plain version's FMA chain): both routes
+    finite and within 1e-3 of each grad's scale of the plain backward."""
+    args = _attn_bwd_inputs(*_attn_case(64, 256, 16, dev, 11, "mix", mag=30.0))
+    want = ha.blockwise_attn_bwd_plain(*args)
+    for route in ("tc", "fma"):
+        got = (ha.blockwise_attn_dq(*args, _route=route), *ha.blockwise_attn_dkv(*args, _route=route))
+        for a, e in zip(got, want):
+            assert bool(a.isfinite().all())
+            _scaled_close(a, e, 1e-3)
+
+
+@pytest.mark.parametrize("h,dh", [(128, 16), (256, 64)])
+@pytest.mark.parametrize("where", ["query", "key"])
+def test_blockwise_attn_bwd_nan_like_plain(dev, h, dh, where):
+    """B16 and B17 on both routes with the card's NaN in one query row or
+    in one valid key (the lse and delta from the plain forward): NaN in dq,
+    dk and dv exactly where the plain backward has it (its masked keys'
+    dk and dv taken as the kernels' exact zeros), the other values within
+    1e-4 of scale."""
+    q, k, v, g, lens = _attn_case(3, h, dh, dev, 24, "mix")  # lens[0] = H, lens[1] = 1
+    nan = torch.tensor([0x7FFFFFFF], dtype=torch.int32, device=dev).view(torch.float32)[0]
+    if where == "query":
+        q[2, 5, 3] = nan
+    else:
+        k[0, 70, 3] = nan  # valid
+    args = _attn_bwd_inputs(q, k, v, g, lens)
+    masked = (torch.arange(h, device=dev)[None, :] >= lens[:, None])[..., None]
+    want = [torch.where(masked, 0.0, e) if i else e
+            for i, e in enumerate(ha.blockwise_attn_bwd_plain(*args))]
+    for route in ("tc", "fma"):
+        got = (ha.blockwise_attn_dq(*args, _route=route), *ha.blockwise_attn_dkv(*args, _route=route))
+        for a, e in zip(got, want):
+            assert bool(e.isnan().any())
+            assert torch.equal(a.isnan(), e.isnan())
+            _scaled_close(torch.nan_to_num(a, 0.0), torch.nan_to_num(e, 0.0), 1e-4)
+
+
+def test_blockwise_attn_bwd_tc_at_unaligned_addresses(dev):
+    """B16 and B17 on the tensor cores on copies of their inputs at an
+    address 4 bytes past a 16-byte boundary give the aligned inputs'
+    bits."""
+    q, k, v, g, lens = _attn_case(9, 100, 32, dev, 15, "mix")
+
+    def odd(t):
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return o.copy_(t)
+
+    args = _attn_bwd_inputs(q, k, v, g, lens)
+    odd_args = (*map(odd, args[:-1]), lens)
+    assert all(t.data_ptr() % 16 for t in odd_args[:-1])
+    assert torch.equal(ha.blockwise_attn_dq(*odd_args, _route="tc"),
+                       ha.blockwise_attn_dq(*args, _route="tc"))
+    for a, b in zip(ha.blockwise_attn_dkv(*odd_args, _route="tc"),
+                    ha.blockwise_attn_dkv(*args, _route="tc")):
+        assert torch.equal(a, b)
 
 
 def test_blockwise_attn_kernels_are_deterministic_and_stable(dev):

@@ -24,8 +24,10 @@
 // 64 keys or more, and on its FMA kernel (attn_fwd_kernel) for shorter
 // ones, the cells' H = 32 among them (ops/history_attention.py _fwd_route:
 // there the two were measured within 3% of each other, the FMA kernel 15%
-// ahead with lengths).  The FMA kernels (attn_fwd_kernel, B16, B17) are a first
-// version that is simple and right:
+// ahead with lengths); B16 and B17 likewise (attn_bwd_tc_kernel, its MODE 0
+// and 1, on _bwd_route's histories; attn_dq_kernel and attn_dkv_kernel
+// below them).  The FMA kernels (attn_fwd_kernel, attn_dq_kernel,
+// attn_dkv_kernel) are a first version that is simple and right:
 // one warp owns 32 consecutive rows of one n (query rows in B15 and B16, key
 // rows in B17), one row per lane, with the row and its f32 accumulators in
 // registers.  The other side's rows (k and v; or q, do, lse and delta) are
@@ -36,9 +38,8 @@
 // warp covers a whole n (several n per block: 4 warps).  Keys past
 // lens[n] are neither staged nor scored: the Pallas kernels add exactly 0
 // for them.  No atomics: every sum is taken in one fixed order, so the
-// results are bit-equal on repeat.  Left for later in B16 and B17: tensor
-// cores, and more than one lane per row at long H (B17's four register rows
-// spill at Dh = 64).
+// results are bit-equal on repeat.  B16's and B17's register rows spill at
+// Dh = 64, which no cell uses (theirs is 16).
 //
 // B15 on the tensor cores (attn_fwd_tc_kernel<DH, QW, BK, NS>).  What
 // held the FMA kernel: one lane a row does Dh FMAs per key per product on the
@@ -98,6 +99,32 @@
 // FMA chain per score is only 32 multiply-adds; the tensor cores gain only
 // where a query meets many keys (1.1 times the FMA kernel at H = 64, 3.0 at
 // H = 4096), so the route leaves shorter histories to the FMA kernel.
+//
+// B16 and B17 on the tensor cores (attn_bwd_tc_kernel<MODE, DH, W, BT, NS>:
+// MODE 0 B16, 1 B17).  What held the FMA kernels: one lane a row does Dh
+// FMAs per pair for each of three products (B16) or four (B17) on the CUDA
+// cores, its copies do not overlap its math, and at N = 4, H = 4096 only 512
+// warps exist.  Built from B15's machinery: a warp owns 16 rows of one n
+// (query rows in B16, key rows in B17) and walks the other side's rows in
+// 64-row tiles (16 at Dh = 64) through B15's cp.async ring; every product
+// is mma.sync m16n8k8 in
+// 3xTF32 with a fresh accumulator per k8 step added rounded to nearest.  B16
+// per key tile: S = Q K^T, P = exp(S scale - lse), dP = dO V^T, dS = P (dP -
+// delta), dQ += dS K.  B17 per query tile: S^T = K Q^T, P^T = exp(S^T scale -
+// lse[col]) (lse and delta staged per tile), dV += P^T dO, dP^T = V dO^T,
+// dS^T = P^T (dP^T - delta[col]), dK += dS^T Q.  S goes through B15's guard
+// (3xTF32 only where scale |a1| |b1| <= SCORE_BOUND, else the plain
+// version's d-ordered f32 FMA chain from the raw tile; the maxima keep a
+// NaN), and s scale, - lse, exp, dP - delta and P (..) are each rounded as
+// the plain version's.  The score and dS accumulators feed the next
+// product's A operand without shuffles (keys 2t and 2t + 1 in k-slots t and
+// t + 4); its B operand (K, dO or Q) is stored transposed in the order 0 2 4
+// 6 1 3 5 7.  Every operand that meets the tensor cores unguarded (dS, dO,
+// V, and K or Q as the accumulation's B operand) is split as
+// tt::tf32_split_any splits it, by integer operations (split_all; P, at
+// least 0, by split_pos), so infinities and NaN reach the sums as in f32.  Two
+// launches (no dq by atomics from the dkv pass), no atomics, every sum in
+// one fixed order: bit-equal on repeat.
 
 #include <algorithm>
 
@@ -731,6 +758,523 @@ attn_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- B16 and B17 on the tensor cores ----
+
+// cp.async of 4 bytes (bytes 0: the destination becomes 0 and src is not
+// read): the lse and delta of a query tile, whose [N, H] rows start at any
+// 4-byte boundary.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+
+// tt::tf32_split_any by integer operations (split_fin's rounding): where x's
+// TF32 rounding is infinite (x infinite or NaN, or finite at or past (2 -
+// 2^-11) 2^127) hi = 0 and lo = x cut to TF32, as tf32_split_any does for
+// all but a NaN, which it keeps in hi; here lo keeps it, and a product of
+// it is NaN all the same.
+__device__ __forceinline__ void split_all(float x, unsigned& hi, unsigned& lo) {
+  const unsigned b = __float_as_uint(x);
+  const bool big = (b & 0x7fffffffu) >= 0x7f7ff000u;
+  hi = big ? 0u : (b + 0x1000u) & 0xffffe000u;
+  const unsigned r = __float_as_uint(x - __uint_as_float(hi));
+  lo = big ? b & 0xffffe000u : (r + 0x1000u) & 0xffffe000u;
+}
+
+// split_fin of a probability p = exp(..) (at least 0, or NaN) that keeps a
+// NaN in hi: a NaN's bits are clamped below the carry into the sign bit.
+__device__ __forceinline__ void split_pos(float x, unsigned& hi, unsigned& lo) {
+  hi = (min(__float_as_uint(x), 0x7fffefffu) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// d = a . b (mma.sync m16n8k8, TF32) with a zero accumulator: no register
+// to clear.
+__device__ __forceinline__ void mma_tf32_0(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                           unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// One k8 step of two n-tiles (an ldmatrix_x4's b0, b1 of each) in 3xTF32,
+// each into a fresh accumulator: hi.lo', lo.hi', hi.hi', the two tiles'
+// products interleaved.
+__device__ __forceinline__ void mma3x2(float (&d)[2][4], const unsigned (&ah)[4],
+                                       const unsigned (&al)[4], const unsigned (&bh)[4],
+                                       const unsigned (&bl)[4]) {
+#pragma unroll
+  for (int b = 0; b < 2; ++b) mma_tf32_0(d[b], ah, bl[2 * b], bl[2 * b + 1]);
+#pragma unroll
+  for (int b = 0; b < 2; ++b) tt::mma_tf32(d[b], al, bh[2 * b], bh[2 * b + 1]);
+#pragma unroll
+  for (int b = 0; b < 2; ++b) tt::mma_tf32(d[b], ah, bh[2 * b], bh[2 * b + 1]);
+}
+
+// A backward launch plan's shape: W warps on one leading index, each
+// owning 16 rows (query rows in MODE 0, B16; key rows in MODE 1, B17),
+// walking the other side's rows in tiles of BT through a ring of NS stages.
+// An item is one leading index's RO own rows; a step one tile of an item.
+//   A ring stage holds the raw tiles B1 (K in MODE 0, Q in MODE 1) and B2
+// (V; dO) [BT][SD], in MODE 1 also the tile's lse and delta [BT] each.  The
+// split tile: B1 hi, lo and B2 hi, lo [BT][SD] (the B operands of S and dP),
+// B1^T hi, lo [DH][SKV] (of dQ += dS K; dK += dS^T Q), in MODE 1 B2^T hi, lo
+// (of dV += P^T dO), each k8 step's rows in the order 0 2 4 6 1 3 5 7, and
+// each row's |b1|^2.
+template <int MODE, int DH, int W, int BT, int NS>
+struct BwdShape {
+  static constexpr int NT = 32 * W;
+  static constexpr int RO = 16 * W;
+  static constexpr int SD = DH + 4;
+  static constexpr int SKV = BT + 4;
+  static constexpr int TILE = BT * SD;
+  static constexpr int STAGE = 2 * TILE + (MODE == 1 ? 2 * BT : 0);
+  static constexpr int NTR = MODE == 1 ? 2 : 1;  // transposed tiles
+  static constexpr int SPLIT = 4 * TILE + 2 * NTR * DH * SKV + BT;
+  // past DH = 16 each warp's own rows of a1 and a2 [16][SD] (read and
+  // split where used: their fragments in registers would spill)
+  static constexpr int OWN = DH > 16 ? W * 2 * 16 * SD : 0;
+  static constexpr size_t SMEM = sizeof(float) * ((size_t)NS * STAGE + SPLIT + OWN);
+  static_assert((BT * DH / 4) % NT == 0, "each thread copies and splits the same number of chunks");
+};
+
+// Item it: leading index n, own rows r0 .. r0 + RO - 1; T tiles of the
+// other side (at least one): in MODE 0 the keys below the length, in MODE
+// 1 every query row, or one tile that is neither loaded nor scored where
+// every own key is at or past the length.
+template <int MODE, int BT>
+__device__ __forceinline__ Item bwd_item_at(int it, int otiles, int RO, int H, const int* lens) {
+  Item r;
+  r.n = it / otiles;
+  r.r0 = (it % otiles) * RO;
+  r.len = __ldg(lens + r.n);
+  if constexpr (MODE == 0)
+    r.T = max(1, (r.len + BT - 1) / BT);
+  else
+    r.T = r.r0 < r.len ? (H + BT - 1) / BT : 1;
+  return r;
+}
+
+// B16 (MODE 0: a1 = q, a2 = dO, b1 = k, b2 = v; out1 = dq) and B17 (MODE 1:
+// a1 = k, a2 = v, b1 = q, b2 = dO; out1 = dk, out2 = dv).  Block b walks
+// items b, b + gridDim.x, ... and each item's tiles in order as one
+// sequence of steps, the copies of steps u + 1 .. u + NS - 1 in flight
+// while step u is split and multiplied (attn_fwd_tc_kernel's ring).  Warp w
+// owns rows r0 + 16 w ..: its A fragments of a1 and a2 come from device
+// memory at the item's first step (at DH = 16 in registers through the
+// item's tiles; at 32 and 64, where 64 or 128 more registers would spill,
+// its rows into its slice of shared memory, read and split where used),
+// its row's lse and delta (MODE 0) too.  A step, by
+// chunks of 16 other rows (two bands of 8): S = a1 b1^T (3xTF32 below the
+// guard's bound, else the plain version's FMA chain), P = exp(S scale - lse)
+// with masked keys at -1e30, dP = a2 b2^T (3xTF32), dS = P (dP - delta);
+// then MODE 0 dQ += dS K, MODE 1 dV += P^T dO and dK += dS^T Q, each band
+// one k8 step whose A operand is the C fragment of S as c0, c2, c1, c3.
+template <int MODE, int DH, int W, int BT, int NS>
+__global__ void __launch_bounds__(32 * W, DH == 16 && W == 4 ? 3 : 1)
+attn_bwd_tc_kernel(const float* __restrict__ a1g, const float* __restrict__ a2g,
+                   const float* __restrict__ b1g, const float* __restrict__ b2g,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   const int* __restrict__ lens, float* __restrict__ out1,
+                   float* __restrict__ out2, int H, int otiles, int items, float scale) {
+  using S = BwdShape<MODE, DH, W, BT, NS>;
+  constexpr int SD = S::SD, SKV = S::SKV, NT = S::NT, RO = S::RO, TILE = S::TILE;
+  constexpr int KS = DH / 8, DB = DH / 8, C4 = DH / 4;
+  constexpr bool AREG = DH == 16;
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);  // NS stages
+  float* split = ring + NS * S::STAGE;
+  float* b1t = split + 4 * TILE;      // B1^T hi, then lo
+  float* b2t = b1t + 2 * DH * SKV;    // B2^T hi, then lo (MODE 1)
+  float* norm = split + S::SPLIT - BT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  float* own = split + S::SPLIT + warp * 2 * 16 * SD;  // DH = 64: the warp's a1, then a2 rows
+
+  // the issue side: step iu is tile ij of the block's item ii
+  int ii = blockIdx.x, ij = 0, iu = 0;
+  Item iI = bwd_item_at<MODE, BT>(ii, otiles, RO, H, lens);
+  auto issue = [&]() {
+    if (ii < items) {
+      float* st = ring + (iu % NS) * S::STAGE;
+      const int o0 = ij * BT, lim = MODE == 0 ? iI.len : H;  // other rows past lim zero-filled
+      if (o0 < lim && (MODE == 0 || iI.r0 < iI.len)) {
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          const float* src = (kv ? b2g : b1g) + ((size_t)iI.n * H + o0) * DH;
+#pragma unroll
+          for (int x = 0; x < BT * C4 / NT; ++x) {
+            const int e = tid + x * NT, row = e / C4, c4 = e % C4;
+            const bool ok = o0 + row < lim;
+            tt::cp_async16(st + kv * TILE + row * SD + 4 * c4,
+                           src + (ok ? row * DH + 4 * c4 : 0), ok ? 16 : 0);
+          }
+        }
+        if constexpr (MODE == 1) {
+          for (int e = tid; e < 2 * BT; e += NT) {
+            const int row = e % BT;
+            const bool ok = o0 + row < H;
+            cp_async4(st + 2 * TILE + e,
+                      (e < BT ? lse : delta) + (size_t)iI.n * H + (ok ? o0 + row : 0), ok ? 4 : 0);
+          }
+        }
+      }
+      if (++ij == iI.T) {
+        ij = 0;
+        ii += gridDim.x;
+        if (ii < items) iI = bwd_item_at<MODE, BT>(ii, otiles, RO, H, lens);
+      }
+    }
+    tt::cp_commit();
+    ++iu;
+  };
+
+  // the compute side: step u is tile j of item it; cN the next item
+  int it = blockIdx.x, j = 0;
+  Item cI = iI, cN = iI;
+  float acc1[DB][4], acc2[MODE == 1 ? DB : 1][4];
+  auto reset = [&]() {
+#pragma unroll
+    for (int db = 0; db < DB; ++db)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc1[db][c] = 0.f;
+    if constexpr (MODE == 1) {
+#pragma unroll
+      for (int db = 0; db < DB; ++db)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc2[db][c] = 0.f;
+    }
+  };
+  reset();
+  unsigned a1h[AREG ? KS : 1][4], a1l[AREG ? KS : 1][4], a2h[AREG ? KS : 1][4],
+      a2l[AREG ? KS : 1][4];
+  float an2 = 0.f;                      // the largest |a1|^2 of the warp's rows (NaN if one is)
+  float lse_r[2] = {0.f, 0.f}, de_r[2] = {0.f, 0.f};  // MODE 0: rows g and g + 8
+  const int offa = ((lane & 7) + 8 * ((lane >> 3) & 1)) * SD + 4 * (lane >> 4);
+  const int offb = ((lane >> 4) * 8 + (lane & 7)) * SD + ((lane >> 3) & 1) * 4;
+  const int offv = ((lane >> 4) * 8 + (lane & 7)) * SKV + ((lane >> 3) & 1) * 4;
+
+#pragma unroll
+  for (int x = 0; x < NS - 1; ++x) issue();
+  for (int u = 0; it < items; ++u) {
+    tt::cp_wait<NS - 2>();
+    __syncthreads();  // step u landed; every warp is done with step u - 1
+    issue();          // step u + NS - 1, into the stage step u - 1 left
+    const float* st = ring + (u % NS) * S::STAGE;
+    const int n = cI.n, len = cI.len, rw = cI.r0 + 16 * warp;
+    const int o0 = j * BT, lim = MODE == 0 ? len : H;
+    const bool loaded = o0 < lim && (MODE == 0 || cI.r0 < len);  // block-uniform
+    const bool active = rw < H;                                  // warp-uniform
+    const bool work = active && (MODE == 0 || rw < len);
+    // the warp's rows g and g + 8 (clamped into [0, H): a row past H is not stored)
+    const size_t base = (size_t)n * H;
+    const int rg0 = min(rw + g, H - 1), rg1 = min(rw + g + 8, H - 1);
+    // the A fragment of k8 step ks of the warp's rows of a1 (which = 0,
+    // split by split_fin: it meets the tensor cores only below the guard's
+    // bound) or a2 (split_all): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3
+    // (g + 8, t + 4); from device memory (DH = 16, once an item) or the
+    // warp's own rows
+    auto frag = [&](int which, int ks, unsigned (&hi)[4], unsigned (&lo)[4]) {
+      float y[4];
+      if constexpr (AREG) {
+        const float* x = which ? a2g : a1g;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          y[c] = __ldg(x + (base + (c & 1 ? rg1 : rg0)) * DH + ks * 8 + t + 4 * (c >> 1));
+      } else {
+        unsigned r[4];
+        tt::ldmatrix_x4<false>(r, own + which * 16 * SD + offa + ks * 8);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) y[c] = __uint_as_float(r[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (which)
+          split_all(y[c], hi[c], lo[c]);
+        else
+          split_fin(y[c], hi[c], lo[c]);
+      }
+    };
+    if (j == 0 && it + (int)gridDim.x < items)
+      cN = bwd_item_at<MODE, BT>(it + gridDim.x, otiles, RO, H, lens);
+    // the split, once for the block: B1 and B2 into hi and lo by row and
+    // (B1, and in MODE 1 B2) transposed with each k8 step's rows in the
+    // order 0 2 4 6 1 3 5 7; each row's |b1|^2 (the C4 lanes of a row summed)
+    if (loaded) {
+#pragma unroll
+      for (int x = 0; x < BT * C4 / NT; ++x) {
+        const int e = tid + x * NT, c = e / C4, c4 = e % C4;
+        const int pc = (c & ~7) | ((c & 1) << 2) | ((c & 7) >> 1);
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          const float4 xv = *reinterpret_cast<const float4*>(st + kv * TILE + c * SD + 4 * c4);
+          uint4 hi, lo;
+          split_all(xv.x, hi.x, lo.x);
+          split_all(xv.y, hi.y, lo.y);
+          split_all(xv.z, hi.z, lo.z);
+          split_all(xv.w, hi.w, lo.w);
+          *reinterpret_cast<uint4*>(split + 2 * kv * TILE + c * SD + 4 * c4) = hi;
+          *reinterpret_cast<uint4*>(split + (2 * kv + 1) * TILE + c * SD + 4 * c4) = lo;
+          if (kv == 0 || MODE == 1) {
+            unsigned* tp = reinterpret_cast<unsigned*>(kv ? b2t : b1t) + 4 * c4 * SKV + pc;
+            tp[0] = hi.x;
+            tp[SKV] = hi.y;
+            tp[2 * SKV] = hi.z;
+            tp[3 * SKV] = hi.w;
+            tp += DH * SKV;
+            tp[0] = lo.x;
+            tp[SKV] = lo.y;
+            tp[2 * SKV] = lo.z;
+            tp[3 * SKV] = lo.w;
+          }
+          if (kv == 0) {
+            float b2 = xv.x * xv.x + xv.y * xv.y + xv.z * xv.z + xv.w * xv.w;
+#pragma unroll
+            for (int off = 1; off < C4; off <<= 1) b2 += __shfl_xor_sync(FULL, b2, off);
+            if (c4 == 0) norm[c] = b2;
+          }
+        }
+      }
+    }
+    if (j == 0 && work) {  // the item's own rows: fragments, |a1|^2, lse and delta
+      if constexpr (!AREG) {  // the warp's rows of a1 and a2 into its own slice
+#pragma unroll
+        for (int x = lane; x < 2 * 16 * C4; x += 32) {
+          const int which = x / (16 * C4), row = (x / C4) % 16, c4 = x % C4;
+          const float* src = (which ? a2g : a1g) + (base + min(rw + row, H - 1)) * DH + 4 * c4;
+          *reinterpret_cast<float4*>(own + (which * 16 + row) * SD + 4 * c4) =
+              __ldg(reinterpret_cast<const float4*>(src));
+        }
+        __syncwarp();
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          frag(0, ks, a1h[ks], a1l[ks]);
+          frag(1, ks, a2h[ks], a2l[ks]);
+        }
+      }
+      const float4* ar = reinterpret_cast<const float4*>(
+          a1g + (base + min(rw + (lane & 15), H - 1)) * DH + (lane >> 4) * (DH / 2));
+      an2 = 0.f;
+#pragma unroll
+      for (int d4 = 0; d4 < DH / 8; ++d4) {
+        const float4 x = __ldg(ar + d4);
+        an2 = fmaf(x.x, x.x, fmaf(x.y, x.y, fmaf(x.z, x.z, fmaf(x.w, x.w, an2))));
+      }
+      an2 += __shfl_xor_sync(FULL, an2, 16);
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) an2 = tt::max_nan(an2, __shfl_xor_sync(FULL, an2, off));
+      if constexpr (MODE == 0) {
+        lse_r[0] = __ldg(lse + base + rg0), lse_r[1] = __ldg(lse + base + rg1);
+        de_r[0] = __ldg(delta + base + rg0), de_r[1] = __ldg(delta + base + rg1);
+      }
+    }
+    __syncthreads();  // the split tile is written
+
+    if (work && loaded) {
+      float b2 = 0.f;  // the tile's largest |b1|^2 (NaN if one is)
+#pragma unroll
+      for (int c = lane; c < BT; c += 32) b2 = tt::max_nan(b2, norm[c]);
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) b2 = tt::max_nan(b2, __shfl_xor_sync(FULL, b2, off));
+      // false for a NaN or an infinite |a1|^2 or |b1|^2
+      const bool tcs = scale * scale * an2 * b2 <= SCORE_BOUND * SCORE_BOUND;
+      const int live = lim - o0;  // the tile's rows below lim
+      // the tile's rows at or past lim: MODE 0 keys at or past the length
+      // (scored -1e30), MODE 1 query rows past H (P and dS exactly 0)
+      const bool edge = o0 + BT > lim;
+      // MODE 1: the warp's key rows at or past the length (scored -1e30)
+      const bool medge = MODE == 1 && rw + 16 > len;
+      const bool mrow0 = rw + g >= len, mrow1 = rw + g + 8 >= len;
+      const float* ls = st + 2 * TILE;  // MODE 1: the tile's lse, then its delta
+      // chunk p: the tile's rows 16 p .. 16 p + 15
+      auto chunk = [&](int p) {
+        if (16 * p >= live) return;  // rows past lim: neither scored nor multiplied
+        float s[2][4];
+        // k8 step ks of S = a1 b1^T (which = 0; B1 at split) or dP = a2
+        // b2^T (1; B2 at split + 2 TILE) in 3xTF32 into acc, the k8 steps
+        // in d order
+        auto kstep = [&](int which, int ks, float (&acc)[2][4]) {
+          unsigned ah[4], al[4];
+          if constexpr (AREG) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              ah[c] = which ? a2h[ks][c] : a1h[ks][c], al[c] = which ? a2l[ks][c] : a1l[ks][c];
+          } else {
+            frag(which, ks, ah, al);
+          }
+          const float* bt0 = split + 2 * which * TILE + offb + p * 16 * SD + ks * 8;
+          unsigned bh[4], bl[4];
+          tt::ldmatrix_x4<false>(bh, bt0);
+          tt::ldmatrix_x4<false>(bl, bt0 + TILE);
+          float f[2][4];
+          mma3x2(f, ah, al, bh, bl);
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[b][c] = ks ? acc[b][c] + f[b][c] : f[b][c];
+        };
+        // all k8 steps of one product; past DH = 16 one at a time (B17's spill)
+        auto product = [&](int which, float (&acc)[2][4]) {
+          if constexpr (AREG) {
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks) kstep(which, ks, acc);
+          } else {
+#pragma unroll 1
+            for (int ks = 0; ks < KS; ++ks) kstep(which, ks, acc);
+          }
+        };
+        if (tcs) {
+          product(0, s);
+        } else {  // the plain version's f32 FMA chain in d order
+          const float4* x0 = reinterpret_cast<const float4*>(a1g + (base + rg0) * DH);
+          const float4* x1 = reinterpret_cast<const float4*>(a1g + (base + rg1) * DH);
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const float4* y0 = reinterpret_cast<const float4*>(st + (16 * p + 8 * b + 2 * t) * SD);
+            const float4* y1 = reinterpret_cast<const float4*>(st + (16 * p + 8 * b + 2 * t + 1) * SD);
+            float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+            for (int d4 = 0; d4 < C4; ++d4) {
+              const float4 u0 = __ldg(x0 + d4), u1 = __ldg(x1 + d4), v0 = y0[d4], v1 = y1[d4];
+              a[0] = fmaf(u0.x, v0.x, a[0]); a[0] = fmaf(u0.y, v0.y, a[0]);
+              a[0] = fmaf(u0.z, v0.z, a[0]); a[0] = fmaf(u0.w, v0.w, a[0]);
+              a[1] = fmaf(u0.x, v1.x, a[1]); a[1] = fmaf(u0.y, v1.y, a[1]);
+              a[1] = fmaf(u0.z, v1.z, a[1]); a[1] = fmaf(u0.w, v1.w, a[1]);
+              a[2] = fmaf(u1.x, v0.x, a[2]); a[2] = fmaf(u1.y, v0.y, a[2]);
+              a[2] = fmaf(u1.z, v0.z, a[2]); a[2] = fmaf(u1.w, v0.w, a[2]);
+              a[3] = fmaf(u1.x, v1.x, a[3]); a[3] = fmaf(u1.y, v1.y, a[3]);
+              a[3] = fmaf(u1.z, v1.z, a[3]); a[3] = fmaf(u1.w, v1.w, a[3]);
+            }
+#pragma unroll
+            for (int c = 0; c < 4; ++c) s[b][c] = a[c];
+          }
+        }
+        // P = exp(S scale - lse), each operation rounded as the plain
+        // version's; masked keys at -1e30 by select (exp gives 0), in the
+        // tiles and warps that hold one only (uniform branches)
+        float pr[2][4], lc[2][2] = {}, dc[2][2] = {};
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          if constexpr (MODE == 1) {  // the tile's columns 16 p + 8 b + 2 t, + 1
+            const float2 l2 = *reinterpret_cast<const float2*>(ls + 16 * p + 8 * b + 2 * t);
+            const float2 d2 = *reinterpret_cast<const float2*>(ls + BT + 16 * p + 8 * b + 2 * t);
+            lc[b][0] = l2.x, lc[b][1] = l2.y, dc[b][0] = d2.x, dc[b][1] = d2.y;
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[b][c] = __fmul_rn(s[b][c], scale);
+        }
+        // the other side's row of value c of band b: 16 p + 8 b + 2 t + (c & 1)
+        const int past = lim - o0 - 16 * p - 2 * t;  // it is at or past lim where 8 b + (c & 1) >= past
+        if (MODE == 0 && edge) {
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (8 * b + (c & 1) >= past) s[b][c] = NEG_INF;
+        }
+        if (MODE == 1 && medge) {
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (c >> 1 ? mrow1 : mrow0) s[b][c] = NEG_INF;
+        }
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            pr[b][c] = __expf(__fsub_rn(s[b][c], MODE == 0 ? lse_r[c >> 1] : lc[b][c & 1]));
+        if (MODE == 1 && edge) {  // query rows past H: P exactly 0
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (8 * b + (c & 1) >= past) pr[b][c] = 0.f;
+        }
+        float dpv[2][4];
+        product(1, dpv);
+        // dS = P (dP - delta), then each band as one k8 step: acc1 += dS B1
+        // (dQ += dS K; dK += dS^T Q), and after it in MODE 1 acc2 += P B2
+        // (dV += P^T dO); the A operand from the C values c0, c2, c1, c3
+        // (bt0: B1^T, or B2^T)
+        auto band = [&](const unsigned (&xh)[4], const unsigned (&xl)[4], const float* bt0, int nb,
+                        float (&acc)[DB][4]) {
+#pragma unroll
+          for (int dp = 0; dp < DH / 16; ++dp) {
+            unsigned bh[4], bl[4];
+            tt::ldmatrix_x4<false>(bh, bt0 + offv + dp * 16 * SKV + nb * 8);
+            tt::ldmatrix_x4<false>(bl, bt0 + DH * SKV + offv + dp * 16 * SKV + nb * 8);
+            float f[2][4];
+            mma3x2(f, xh, xl, bh, bl);
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) acc[2 * dp + e][c] += f[e][c];
+          }
+        };
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          unsigned xh[4], xl[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int ac = (c & 1) * 2 + (c >> 1);  // A slot c takes C value c0, c2, c1, c3
+            const float de = MODE == 0 ? de_r[ac >> 1] : dc[b][ac & 1];
+            float ds = __fmul_rn(pr[b][ac], __fsub_rn(dpv[b][ac], de));
+            // MODE 1: a query row past H (a padded column) adds exactly 0
+            if (MODE == 1 && edge && 8 * b + (ac & 1) >= past) ds = 0.f;
+            split_all(ds, xh[c], xl[c]);
+          }
+          band(xh, xl, b1t, 2 * p + b, acc1);
+        }
+        if constexpr (MODE == 1) {
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            unsigned ph[4], pl[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) split_pos(pr[b][(c & 1) * 2 + (c >> 1)], ph[c], pl[c]);
+            band(ph, pl, b2t, 2 * p + b, acc2);
+          }
+        }
+      };
+      if constexpr (AREG) {
+#pragma unroll
+        for (int p = 0; p < BT / 16; ++p) chunk(p);
+      } else {  // past DH = 16: one chunk at a time (unrolled, B17's spill)
+#pragma unroll 1
+        for (int p = 0; p < BT / 16; ++p) chunk(p);
+      }
+    }
+
+    if (++j == cI.T) {  // the item's last tile: its rows out, then the next item
+      if (active) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rw + g + 8 * h;
+          if (r >= H) continue;
+          const size_t o = (base + r) * DH + 2 * t;
+          // MODE 1: a key at or past the length gets exact zeros
+          const bool z = MODE == 1 && r >= len;
+#pragma unroll
+          for (int db = 0; db < DB; ++db) {
+            *reinterpret_cast<float2*>(out1 + o + 8 * db) =
+                z ? make_float2(0.f, 0.f)
+                  : make_float2(acc1[db][2 * h] * scale, acc1[db][2 * h + 1] * scale);
+            if constexpr (MODE == 1)
+              *reinterpret_cast<float2*>(out2 + o + 8 * db) =
+                  z ? make_float2(0.f, 0.f) : make_float2(acc2[db][2 * h], acc2[db][2 * h + 1]);
+          }
+        }
+      }
+      reset();
+      j = 0;
+      it += gridDim.x;
+      cI = cN;
+    }
+  }
+}
 
 }  // namespace tc
 
@@ -757,32 +1301,79 @@ cudaError_t fwd(const float* q, const float* k, const float* v, const int* lens,
   return cudaGetLastError();
 }
 
+// A persistent kernel's grid: its dynamic shared memory set, and the blocks
+// the card holds at once (asked once a device, into ``cache``).
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem, int (&cache)[64], int& out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!cache[dev]) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache[dev] = per_sm * sms;
+  }
+  out = cache[dev];
+  return cudaSuccess;
+}
+
 template <int DH, int QW, int BK, int NS>
 cudaError_t fwd_tc(const float* q, const float* k, const float* v, const int* lens, float* out,
                    float* lse, int N, int H, cudaStream_t stream) {
   using S = tc::Shape<DH, QW, BK, NS>;
   const auto kernel = tc::attn_fwd_tc_kernel<DH, QW, BK, NS>;
-  static int grid_max[64] = {};  // by device: the blocks the card holds at once, asked once
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = prepare(kernel, S::SMEM);
+  static int grid_max[64] = {};
+  int grid = 0;
+  cudaError_t err = resident_blocks(kernel, S::NT, S::SMEM, grid_max, grid);
   if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (!grid_max[dev]) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S::NT, S::SMEM);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    grid_max[dev] = per_sm * sms;
-  }
   const int qtiles = (H + S::RQ - 1) / S::RQ;
   const long long items = (long long)N * qtiles;
   if (items > INT_MAX) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)std::min<long long>(items, grid_max[dev]), S::NT, S::SMEM, stream>>>(
+  kernel<<<(unsigned)std::min<long long>(items, grid), S::NT, S::SMEM, stream>>>(
       q, k, v, lens, out, lse, H, qtiles, (int)items, scale_of(DH));
   return cudaGetLastError();
+}
+
+// B16 (MODE 0) or B17 (MODE 1) on the tensor cores: a1, a2 the own side's
+// tensors, b1, b2 the other side's (see attn_bwd_tc_kernel).
+template <int MODE, int DH, int W, int BT, int NS>
+cudaError_t bwd_tc(const float* a1, const float* a2, const float* b1, const float* b2,
+                   const float* lse, const float* delta, const int* lens, float* o1, float* o2,
+                   int N, int H, cudaStream_t stream) {
+  using S = tc::BwdShape<MODE, DH, W, BT, NS>;
+  const auto kernel = tc::attn_bwd_tc_kernel<MODE, DH, W, BT, NS>;
+  static int grid_max[64] = {};
+  int grid = 0;
+  cudaError_t err = resident_blocks(kernel, S::NT, S::SMEM, grid_max, grid);
+  if (err != cudaSuccess) return err;
+  const int otiles = (H + S::RO - 1) / S::RO;
+  const long long items = (long long)N * otiles;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)std::min<long long>(items, grid), S::NT, S::SMEM, stream>>>(
+      a1, a2, b1, b2, lse, delta, lens, o1, o2, H, otiles, (int)items, scale_of(DH));
+  return cudaGetLastError();
+}
+
+// The backward's launch plans (ops/history_attention.py _BWD_PLANS,
+// bwd_tc_shape): <W, BT, NS>; at DH = 64 one plan for both, four warps on
+// tiles of 16 rows (B17 spills with eight warps or 32-row tiles there).
+template <int MODE, int DH>
+cudaError_t bwd_tc_plan(int plan, const float* a1, const float* a2, const float* b1,
+                        const float* b2, const float* lse, const float* delta, const int* lens,
+                        float* o1, float* o2, int N, int H, cudaStream_t stream) {
+  if (plan < 0 || plan > 1) return cudaErrorInvalidValue;
+  if constexpr (DH == 64)
+    return bwd_tc<MODE, DH, 4, 16, 3>(a1, a2, b1, b2, lse, delta, lens, o1, o2, N, H, stream);
+  else if (plan == 0)
+    return bwd_tc<MODE, DH, 4, 64, 3>(a1, a2, b1, b2, lse, delta, lens, o1, o2, N, H, stream);
+  else
+    return bwd_tc<MODE, DH, 8, 64, 3>(a1, a2, b1, b2, lse, delta, lens, o1, o2, N, H, stream);
 }
 
 // The launch plans (ops/history_attention.py _TC_PLANS, tc_shape): <QW, BK,
@@ -878,6 +1469,40 @@ extern "C" int tt_blockwise_attn_dkv(const void* q, const void* k, const void* v
 #define TT_CALL(D) dkv<D>((const float*)q, (const float*)k, (const float*)v, (const float*)dout, \
                           (const float*)lse, (const float*)delta, (const int*)lens, (float*)dko, \
                           (float*)dvo, N, H, (cudaStream_t)stream)
+  switch (Dh) {
+    case 16: return (int)TT_CALL(16);
+    case 32: return (int)TT_CALL(32);
+    case 64: return (int)TT_CALL(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TT_CALL
+}
+
+extern "C" int tt_blockwise_attn_dq_tc(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* delta,
+                                       const void* lens, void* dqo, int N, int H, int Dh,
+                                       int plan, void* stream) {
+#define TT_CALL(D) bwd_tc_plan<0, D>(plan, (const float*)q, (const float*)dout, (const float*)k, \
+                                     (const float*)v, (const float*)lse, (const float*)delta,   \
+                                     (const int*)lens, (float*)dqo, nullptr, N, H,              \
+                                     (cudaStream_t)stream)
+  switch (Dh) {
+    case 16: return (int)TT_CALL(16);
+    case 32: return (int)TT_CALL(32);
+    case 64: return (int)TT_CALL(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TT_CALL
+}
+
+extern "C" int tt_blockwise_attn_dkv_tc(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* lse, const void* delta,
+                                        const void* lens, void* dko, void* dvo, int N, int H,
+                                        int Dh, int plan, void* stream) {
+#define TT_CALL(D) bwd_tc_plan<1, D>(plan, (const float*)k, (const float*)v, (const float*)q, \
+                                     (const float*)dout, (const float*)lse,                   \
+                                     (const float*)delta, (const int*)lens, (float*)dko,      \
+                                     (float*)dvo, N, H, (cudaStream_t)stream)
   switch (Dh) {
     case 16: return (int)TT_CALL(16);
     case 32: return (int)TT_CALL(32);

@@ -13,7 +13,12 @@ Port of ``two_tower_models_tpu/ops/pallas/history_attention.py``:
   them: ``_fwd_route``; ``chip_smoke.py`` and the card tests time and hold
   both kernels through the private ``_route``);
 - B16, ``_dq_kernel`` (:277): ``blockwise_attn_dq``;
-- B17, ``_dkv_kernel`` (:295): ``blockwise_attn_dkv``.
+- B17, ``_dkv_kernel`` (:295): ``blockwise_attn_dkv``; both on
+  ``_bwd_route``'s kernel: ``attn_bwd_tc_kernel`` (MODE 0 and 1, every
+  product in 3xTF32 on the tensor cores, on ``_bwd_tc_plan``'s launch
+  plan) for long histories, ``attn_dq_kernel`` and ``attn_dkv_kernel``
+  (FMA) for short ones, the cells' among them; a private ``_route``
+  forces one.
 
 ``_BlockwiseAttention`` is the ``_blockwise_core`` custom VJP: the forward
 saves q, k, v, the lengths, the output and the lse, never the [H, H]
@@ -184,43 +189,128 @@ def blockwise_attn_fwd(q, k, v, lens, *, _route: str | None = None):
     return out, lse
 
 
-def blockwise_attn_dq(q, k, v, do, lse, delta, lens):
-    """dq; see ``blockwise_attn_bwd_plain``.  A CPU tensor takes the plain
-    version; a CUDA tensor launches kernel B16."""
-    if q.device.type == "cpu":
-        return blockwise_attn_bwd_plain(q, k, v, do, lse, delta, lens)[0]
-    _check("blockwise_attn_dq", lens, (q, k, v, do), (lse, delta))
-    q, k, v, do, lse, delta = map(_lib.aligned, (q, k, v, do, lse, delta))
+# The tensor-core B16's and B17's launch plans (csrc/history_attention.cu
+# bwd_tc_plan): (warps on the leading index, rows of the other side a tile,
+# ring stages).  A warp owns 16 rows: query rows in B16, key rows in B17.
+_BWD_PLANS = ((4, 64, 3), (8, 64, 3))
+
+
+def bwd_tc_shape(plan: int, dh: int) -> tuple[int, int, int]:
+    """Backward plan ``plan``'s (warps, rows a tile, ring stages) at head
+    dim ``dh``; at Dh = 64 every plan is four warps on tiles of 16 rows
+    (B17 spills registers with eight warps or tiles of 32 there)."""
+    w, bt, ns = _BWD_PLANS[plan]
+    return (4, 16, ns) if dh == 64 else (w, bt, ns)
+
+
+def _bwd_tc_plan(mode: int, n: int, h: int) -> int:
+    """The index in ``_BWD_PLANS`` of B16's (``mode`` 0) or B17's (1)
+    launch at n leading indices of history length ``h``: 64 own rows a
+    block up to h = 64; beyond, 128 for B16 (two blocks of eight warps an
+    SM at its 128 registers), and for B17 (about 165 registers: three
+    blocks of four warps an SM, or one of eight) 128 where its blocks do
+    not fill the card, 64 where n h reaches 2^17 rows (PERF.md §6)."""
+    if h <= 64:
+        return 0
+    return 1 if mode == 0 or n * h < 1 << 17 else 0
+
+
+def bwd_tc_smem_bytes(mode: int, plan: int, dh: int) -> int:
+    """Dynamic shared memory of a tensor-core B16 (``mode`` 0) or B17 (1)
+    block on plan ``plan`` at head dim ``dh`` (``tc::BwdShape::SMEM``): the
+    raw tiles of each ring stage (K and V; or Q, dO and their lse and
+    delta), the split tile (both by row in hi and lo, K^T, or Q^T and
+    dO^T, in hi and lo, and each row's |b1|^2), and past Dh = 16 each
+    warp's own rows (q and dO, or k and v); rows of Dh + 4 floats,
+    transposed rows of the tile's rows + 4."""
+    w, bt, ns = bwd_tc_shape(plan, dh)
+    tile = bt * (dh + 4)
+    stage = 2 * tile + (2 * bt if mode else 0)
+    own = w * 2 * 16 * (dh + 4) if dh > 16 else 0
+    return 4 * (ns * stage + 4 * tile + 2 * (2 if mode else 1) * dh * (bt + 4) + bt + own)
+
+
+def _bwd_route(h: int) -> str:
+    """B16's and B17's kernel at history length ``h``: "tc"
+    (``attn_bwd_tc_kernel``) from 128 keys on, the least measured length at
+    which it beats the FMA kernels with lengths and without; "fma"
+    (``attn_dq_kernel``, ``attn_dkv_kernel``) below, the cells' H = 32
+    among them (PERF.md §6)."""
+    return "tc" if h >= 128 else "fma"
+
+
+def _launch_dq(route: str, q, k, v, do, lse, delta, lens, plan: int | None = None):
+    """B16's kernel on the route ``route`` ("tc": ``attn_bwd_tc_kernel<0,
+    ...>`` on ``_bwd_tc_plan``'s plan, or ``plan``; "fma":
+    ``attn_dq_kernel``) on checked, aligned inputs: dq.  Counts nothing."""
     n, h, dh = q.shape
     dq = torch.empty_like(q)
     if n and h:
-        err = _lib.library().tt_blockwise_attn_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), lens.data_ptr(), dq.data_ptr(), n, h, dh, _lib.stream_ptr(q),
-        )
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), lens.data_ptr(), dq.data_ptr(), n, h, dh)
+        if route == "tc":
+            err = _lib.library().tt_blockwise_attn_dq_tc(
+                *args, _bwd_tc_plan(0, n, h) if plan is None else plan, _lib.stream_ptr(q))
+        else:
+            err = _lib.library().tt_blockwise_attn_dq(*args, _lib.stream_ptr(q))
         _lib.check(err, "blockwise_attn_dq")
-        _lib.launches["blockwise_attn_dq"] += 1
     return dq
 
 
-def blockwise_attn_dkv(q, k, v, do, lse, delta, lens):
-    """(dk, dv); see ``blockwise_attn_bwd_plain``.  A CPU tensor takes the
-    plain version; a CUDA tensor launches kernel B17."""
-    if q.device.type == "cpu":
-        return blockwise_attn_bwd_plain(q, k, v, do, lse, delta, lens)[1:]
-    _check("blockwise_attn_dkv", lens, (q, k, v, do), (lse, delta))
-    q, k, v, do, lse, delta = map(_lib.aligned, (q, k, v, do, lse, delta))
+def _launch_dkv(route: str, q, k, v, do, lse, delta, lens, plan: int | None = None):
+    """B17's kernel on the route ``route`` ("tc": ``attn_bwd_tc_kernel<1,
+    ...>``; "fma": ``attn_dkv_kernel``) on checked, aligned inputs: (dk,
+    dv).  Counts nothing."""
     n, h, dh = q.shape
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     if n and h:
-        err = _lib.library().tt_blockwise_attn_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), lens.data_ptr(), dk.data_ptr(), dv.data_ptr(), n, h, dh,
-            _lib.stream_ptr(q),
-        )
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), lens.data_ptr(), dk.data_ptr(), dv.data_ptr(), n, h, dh)
+        if route == "tc":
+            err = _lib.library().tt_blockwise_attn_dkv_tc(
+                *args, _bwd_tc_plan(1, n, h) if plan is None else plan, _lib.stream_ptr(q))
+        else:
+            err = _lib.library().tt_blockwise_attn_dkv(*args, _lib.stream_ptr(q))
         _lib.check(err, "blockwise_attn_dkv")
-        _lib.launches["blockwise_attn_dkv"] += 1
     return dk, dv
+
+
+def _bwd_launch(name: str, launch, q, k, v, do, lse, delta, lens, route):
+    """Check the inputs, launch B16 or B17 (``launch``) on ``route`` (None:
+    ``_bwd_route``'s) and count it as ``name``, on the tensor cores also as
+    ``name``_tc."""
+    _check(name, lens, (q, k, v, do), (lse, delta))
+    route = _bwd_route(q.shape[1]) if route is None else route
+    if route not in ("tc", "fma"):
+        raise ValueError(f"{name}: no route {route!r}")
+    out = launch(route, *map(_lib.aligned, (q, k, v, do, lse, delta)), lens)
+    if q.shape[0] and q.shape[1]:
+        _lib.launches[name] += 1
+        if route == "tc":
+            _lib.launches[name + "_tc"] += 1
+    return out
+
+
+def blockwise_attn_dq(q, k, v, do, lse, delta, lens, *, _route: str | None = None):
+    """dq; see ``blockwise_attn_bwd_plain``.  A CPU tensor takes the plain
+    version; a CUDA tensor launches kernel B16 on the route ``_bwd_route``
+    gives its history length (``_route``, for timing and tests only, forces
+    one).  Every launch counts as ``blockwise_attn_dq``, one on the tensor
+    cores also as ``blockwise_attn_dq_tc``."""
+    if q.device.type == "cpu":
+        return blockwise_attn_bwd_plain(q, k, v, do, lse, delta, lens)[0]
+    return _bwd_launch("blockwise_attn_dq", _launch_dq, q, k, v, do, lse, delta, lens, _route)
+
+
+def blockwise_attn_dkv(q, k, v, do, lse, delta, lens, *, _route: str | None = None):
+    """(dk, dv); see ``blockwise_attn_bwd_plain``.  A CPU tensor takes the
+    plain version; a CUDA tensor launches kernel B17 on ``_bwd_route``'s
+    route (``_route`` forces one).  Every launch counts as
+    ``blockwise_attn_dkv``, one on the tensor cores also as
+    ``blockwise_attn_dkv_tc``."""
+    if q.device.type == "cpu":
+        return blockwise_attn_bwd_plain(q, k, v, do, lse, delta, lens)[1:]
+    return _bwd_launch("blockwise_attn_dkv", _launch_dkv, q, k, v, do, lse, delta, lens, _route)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
