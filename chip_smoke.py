@@ -198,6 +198,39 @@ Phases, in the order they run; any failure exits non-zero:
      Adam from one state (tables and moments within 1e-6 of their scale);
      the leg train-4M-packed-fusedadam (2 warm-up and 10 timed steps, one B20
      launch a step per such leaf, a trace) beside train-4M-packed.
+  9. the training loop (training.loop.train) at the flagship's width
+     (phase 4's model with debias_aux_weight 1/4096) on make_synthetic_data
+     of 2^21 samples, 65,536 users and 65,536 items, B=4096, lr 1e-3, a
+     step log every 64 steps and an eval every 512.  9a and 9c run under
+     deterministic algorithms (with the default ones F.embedding's backward
+     over the position table differs from call to call in its last bits,
+     which this phase also counts).  9a: two epochs (1,024 steps) with a
+     checkpoint directory: one launch a step of each training kernel (B5,
+     B6 and its reduce, B10, B11 + B12 and its reduce) and, each eval, one
+     B1, one B2, two B3 (radix), one B4 and its inversion; the losses
+     finite and epoch 1's below epoch 0's; recall@100 beside random and
+     within 2/1024 of a CPU copy of the final params; no host sync added by
+     the loop between the gates at steps 64 and 128 against the bare
+     step's own (CUDA's sync debug mode); the loop's ms/step over epoch 1's
+     steady steps beside 2 x 128 bare make_train_step steps with each kind
+     of algorithms; the eval's refresh and recall timed; a checkpoint's
+     bytes, the blocking and total ms of an async and a sync save, the
+     restore's ms, and 9a's saved state restored bit for bit.  9c: a fresh
+     two-epoch run, preempted at the first step log at or past step 600
+     (with a torch.profiler trace of steps 3-7 that must hold
+     encoder_tc_kernel and ce_fwd_tc_kernel), then the identical call
+     finishes the schedule: its final params within 1e-6 of each leaf's
+     scale of 9a's (bit-equality printed).  9b: 9a's call with three epochs
+     and the default algorithms restores step 1,024, runs only epoch 2 and
+     gives the loop's ms/step as a user runs it.  9e: the JAX package's
+     round-5 quality anchor at these widths (BASELINE.md:199-209: no
+     debiasing, lr 3e-3, 8 steps a dispatch) for 8 epochs: one launch a
+     step of each training kernel through the [K, B] path, the loss
+     falling, recall@100 at least 10x random.  9d: the trainer CLI (python
+     -m two_tower_models_tpu_torch.training.loop, the
+     two_tower_with_user_history_encoder preset, 640 samples, 2 epochs)
+     twice as a subprocess on one checkpoint directory: epoch and recall
+     lines, and the second run restores.
 
 Phase 2 also holds B2 and the exact pipeline on an integer-grid corpus whose
 scores hold +-inf and NaN of both signs (nonfinite_check).
@@ -243,6 +276,14 @@ LONG_TRAIN_B = 256  # train-4k-blockwise: B = 256 at H = LONG_H (N = 1024 at 4 h
 LONG_TRAIN_STEPS = 5  # its timed steps
 LONG_CHECK_N = 4  # its layer 0's leading indices held against the plain backward
 LONG_CHECK_ROWS = 2  # its card-against-CPU rows: the CPU's dense [8, H, H] takes 512 MiB
+# phase 9, the loop: BASELINE.md's round-5 loop run (2.1M samples an epoch, 65,536 users)
+LOOP_SAMPLES = 1 << 21
+LOOP_USERS = LOOP_ITEMS = 65536
+LOOP_LOG_EVERY, LOOP_EVAL_EVERY = 64, 512
+LOOP_PREEMPT_AT = 600  # 9c: the preempt flag is set at the first step log at or past it
+LOOP_BARE_STEPS = 128  # the bare make_train_step's timed steps
+LOOP_CLI_SAMPLES = 640  # 9d: the CLI's --num_samples
+LOOP_ANCHOR_EPOCHS = 8  # 9e: BASELINE.md:199-209's quality anchor ran 8 epochs
 # a serving batch's selects (k = 100): both on the radix route, none on the tournament
 SELECT_ROUTE = {"select_topk_radix": 2, "select_topk": 0}
 # a serving batch's exact MIPS: B2, both selects, B4's inversion and its scoring
@@ -1275,6 +1316,13 @@ def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, fa
     grads_vs_cpu(torch, model, cfg, data, idx, failures, "train varlen")
 
 
+# The warning CUDA's sync debug mode gives for each operation that waits
+# (c10/cuda: warn_or_error_on_sync); the mode's one-time notice that it is
+# a prototype ("Synchronization debug mode ... synchronizing operations")
+# is not one.
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
 def count_syncs(torch, step, state, data, idx):
     """One step under CUDA's sync debug mode: (state, the number of
     operations that made the host wait for the stream)."""
@@ -1287,7 +1335,7 @@ def count_syncs(torch, step, state, data, idx):
             state, _ = step(state, data, idx)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return state, sum("synchroniz" in str(w.message) for w in caught)
+    return state, sum(SYNC_WARNING in str(w.message) for w in caught)
 
 
 def table_leg(torch, label, step, state, data, idx, warm, expect, smi, failures):
@@ -2754,6 +2802,448 @@ def rescore_checks(torch, dev, smi, q, corpus, mk, tile_idx, ptxas_lines, entry,
     return ck
 
 
+def loop_recorder(flag=None, flag_at=None, window=None):
+    """Phase 9's logger: a JsonlLogger (no echo) that keeps every event with
+    the host's clock in ``.events``, sets ``flag`` at the first step log at
+    or past ``flag_at``, and opens ``window`` at the step log of
+    ``window.start``."""
+    from two_tower_models_tpu_torch.utils.logging import JsonlLogger
+
+    class Recorder(JsonlLogger):
+        def log(self, event, **fields):
+            self.events.append((event, fields, time.perf_counter()))
+            super().log(event, **fields)
+            if event == "step":
+                if flag is not None and fields["step"] >= flag_at:
+                    flag.set()
+                if window is not None and fields["step"] == window.start:
+                    window.open()
+
+    rec = Recorder(echo=False)
+    rec.events = []
+    return rec
+
+
+class SyncWindow:
+    """Counts the operations that make the host wait for the stream (CUDA's
+    sync debug mode) from the step log at ``start`` to the return of the
+    step call that reaches step ``end``: the loop's code between two gates
+    and the ``end - start`` steps it runs."""
+
+    def __init__(self, torch, start: int, end: int):
+        self.torch, self.start, self.end = torch, start, end
+        self.steps, self.syncs, self._cm, self._caught = 0, None, None, None
+
+    def open(self) -> None:
+        import warnings
+
+        self._cm = warnings.catch_warnings(record=True)
+        self._caught = self._cm.__enter__()
+        warnings.simplefilter("always")
+        self.torch.cuda.set_sync_debug_mode("warn")
+
+    def close(self) -> None:
+        self.torch.cuda.set_sync_debug_mode("default")
+        self._cm.__exit__(None, None, None)
+        self.syncs = sum(SYNC_WARNING in str(w.message) for w in self._caught)
+        self._cm = None
+
+    def wrap(self, make_train_step):
+        """``make_train_step`` whose steps close the window on reaching
+        ``end``."""
+        def make(*a, **k):
+            step = make_train_step(*a, **k)
+
+            def counted(state, data, idx):
+                out = step(state, data, idx)
+                self.steps += idx.shape[0] if idx.dim() == 2 else 1
+                if self._cm is not None and self.steps == self.end:
+                    self.close()
+                return out
+            return counted
+        return make
+
+
+def state_diff(torch, got, want, prefix: str = ""):
+    """(worst |got - want| over each tensor's largest |want|, its name,
+    bit-equal) over the tensors of two TrainStates whose flat names start
+    with ``prefix`` (``checkpoint.state_tensors``)."""
+    from two_tower_models_tpu_torch.training.checkpoint import state_tensors
+
+    a, b = state_tensors(got), state_tensors(want)
+    if a.keys() != b.keys():
+        return float("inf"), "the names", False
+    worst, worst_name, equal = 0.0, "", True
+    for k, w in b.items():
+        if not k.startswith(prefix):
+            continue
+        g = a[k]
+        equal = equal and g.dtype == w.dtype and bool(torch.equal(g, w))
+        scale = max(float(w.double().abs().max()), 1e-30)
+        err = float((g.double() - w.double()).abs().max()) / scale
+        if err > worst or not worst_name:
+            worst, worst_name = err, k
+    return worst, worst_name, equal
+
+
+def embedding_repeats(torch, dev, calls: int = 5) -> int:
+    """Distinct results of ``calls`` identical F.embedding backwards at the
+    position table's shape on the flagship step (100 x 1, B = 4096 ids on
+    DataConfig's 10 positions)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    table = torch.randn(100, 1, device=dev, generator=gen).requires_grad_()
+    ids = torch.randint(0, 10, (TRAIN_BATCH,), device=dev, generator=gen)
+    up = torch.randn(TRAIN_BATCH, 1, device=dev, generator=gen)
+    seen = set()
+    with torch.enable_grad():
+        for _ in range(calls):
+            (g,) = torch.autograd.grad(torch.nn.functional.embedding(ids, table), table, up)
+            seen.add(g.cpu().numpy().tobytes())
+    return len(seen)
+
+
+def deterministic(torch, on: bool) -> None:
+    """torch.use_deterministic_algorithms(on), warning (not raising) on an
+    operation without a deterministic implementation (make_synthetic_data's
+    bincount, whose integer counts do not depend on the order)."""
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
+def step_ms(events, lo: int, hi: int) -> float:
+    """The loop's host ms a step between its step logs at ``lo`` and ``hi``."""
+    t = {f["step"]: at for e, f, at in events if e == "step"}
+    return (t[hi] - t[lo]) * 1e3 / (hi - lo)
+
+
+def check_loop_launches(counts: dict, steps: int, evals: int, entries, key: str,
+                        failures: list, label: str) -> None:
+    """One launch a step of each training kernel of the flagship step and,
+    each eval, one B1 (on the tensor cores) and the exact MIPS's kernels;
+    none of the other encoder or table kernels."""
+    per_step = {"fused_history_encoder_res": 1, "fused_history_encoder_res_tc": 1,
+                "fused_history_encoder_bwd": 1, "fused_history_encoder_bwd_tc": 1,
+                "fused_history_encoder_bwd_reduce": 1, "fused_in_batch_ce": 1,
+                "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1}
+    per_eval = {"fused_history_encoder": 1, "fused_history_encoder_tc": 1, **MIPS_ROUTE}
+    names = {**ENC_TC, **per_step, **per_eval, "rows_scatter_add": 0, "rows_write": 0,
+             "fused_history_encoder_bwd_recompute": 0, "fused_attn_stack": 0}
+    for k in names:
+        want = steps * per_step.get(k, 0) + evals * per_eval.get(k, 0)
+        if counts.get(k, 0) != want:
+            failures.append(f"{label} launches[{k}]={counts.get(k, 0)}, want {want}")
+        if k in entries:
+            entries[k][key] = counts.get(k, 0)
+
+
+def counted_train(torch, loop, exp, rec, dev, **kw):
+    """training.loop.train with the launch counts zeroed just before and
+    read just after: (summary, counts, evals)."""
+    from two_tower_models_tpu_torch.ops import _lib
+
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    summary = loop.train(exp, rec, device=dev, **kw)
+    torch.cuda.synchronize()
+    return summary, dict(_lib.launches), sum(e == "eval" for e, _, _ in rec.events)
+
+
+def phase_loop(torch, args, smi, dev, entries, failures) -> None:
+    """Phase 9: the training loop (training.loop.train) at the flagship's
+    width: checkpoints, exact-position resume, preemption, the recall@k
+    eval, the trainer CLI, and the JAX package's quality anchor.  9a and
+    9c run under deterministic algorithms: with the default ones the
+    backward of F.embedding over the position table (4096 ids on 10 rows)
+    differs from call to call in its last bits, and two runs from one state
+    drift apart, so 9c against 9a would not check resume alone."""
+    import dataclasses
+    import math
+    import os
+    import tempfile
+    import threading
+
+    from two_tower_models_tpu_torch.config import (
+        DataConfig,
+        Debias,
+        ExperimentConfig,
+        TrainConfig,
+        resolve_kernel_flags,
+    )
+    from two_tower_models_tpu_torch.ops import _lib
+    from two_tower_models_tpu_torch.retrieval.mips import refresh_corpus
+    from two_tower_models_tpu_torch.training import loop
+    from two_tower_models_tpu_torch.training.checkpoint import (
+        ASYNC_MIN_D2H_MBPS,
+        CheckpointManager,
+        device_to_host_mbps,
+    )
+    from two_tower_models_tpu_torch.training.data import gather_batch, make_synthetic_data
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import make_eval_recall_fn, make_train_step
+
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    cfg = dataclasses.replace(flagship_cfg(TRAIN_ROWS), debias_aux_weight=1.0 / 4096)
+    data_cfg = DataConfig(num_samples=LOOP_SAMPLES, num_users=LOOP_USERS, num_items=LOOP_ITEMS,
+                          feature_dim=16, history_len=HIST, num_tasks=cfg.num_tasks,
+                          seed=args.seed)
+    b = TRAIN_BATCH
+    n_batches = LOOP_SAMPLES // b
+    rand = TOPK / LOOP_ITEMS
+    tmp = tempfile.TemporaryDirectory(prefix="loop_", dir=_lib.BUILD_DIR)
+    root = tmp.name
+
+    def experiment(ckpt, epochs=2, model=cfg, **kw):
+        kw = {"learning_rate": 1e-3, "eval_every": LOOP_EVAL_EVERY, **kw}
+        return ExperimentConfig(model=model, data=data_cfg, train=TrainConfig(
+            batch_size=b, num_epochs=epochs, log_every=LOOP_LOG_EVERY, seed=args.seed,
+            checkpoint_dir=ckpt, **kw))
+
+    try:
+        deterministic(torch, False)
+        repeats = [embedding_repeats(torch, dev)]
+        deterministic(torch, True)
+        repeats.append(embedding_repeats(torch, dev))
+        print(f"loop: F.embedding backward at the position table's shape: {repeats[0]} distinct "
+              f"results in 5 calls with default algorithms, {repeats[1]} with deterministic "
+              f"ones", flush=True)
+
+        # -- 9a: two epochs with a checkpoint directory (deterministic
+        # algorithms); the launch counts and a window of host syncs between
+        # two gates --
+        window = SyncWindow(torch, LOOP_LOG_EVERY, 2 * LOOP_LOG_EVERY)
+        rec_a = loop_recorder(window=window)
+        make_step = loop.make_train_step
+        loop.make_train_step = window.wrap(make_step)
+        try:
+            s_a, counts, evals = counted_train(torch, loop, experiment(os.path.join(root, "a")),
+                                               rec_a, dev)
+        finally:
+            loop.make_train_step = make_step
+        steps = int(s_a["state"].step)
+        print(f"launches on the loop's path ({steps} steps, {evals} evals): {json.dumps(counts)}",
+              flush=True)
+        check_loop_launches(counts, steps, evals, entries, "loop_launches", failures, "loop 9a")
+        if steps != 2 * n_batches or evals != 2 * n_batches // LOOP_EVAL_EVERY + 1:
+            failures.append(f"loop 9a ran {steps} steps and {evals} evals")
+        losses = s_a["epoch_losses"]
+        logged = [f["loss"] for e, f, _ in rec_a.events if e == "step"]
+        if not all(math.isfinite(v) for v in losses + logged):
+            failures.append("loop 9a losses not finite")
+        if not losses[1] < losses[0]:
+            failures.append(f"loop 9a epoch 1 loss {losses[1]} not below epoch 0's {losses[0]}")
+        recall = s_a["recall_at_k"]
+        lo, hi = n_batches + LOOP_LOG_EVERY, 2 * n_batches - LOOP_LOG_EVERY
+        loop_ms = step_ms(rec_a.events, lo, hi)
+        print(f"loop 9a on {name} ({smi}), deterministic algorithms: {steps} steps of B={b} in "
+              f"{s_a['train_seconds']:.2f} s ({s_a['examples_per_sec']:.0f} examples/s with its "
+              f"evals); steps {lo}-{hi} {loop_ms:.3f} ms/step, {b / loop_ms * 1e3:.0f} "
+              f"examples/s; epoch losses {losses[0]:.5f} {losses[1]:.5f}; recall@{TOPK} "
+              f"{recall:.4f} (random {rand:.6f}; the in-batch CE is still at ln B here, 9e "
+              f"holds the learning)", flush=True)
+
+        # -- the loop's added host syncs: the window against the bare step's --
+        bare_step = make_train_step(resolve_kernel_flags(cfg, dev), experiment(None).train)
+        data = make_synthetic_data(data_cfg, label_cols=cfg.num_tasks, device=dev)
+        state = create_train_state(args.seed, cfg, experiment(None).train, device=dev)
+        perm = loop.epoch_permutation(args.seed, 0, LOOP_SAMPLES, dev)
+        idx_of = lambda i: perm[(i % n_batches) * b:(i % n_batches + 1) * b]
+        state, bare_syncs = count_syncs(torch, bare_step, state, data, idx_of(0))
+        added = None if window.syncs is None else window.syncs - (window.end - window.start) * bare_syncs
+        print(f"loop host syncs between the gates at steps {window.start} and {window.end}: "
+              f"{window.syncs} in {window.end - window.start} steps; the bare step {bare_syncs} a "
+              f"step; the loop adds {added}", flush=True)
+        if added != 0:
+            failures.append(f"the loop adds {added} host syncs between gates")
+
+        # -- the bare make_train_step on the same config and batches, with
+        # deterministic and with default algorithms --
+        bare_ms = {}
+        with torch.enable_grad():
+            for i in range(3):
+                state, _ = bare_step(state, data, idx_of(i))
+            for det in (True, False, False, True):
+                deterministic(torch, det)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(LOOP_BARE_STEPS):
+                    state, m = bare_step(state, data, idx_of(3 + i))
+                float(m["loss"])
+                bare_ms.setdefault(det, []).append(
+                    (time.perf_counter() - t0) * 1e3 / LOOP_BARE_STEPS)
+        deterministic(torch, True)
+        del state
+        bare = {k: sum(v) / len(v) for k, v in bare_ms.items()}
+        print(f"loop vs bare step on {name} ({smi}), deterministic algorithms: the loop "
+              f"{loop_ms:.3f} ms/step, the bare make_train_step {bare[True]:.3f} (two runs of "
+              f"{LOOP_BARE_STEPS} steps: {bare_ms[True][0]:.3f} {bare_ms[True][1]:.3f}); the "
+              f"loop's overhead {loop_ms - bare[True]:.3f} ms/step; the bare step with default "
+              f"algorithms {bare_ms[False][0]:.3f} {bare_ms[False][1]:.3f}", flush=True)
+
+        # -- the eval's parts, and recall@k on a CPU copy of the final params --
+        params = s_a["state"].params
+        eval_idx = loop.eval_indices(data_cfg, LOOP_SAMPLES, dev)
+        batch = gather_batch(data, eval_idx)
+        recall_fn = make_eval_recall_fn(cfg, TOPK)
+        with torch.no_grad():
+            refresh = lambda: refresh_corpus(params, cfg, data.catalog_ids, data.catalog_features)
+            corpus = refresh()
+            refresh_ms = time_ms(torch, refresh, 5)
+            recall_ms = time_ms(torch, lambda: recall_fn(params, corpus, batch), 5)
+            cpu_params = copy.deepcopy(params).cpu()
+            cpu_corpus = refresh_corpus(cpu_params, cfg, data.catalog_ids.cpu(),
+                                        data.catalog_features.cpu())
+            cpu_batch = type(batch)(*(None if t is None else t.cpu() for t in batch))
+            recall_cpu = float(recall_fn(cpu_params, cpu_corpus, cpu_batch))
+            positives = int((batch.labels > 0).any(dim=1).sum())
+        del data, batch, corpus, cpu_params, cpu_corpus
+        ok_cpu = abs(recall - recall_cpu) <= 2 / 1024
+        print(f"loop eval on {name} ({smi}): refresh {refresh_ms:.3f} ms, recall {recall_ms:.3f} "
+              f"ms (B={eval_idx.numel()}, {positives} positive, C={LOOP_ITEMS}); recall@{TOPK} "
+              f"card {recall:.6f} vs CPU copy {recall_cpu:.6f} (tol 2/1024): ok={ok_cpu}",
+              flush=True)
+        if not ok_cpu:
+            failures.append(f"loop recall card {recall} vs CPU {recall_cpu}")
+
+        # -- checkpoint costs, and 9a's saved state restored --
+        state_a = s_a["state"]
+        cost = {}
+        for mode in (True, False):
+            mgr = CheckpointManager(os.path.join(root, f"cost_{mode}"), async_save=mode,
+                                    device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(state_a)
+            blocking = (time.perf_counter() - t0) * 1e3
+            mgr.wait_until_finished()
+            total = (time.perf_counter() - t0) * 1e3
+            cost[mode] = (blocking, total, os.path.getsize(
+                os.path.join(root, f"cost_{mode}", f"step_{steps}.pt")))
+            mgr.close()
+        mgr = CheckpointManager(os.path.join(root, "a"), device=dev)
+        template = create_train_state(args.seed + 1, cfg, experiment(None).train, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = mgr.restore_latest(template)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        mgr.close()
+        err_b, _, equal_b = state_diff(torch, restored, state_a)
+        del template, restored
+        mbps = device_to_host_mbps(dev)
+        print(f"loop checkpoint on {name} ({smi}): {cost[True][2]} bytes; async blocking "
+              f"{cost[True][0]:.2f} ms, total {cost[True][1]:.2f} ms; sync {cost[False][1]:.2f} "
+              f"ms (the probe reads {mbps:.0f} MB/s: async_save=None picks "
+              f"{'async' if mbps >= ASYNC_MIN_D2H_MBPS else 'sync'}); restore "
+              f"{restore_ms:.2f} ms (the file warm in the page cache); 9a's saved state "
+              f"restored bit-equal={equal_b}", flush=True)
+        if not equal_b:
+            failures.append(f"loop restored state differs from 9a's by {err_b:.3g} of scale")
+
+        # -- 9c: preempted at a step log at or past LOOP_PREEMPT_AT, then
+        # the identical call finishes the schedule (deterministic
+        # algorithms, as 9a); the first call traces steps 3-7 --
+        prof = os.path.join(root, "prof")
+        exp_c = experiment(os.path.join(root, "c"), profile_dir=prof)
+        flag = threading.Event()
+        s_c1 = loop.train(exp_c, loop_recorder(flag, LOOP_PREEMPT_AT), preempt_flag=flag,
+                          device=dev)
+        at, preempted = int(s_c1["state"].step), s_c1["preempted"]
+        del s_c1
+        rec_c = loop_recorder()
+        s_c = loop.train(exp_c, rec_c, preempt_flag=threading.Event(), device=dev)
+        got = [f["step"] for e, f, _ in rec_c.events if e == "restored"]
+        err_c, leaf_c, equal_c = state_diff(torch, s_c["state"], state_a, "params.")
+        print(f"loop 9c: preempted={preempted} at step {at}, resumed from {got}, epochs "
+              f"{s_c['epoch_numbers']}; final params vs 9a's: worst {leaf_c} at {err_c:.3g} of "
+              f"its scale (tol 1e-6), bit-equal={equal_c}", flush=True)
+        if (not preempted or s_c["preempted"] or got != [at]
+                or not LOOP_PREEMPT_AT <= at < 2 * n_batches):
+            failures.append(f"loop 9c: preempted={preempted} at {at}, restored {got}")
+        if not err_c <= 1e-6:
+            failures.append(f"loop 9c final params differ from 9a's: {leaf_c} by {err_c:.3g}")
+        del s_c, s_a, state_a, params
+        traces = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+        text = "".join(open(os.path.join(prof, f)).read() for f in traces)
+        names = {k: k in text for k in ("encoder_tc_kernel", "ce_fwd_tc_kernel")}
+        print(f"loop trace: {len(traces)} file(s), {len(text)} bytes; holds {names}", flush=True)
+        if len(traces) != 1 or not all(names.values()):
+            failures.append(f"loop trace: {traces}, {names}")
+
+        # -- 9b: 9a's call with three epochs restores step 2n and runs epoch
+        # 2, with default algorithms: the loop's speed as a user runs it --
+        deterministic(torch, False)
+        rec_b = loop_recorder()
+        s_b = loop.train(experiment(os.path.join(root, "a"), epochs=3), rec_b, device=dev)
+        got = [f["step"] for e, f, _ in rec_b.events if e == "restored"]
+        lo, hi = 2 * n_batches + LOOP_LOG_EVERY, 3 * n_batches - LOOP_LOG_EVERY
+        ms_b = step_ms(rec_b.events, lo, hi)
+        print(f"loop 9b on {name} ({smi}), default algorithms: restored {got}, epochs "
+              f"{s_b['epoch_numbers']}, loss {s_b['final_loss']:.5f}; steps {lo}-{hi} "
+              f"{ms_b:.3f} ms/step, {b / ms_b * 1e3:.0f} examples/s (the bare step "
+              f"{bare[False]:.3f}: overhead {ms_b - bare[False]:.3f}); recall@{TOPK} "
+              f"{s_b['recall_at_k']:.4f}", flush=True)
+        if (got != [2 * n_batches] or s_b["epoch_numbers"] != [2]
+                or not math.isfinite(s_b["final_loss"])):
+            failures.append(f"loop 9b: restored {got}, epochs {s_b['epoch_numbers']}")
+        del s_b
+
+        # -- 9e: the JAX package's round-5 quality anchor at these widths
+        # (BASELINE.md:199-209: history and base towers without debiasing,
+        # B = 4096 bf16, lr 3e-3, K = 8 steps a dispatch), LOOP_ANCHOR_EPOCHS
+        # epochs through the [K, B] dispatch path, default algorithms --
+        anchor = dataclasses.replace(cfg, debias=Debias.NONE)
+        rec_e = loop_recorder()
+        s_e, counts, evals = counted_train(
+            torch, loop, experiment(None, epochs=LOOP_ANCHOR_EPOCHS, model=anchor,
+                                    learning_rate=3e-3, steps_per_dispatch=8,
+                                    eval_every=n_batches), rec_e, dev)
+        steps = int(s_e["state"].step)
+        check_loop_launches(counts, steps, evals, entries, "anchor_launches", failures, "loop 9e")
+        lo, hi = n_batches, (LOOP_ANCHOR_EPOCHS - 1) * n_batches
+        ms_e = step_ms(rec_e.events, lo, hi)
+        losses = s_e["epoch_losses"]
+        curve = [round(f["recall_at_k"], 4) for e, f, _ in rec_e.events if e == "eval"]
+        print(f"loop 9e, the quality anchor on {name} ({smi}): {steps} steps ({evals} evals: "
+              f"launches as 9a's); steps {lo}-{hi} {ms_e:.3f} ms/step, {b / ms_e * 1e3:.0f} "
+              f"examples/s; epoch losses {' '.join(f'{v:.4f}' for v in losses)}; recall@{TOPK} "
+              f"by epoch {curve}: {s_e['recall_at_k']:.4f}, {s_e['recall_at_k'] / rand:.0f}x "
+              f"random (gate: 10x); the JAX package's anchor (BASELINE.md, a TPU v5e run, "
+              f"K = 8): loss 1.565 -> 1.271, recall@{TOPK} 0.155", flush=True)
+        if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+            failures.append(f"loop 9e losses {losses}")
+        if not s_e["recall_at_k"] >= 10 * rand:
+            failures.append(f"loop 9e recall@{TOPK} {s_e['recall_at_k']} below 10x random")
+        del s_e
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+    # -- 9d: the trainer CLI, twice, as a subprocess --
+    cli = [sys.executable, "-m", "two_tower_models_tpu_torch.training.loop", "--preset",
+           "two_tower_with_user_history_encoder", "--num_epochs", "2", "--num_samples",
+           str(LOOP_CLI_SAMPLES), "--checkpoint_dir", os.path.join(root, "cli"),
+           "--device", str(dev)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = [subprocess.run(cli, capture_output=True, text=True, timeout=600, cwd=here)
+            for _ in range(2)]
+    for i, r in enumerate(runs):
+        print(f"loop 9d CLI run {i + 1}: rc {r.returncode}; stdout "
+              f"{r.stdout.strip().splitlines()}", flush=True)
+    ok_d = (all(r.returncode == 0 for r in runs)
+            and "Epoch [1/2] - Loss: " in runs[0].stdout
+            and "Epoch [2/2] - Loss: " in runs[0].stdout
+            and all(f"recall@{TOPK}: " in r.stdout for r in runs)
+            and '"event": "restored"' in runs[1].stderr)
+    if not ok_d:
+        for r in runs:
+            print(r.stderr[-2000:], flush=True)
+        failures.append("loop 9d: the CLI runs")
+    tmp.cleanup()
+    print(f"loop: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3073,6 +3563,10 @@ def main() -> int:
 
     # ---- phase 8: fused Adam ---------------------------------------------
     phase_fused_adam(torch, args, smi, dev, entry, entries, failures, ms_packed)
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the training loop --------------------------------------
+    phase_loop(torch, args, smi, dev, entries, failures)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     if failures:
         _fail(", ".join(failures))

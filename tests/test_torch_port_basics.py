@@ -21,6 +21,7 @@ PORT = Path(__file__).resolve().parent.parent / "two_tower_models_tpu_torch"
 CHIP_SMOKE = PORT.parent / "chip_smoke.py"
 # runs on the GPU machine, which has no JAX
 CUDA_TESTS = PORT.parent / "tests" / "test_torch_cuda_kernels.py"
+EXAMPLE = PORT.parent / "examples" / "train_and_serve_torch.py"
 
 
 def _imported_modules(path: Path):
@@ -33,18 +34,19 @@ def _imported_modules(path: Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [CHIP_SMOKE, CUDA_TESTS], ids=lambda p: p.name
+    "path", sorted(PORT.rglob("*.py")) + [CHIP_SMOKE, CUDA_TESTS, EXAMPLE], ids=lambda p: p.name
 )
 def test_port_imports_no_jax(path):
-    """Neither the port, nor chip_smoke.py, nor the GPU tests import JAX or
-    the JAX package."""
+    """Neither the port, nor chip_smoke.py, nor the GPU tests, nor the port's
+    example import JAX or the JAX package."""
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "two_tower_models_tpu", "optax"), (path, mod)
+        assert top not in ("jax", "jaxlib", "two_tower_models_tpu", "optax", "orbax"), (path, mod)
 
 
 @pytest.mark.parametrize(
-    "name", ["HistoryEncoderConfig", "LightRankerConfig", "ModelConfig"]
+    "name", ["HistoryEncoderConfig", "LightRankerConfig", "ModelConfig", "MeshConfig",
+             "ExperimentConfig"]
 )
 def test_config_mirrors_jax_fields(name):
     jf = {f.name: f.default for f in dataclasses.fields(getattr(jcfg, name))}

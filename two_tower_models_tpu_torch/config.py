@@ -1,7 +1,8 @@
 """Configuration of the PyTorch port: the model-space dataclasses,
-``DataConfig`` and ``TrainConfig`` of ``two_tower_models_tpu.config``,
-copied field for field so the port imports nothing of the JAX package, plus
-the device rules of the port's entry points.
+``MeshConfig``, ``DataConfig``, ``TrainConfig`` and ``ExperimentConfig`` of
+``two_tower_models_tpu.config``, copied field for field so the port imports
+nothing of the JAX package, plus the device rules of the port's entry
+points.
 
 ``pdtype``/``cdtype`` return torch dtypes.  AUTO (``None``) kernel flags
 resolve against the device a call runs on (``resolve_kernel_flags``), at
@@ -11,7 +12,7 @@ apply time, never when a config or a model is built.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import torch
@@ -149,6 +150,32 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout, field for field the JAX package's ``MeshConfig``
+    (its comments say what each field does there).  The port runs on one
+    device: ``training.loop.train`` raises when ``data * model > 1``
+    (``check_single_device``)."""
+
+    data: int = 1
+    model: int = 1
+    explicit_collectives: bool = True
+    global_negatives: bool = True
+    tower_tp: bool = False
+    ring_negatives: bool = False
+    sparse_table_grads: str = "auto"
+
+
+def check_single_device(mesh: MeshConfig) -> None:
+    """Raise unless ``mesh`` is one device: the sharded paths are not
+    ported."""
+    if mesh.data * mesh.model > 1:
+        raise NotImplementedError(
+            f"a {mesh.data} x {mesh.model} mesh is not ported yet "
+            "(ROADMAP.md, queue A, A13 'Multi-device')"
+        )
+
+
+@dataclass(frozen=True)
 class DataConfig:
     """Synthetic dataset, field for field the JAX package's ``DataConfig``
     (``training.data.make_synthetic_data``; its comments say what each
@@ -172,9 +199,10 @@ class TrainConfig:
     """Training-loop configuration, field for field the JAX package's
     ``TrainConfig`` (its comments say what each knob does there).  The port
     trains through ``training.step.make_train_step``, packed tables
-    (``pack_tables``, ``pack_tables_min_rows``) and ``lazy_table_adam``
-    included; of the optional paths it raises on ``fused_adam`` and
-    ``streaming_logq`` (``training.state``)."""
+    (``pack_tables``, ``pack_tables_min_rows``), ``lazy_table_adam`` and
+    ``fused_adam`` included, and loops through ``training.loop.train``; of
+    the optional paths it raises on ``streaming_logq``
+    (``training.state``)."""
 
     batch_size: int = 32
     num_epochs: int = 2
@@ -196,6 +224,14 @@ class TrainConfig:
     streaming_logq: bool = False
     logq_decay: float = 0.999
     fused_adam: bool = False
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def resolve_device(device="cuda") -> torch.device:

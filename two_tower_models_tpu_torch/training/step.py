@@ -1,7 +1,8 @@
-"""The train step: gather the batch, loss, gradients, Adam.
+"""The train step: gather the batch, loss, gradients, Adam; and the
+recall@k eval.
 
-Port of ``make_train_step`` and ``_make_lazy_table_step`` of
-``two_tower_models_tpu/training/step.py``.  PyTorch runs eagerly, so the
+Port of ``make_train_step``, ``_make_lazy_table_step`` and
+``make_eval_recall_fn`` of ``two_tower_models_tpu/training/step.py``.  PyTorch runs eagerly, so the
 step is a plain function.  Its metrics stay device tensors: nothing in a
 step waits for the device, and the caller reads them when it logs.
 """
@@ -13,7 +14,8 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from two_tower_models_tpu_torch.config import ModelConfig, TrainConfig, resolve_kernel_flags
-from two_tower_models_tpu_torch.models.two_tower import train_loss
+from two_tower_models_tpu_torch.models.two_tower import Batch, compute_user_embedding, train_loss
+from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact
 from two_tower_models_tpu_torch.training.data import SyntheticRecData, gather_batch
 from two_tower_models_tpu_torch.training.sparse_tables import (
     SPARSE_TABLE_KEYS,
@@ -120,3 +122,26 @@ def _make_lazy_table_step(model_cfg: ModelConfig, tx, train_cfg: TrainConfig) ->
         return TrainState(step=t, params=params, opt_state=LazyAdamState(dense, moments)), metrics
 
     return step
+
+
+def make_eval_recall_fn(model_cfg: ModelConfig, top_k: int = 100):
+    """``recall_at_k(params, corpus, batch) -> 0-d tensor``: the share of the
+    batch's positive examples (any label fired) whose engaged item is among
+    the user's top-``top_k`` corpus rows by exact MIPS (the tile-max
+    kernels on CUDA).  Forward only; the result stays on the device."""
+
+    @torch.no_grad()
+    def recall_at_k(params, corpus: torch.Tensor, batch: Batch) -> torch.Tensor:
+        cfg = resolve_kernel_flags(model_cfg, corpus.device)
+        user_emb, _ = compute_user_embedding(
+            params, cfg, batch.user_id, batch.user_features,
+            batch.user_history, batch.history_len,
+        )
+        k = min(top_k, corpus.shape[0])
+        indices, _, _ = mips_topk_exact(corpus, user_emb, k)  # [B, k]
+        hit = (indices == batch.item_id[:, None]).any(dim=1)
+        positive = (batch.labels[:, : model_cfg.num_tasks] > 0).any(dim=1)
+        hits = (hit & positive).sum()
+        return hits / positive.sum().clamp_min(1)
+
+    return recall_at_k
