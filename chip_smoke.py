@@ -120,9 +120,11 @@ Phases, in the order they run; any failure exits non-zero:
      parameter and table moment.  Three legs, each 2 or 3 warm-up and 10
      timed steps plus three under the profiler: train-4M-packed (dense
      Adam, B18 three times a step through the packed lookups),
-     train-4M-lazy (lazy_table_adam: B19 twice a step, no B18) and
+     train-4M-lazy (lazy_table_adam: B19 twice a step, no B18 on a table) and
      train-1M-plain (2^20-row plain tables, B18 three times a step inside
-     the scatter window).  Each leg then runs one step twice from one
+     the scatter window); in every training leg of a config that debiases
+     by position (phases 4-9) B18 also takes the position table's gradient,
+     once a step (POS_B18).  Each leg then runs one step twice from one
      state, through the kernels and on the plain route, and the tables and
      moments must agree.  Last, train_loss and its grads at 2^18 packed
      rows and B=256 on the card against a CPU copy;
@@ -201,12 +203,13 @@ Phases, in the order they run; any failure exits non-zero:
   9. the training loop (training.loop.train) at the flagship's width
      (phase 4's model with debias_aux_weight 1/4096) on make_synthetic_data
      of 2^21 samples, 65,536 users and 65,536 items, B=4096, lr 1e-3, a
-     step log every 64 steps and an eval every 512.  9a and 9c run under
-     deterministic algorithms (with the default ones F.embedding's backward
-     over the position table differs from call to call in its last bits,
-     which this phase also counts).  9a: two epochs (1,024 steps) with a
+     step log every 64 steps and an eval every 512, all with the default
+     algorithms: the position table's gradient sums in a fixed order (B18),
+     where F.embedding's backward differs from call to call in its last
+     bits (both counted here).  9a: two epochs (1,024 steps) with a
      checkpoint directory: one launch a step of each training kernel (B5,
-     B6 and its reduce, B10, B11 + B12 and its reduce) and, each eval, one
+     B6 and its reduce, B10, B11 + B12 and its reduce, B18 for the position
+     table) and, each eval, one
      B1, one B2, two B3 (radix), one B4 and its inversion; the losses
      finite and epoch 1's below epoch 0's; recall@100 beside random and
      within 2/1024 of a CPU copy of the final params; no host sync added by
@@ -219,9 +222,8 @@ Phases, in the order they run; any failure exits non-zero:
      two-epoch run, preempted at the first step log at or past step 600
      (with a torch.profiler trace of steps 3-7 that must hold
      encoder_tc_kernel and ce_fwd_tc_kernel), then the identical call
-     finishes the schedule: its final params within 1e-6 of each leaf's
-     scale of 9a's (bit-equality printed).  9b: 9a's call with three epochs
-     and the default algorithms restores step 1,024, runs only epoch 2 and
+     finishes the schedule: its final params bit-equal to 9a's.  9b: 9a's
+     call with three epochs restores step 1,024, runs only epoch 2 and
      gives the loop's ms/step as a user runs it.  9e: the JAX package's
      round-5 quality anchor at these widths (BASELINE.md:199-209: no
      debiasing, lr 3e-3, 8 steps a dispatch) for 8 epochs: one launch a
@@ -231,6 +233,42 @@ Phases, in the order they run; any failure exits non-zero:
      two_tower_with_user_history_encoder preset, 640 samples, 2 epochs)
      twice as a subprocess on one checkpoint directory: epoch and recall
      lines, and the second run restores.
+  10. mixed negatives and the logQ correction at scripts/exp_mns_scale.py's
+     width (the two_tower_with_user_history_encoder preset: 65,536-row
+     tables, D = 64, H = 32, 3 layers of 4 heads, bf16, fused loss; 2^21
+     samples of 65,536 users and items with Zipf(1.0) engagement; B = 4096,
+     lr 1e-3, grad_clip_norm 1.0), arms mns+logq (64 mixed negatives, the
+     oracle catalog_logq), stream+mns+logq (the streaming estimator, decay
+     0.999) and plain.  10a: B10 and B11 + B12 on one real step's augmented
+     operands ([u, 1] [4096, 65] and [pool, -logq] [4160, 65], no
+     diagonal) against their plain versions at phase 4's tolerances,
+     bit-equal on repeat, B10 against f64 sums; device times beside the
+     (4096, 4096, 64) instance in the same call, the bounds, and the
+     library calls (torch.logsumexp of U I^T, and autograd's backward of
+     it).  10b: the mns+logq step, 3 warm-up and 20 timed steps, beside
+     the plain arm's in the same call (order mns, plain, plain, mns):
+     ms/step, device-busy ms (a trace), one launch a step of B5, B6 and its
+     reduce, B10, B11 + B12 and its reduce and none of the other kernels,
+     0 host syncs a step, and train_loss with every grad leaf within 1e-2
+     of scale of a CPU copy at B = 256 on the card's own draw (the two
+     leaves that are zero in exact arithmetic held to 0: the card at most
+     1.5 times the CPU's distance from it); the lazy
+     path (lazy_table_adam, no clip) for 2 + 5 steps with the same launch
+     and sync gates (its 2^16-row tables are plain: written back by an
+     indexed copy, no B19), its first step against the dense step's from
+     one state and one draw.  10c: stream+mns+logq, 20
+     steps on 20 batches: the estimator equal to a CPU recompute from the
+     batches' item ids (1e-6 relative), 0 host syncs.  10d:
+     stream+mns+logq through training.loop.train (8 steps a dispatch), two
+     epochs with a checkpoint each epoch, then the epoch-1 checkpoint
+     resumed: params, moments, rng and logq_state bit-equal to the
+     uninterrupted run's, with the default algorithms, and the data each
+     run makes, made twice, bit-equal; the loop's
+     examples/s beside 10b's bare step.  10e: mns+logq and plain, 8 epochs
+     each from seed 42: recall@100 over 16,384 held-out engaged examples,
+     head (id < 0.2 C) and tail, the corrected arm at least 0.25 and 5x the
+     plain arm's, beside the JAX package's 0.453 and 0.0195
+     (BASELINE.md:624, a TPU v5e run).
 
 Phase 2 also holds B2 and the exact pipeline on an integer-grid corpus whose
 scores hold +-inf and NaN of both signs (nonfinite_check).
@@ -284,6 +322,20 @@ LOOP_PREEMPT_AT = 600  # 9c: the preempt flag is set at the first step log at or
 LOOP_BARE_STEPS = 128  # the bare make_train_step's timed steps
 LOOP_CLI_SAMPLES = 640  # 9d: the CLI's --num_samples
 LOOP_ANCHOR_EPOCHS = 8  # 9e: BASELINE.md:199-209's quality anchor ran 8 epochs
+# phase 10, mixed negatives and logQ: scripts/exp_mns_scale.py:73-121 at its full scale
+MNS_SAMPLES = 1 << 21
+MNS_ROWS = 65536  # users, items, and the rows of both id tables
+MNS_NEGATIVES = 64
+MNS_STEPS = 20  # 10b's timed steps a run, 10c's steps
+MNS_LAZY_STEPS = 5  # 10b's timed lazy steps
+MNS_EPOCHS = 8  # 10e: exp_mns_scale.py's --epochs
+MNS_EVAL = 16384  # 10e: exp_mns_scale.py's --eval_size
+# 10e's yardstick: the JAX package's recall@100 at lr 1e-3, seed 42 (BASELINE.md:624, TPU v5e)
+MNS_JAX_RECALL = {"mns+logq": 0.453, "plain": 0.0195}
+# B18 launches a training step of a config that debiases by position: the
+# position-bias table's gradient, summed in a fixed order (nn.layers
+# embedding_lookup's fixed_order), where F.embedding's differs call to call
+POS_B18 = 1
 # a serving batch's selects (k = 100): both on the radix route, none on the tournament
 SELECT_ROUTE = {"select_topk_radix": 2, "select_topk": 0}
 # a serving batch's exact MIPS: B2, both selects, B4's inversion and its scoring
@@ -608,15 +660,22 @@ def finite(torch, metrics) -> bool:
 
 
 def grads_vs_cpu(torch, model, cfg, data, idx, failures, label: str,
-                 rows: int = CHECK_BATCH) -> None:
+                 rows: int = CHECK_BATCH, sub=None, zero_exact: bool = False) -> None:
     """train_loss and every grad leaf on the card against a CPU copy of the
-    model, on the first ``rows`` rows of idx, at BF16_TOL of each leaf's
-    scale (the zero-gradient leaves against ZERO_GRAD_FLOOR of the top)."""
+    model, on the first ``rows`` rows of idx (or on the batch ``sub``, on the
+    card, copied to the CPU as it is: an extended batch's drawn negatives
+    included), at BF16_TOL of each leaf's scale (the zero-gradient leaves
+    against ZERO_GRAD_FLOOR of the top).  With ``zero_exact`` the
+    zero-gradient leaves are held to their exact value, 0, instead: the
+    card's largest magnitude at most 1.5 times the CPU's, plus the same
+    allowance."""
     from two_tower_models_tpu_torch.models import two_tower as tt
     from two_tower_models_tpu_torch.training.data import gather_batch
 
     cpu_model = copy.deepcopy(model).cpu()
-    sub = gather_batch(data, idx[:rows])
+    if sub is None:
+        sub = gather_batch(data, idx[:rows])
+    rows = sub.item_id.shape[0]
     sub_cpu = type(sub)(*(None if t is None else t.cpu() for t in sub))
     results = []
     with torch.enable_grad():
@@ -629,10 +688,18 @@ def grads_vs_cpu(torch, model, cfg, data, idx, failures, label: str,
     model.zero_grad(set_to_none=True)
     (m_gpu, g_gpu), (m_cpu, g_cpu) = results
     top = max(float(g.abs().max()) for g in g_cpu.values())
-    worst, worst_leaf = 0.0, ""
+    worst, worst_leaf, exact = 0.0, "", []
     for name, want in g_cpu.items():
         scale = tt.ZERO_GRAD_FLOOR * top if name in tt.ZERO_GRAD_LEAVES else float(want.abs().max())
         rel = float((g_gpu[name] - want).abs().max()) / max(scale, 1e-30)
+        if name in tt.ZERO_GRAD_LEAVES and zero_exact:
+            card, cpu = float(g_gpu[name].abs().max()), float(want.abs().max())
+            exact.append(f"{name} card {card / top:.3g}, CPU {cpu / top:.3g} of the top leaf "
+                         f"(apart {rel:.3g} of ZERO_GRAD_FLOOR x top)")
+            if not card <= 1.5 * cpu + BF16_TOL * scale:
+                failures.append(f"{label} grad {name}: the card's {card / top:.3g} of the top "
+                                f"leaf from 0, the CPU's {cpu / top:.3g}")
+            continue
         if not (rel <= BF16_TOL):
             failures.append(f"{label} grad {name} card vs CPU: {rel:.3g} of its scale")
         if rel > worst:
@@ -642,7 +709,9 @@ def grads_vs_cpu(torch, model, cfg, data, idx, failures, label: str,
             failures.append(f"{label} metric {k} card vs CPU: {m_gpu[k]} vs {v}")
     print(f"{label}: train_loss B={rows} card vs CPU: loss {m_gpu['loss']:.6f} vs "
           f"{m_cpu['loss']:.6f}; worst grad leaf {worst_leaf} at {worst:.3g} of its "
-          f"scale (tol {BF16_TOL})", flush=True)
+          f"scale (tol {BF16_TOL})" + (f"; zero in exact arithmetic (the card at most 1.5x the "
+                                       f"CPU's distance from 0): {'; '.join(exact)}" if exact
+                                       else ""), flush=True)
 
 
 def stack_input(torch, model, hist, lens):
@@ -1125,8 +1194,9 @@ def phase_train(torch, args, smi, dev, entry, entries, failures, b6_ptxas: str,
     expect = {"fused_history_encoder_res": 1, "fused_history_encoder_bwd": 1,
               "fused_history_encoder_bwd_reduce": 1, "fused_in_batch_ce": 1,
               "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1, "fused_history_encoder": 0,
-              "fused_history_encoder_bwd_recompute": 0, "rows_scatter_add": 0, "rows_write": 0,
-              **ENC_TC, "fused_history_encoder_res_tc": 1, "fused_history_encoder_bwd_tc": 1}
+              "fused_history_encoder_bwd_recompute": 0, "rows_scatter_add": POS_B18,
+              "rows_write": 0, **ENC_TC, "fused_history_encoder_res_tc": 1,
+              "fused_history_encoder_bwd_tc": 1}
     check_launches(counts, expect, TRAIN_STEPS, failures, "train")
     e5["tc_launches"] = counts.get("fused_history_encoder_res_tc", 0)
     e6["tc_launches"] = counts.get("fused_history_encoder_bwd_tc", 0)
@@ -1294,7 +1364,7 @@ def phase_train_varlen(torch, args, smi, dev, cfg, train_cfg, entry, entries, fa
         "fused_in_batch_ce": 1, "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1,
         "fused_history_encoder": 0, "fused_history_encoder_res": 0,
         "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
-        "rows_scatter_add": 0, "rows_write": 0, **ENC_TC, "fused_attn_stack_tc": 1,
+        "rows_scatter_add": POS_B18, "rows_write": 0, **ENC_TC, "fused_attn_stack_tc": 1,
         "fused_attn_stack_bwd_tc": 1,
     }, TRAIN_STEPS, failures, "train varlen")
     entries["fused_attn_stack"]["train_tc_launches"] = counts.get("fused_attn_stack_tc", 0)
@@ -1615,17 +1685,18 @@ def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
             "fused_history_encoder_res_tc": 1, "fused_history_encoder_bwd_tc": 1}
     st_dense, ms_packed, counts = table_leg(
         torch, "train-4M-packed", step_dense, st_dense, data, idx, 2,
-        {**five, "rows_scatter_add": 3, "rows_write": 0, "fused_adam": 0}, smi, failures)
+        {**five, "rows_scatter_add": 3 + POS_B18, "rows_write": 0, "fused_adam": 0}, smi,
+        failures)
     entries["rows_scatter_add"]["launches"] = counts.get("rows_scatter_add", 0)
     b18 = entries["rows_scatter_add"]["ms"]
-    print(f"train-4M-packed: B18's three launches alone {b18:.3f} ms ({b18 / ms_packed * 100:.1f}% "
+    print(f"train-4M-packed: B18's three table launches alone {b18:.3f} ms ({b18 / ms_packed * 100:.1f}% "
           f"of the step)", flush=True)
     route_check(torch, "train-4M-packed", step_dense, st_dense, data, idx, failures)
     del st_dense
     torch.cuda.empty_cache()
     st_lazy, ms_lazy, counts = table_leg(
         torch, "train-4M-lazy", step_lazy, st_lazy, data, idx, 2,
-        {**five, "rows_scatter_add": 0, "rows_write": 2}, smi, failures)
+        {**five, "rows_scatter_add": POS_B18, "rows_write": 2}, smi, failures)
     entries["rows_write"]["launches"] = counts.get("rows_write", 0)
     b19 = entries["rows_write"]["device_ms"]
     print(f"train-4M-lazy: B19's two launches alone {b19:.3f} ms of device time "
@@ -1642,9 +1713,10 @@ def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
     data1 = fixed_batch(torch, gen, dev, cfg1, b)
     step1 = make_train_step(cfg1, dense_cfg)
     st, ms_1m_step, counts = table_leg(torch, "train-1M-plain", step1, st, data1, idx, 3,
-                              {**five, "rows_scatter_add": 3, "rows_write": 0}, smi, failures)
+                              {**five, "rows_scatter_add": 3 + POS_B18, "rows_write": 0}, smi,
+                              failures)
     entries["rows_scatter_add"]["launches_1m_plain"] = counts.get("rows_scatter_add", 0)
-    print(f"train-1M-plain: B18's three launches alone {ms_1m:.3f} ms ({ms_1m / ms_1m_step * 100:.1f}% "
+    print(f"train-1M-plain: B18's three table launches alone {ms_1m:.3f} ms ({ms_1m / ms_1m_step * 100:.1f}% "
           f"of the step)", flush=True)
     route_check(torch, "train-1M-plain", step1, st, data1, idx, failures)
     del st
@@ -1659,8 +1731,9 @@ def phase_tables(torch, args, smi, dev, entry, entries, failures) -> None:
     before = _lib.launches["rows_scatter_add"]
     grads_vs_cpu(torch, st.params, cfg_c, fixed_batch(torch, gen, dev, cfg_c, b), idx,
                  failures, "tables 2^18 packed")
-    if _lib.launches["rows_scatter_add"] - before != 3:
-        failures.append("tables 2^18 packed: B18 not launched three times on the card")
+    if _lib.launches["rows_scatter_add"] - before != 3 + POS_B18:
+        failures.append("tables 2^18 packed: B18 not launched once a table and once for the "
+                        "position table on the card")
     del st
     torch.cuda.empty_cache()
     return ms_packed
@@ -1959,7 +2032,7 @@ def phase_layer(torch, args, smi, dev, entry, entries, failures, b56_ms, b14_ptx
               "fused_in_batch_ce": 1, "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1,
               "fused_history_encoder": 0, "fused_history_encoder_res": 0,
               "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
-              "fused_attn_stack": 0, "fused_attn_stack_bwd": 0, "rows_scatter_add": 0,
+              "fused_attn_stack": 0, "fused_attn_stack_bwd": 0, "rows_scatter_add": POS_B18,
               "rows_write": 0, **ENC_TC}
     var_data = make_synthetic_data(DataConfig(
         num_samples=bt, num_users=TRAIN_ROWS, num_items=TRAIN_ROWS, feature_dim=16,
@@ -2459,8 +2532,8 @@ def phase_blockwise(torch, args, smi, dev, entry, entries, failures, b56_ms, lay
               "fused_history_encoder": 0, "fused_history_encoder_res": 0,
               "fused_history_encoder_bwd": 0, "fused_history_encoder_bwd_recompute": 0,
               "fused_attn_stack": 0, "fused_attn_stack_bwd": 0, "fused_mha_fwd": 0,
-              "fused_mha_bwd": 0, "fused_mha_bwd_tc": 0, "rows_scatter_add": 0, "rows_write": 0,
-              "fused_adam": 0, **ENC_TC}
+              "fused_mha_bwd": 0, "fused_mha_bwd_tc": 0, "rows_scatter_add": POS_B18,
+              "rows_write": 0, "fused_adam": 0, **ENC_TC}
     var_data = make_synthetic_data(DataConfig(
         num_samples=bt, num_users=TRAIN_ROWS, num_items=TRAIN_ROWS, feature_dim=16,
         history_len=HIST, num_tasks=3, max_position=cfg.position_table_size,
@@ -2675,7 +2748,8 @@ def phase_fused_adam(torch, args, smi, dev, entry, entries, failures, ms_packed)
     step = make_train_step(cfg, fused_cfg)
     st_fused, ms, counts = table_leg(
         torch, "train-4M-packed-fusedadam", step, st_fused, data, idx, 2,
-        {**five, "rows_scatter_add": 3, "rows_write": 0, "fused_adam": len(big)}, smi, failures)
+        {**five, "rows_scatter_add": 3 + POS_B18, "rows_write": 0, "fused_adam": len(big)}, smi,
+        failures)
     entries["fused_adam"]["launches"] = counts.get("fused_adam", 0)
     b20 = entries["fused_adam"]["ms"]
     print(f"train-4M-packed-fusedadam on {torch.cuda.get_device_name(0)} ({smi}): {ms:.3f} "
@@ -2886,10 +2960,13 @@ def state_diff(torch, got, want, prefix: str = ""):
     return worst, worst_name, equal
 
 
-def embedding_repeats(torch, dev, calls: int = 5) -> int:
-    """Distinct results of ``calls`` identical F.embedding backwards at the
+def embedding_repeats(torch, dev, calls: int = 5, fixed_order: bool = False) -> int:
+    """Distinct results of ``calls`` identical lookup backwards at the
     position table's shape on the flagship step (100 x 1, B = 4096 ids on
-    DataConfig's 10 positions)."""
+    DataConfig's 10 positions): F.embedding's, or with ``fixed_order`` the
+    port's lookup (B18)."""
+    from two_tower_models_tpu_torch.nn.layers import embedding_lookup
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     table = torch.randn(100, 1, device=dev, generator=gen).requires_grad_()
@@ -2898,7 +2975,9 @@ def embedding_repeats(torch, dev, calls: int = 5) -> int:
     seen = set()
     with torch.enable_grad():
         for _ in range(calls):
-            (g,) = torch.autograd.grad(torch.nn.functional.embedding(ids, table), table, up)
+            out = (embedding_lookup(table, ids, fixed_order=True) if fixed_order
+                   else torch.nn.functional.embedding(ids, table))
+            (g,) = torch.autograd.grad(out, table, up)
             seen.add(g.cpu().numpy().tobytes())
     return len(seen)
 
@@ -2917,16 +2996,17 @@ def step_ms(events, lo: int, hi: int) -> float:
 
 
 def check_loop_launches(counts: dict, steps: int, evals: int, entries, key: str,
-                        failures: list, label: str) -> None:
-    """One launch a step of each training kernel of the flagship step and,
-    each eval, one B1 (on the tensor cores) and the exact MIPS's kernels;
-    none of the other encoder or table kernels."""
+                        failures: list, label: str, b18: int = POS_B18) -> None:
+    """One launch a step of each training kernel of the flagship step (``b18``
+    of B18: the position table's, none without debiasing) and, each eval,
+    one B1 (on the tensor cores) and the exact MIPS's kernels; none of the
+    other encoder or table kernels."""
     per_step = {"fused_history_encoder_res": 1, "fused_history_encoder_res_tc": 1,
                 "fused_history_encoder_bwd": 1, "fused_history_encoder_bwd_tc": 1,
                 "fused_history_encoder_bwd_reduce": 1, "fused_in_batch_ce": 1,
-                "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1}
+                "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1, "rows_scatter_add": b18}
     per_eval = {"fused_history_encoder": 1, "fused_history_encoder_tc": 1, **MIPS_ROUTE}
-    names = {**ENC_TC, **per_step, **per_eval, "rows_scatter_add": 0, "rows_write": 0,
+    names = {**ENC_TC, **per_step, **per_eval, "rows_write": 0,
              "fused_history_encoder_bwd_recompute": 0, "fused_attn_stack": 0}
     for k in names:
         want = steps * per_step.get(k, 0) + evals * per_eval.get(k, 0)
@@ -2951,11 +3031,11 @@ def counted_train(torch, loop, exp, rec, dev, **kw):
 def phase_loop(torch, args, smi, dev, entries, failures) -> None:
     """Phase 9: the training loop (training.loop.train) at the flagship's
     width: checkpoints, exact-position resume, preemption, the recall@k
-    eval, the trainer CLI, and the JAX package's quality anchor.  9a and
-    9c run under deterministic algorithms: with the default ones the
-    backward of F.embedding over the position table (4096 ids on 10 rows)
-    differs from call to call in its last bits, and two runs from one state
-    drift apart, so 9c against 9a would not check resume alone."""
+    eval, the trainer CLI, and the JAX package's quality anchor, all with
+    the default algorithms.  The position table's gradient (4096 ids on 10
+    rows) sums in a fixed order (B18), where F.embedding's backward differs
+    from call to call in its last bits, so two runs from one state stay
+    bit-equal and 9c against 9a checks resume alone."""
     import dataclasses
     import math
     import os
@@ -3003,14 +3083,14 @@ def phase_loop(torch, args, smi, dev, entries, failures) -> None:
 
     try:
         deterministic(torch, False)
-        repeats = [embedding_repeats(torch, dev)]
-        deterministic(torch, True)
-        repeats.append(embedding_repeats(torch, dev))
-        print(f"loop: F.embedding backward at the position table's shape: {repeats[0]} distinct "
-              f"results in 5 calls with default algorithms, {repeats[1]} with deterministic "
-              f"ones", flush=True)
+        repeats = [embedding_repeats(torch, dev), embedding_repeats(torch, dev, fixed_order=True)]
+        print(f"loop: the position table's lookup backward (100 x 1, 4096 ids), default "
+              f"algorithms: F.embedding {repeats[0]} distinct results in 5 calls, the port's "
+              f"fixed-order lookup (B18) {repeats[1]}", flush=True)
+        if repeats[1] != 1:
+            failures.append(f"the fixed-order lookup gave {repeats[1]} results in 5 calls")
 
-        # -- 9a: two epochs with a checkpoint directory (deterministic
+        # -- 9a: two epochs with a checkpoint directory (default
         # algorithms); the launch counts and a window of host syncs between
         # two gates --
         window = SyncWindow(torch, LOOP_LOG_EVERY, 2 * LOOP_LOG_EVERY)
@@ -3037,7 +3117,7 @@ def phase_loop(torch, args, smi, dev, entries, failures) -> None:
         recall = s_a["recall_at_k"]
         lo, hi = n_batches + LOOP_LOG_EVERY, 2 * n_batches - LOOP_LOG_EVERY
         loop_ms = step_ms(rec_a.events, lo, hi)
-        print(f"loop 9a on {name} ({smi}), deterministic algorithms: {steps} steps of B={b} in "
+        print(f"loop 9a on {name} ({smi}), default algorithms: {steps} steps of B={b} in "
               f"{s_a['train_seconds']:.2f} s ({s_a['examples_per_sec']:.0f} examples/s with its "
               f"evals); steps {lo}-{hi} {loop_ms:.3f} ms/step, {b / loop_ms * 1e3:.0f} "
               f"examples/s; epoch losses {losses[0]:.5f} {losses[1]:.5f}; recall@{TOPK} "
@@ -3073,14 +3153,14 @@ def phase_loop(torch, args, smi, dev, entries, failures) -> None:
                 float(m["loss"])
                 bare_ms.setdefault(det, []).append(
                     (time.perf_counter() - t0) * 1e3 / LOOP_BARE_STEPS)
-        deterministic(torch, True)
+        deterministic(torch, False)
         del state
         bare = {k: sum(v) / len(v) for k, v in bare_ms.items()}
-        print(f"loop vs bare step on {name} ({smi}), deterministic algorithms: the loop "
-              f"{loop_ms:.3f} ms/step, the bare make_train_step {bare[True]:.3f} (two runs of "
-              f"{LOOP_BARE_STEPS} steps: {bare_ms[True][0]:.3f} {bare_ms[True][1]:.3f}); the "
-              f"loop's overhead {loop_ms - bare[True]:.3f} ms/step; the bare step with default "
-              f"algorithms {bare_ms[False][0]:.3f} {bare_ms[False][1]:.3f}", flush=True)
+        print(f"loop vs bare step on {name} ({smi}), default algorithms: the loop "
+              f"{loop_ms:.3f} ms/step, the bare make_train_step {bare[False]:.3f} (two runs of "
+              f"{LOOP_BARE_STEPS} steps: {bare_ms[False][0]:.3f} {bare_ms[False][1]:.3f}); the "
+              f"loop's overhead {loop_ms - bare[False]:.3f} ms/step; the bare step with "
+              f"deterministic algorithms {bare_ms[True][0]:.3f} {bare_ms[True][1]:.3f}", flush=True)
 
         # -- the eval's parts, and recall@k on a CPU copy of the final params --
         params = s_a["state"].params
@@ -3143,8 +3223,8 @@ def phase_loop(torch, args, smi, dev, entries, failures) -> None:
             failures.append(f"loop restored state differs from 9a's by {err_b:.3g} of scale")
 
         # -- 9c: preempted at a step log at or past LOOP_PREEMPT_AT, then
-        # the identical call finishes the schedule (deterministic
-        # algorithms, as 9a); the first call traces steps 3-7 --
+        # the identical call finishes the schedule (default algorithms, as
+        # 9a); the first call traces steps 3-7 --
         prof = os.path.join(root, "prof")
         exp_c = experiment(os.path.join(root, "c"), profile_dir=prof)
         flag = threading.Event()
@@ -3158,11 +3238,11 @@ def phase_loop(torch, args, smi, dev, entries, failures) -> None:
         err_c, leaf_c, equal_c = state_diff(torch, s_c["state"], state_a, "params.")
         print(f"loop 9c: preempted={preempted} at step {at}, resumed from {got}, epochs "
               f"{s_c['epoch_numbers']}; final params vs 9a's: worst {leaf_c} at {err_c:.3g} of "
-              f"its scale (tol 1e-6), bit-equal={equal_c}", flush=True)
+              f"its scale, bit-equal={equal_c} (the gate)", flush=True)
         if (not preempted or s_c["preempted"] or got != [at]
                 or not LOOP_PREEMPT_AT <= at < 2 * n_batches):
             failures.append(f"loop 9c: preempted={preempted} at {at}, restored {got}")
-        if not err_c <= 1e-6:
+        if not equal_c:
             failures.append(f"loop 9c final params differ from 9a's: {leaf_c} by {err_c:.3g}")
         del s_c, s_a, state_a, params
         traces = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
@@ -3173,8 +3253,7 @@ def phase_loop(torch, args, smi, dev, entries, failures) -> None:
             failures.append(f"loop trace: {traces}, {names}")
 
         # -- 9b: 9a's call with three epochs restores step 2n and runs epoch
-        # 2, with default algorithms: the loop's speed as a user runs it --
-        deterministic(torch, False)
+        # 2: the loop's speed as a user runs it --
         rec_b = loop_recorder()
         s_b = loop.train(experiment(os.path.join(root, "a"), epochs=3), rec_b, device=dev)
         got = [f["step"] for e, f, _ in rec_b.events if e == "restored"]
@@ -3201,7 +3280,8 @@ def phase_loop(torch, args, smi, dev, entries, failures) -> None:
                                     learning_rate=3e-3, steps_per_dispatch=8,
                                     eval_every=n_batches), rec_e, dev)
         steps = int(s_e["state"].step)
-        check_loop_launches(counts, steps, evals, entries, "anchor_launches", failures, "loop 9e")
+        check_loop_launches(counts, steps, evals, entries, "anchor_launches", failures, "loop 9e",
+                            b18=0)
         lo, hi = n_batches, (LOOP_ANCHOR_EPOCHS - 1) * n_batches
         ms_e = step_ms(rec_e.events, lo, hi)
         losses = s_e["epoch_losses"]
@@ -3242,6 +3322,368 @@ def phase_loop(torch, args, smi, dev, entries, failures) -> None:
         failures.append("loop 9d: the CLI runs")
     tmp.cleanup()
     print(f"loop: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def mns_cfg(arm: str):
+    """scripts/exp_mns_scale.py's model for ``arm`` (plain, mns+logq,
+    stream+mns+logq) at its full scale."""
+    from two_tower_models_tpu_torch.config import preset
+
+    return preset(
+        "two_tower_with_user_history_encoder", user_id_hash_size=MNS_ROWS,
+        item_id_hash_size=MNS_ROWS, user_id_embedding_dim=64, item_id_embedding_dim=64,
+        user_features_size=16, item_features_size=16, history_len=HIST,
+        compute_dtype="bfloat16", mixed_negatives=MNS_NEGATIVES if arm.endswith("mns+logq") else 0,
+        logq_correction=arm != "plain",
+    )
+
+
+def mns_exp(arm: str, epochs: int, ckpt=None, **train):
+    """scripts/exp_mns_scale.py's experiment for ``arm`` at seed 42: Zipf(1.0)
+    engagement, B = 4096, lr 1e-3, grad_clip_norm 1.0, 8 steps a dispatch."""
+    from two_tower_models_tpu_torch.config import DataConfig, ExperimentConfig, TrainConfig
+
+    model = mns_cfg(arm)
+    data = DataConfig(num_samples=MNS_SAMPLES, num_users=MNS_ROWS, num_items=MNS_ROWS,
+                      feature_dim=16, history_len=HIST, num_tasks=model.num_tasks,
+                      structured=True, popularity_skew=1.0, seed=42)
+    train = {"batch_size": TRAIN_BATCH, "num_epochs": epochs, "learning_rate": 1e-3,
+             "grad_clip_norm": 1.0, "seed": 42, "steps_per_dispatch": 8,
+             "streaming_logq": arm.startswith("stream"), "checkpoint_dir": ckpt,
+             "log_every": LOOP_LOG_EVERY, **train}
+    return ExperimentConfig(model=model, data=data, train=TrainConfig(**train))
+
+
+def check_only_launches(counts: dict, expect: dict, n: int, failures: list, label: str) -> None:
+    """``expect``'s launches a step over n steps, and no launch of any other
+    kernel."""
+    check_launches(counts, expect, n, failures, label)
+    other = {k: v for k, v in counts.items() if v and k not in expect}
+    if other:
+        failures.append(f"{label} launched other kernels: {other}")
+
+
+def head_tail_recall(torch, cfg, params, corpus, data, seed: int) -> dict:
+    """scripts/exp_mns_scale.py's head_tail_recall: recall@100 over the
+    engaged examples among MNS_EVAL held out (a permutation from seed + 100),
+    and apart for head items (id < 0.2 C, the top-20% of the Zipf ranks)
+    and tail items; counts summed on the device, read once."""
+    from two_tower_models_tpu_torch.config import resolve_kernel_flags
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact
+    from two_tower_models_tpu_torch.training.data import gather_batch
+
+    dev = corpus.device
+    cfg = resolve_kernel_flags(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 100)
+    eval_idx = torch.randperm(data.num_samples, generator=gen, device=dev)[:MNS_EVAL]
+    head_cut = int(0.2 * data.catalog_ids.shape[0])
+    totals = torch.zeros(6, dtype=torch.int64, device=dev)
+    b = TRAIN_BATCH
+    with torch.no_grad():
+        for i in range(MNS_EVAL // b):
+            bt = gather_batch(data, eval_idx[i * b:(i + 1) * b])
+            u, _ = tt.compute_user_embedding(params, cfg, bt.user_id, bt.user_features,
+                                             bt.user_history, bt.history_len)
+            ind, _, _ = mips_topk_exact(corpus, u, TOPK)
+            hit = (ind == bt.item_id[:, None]).any(1)
+            engaged = (bt.labels[:, :cfg.num_tasks] > 0).any(1)
+            head = bt.item_id < head_cut
+            for j, m in enumerate((engaged, engaged & head, engaged & ~head)):
+                totals[2 * j] += (hit & m).sum()
+                totals[2 * j + 1] += m.sum()
+    h, n, hh, nh, ht, nt = totals.tolist()
+    return {"recall": h / max(n, 1), "head": hh / max(nh, 1), "tail": ht / max(nt, 1),
+            "engaged": n, "n_head": nh, "n_tail": nt}
+
+
+def phase_mns(torch, args, smi, dev, entries, failures) -> None:
+    """Phase 10: mixed negatives and the logQ correction at
+    scripts/exp_mns_scale.py's width (10a the CE kernels on the route's
+    operands, 10b the step and its lazy form, 10c the streaming estimator,
+    10d the loop and exact resume, 10e quality), all with the default
+    algorithms."""
+    import dataclasses
+    import math
+    import os
+    import tempfile
+
+    from two_tower_models_tpu_torch.config import resolve_kernel_flags
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.ops import _lib
+    from two_tower_models_tpu_torch.ops import fused_softmax as fs
+    from two_tower_models_tpu_torch.training import loop
+    from two_tower_models_tpu_torch.training.checkpoint import state_tensors
+    from two_tower_models_tpu_torch.training.data import gather_batch, make_synthetic_data
+    from two_tower_models_tpu_torch.training.freq_estimator import freq_update, init_freq_estimator
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import _extend_and_track, make_train_step
+
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    b, c, d = TRAIN_BATCH, TRAIN_BATCH + MNS_NEGATIVES, 64 + 1
+    data_cfg = mns_exp("plain", 1).data
+    data = make_synthetic_data(data_cfg, label_cols=1, device=dev)
+    n_batches = MNS_SAMPLES // b
+    perm = loop.epoch_permutation(42, 0, MNS_SAMPLES, dev)
+    idx_of = lambda i: perm[(i % n_batches) * b:(i % n_batches + 1) * b]
+    single = lambda arm, **kw: dataclasses.replace(mns_exp(arm, 1).train, steps_per_dispatch=1, **kw)
+    cfg = resolve_kernel_flags(mns_cfg("mns+logq"), dev)
+    tc = single("mns+logq")
+
+    # -- 10a: B10 and B11 + B12 on one real step's augmented operands --
+    state = create_train_state(args.seed + 10, cfg, tc, device=dev, catalog_size=MNS_ROWS)
+    model = state.params
+    with torch.no_grad():
+        batch, _ = _extend_and_track(cfg, tc, state, data, gather_batch(data, idx_of(0)))
+        u, _ = tt.compute_user_embedding(model, cfg, batch.user_id, batch.user_features,
+                                         batch.user_history)
+        items = tt.compute_item_embeddings(model, cfg, batch.item_id, batch.item_features)
+        negs = tt.compute_item_embeddings(model, cfg, batch.neg_item_id, batch.neg_item_features)
+        nuv, _ = tt.example_weights(model, cfg, u, batch.position, batch.labels)
+        au, ap = tt.logq_operands(u, *tt._extended_pool(items, negs, batch.item_logq,
+                                                         batch.neg_logq))
+    g = nuv / b  # the cotangent of ce in the loss
+    if au.shape != (b, d) or ap.shape != (c, d):
+        failures.append(f"mns operands {tuple(au.shape)}, {tuple(ap.shape)}")
+    ce_k, lse_k = fs.in_batch_ce_fwd(au, ap, False)
+    _, lse_p = fs.in_batch_ce_fwd_plain(au, ap, False)
+    ok_f, err_f = close(lse_k, lse_p, 0.0, 1e-5 * float(lse_p.abs().max()))
+    rep_f = all(torch.equal(x, y) for x, y in zip(fs.in_batch_ce_fwd(au, ap, False), (ce_k, lse_k)))
+    lse64 = torch.logsumexp(au.double() @ ap.double().T, 1)
+    f64 = [float((t.double() - lse64).abs().max()) / float(lse64.abs().max()) for t in (lse_k, lse_p)]
+    del lse64
+    term = float(g.abs().max()) * max(float(au.abs().max()), float(ap.abs().max()))
+    got, want = fs.in_batch_ce_bwd(au, ap, lse_k, g, False), fs.in_batch_ce_bwd_plain(
+        au, ap, lse_p, g, False)
+    checks = [close(x, y, 0.0, 1e-5 * max(float(y.abs().max()), term)) for x, y in zip(got, want)]
+    again = fs.in_batch_ce_bwd(au, ap, lse_k, g, False)
+    rep_b = all(torch.equal(x, y) for x, y in zip(got, again))
+    del want, again
+    ok_a = ok_f and rep_f and f64[0] <= 1e-5 and all(ok for ok, _ in checks) and rep_b
+    print(f"mns 10a: CE forward (B10) at B={b}, C={c}, D={d} (no diagonal) vs plain: max_abs_err "
+          f"{err_f:.3g} (tol 1e-5 of scale); from f64 sums, share of max |lse|: kernel "
+          f"{f64[0]:.3g}, plain {f64[1]:.3g} (tol 1e-5); bit-equal on repeat={rep_f}; CE backward "
+          f"(dU, dI) max_abs_err {[float(f'{e:.3g}') for _, e in checks]} (tol 1e-5 of scale); "
+          f"bit-equal on repeat={rep_b}; ok={ok_a}", flush=True)
+    if not ok_a:
+        failures.append("mns 10a: the CE kernels at the logQ width")
+    u64, i64 = au[:, :64].contiguous(), ap[:b, :64].contiguous()
+    ua, pa = au.clone().requires_grad_(), ap.clone().requires_grad_()
+    with torch.enable_grad():
+        lse_lib = torch.logsumexp(ua @ pa.T, 1)
+    fwd = lambda: fs.in_batch_ce_fwd(au, ap, False)
+    bwd = lambda: fs.in_batch_ce_bwd(au, ap, lse_k, g, False)
+    lib_fwd = lambda: torch.logsumexp(au @ ap.T, 1)
+    lib_bwd = lambda: torch.autograd.grad(lse_lib, (ua, pa), g, retain_graph=True)
+    f_bound = bound((b + c) * d * 4 + 2 * b * 4, 3 * 2 * b * c * d, TF32_FLOPS)
+    b_bound = bound(2 * (b + c) * d * 4 + 2 * b * 4, 6 * b * c * d, F32_FLOPS)
+    e_f = {"shape": [b, c, d], "max_abs_err": err_f, "f64_err": f64[0], "plain_f64_err": f64[1],
+           "ms": time_ms(torch, fwd), "device_ms": device_ms(torch, fwd, "ce_fwd_tc_kernel"),
+           "plain_ms": time_ms(torch, lambda: fs.in_batch_ce_fwd_plain(au, ap, False)),
+           "library_ms": time_ms(torch, lib_fwd), "library_device_ms": call_device_ms(torch, lib_fwd),
+           "flagship_device_ms": device_ms(torch, lambda: fs.in_batch_ce_fwd(u64, i64),
+                                           "ce_fwd_tc_kernel"),
+           "bound_ms": f_bound[0], "bound_by": f_bound[1],
+           "splits": fs.fwd_plan(b, c, d, _lib.sm_count(torch.cuda.current_device()))}
+    e_b = {"shape": [b, c, d], "max_abs_err": max(e for _, e in checks),
+           "ms": time_ms(torch, bwd), "device_ms": call_device_ms(torch, bwd),
+           "plain_ms": time_ms(torch, lambda: fs.in_batch_ce_bwd_plain(au, ap, lse_k, g, False)),
+           "library_ms": time_ms(torch, lib_bwd), "library_device_ms": call_device_ms(torch, lib_bwd),
+           "flagship_device_ms": call_device_ms(torch, lambda: fs.in_batch_ce_bwd(
+               u64, i64, fs.in_batch_ce_fwd(u64, i64)[1], g)),
+           "bound_ms": b_bound[0], "bound_by": b_bound[1]}
+    del ua, pa, lse_lib, got
+    print(f"B10 at B={b}, C={c}, D={d} on {name} ({smi}): device {e_f['device_ms']:.4f} ms "
+          f"({e_f['splits']} splits), with the host's dispatch {e_f['ms']:.4f}; the (4096, 4096, "
+          f"64) instance in this call {e_f['flagship_device_ms']:.4f}; plain {e_f['plain_ms']:.4f}; "
+          f"library (logsumexp of U I^T) device {e_f['library_device_ms']:.4f}, "
+          f"{e_f['library_ms']:.4f} with dispatch; bound {e_f['bound_ms']:.4f} "
+          f"({e_f['bound_by']}, 3xTF32)", flush=True)
+    print(f"B11 + B12 at B={b}, C={c}, D={d} on {name} ({smi}): device {e_b['device_ms']:.4f} ms "
+          f"(kernel and reduce), with the host's dispatch {e_b['ms']:.4f}; the (4096, 4096, 64) "
+          f"instance in this call {e_b['flagship_device_ms']:.4f}; plain {e_b['plain_ms']:.4f}; "
+          f"library (autograd's backward of logsumexp of U I^T) device "
+          f"{e_b['library_device_ms']:.4f}, {e_b['library_ms']:.4f} with dispatch; bound "
+          f"{e_b['bound_ms']:.4f} ({e_b['bound_by']})", flush=True)
+    entries["fused_in_batch_ce"]["logq_width"] = e_f
+    entries["in_batch_ce_bwd"]["logq_width"] = e_b
+    del state, model, batch, u, items, negs, au, ap, u64, i64
+    torch.cuda.empty_cache()
+
+    # -- 10b: the mns+logq step beside the plain arm, then the lazy path --
+    per_step = {"fused_history_encoder_res": 1, "fused_history_encoder_res_tc": 1,
+                "fused_history_encoder_bwd": 1, "fused_history_encoder_bwd_tc": 1,
+                "fused_history_encoder_bwd_reduce": 1, "fused_in_batch_ce": 1,
+                "in_batch_ce_bwd": 1, "in_batch_ce_bwd_reduce": 1}
+    idx = idx_of(1)
+    steps, states, ms, busy = {}, {}, {}, {}
+    for arm in ("mns+logq", "plain"):
+        tca = single(arm)
+        steps[arm] = make_train_step(mns_cfg(arm), tca)
+        states[arm] = create_train_state(args.seed + 11, mns_cfg(arm), tca, device=dev,
+                                         catalog_size=MNS_ROWS)
+        states[arm] = run_steps(torch, steps[arm], states[arm], data, idx, 3)[0]
+    for i, arm in enumerate(("mns+logq", "plain", "plain", "mns+logq")):
+        states[arm], metrics, ms_step, _, counts = run_steps(torch, steps[arm], states[arm], data,
+                                                             idx, MNS_STEPS)
+        ms.setdefault(arm, []).append(ms_step)
+        if not finite(torch, metrics):
+            failures.append(f"mns 10b {arm} metrics not finite")
+        if i == 0:
+            print(f"launches on the mns+logq path ({MNS_STEPS} steps): {json.dumps(counts)}",
+                  flush=True)
+            check_only_launches(counts, per_step, MNS_STEPS, failures, "mns 10b")
+            for k in ("fused_in_batch_ce", "in_batch_ce_bwd"):
+                entries[k]["logq_launches"] = counts.get(k, 0)
+            entries["in_batch_ce_bwd"]["logq_reduce_launches"] = counts.get(
+                "in_batch_ce_bwd_reduce", 0)
+            loss = (float(metrics[0]["loss"]), float(metrics[-1]["loss"]))
+    for arm in ("mns+logq", "plain"):
+        states[arm], busy[arm] = trace_steps(torch, steps[arm], states[arm], data, idx,
+                                             f"mns 10b {arm}")
+    states["mns+logq"], syncs = count_syncs(torch, steps["mns+logq"], states["mns+logq"], data, idx)
+    if syncs:
+        failures.append(f"mns 10b: {syncs} host syncs in a step")
+    fmt = lambda v: "not measured" if v is None else f"{v:.3f}"
+    print(f"mns 10b on {name} ({smi}): mns+logq {ms['mns+logq'][0]:.3f} {ms['mns+logq'][1]:.3f} "
+          f"ms/step, plain {ms['plain'][0]:.3f} {ms['plain'][1]:.3f} (order mns plain plain mns, "
+          f"{MNS_STEPS} steps of B={b} each); device busy ms a step (three profiled steps): "
+          f"mns+logq {fmt(busy['mns+logq'])}, plain {fmt(busy['plain'])}; host syncs in a "
+          f"mns+logq step {syncs}; loss {loss[0]:.5f} -> {loss[1]:.5f}", flush=True)
+    st = states["mns+logq"]
+    with torch.no_grad():
+        sub, _ = _extend_and_track(cfg, tc, st, data, gather_batch(data, idx[:CHECK_BATCH]))
+    # The two leaves that are zero in exact arithmetic are held to 0: under
+    # bf16 compute item_features_mlp.1.b sums one bf16-rounded cotangent per
+    # pool item (the item head's input cast), and with no debias weights
+    # and Zipf duplicates that noise is about 1.7e-3 of the top leaf on both
+    # sides, where one rounding flipped by an f32 sum order moves it by
+    # more than the ZERO_GRAD_FLOOR allowance.
+    grads_vs_cpu(torch, st.params, cfg, data, idx, failures, "mns 10b", sub=sub, zero_exact=True)
+    del steps, states, st, sub
+    torch.cuda.empty_cache()
+
+    lazy_tc = single("mns+logq", lazy_table_adam=True, grad_clip_norm=None)
+    dense_tc = single("mns+logq", grad_clip_norm=None)
+    st_l = create_train_state(args.seed + 12, cfg, lazy_tc, device=dev, catalog_size=MNS_ROWS)
+    st_d = create_train_state(args.seed + 12, cfg, dense_tc, device=dev, catalog_size=MNS_ROWS)
+    step_l = make_train_step(cfg, lazy_tc)
+    with torch.enable_grad():
+        st_l, _ = step_l(st_l, data, idx)
+        st_d, _ = make_train_step(cfg, dense_tc)(st_d, data, idx)
+    got, want = table_tensors(st_l), table_tensors(st_d)
+    got.update((n, p.detach()) for n, p in st_l.params.named_parameters())
+    want.update((n, p.detach()) for n, p in st_d.params.named_parameters())
+    worst, bad = 0.0, []
+    for k in want:
+        ok, err = close(got[k], want[k], 1e-5, 1e-7)
+        worst = max(worst, err)
+        if not ok:
+            bad.append(k)
+    del st_d, got, want
+    st_l = run_steps(torch, step_l, st_l, data, idx, 2)[0]
+    st_l, metrics, ms_lazy, _, counts = run_steps(torch, step_l, st_l, data, idx, MNS_LAZY_STEPS)
+    check_only_launches(counts, per_step, MNS_LAZY_STEPS, failures, "mns 10b lazy")
+    st_l, syncs_l = count_syncs(torch, step_l, st_l, data, idx)
+    print(f"mns 10b lazy on {name} ({smi}): first lazy step vs first dense step from one state "
+          f"and one draw, every parameter and table moment: max_abs_err {worst:.3g} (rtol 1e-5, "
+          f"atol 1e-7), mismatched {bad}; {MNS_LAZY_STEPS} steps {ms_lazy:.3f} ms/step; launches "
+          f"{json.dumps(counts)}; host syncs in a step {syncs_l}", flush=True)
+    if bad or syncs_l or not finite(torch, metrics):
+        failures.append(f"mns 10b lazy: mismatched {bad}, {syncs_l} syncs")
+    del st_l
+    torch.cuda.empty_cache()
+
+    # -- 10c: the streaming estimator against a CPU recompute --
+    s_cfg, s_tc = mns_cfg("stream+mns+logq"), single("stream+mns+logq")
+    st = create_train_state(args.seed + 13, s_cfg, s_tc, device=dev, catalog_size=MNS_ROWS)
+    step = make_train_step(s_cfg, s_tc)
+    with torch.enable_grad():
+        for i in range(MNS_STEPS):
+            st, _ = step(st, data, idx_of(i))
+    st, syncs_s = count_syncs(torch, step, st, data, idx_of(MNS_STEPS))
+    est = init_freq_estimator(MNS_ROWS)
+    catalog = data.catalog_ids.cpu()
+    for i in range(MNS_STEPS + 1):
+        est = freq_update(est, torch.searchsorted(catalog, data.item_ids[idx_of(i)].cpu()),
+                          s_tc.logq_decay)
+    counts_c, total_c = (t.cpu() for t in st.logq_state)
+    ok_c, err_c = close(counts_c, est.counts, 1e-6, 0.0)
+    ok_t, _ = close(total_c, est.total, 1e-6, 0.0)
+    exact = torch.equal(counts_c, est.counts) and torch.equal(total_c, est.total)
+    print(f"mns 10c on {name} ({smi}): stream+mns+logq, {MNS_STEPS + 1} steps on as many batches: "
+          f"the estimator vs a CPU recompute from the batches' item ids: counts max_abs_err "
+          f"{err_c:.3g} (rtol 1e-6), total {float(total_c):.4f} vs {float(est.total):.4f}, "
+          f"bit-equal={exact}; host syncs in a step {syncs_s}", flush=True)
+    if not (ok_c and ok_t) or syncs_s:
+        failures.append("mns 10c: the streaming estimator")
+    del st, step
+    torch.cuda.empty_cache()
+
+    # -- 10d: the loop, a checkpoint each epoch, and the epoch-1 checkpoint
+    # resumed; the data, which each run makes anew, made twice --
+    again = make_synthetic_data(data_cfg, label_cols=1, device=dev)
+    data_equal = all(x is None and y is None or torch.equal(x, y) for x, y in zip(data, again))
+    del again
+    tmp = tempfile.TemporaryDirectory(prefix="mns_", dir=_lib.BUILD_DIR)
+    ckpt = os.path.join(tmp.name, "d")
+    exp_d = mns_exp("stream+mns+logq", 2, ckpt, checkpoint_every=n_batches)
+    rec_a = loop_recorder()
+    s_a = loop.train(exp_d, rec_a, device=dev)
+    os.remove(os.path.join(ckpt, f"step_{2 * n_batches}.pt"))
+    rec_b = loop_recorder()
+    s_b = loop.train(exp_d, rec_b, device=dev)
+    got_r = [f["step"] for e, f, _ in rec_b.events if e == "restored"]
+    err_d, leaf_d, equal_d = state_diff(torch, s_b["state"], s_a["state"])
+    t_a, t_b = (state_tensors(x["state"]) for x in (s_a, s_b))
+    differ = [k for k in t_a if not torch.equal(t_a[k], t_b[k])]
+    lo, hi = n_batches + LOOP_LOG_EVERY, 2 * n_batches - LOOP_LOG_EVERY
+    loop_ms = step_ms(rec_a.events, lo, hi)
+    bare = sum(ms["mns+logq"]) / 2
+    print(f"mns 10d on {name} ({smi}), default algorithms: stream+mns+logq through the loop, 2 "
+          f"epochs, K = 8: losses {' '.join(f'{v:.5f}' for v in s_a['epoch_losses'])}; steps "
+          f"{lo}-{hi} {loop_ms:.3f} ms/step, {b / loop_ms * 1e3:.0f} examples/s (10b's bare step, "
+          f"K = 1: {bare:.3f} ms/step, {b / bare * 1e3:.0f} examples/s); resumed from {got_r}, "
+          f"epochs {s_b['epoch_numbers']}: params, moments, rng and logq_state vs the "
+          f"uninterrupted run's: worst {leaf_d} at {err_d:.3g} of its scale, "
+          f"bit-equal={equal_d} (the gate; {len(differ)} tensors differ: {differ[:8]}); the data "
+          f"made twice bit-equal={data_equal}", flush=True)
+    if got_r != [n_batches] or s_b["epoch_numbers"] != [1] or not (equal_d and data_equal):
+        failures.append(f"mns 10d: restored {got_r}, epochs {s_b['epoch_numbers']}, "
+                        f"bit-equal {equal_d} ({differ[:8]}), data {data_equal}")
+    del s_a, s_b, t_a, t_b
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    # -- 10e: quality, mns+logq against plain --
+    rec_q, ms_q = {}, {}
+    for arm in ("mns+logq", "plain"):
+        rec = loop_recorder()
+        s = loop.train(mns_exp(arm, MNS_EPOCHS), rec, device=dev)
+        ms_q[arm] = step_ms(rec.events, n_batches, (MNS_EPOCHS - 1) * n_batches)
+        rec_q[arm] = head_tail_recall(torch, mns_cfg(arm), s["state"].params, s["corpus"], data, 42)
+        rec_q[arm]["losses"] = [round(v, 4) for v in s["epoch_losses"]]
+        if not all(math.isfinite(v) for v in s["epoch_losses"]):
+            failures.append(f"mns 10e {arm} losses {s['epoch_losses']}")
+        del s
+        torch.cuda.empty_cache()
+        r = rec_q[arm]
+        print(f"mns 10e {arm} on {name} ({smi}): {MNS_EPOCHS} epochs, {ms_q[arm]:.3f} ms/step; "
+              f"epoch losses {' '.join(f'{v:.4f}' for v in r['losses'])}; recall@{TOPK} "
+              f"{r['recall']:.4f} over {r['engaged']} engaged of {MNS_EVAL} held out (head "
+              f"{r['head']:.4f} of {r['n_head']}, tail {r['tail']:.4f} of {r['n_tail']}); the JAX "
+              f"package's (BASELINE.md:624, a TPU v5e run) {MNS_JAX_RECALL[arm]}", flush=True)
+    mns, plain = rec_q["mns+logq"]["recall"], rec_q["plain"]["recall"]
+    ok_q = mns >= 0.25 and mns >= 5 * plain
+    print(f"mns 10e: mns+logq recall@{TOPK} {mns:.4f} vs plain {plain:.4f} (gate: >= 0.25 and >= 5x "
+          f"plain): ok={ok_q}; the JAX package's {MNS_JAX_RECALL['mns+logq']} vs "
+          f"{MNS_JAX_RECALL['plain']}", flush=True)
+    if not ok_q:
+        failures.append(f"mns 10e recall {mns} vs plain {plain}")
+    entries["fused_in_batch_ce"]["mns_quality"] = rec_q
+    print(f"mns: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -3567,6 +4009,10 @@ def main() -> int:
 
     # ---- phase 9: the training loop --------------------------------------
     phase_loop(torch, args, smi, dev, entries, failures)
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: mixed negatives and the logQ correction ---------------
+    phase_mns(torch, args, smi, dev, entries, failures)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     if failures:
         _fail(", ".join(failures))

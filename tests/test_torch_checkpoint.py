@@ -324,10 +324,23 @@ def test_mesh_and_multihost_raise():
         tloop.main(["--mesh_model", "4", "--device", "cpu"])
 
 
-def test_mixed_negatives_raise_where_the_step_does():
-    exp = dataclasses.replace(_exp(), model=dataclasses.replace(MODEL, mixed_negatives=8))
-    with pytest.raises(NotImplementedError, match="Mixed negatives and logQ"):
-        tloop.train(exp, Recorder(), device="cpu")
+def test_mixed_negatives_and_streaming_logq_resume_exactly(tmp_path):
+    """``tloop.train`` with 8 mixed negatives and the streaming logQ
+    estimator: one epoch with a checkpoint directory, then the same call for
+    two epochs resumes from it and ends bit-equal to two epochs run
+    uninterrupted, the negatives' generator and the estimator included."""
+    model = dataclasses.replace(MODEL, mixed_negatives=8, logq_correction=True)
+    exp = lambda ckpt, epochs: dataclasses.replace(
+        _exp(num_epochs=epochs, streaming_logq=True, checkpoint_dir=ckpt), model=model)
+    want = tloop.train(exp(None, 2), Recorder(), device="cpu")
+    first = tloop.train(exp(str(tmp_path), 1), Recorder(), device="cpu")
+    assert first["epoch_numbers"] == [0]
+    rec = Recorder()
+    got = tloop.train(exp(str(tmp_path), 2), rec, device="cpu")
+    assert [f["step"] for e, f in rec.events if e == "restored"] == [8]
+    assert got["epoch_numbers"] == [1] and got["epoch_losses"][0] == want["epoch_losses"][1]
+    assert {"rng", "logq.counts", "logq.total"} <= tckpt.state_tensors(got["state"]).keys()
+    _assert_equal(_tensors(got["state"]), _tensors(want["state"]))
 
 
 def test_train_and_serve_example(tmp_path, capsys):

@@ -466,15 +466,16 @@ def _term(g, x):
 
 _CE_SHAPES = [(1, 1, 64, True), (100, 100, 64, True), (4096, 4096, 64, True),
               (300, 1000, 65, False), (77, 130, 65, False), (50, 20, 7, False),
-              (33, 33, 640, True), (8, 40, 1024, False)]
+              (33, 33, 640, True), (8, 40, 1024, False), (4096, 4160, 65, False)]
 
 
 @pytest.mark.parametrize("b,c,d,diag", _CE_SHAPES)
 def test_ce_kernels_match_plain(dev, b, c, d, diag):
     """B10, and B11 with B12 in one backward pass plus its reduce: B not a
     multiple of the 128-row tile, C != B with D = 65 (the logQ route's
-    width, two output slices), B = 1, D = 7, and D = 640 and 1024 (ten and
-    sixteen staged d chunks in B10)."""
+    width, two output slices; at (4096, 4160, 65) the mixed-negative step's
+    own: B = 4096 rows, 64 negatives, one appended column), B = 1, D = 7,
+    and D = 640 and 1024 (ten and sixteen staged d chunks in B10)."""
     u, i = _randn(20, b, d, dev=dev) * 0.3, _randn(21, c, d, dev=dev) * 0.3
     g = _randn(22, b, dev=dev)
     before = dict(_lib.launches)
@@ -554,6 +555,37 @@ def test_ce_fwd_at_unaligned_addresses(dev):
     for diag in (True, False):
         got, want = fs.in_batch_ce_fwd(uo, io, diag), fs.in_batch_ce_fwd(u, i, diag)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_ce_kernels_at_the_logq_width_unaligned(dev):
+    """The mixed-negative step's operands, [u, 1] and [pool, -logq] at B =
+    4096, C = 4160, D = 65 (row starts every 260 bytes, one in four 16-byte
+    aligned), also at base addresses 16-byte aligned no more: the forward
+    and both gradients the same bits as on aligned copies, and within 1e-5
+    of scale of the plain versions."""
+    b, c = 4096, 4160
+    u = torch.cat([_randn(60, b, 64, dev=dev) * 0.3, torch.ones(b, 1, device=dev)], 1)
+    logq = torch.log(torch.rand(c, generator=torch.Generator(device=dev).manual_seed(61),
+                                device=dev) * 0.01 + 1e-5)
+    pool = torch.cat([_randn(62, c, 64, dev=dev) * 0.3, -logq[:, None]], 1)
+    g = _randn(63, b, dev=dev).abs() / b
+
+    def odd(t):
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return o.copy_(t)
+
+    uo, po = odd(u), odd(pool)
+    assert uo.data_ptr() % 16 and po.data_ptr() % 16
+    ce, lse = fs.in_batch_ce_fwd(u, pool, False)
+    assert all(torch.equal(x, y) for x, y in zip(fs.in_batch_ce_fwd(uo, po, False), (ce, lse)))
+    du, di = fs.in_batch_ce_bwd(u, pool, lse, g, False)
+    du_o, di_o = fs.in_batch_ce_bwd(uo, po, lse, g, False)
+    assert torch.equal(du, du_o) and torch.equal(di, di_o)
+    ce_p, lse_p = fs.in_batch_ce_fwd_plain(u, pool, False)
+    _scaled_close(lse, lse_p, 1e-5)
+    du_p, di_p = fs.in_batch_ce_bwd_plain(u, pool, lse_p, g, False)
+    _scaled_close(du, du_p, 1e-5, _term(g, pool))
+    _scaled_close(di, di_p, 1e-5, _term(g, u))
 
 
 def test_ce_kernels_propagate_nan_like_plain(dev):
@@ -1321,6 +1353,34 @@ def test_lookup_gradient_routes_launch_b18(dev, route):
     before = _lib.launches["rows_scatter_add"]
     (layers.embedding_lookup(small, ids % (1 << 16)) * g).sum().backward()
     assert _lib.launches["rows_scatter_add"] == before
+
+
+def test_fixed_order_lookup_gradient_is_b18_and_bit_equal(dev):
+    """The position-bias table's lookup (``fixed_order``), [100, 1] under
+    4096 ids on 10 rows as in the flagship step: its backward launches B18
+    once, gives the same bits on five calls (F.embedding's gave five
+    results in five), and equals the plain scatter-add: exactly on sums of
+    small integers, within 1e-5 of scale on normal values."""
+    from two_tower_models_tpu_torch.nn import layers
+
+    ids = torch.from_numpy(np.random.default_rng(64).integers(0, 10, 4096)).to(dev)
+    for make, exact in ((_grid, True), (_randn, False)):
+        leaf = torch.nn.Parameter(_randn(65, 100, 1, dev=dev))
+        up = make(66, 4096, 1, dev=dev)
+        seen = set()
+        for _ in range(5):
+            leaf.grad = None
+            before = _lib.launches["rows_scatter_add"]
+            with torch.enable_grad():
+                (layers.embedding_lookup(leaf, ids, fixed_order=True) * up).sum().backward()
+            assert _lib.launches["rows_scatter_add"] == before + 1
+            seen.add(leaf.grad.cpu().numpy().tobytes())
+        assert len(seen) == 1
+        want = rsa.rows_scatter_add_reference(ids, up, 100)
+        if exact:
+            assert torch.equal(leaf.grad, want)
+        else:
+            _assert_close(leaf.grad, want, 1e-5, 1e-5 * float(want.abs().max()))
 
 
 def _write_case(pack, n_logical, vocab, seed, dev):

@@ -106,7 +106,7 @@ def runs():
     )
     state_j = state_j._replace(opt_state=_with_adam(state_j.opt_state, adam))
 
-    def port_state(seed, model_cfg, train_cfg, device):
+    def port_state(seed, model_cfg, train_cfg, device, catalog_size=None):
         model = bridge.params_from_jax(params_np, model_cfg, device=device)
         return tstate.TrainState(torch.zeros((), dtype=torch.int32), model,
                                  bridge.adam_state_from_jax(3, mu, nu, model))

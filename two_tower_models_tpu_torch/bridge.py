@@ -6,8 +6,9 @@ keeps JAX's [in, out] weight layout, so the bridge is a flatten on one
 side and an unflatten on the other.  The pytree travels as numpy arrays in
 nested dicts and lists, exactly as ``init_params`` builds it; nothing here
 imports JAX.  optax's Adam moments have the params' structure and cross
-the same way (``adam_state_from_jax`` / ``adam_state_to_jax``), and so does the
-lazy-Adam state (``lazy_state_from_jax`` / ``lazy_state_to_jax``).
+the same way (``adam_state_from_jax`` / ``adam_state_to_jax``), and so do the
+lazy-Adam state (``lazy_state_from_jax`` / ``lazy_state_to_jax``) and the
+streaming logQ estimator (``freq_state_from_jax`` / ``freq_state_to_jax``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from torch import nn
 from two_tower_models_tpu_torch.config import ModelConfig, resolve_device
 from two_tower_models_tpu_torch.models.two_tower import TwoTowerModel
 from two_tower_models_tpu_torch.nn.packed_table import packed_shape
+from two_tower_models_tpu_torch.training.freq_estimator import FreqEstimatorState
 from two_tower_models_tpu_torch.training.sparse_tables import SPARSE_TABLE_KEYS
 from two_tower_models_tpu_torch.training.state import AdamState, LazyAdamState
 
@@ -124,6 +126,20 @@ def lazy_state_to_jax(state: LazyAdamState):
     """The inverse of ``lazy_state_from_jax``."""
     return {"dense": adam_state_to_jax(state.dense),
             "tables": {k: _tree(state.tables[k]) for k in ("mu", "nu")}}
+
+
+def freq_state_from_jax(counts, total, device="cuda") -> FreqEstimatorState:
+    """The JAX package's ``FreqEstimatorState`` fields as numpy (``counts``
+    [C], ``total`` []) -> the port's, f32 on ``device``."""
+    dev = resolve_device(device)
+    as_t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(dev)
+    return FreqEstimatorState(counts=as_t(counts).reshape(-1), total=as_t(total).reshape(()))
+
+
+def freq_state_to_jax(state: FreqEstimatorState):
+    """The inverse: (counts [C], total []) as f32 numpy."""
+    return (state.counts.detach().cpu().numpy().copy(),
+            np.asarray(state.total.detach().cpu().numpy(), np.float32))
 
 
 def _unflatten(flat: Dict[str, np.ndarray]):

@@ -199,10 +199,9 @@ class TrainConfig:
     """Training-loop configuration, field for field the JAX package's
     ``TrainConfig`` (its comments say what each knob does there).  The port
     trains through ``training.step.make_train_step``, packed tables
-    (``pack_tables``, ``pack_tables_min_rows``), ``lazy_table_adam`` and
-    ``fused_adam`` included, and loops through ``training.loop.train``; of
-    the optional paths it raises on ``streaming_logq``
-    (``training.state``)."""
+    (``pack_tables``, ``pack_tables_min_rows``), ``lazy_table_adam``,
+    ``fused_adam`` and ``streaming_logq`` included, and loops through
+    ``training.loop.train``."""
 
     batch_size: int = 32
     num_epochs: int = 2

@@ -9,8 +9,8 @@ any of the 8 presets, under the pytree's own path names
 
 Not ported yet, and raising ``NotImplementedError`` rather than taking
 another path: the light-ranker rerank and train terms, the reward model,
-mixed negatives and logQ, precomputed ``scores``, ``approx_mips``, a
-quantized corpus, user-embedding arms other than the id table.
+precomputed ``scores``, ``approx_mips``, a quantized corpus, user-embedding
+arms other than the id table.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from two_tower_models_tpu_torch.nn.layers import (
     mlp_apply,
 )
 from two_tower_models_tpu_torch.nn.packed_table import table_lookup
-from two_tower_models_tpu_torch.ops.fused_softmax import fused_in_batch_ce
+from two_tower_models_tpu_torch.ops.fused_softmax import fused_in_batch_ce, fused_lse
 
 
 class Batch(NamedTuple):
@@ -53,15 +53,16 @@ class Batch(NamedTuple):
     position: Optional[torch.Tensor] = None  # [B] (training only)
     labels: Optional[torch.Tensor] = None  # [B, T]
     history_len: Optional[torch.Tensor] = None  # [B] valid history lengths
-    neg_item_id: Optional[torch.Tensor] = None  # mixed negatives (not ported)
-    neg_item_features: Optional[torch.Tensor] = None
-    item_logq: Optional[torch.Tensor] = None
-    neg_logq: Optional[torch.Tensor] = None
+    # mixed negatives and the logQ correction (training.data.extend_batch)
+    neg_item_id: Optional[torch.Tensor] = None  # [B'] extra catalog negatives
+    neg_item_features: Optional[torch.Tensor] = None  # [B', II]
+    item_logq: Optional[torch.Tensor] = None  # [B] log proposal probability
+    neg_logq: Optional[torch.Tensor] = None  # [B']
 
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue A, '{item}')"
+        f"{what} is not ported yet (ROADMAP.md, queue A, {item})"
     )
 
 
@@ -75,7 +76,7 @@ class TwoTowerModel(nn.Module):
         cfg.validate()
         if cfg.user_embedding_arm != "table":
             raise _not_ported(
-                f"user_embedding_arm {cfg.user_embedding_arm!r}", "Other zoo variants"
+                f"user_embedding_arm {cfg.user_embedding_arm!r}", "A8 'Other zoo variants'"
             )
         dt = cfg.pdtype
         du, di = cfg.user_id_embedding_dim, cfg.item_id_embedding_dim
@@ -205,12 +206,14 @@ def debias_net_user_value(
     """(re-weighted nuv, aux loss), with the three heads' different clamp
     and MSE orders: POSITION takes the MSE of the raw estimate, then clamps;
     USER clamps first and takes the MSE of the clamped estimate; BOTH takes
-    both raw MSEs and divides by the clamped user estimate."""
+    both raw MSEs and divides by the clamped user estimate.  The position
+    table's gradient sums in a fixed order (B18 on the card), so a step is
+    bit-equal on repeat with the default algorithms."""
     zero = net_user_value.new_zeros((), dtype=torch.float32)
     if cfg.debias == Debias.NONE:
         return net_user_value, zero
     if cfg.debias == Debias.POSITION:
-        est = embedding_lookup(params.position_bias_table, position)[:, 0]
+        est = embedding_lookup(params.position_bias_table, position, fixed_order=True)[:, 0]
         aux = torch.sum((est - net_user_value) ** 2)
         return net_user_value / _clip_min(est, cfg.position_debias_min), aux
     if cfg.debias == Debias.USER:
@@ -218,7 +221,7 @@ def debias_net_user_value(
                         cfg.user_debias_min)
         aux = torch.sum((est - net_user_value) ** 2)
         return net_user_value / est, aux
-    e_pos = embedding_lookup(params.position_bias_table, position)  # [B, 1]
+    e_pos = embedding_lookup(params.position_bias_table, position, fixed_order=True)  # [B, 1]
     e_user = linear_apply(
         params.user_debias_head,
         torch.cat([user_embedding, e_pos.to(user_embedding.dtype)], dim=-1),
@@ -233,6 +236,67 @@ def _in_batch_ce(scores: torch.Tensor) -> torch.Tensor:
     """Per-row CE of the [B, B] logits against the diagonal."""
     scores = scores.float()
     return torch.logsumexp(scores, dim=-1) - torch.diagonal(scores)
+
+
+def _extended_pool(
+    item_embeddings: torch.Tensor,  # [B, DI]
+    neg_item_embeddings: Optional[torch.Tensor],  # [B', DI]
+    item_logq: Optional[torch.Tensor],  # [B]
+    neg_logq: Optional[torch.Tensor],  # [B']
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The candidate pool [B + B', DI] (in-batch items, then the mixed
+    negatives) and its corrections [B + B'], f32, zero where a field is
+    absent.  The corrections are rounded to the pool's dtype and back, as
+    the fused route's appended column must be, so every route applies the
+    same values (a no-op for the towers' f32 embeddings)."""
+    b = item_embeddings.shape[0]
+    pool = item_embeddings
+    corr = item_embeddings.new_zeros(b, dtype=torch.float32) if item_logq is None else item_logq
+    corr = corr.float()
+    if neg_item_embeddings is not None:
+        pool = torch.cat([pool, neg_item_embeddings.to(pool.dtype)])
+        n_neg = neg_item_embeddings.shape[0]
+        corr = torch.cat([corr, corr.new_zeros(n_neg) if neg_logq is None else neg_logq.float()])
+    return pool, corr.to(pool.dtype).float()
+
+
+def logq_operands(user_embedding: torch.Tensor, pool: torch.Tensor,
+                  corr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused route's operands of ``fused_lse``, f32: [u, 1] [B, DI + 1]
+    and [pool, -corr] [C, DI + 1], whose products are s_bj - corr_j."""
+    ones = user_embedding.new_ones(user_embedding.shape[0], 1)
+    aug_u = torch.cat([user_embedding, ones], dim=1)
+    aug_pool = torch.cat([pool, (-corr)[:, None].to(pool.dtype)], dim=1)
+    return aug_u.float(), aug_pool.float()
+
+
+def _extended_ce(
+    cfg: ModelConfig,
+    user_embedding: torch.Tensor,  # [B, DI]
+    item_embeddings: torch.Tensor,  # [B, DI]
+    scores: Optional[torch.Tensor],  # [B, B] precomputed logits, or None
+    neg_item_embeddings: Optional[torch.Tensor],  # [B', DI] mixed negatives
+    item_logq: Optional[torch.Tensor],  # [B]
+    neg_logq: Optional[torch.Tensor],  # [B']
+) -> torch.Tensor:
+    """Per-row CE [B] over the extended candidate pool [in-batch items; mixed
+    negatives] with the optional logQ correction: ce_b = lse_j(s_bj -
+    logq_j) - (s_bb - logq_b).
+
+    ``cfg.fused_loss`` folds -logq into one extra feature column
+    (``logq_operands``), [u, 1] . [pool_j, -logq_j] = s_bj - logq_j, so
+    ``fused_lse`` (B10, then B11 + B12 without the diagonal, at C = B + B'
+    and D = DI + 1 on the card) runs unchanged and the [B, C] scores never
+    reach memory; otherwise the logits materialise."""
+    if scores is not None:
+        raise _not_ported("precomputed scores", "A8 'Other zoo variants'")
+    b = user_embedding.shape[0]
+    pool, corr = _extended_pool(item_embeddings, neg_item_embeddings, item_logq, neg_logq)
+    pos = (user_embedding.float() * item_embeddings.float()).sum(-1) - corr[:b]
+    if cfg.fused_loss:
+        return fused_lse(*logq_operands(user_embedding, pool, corr)) - pos
+    full = user_embedding.float() @ pool.float().T - corr[None, :]
+    return torch.logsumexp(full, dim=-1) - pos
 
 
 def _net_user_value(cfg: ModelConfig, labels: torch.Tensor) -> torch.Tensor:
@@ -274,13 +338,17 @@ def softmax_retrieval_loss(
     """In-batch sampled-softmax loss weighted by the (debiased) net user
     value, plus the debias aux loss.  ``cfg.fused_loss`` takes
     ``fused_in_batch_ce`` (kernels B10-B12 on the card), otherwise the [B, B]
-    logits materialise.  The port has one device, so the JAX package's mesh
+    logits materialise.  ``neg_item_embeddings`` appends B' mixed negatives
+    to every row's candidates and ``item_logq``/``neg_logq`` subtract each
+    candidate's log proposal probability from its logit, positives included
+    (``_extended_ce``).  The port has one device, so the JAX package's mesh
     branch has no counterpart here (ROADMAP.md, queue A, 'Multi-device')."""
-    if neg_item_embeddings is not None or item_logq is not None or neg_logq is not None:
-        raise _not_ported("mixed negatives and the logQ correction", "Mixed negatives and logQ")
-    if scores is not None:
-        raise _not_ported("precomputed scores", "Other zoo variants")
-    if cfg.fused_loss:
+    if neg_item_embeddings is not None or item_logq is not None:
+        ce = _extended_ce(cfg, user_embedding, item_embeddings, scores,
+                          neg_item_embeddings, item_logq, neg_logq)
+    elif scores is not None:
+        raise _not_ported("precomputed scores", "A8 'Other zoo variants'")
+    elif cfg.fused_loss:
         ce, _ = fused_in_batch_ce(user_embedding, item_embeddings)
     else:
         ce = _in_batch_ce(user_embedding.float() @ item_embeddings.float().T)
@@ -298,19 +366,25 @@ def train_loss(
     params: TwoTowerModel, cfg: ModelConfig, batch: Batch
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Scalar training loss and metrics for the base, history and debias
-    presets.  AUTO kernel flags resolve on the device of the params."""
+    presets, with the batch's mixed negatives (embedded by the item tower,
+    as any item) and logQ fields when ``training.data.extend_batch`` filled
+    them.  AUTO kernel flags resolve on the device of the params."""
     if cfg.light_ranker is not None or cfg.reward_model:
-        raise _not_ported("the light-ranker and reward-model terms", "Other zoo variants")
-    if batch.neg_item_id is not None or batch.item_logq is not None:
-        raise _not_ported("mixed negatives and the logQ correction", "Mixed negatives and logQ")
+        raise _not_ported("the light-ranker and reward-model terms", "A8 'Other zoo variants'")
     cfg = resolve_kernel_flags(cfg, params.item_id_table.device)
     user_emb, _ = compute_user_embedding(
         params, cfg, batch.user_id, batch.user_features, batch.user_history,
         batch.history_len,
     )
     item_embs = compute_item_embeddings(params, cfg, batch.item_id, batch.item_features)
+    neg_embs = (
+        compute_item_embeddings(params, cfg, batch.neg_item_id, batch.neg_item_features)
+        if batch.neg_item_id is not None
+        else None
+    )
     loss, metrics = softmax_retrieval_loss(
-        params, cfg, user_emb, item_embs, batch.position, batch.labels
+        params, cfg, user_emb, item_embs, batch.position, batch.labels,
+        neg_item_embeddings=neg_embs, item_logq=batch.item_logq, neg_logq=batch.neg_logq,
     )
     metrics["loss"] = loss
     return loss, metrics
@@ -335,7 +409,7 @@ def retrieve_from_embeddings(
 ) -> torch.Tensor:
     """Top ``cfg.num_items`` indices [B, num_items] from user embeddings."""
     if cfg.light_ranker is not None:
-        raise _not_ported("the light-ranker rerank", "Other zoo variants")
+        raise _not_ported("the light-ranker rerank", "A8 'Other zoo variants'")
     indices, _, _ = topk_fn(user_emb, cfg.num_items)
     return indices
 
@@ -361,9 +435,9 @@ def retrieve(
 
     dev = resolve_device(device)
     if not isinstance(corpus, torch.Tensor):
-        raise _not_ported(f"a {type(corpus).__name__} corpus (int8)", "Approximate and int8 MIPS")
+        raise _not_ported(f"a {type(corpus).__name__} corpus (int8)", "A11 'Approximate and int8 MIPS'")
     if cfg.approx_mips:
-        raise _not_ported("approx_mips", "Approximate and int8 MIPS")
+        raise _not_ported("approx_mips", "A11 'Approximate and int8 MIPS'")
     for name, t in (("model", params.item_id_table), ("corpus", corpus)):
         if t.device.type != dev.type:
             raise ValueError(f"{name} is on {t.device}, not {dev}")

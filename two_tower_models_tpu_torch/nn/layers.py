@@ -118,10 +118,11 @@ def disable_scatter_kernel():
 
 
 def scatter_add_rows(ids: torch.Tensor, rows: torch.Tensor, vocab: int,
-                     capped: bool = True) -> torch.Tensor:
+                     capped: bool = True, fixed_order: bool = False) -> torch.Tensor:
     """out[v] = sum of rows[n] over ids[n] == v, f32 [vocab, D]; ids outside
-    [0, vocab) dropped.  Inside the window (``_in_scatter_window``) and with
-    the kernel enabled, ``rows_scatter_add`` (B18 on the card), else the
+    [0, vocab) dropped.  With the kernel enabled, inside the window
+    (``_in_scatter_window``) or with ``fixed_order``, ``rows_scatter_add``
+    (B18 on the card, which sums each id's rows in a fixed order), else the
     plain scatter-add."""
     from two_tower_models_tpu_torch.ops.scatter_add import (
         rows_scatter_add,
@@ -129,7 +130,7 @@ def scatter_add_rows(ids: torch.Tensor, rows: torch.Tensor, vocab: int,
     )
 
     ids, rows = ids.reshape(-1), rows.reshape(-1, rows.shape[-1])
-    if _scatter_kernel_enabled and _in_scatter_window(vocab, capped):
+    if _scatter_kernel_enabled and (fixed_order or _in_scatter_window(vocab, capped)):
         return rows_scatter_add(ids, rows, vocab)
     return rows_scatter_add_reference(ids, rows, vocab)
 
@@ -139,28 +140,36 @@ class _Lookup(torch.autograd.Function):
     the ids for the backward, not the table."""
 
     @staticmethod
-    def forward(ctx, table, ids, capped):
+    def forward(ctx, table, ids, capped, fixed_order):
         ctx.save_for_backward(ids)
-        ctx.vocab, ctx.capped = table.shape[0], capped
+        ctx.vocab, ctx.capped, ctx.fixed_order = table.shape[0], capped, fixed_order
         return torch.nn.functional.embedding(ids, table)
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return scatter_add_rows(ids, g, ctx.vocab, ctx.capped).to(g.dtype), None, None
+        grad = scatter_add_rows(ids, g, ctx.vocab, ctx.capped, ctx.fixed_order)
+        return grad.to(g.dtype), None, None, None
 
 
-def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, capped: bool = True) -> torch.Tensor:
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, capped: bool = True,
+                     fixed_order: bool = False) -> torch.Tensor:
     """Rows ``table[ids]``; ``ids`` of any shape, values in [0, V).
 
-    Inside the scatter window (``_in_scatter_window(V, capped)``) the
-    gradient is ``scatter_add_rows`` (B18 on the card).  Below it, through
+    Inside the scatter window (``_in_scatter_window(V, capped)``), or with
+    ``fixed_order``, the gradient is ``scatter_add_rows`` (B18 on the card).
+    ``fixed_order`` is for a table whose ``F.embedding`` gradient gives new
+    bits on every call on CUDA: the position-bias table, [100, 1] under
+    4096 ids (five distinct results in five calls on an H100, where the
+    D = 64 id tables, even under a Zipf batch's 341 repeats of one id, gave
+    one; ``scripts/torch_lookup_repeats.py``).  Below the window, through
     ``F.embedding`` rather than indexing: the two gather alike, but the
     gradient of an index is an accumulating ``index_put_``, which on CUDA
     sums each id's repeats one after another.  A batch of variable-length
     histories repeats the padding id 0 about B*H/2 times, and that serial
     sum took 44 ms of a 69 ms training step on an H100; the embedding
     gradient splits a long run of one id into segments."""
-    if _in_scatter_window(table.shape[0], capped) and torch.is_grad_enabled() and table.requires_grad:
-        return _Lookup.apply(table, ids.long(), capped)
+    kernel = fixed_order or _in_scatter_window(table.shape[0], capped)
+    if kernel and torch.is_grad_enabled() and table.requires_grad:
+        return _Lookup.apply(table, ids.long(), capped, fixed_order)
     return torch.nn.functional.embedding(ids.long(), table)

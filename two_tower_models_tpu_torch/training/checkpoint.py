@@ -2,9 +2,10 @@
 
 Port of ``two_tower_models_tpu/training/checkpoint.py``.  A checkpoint is
 the whole ``TrainState``: the step, the params' ``state_dict`` in storage
-shapes (packed tables stay [V/P, 128]) and the optimizer state
-(``AdamState``, or ``LazyAdamState`` with its table moments), one file a
-step, ``<dir>/step_<step>.pt``.  A write goes to a temporary file that
+shapes (packed tables stay [V/P, 128]), the optimizer state (``AdamState``,
+or ``LazyAdamState`` with its table moments), the ``rng`` generator's state
+and the streaming estimator's counts, one file a step,
+``<dir>/step_<step>.pt``.  A write goes to a temporary file that
 ``os.replace`` renames into place, so a reader sees a whole checkpoint or
 none; the newest ``max_to_keep`` are kept.
 
@@ -66,8 +67,14 @@ def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
     """Every tensor of ``state`` under a flat name: ``step``,
     ``params.<name>``, and ``opt.count``/``opt.mu.<name>``/``opt.nu.<name>``
     (``AdamState``) or ``opt.dense.*`` and ``opt.tables.{mu,nu}.<name>``
-    (``LazyAdamState``).  The tensors are the state's own, not copies."""
+    (``LazyAdamState``), ``rng`` (the generator's ``get_state()``, a host
+    snapshot) and ``logq.counts``/``logq.total`` where the state has them.
+    The other tensors are the state's own, not copies."""
     out = {"step": state.step}
+    if state.rng is not None:
+        out["rng"] = state.rng.get_state()
+    if state.logq_state is not None:
+        out["logq.counts"], out["logq.total"] = state.logq_state
     out.update({f"params.{n}": t for n, t in state.params.state_dict().items()})
     opt = state.opt_state
     if isinstance(opt, LazyAdamState):
@@ -173,8 +180,9 @@ class CheckpointManager:
 
     def restore_latest(self, template: TrainState) -> Optional[TrainState]:
         """Copy the newest checkpoint into ``template``'s tensors in place
-        (parameters stay the same ``nn.Parameter`` objects) and return the
-        template, or None when the directory holds none.  Raises
+        (parameters stay the same ``nn.Parameter`` objects; ``rng`` takes
+        the saved generator state) and return the template, or None when the
+        directory holds none.  Raises
         ``ValueError`` on any missing or extra tensor, or a shape or dtype
         that differs from the template's."""
         self.wait_until_finished()  # an in-flight save must land to be the latest
@@ -198,7 +206,10 @@ class CheckpointManager:
                 )
         with torch.no_grad():
             for name, t in target.items():
-                t.copy_(saved[name])
+                if name == "rng":
+                    template.rng.set_state(saved[name])
+                else:
+                    t.copy_(saved[name])
         return template
 
     def close(self) -> None:

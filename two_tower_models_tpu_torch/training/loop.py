@@ -1,8 +1,9 @@
 """The training loop and its CLI.
 
 Port of ``two_tower_models_tpu/training/loop.py`` for one device: epochs of
-shuffled batches through ``make_train_step``, the loss summed on the
-device, corpus refresh and the recall@k eval, jsonl logging, checkpoints
+shuffled batches through ``make_train_step`` (with mixed negatives and the
+logQ correction, oracle or streaming, when the config asks), the loss
+summed on the device, corpus refresh and the recall@k eval, jsonl logging, checkpoints
 with exact-position resume, SIGTERM preemption and a profiled window.  The
 mesh and multihost paths are not ported (ROADMAP.md, queue A, A13
 'Multi-device') and raise.
@@ -138,7 +139,8 @@ def _train_inner(
     data = make_synthetic_data(
         data_cfg, structured=data_cfg.structured, label_cols=label_cols, device=dev
     )
-    state = create_train_state(train_cfg.seed, model_cfg, train_cfg, device=dev)
+    state = create_train_state(train_cfg.seed, model_cfg, train_cfg, device=dev,
+                               catalog_size=data.catalog_ids.shape[0])
 
     # K steps a dispatch while they fit; the epoch's remainder runs as
     # single steps.

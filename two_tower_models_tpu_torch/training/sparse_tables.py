@@ -16,7 +16,8 @@ the table update cost follow the touched rows:
      correction of the global step, written back in place: packed tables
      through ``ops.rows_write.rows_write_many`` (kernel B19 on the card,
      one launch for a table and its two moments), plain ones by an
-     indexed copy of the live slots (no kernel in the JAX package either).
+     indexed copy of every slot, each duplicate carrying its id's first
+     slot's values (no kernel in the JAX package either).
 
 This is LAZY Adam (torch's SparseAdam, TF's lazy_adam): the moments of
 untouched rows do not decay between the steps that touch them.  Off by
@@ -139,9 +140,8 @@ def apply_sparse_adam(
 ):
     """One lazy-Adam update of the touched rows, in place on ``table``,
     ``mu`` and ``nu`` (returned): optax.adam's arithmetic per touched row,
-    bias-corrected by the global step; duplicate slots (zero gradient) are
-    dropped at the write-back, their first slot holding the id's whole
-    gradient."""
+    bias-corrected by the global step; duplicate slots (zero gradient) write
+    their first slot's values, which hold the id's whole gradient."""
     d = g_mini.shape[-1]
     g = g_mini.float()
     packed = is_packed(table, d)
@@ -164,9 +164,13 @@ def apply_sparse_adam(
         vals = [merge_rows(plan, sorted_ids, r) for r in (new_rows.to(table.dtype), mu2, nu2)]
         rows_write_many((table, mu, nu), plan[0], plan[1], vals, block_dim=d)
         return table, mu, nu
-    keep = ~dup_mask
-    live = sorted_ids[keep].long()
-    table.index_copy_(0, live, new_rows[keep].to(table.dtype))
-    mu.index_copy_(0, live, mu2[keep])
-    nu.index_copy_(0, live, nu2[keep])
+    # every slot writes its run's first slot's values, so a duplicate id is
+    # written the same bits whichever write lands last, and no boolean mask
+    # (whose size the host would wait for) is needed
+    iota = torch.arange(dup_mask.shape[0], device=dup_mask.device)
+    head = torch.cummax(torch.where(dup_mask, -1, iota), 0).values
+    ids = sorted_ids.long()
+    table.index_copy_(0, ids, new_rows[head].to(table.dtype))
+    mu.index_copy_(0, ids, mu2[head])
+    nu.index_copy_(0, ids, nu2[head])
     return table, mu, nu

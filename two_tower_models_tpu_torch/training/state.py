@@ -11,6 +11,8 @@ copy of each, where JAX returns new arrays.
 Large id tables are stored 128-lane packed (``maybe_pack_tables``,
 ``nn.packed_table``); with ``TrainConfig.lazy_table_adam`` the tables keep
 their moments outside ``Adam`` (``LazyAdamState``, ``training.sparse_tables``).
+The state's ``rng`` draws the mixed negatives and its ``logq_state`` is the
+streaming frequency estimator (``training.freq_estimator``).
 """
 
 from __future__ import annotations
@@ -24,11 +26,11 @@ from two_tower_models_tpu_torch.config import ModelConfig, TrainConfig
 from two_tower_models_tpu_torch.models.two_tower import TwoTowerModel, init_params
 from two_tower_models_tpu_torch.nn.packed_table import pack_factor, pack_table, packed_shape
 from two_tower_models_tpu_torch.ops.fused_adam import fused_adam_step
+from two_tower_models_tpu_torch.training.freq_estimator import (
+    FreqEstimatorState,
+    init_freq_estimator,
+)
 from two_tower_models_tpu_torch.training.sparse_tables import SPARSE_TABLE_KEYS, init_table_moments
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, '{item}')")
 
 
 class AdamState(NamedTuple):
@@ -50,12 +52,16 @@ class LazyAdamState(NamedTuple):
 
 
 class TrainState(NamedTuple):
-    """The JAX package's ``TrainState`` without its RNG key and logQ
-    estimator, which only the unported mixed-negative paths use."""
+    """The JAX package's ``TrainState``.  ``rng`` is a ``torch.Generator``
+    on the state's device, drawn from in place by the mixed-negative steps
+    only (its ``get_state()`` is what a checkpoint keeps); ``logq_state``
+    is present only with ``TrainConfig.streaming_logq``."""
 
     step: torch.Tensor  # int32 scalar
     params: TwoTowerModel
     opt_state: Union[AdamState, LazyAdamState]
+    rng: Optional[torch.Generator] = None
+    logq_state: Optional[FreqEstimatorState] = None
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -171,15 +177,31 @@ def maybe_pack_tables(params: TwoTowerModel, model_cfg: ModelConfig,
     return params
 
 
+# Mixes the params' seed into the seed of ``TrainState.rng``, so the two
+# generators of one state draw unrelated streams.
+_RNG_SALT = 0x5DEECE66D
+
+
 def create_train_state(seed, model_cfg: ModelConfig, train_cfg: TrainConfig,
-                       device="cuda") -> TrainState:
+                       device="cuda", catalog_size: Optional[int] = None) -> TrainState:
     """Fresh params from ``seed`` (an int or a ``torch.Generator`` on
     ``device``), packed where ``maybe_pack_tables`` says
-    (``TrainConfig.pack_tables=False`` keeps plain [V, D] tables), and a
-    zero optimizer state: ``AdamState``, or with ``lazy_table_adam`` a
-    ``LazyAdamState`` whose table moments take the tables' storage shape."""
+    (``TrainConfig.pack_tables=False`` keeps plain [V, D] tables), a zero
+    optimizer state (``AdamState``, or with ``lazy_table_adam`` a
+    ``LazyAdamState`` whose table moments take the tables' storage shape),
+    ``rng`` seeded from ``seed`` and, with ``streaming_logq``, an empty
+    estimator over ``catalog_size`` items."""
     if train_cfg.streaming_logq:
-        raise _not_ported("streaming_logq", "queue A, Mixed negatives and logQ")
+        if not model_cfg.logq_correction:
+            raise ValueError(
+                "streaming_logq estimates frequencies FOR the logQ "
+                "correction — set ModelConfig.logq_correction too"
+            )
+        if catalog_size is None:
+            raise ValueError(
+                "streaming_logq needs catalog_size (the number of catalog "
+                "items the estimator tracks)"
+            )
     tx = make_optimizer(train_cfg)
     params = maybe_pack_tables(init_params(seed, model_cfg, device=device), model_cfg, train_cfg)
     if train_cfg.lazy_table_adam:
@@ -187,5 +209,11 @@ def create_train_state(seed, model_cfg: ModelConfig, train_cfg: TrainConfig,
                                   init_table_moments(params))
     else:
         opt_state = tx.init(params)
-    step = torch.zeros((), dtype=torch.int32, device=params.item_id_table.device)
-    return TrainState(step=step, params=params, opt_state=opt_state)
+    dev = params.item_id_table.device
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    rng = torch.Generator(device=dev)
+    base = seed.initial_seed() if isinstance(seed, torch.Generator) else int(seed)
+    rng.manual_seed((base + _RNG_SALT) % (1 << 63))
+    logq_state = init_freq_estimator(catalog_size, dev) if train_cfg.streaming_logq else None
+    return TrainState(step=step, params=params, opt_state=opt_state, rng=rng,
+                      logq_state=logq_state)

@@ -1,10 +1,11 @@
 """The train step: gather the batch, loss, gradients, Adam; and the
 recall@k eval.
 
-Port of ``make_train_step``, ``_make_lazy_table_step`` and
-``make_eval_recall_fn`` of ``two_tower_models_tpu/training/step.py``.  PyTorch runs eagerly, so the
-step is a plain function.  Its metrics stay device tensors: nothing in a
-step waits for the device, and the caller reads them when it logs.
+Port of ``_extend_and_track``, ``make_train_step``, ``_make_lazy_table_step``
+and ``make_eval_recall_fn`` of ``two_tower_models_tpu/training/step.py``.
+PyTorch runs eagerly, so the step is a plain function.  Its metrics stay
+device tensors: nothing in a step waits for the device, and the caller
+reads them when it logs.
 """
 
 from __future__ import annotations
@@ -16,7 +17,13 @@ import torch
 from two_tower_models_tpu_torch.config import ModelConfig, TrainConfig, resolve_kernel_flags
 from two_tower_models_tpu_torch.models.two_tower import Batch, compute_user_embedding, train_loss
 from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact
-from two_tower_models_tpu_torch.training.data import SyntheticRecData, gather_batch
+from two_tower_models_tpu_torch.training.data import (
+    SyntheticRecData,
+    catalog_positions,
+    extend_batch,
+    gather_batch,
+)
+from two_tower_models_tpu_torch.training.freq_estimator import freq_log_prob, freq_update
 from two_tower_models_tpu_torch.training.sparse_tables import (
     SPARSE_TABLE_KEYS,
     apply_sparse_adam,
@@ -25,7 +32,6 @@ from two_tower_models_tpu_torch.training.sparse_tables import (
 from two_tower_models_tpu_torch.training.state import (
     LazyAdamState,
     TrainState,
-    _not_ported,
     global_norm,
     make_optimizer,
 )
@@ -39,6 +45,25 @@ def _grads(loss, leaves):
     return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
 
+def _extend_and_track(model_cfg: ModelConfig, train_cfg: TrainConfig, state: TrainState,
+                      data: SyntheticRecData, batch):
+    """Mixed negatives and logQ for one step, and the streaming estimator's
+    advance: (batch, logq_state).  With ``streaming_logq`` the corrections
+    use the estimator's current estimate (no lookahead), then the batch's
+    items fold in.  With both features off the batch, ``state.rng`` and
+    the estimator are untouched, so the plain path draws nothing."""
+    if not (model_cfg.mixed_negatives or model_cfg.logq_correction):
+        return batch, state.logq_state
+    if state.rng is None:
+        raise ValueError("mixed negatives and logQ draw from TrainState.rng, which is None")
+    override, est = None, state.logq_state
+    if train_cfg.streaming_logq:
+        override = freq_log_prob(est)
+        est = freq_update(est, catalog_positions(data.catalog_ids, batch.item_id),
+                          train_cfg.logq_decay)
+    return extend_batch(model_cfg, data, batch, state.rng, override), est
+
+
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Step:
     """``step(state, data, idx) -> (state, metrics)``: one Adam step on the
     batch of rows ``idx`` [B], in place on ``state.params`` and its moments.
@@ -46,10 +71,9 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Step:
     ``grad_norm`` (of the gradients before clipping).  With
     ``lazy_table_adam`` the tables take lazy Adam on their touched rows
     (``_make_lazy_table_step``).  With ``steps_per_dispatch = K > 1``,
-    ``idx`` is [K, B]: K steps in a row, metrics averaged over them."""
-    if model_cfg.mixed_negatives or model_cfg.logq_correction:
-        raise _not_ported("mixed negatives and the logQ correction",
-                          "queue A, Mixed negatives and logQ")
+    ``idx`` is [K, B]: K steps in a row, metrics averaged over them.  With
+    ``mixed_negatives`` or ``logq_correction`` each step extends its batch
+    first (``_extend_and_track``), drawing from ``state.rng``."""
     if train_cfg.lazy_table_adam:
         if train_cfg.fused_adam:
             raise ValueError("lazy_table_adam and fused_adam are exclusive")
@@ -63,7 +87,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Step:
     if train_cfg.lazy_table_adam:
         step = _make_lazy_table_step(model_cfg, tx, train_cfg)
     else:
-        step = _make_dense_step(model_cfg, tx)
+        step = _make_dense_step(model_cfg, tx, train_cfg)
 
     if train_cfg.steps_per_dispatch <= 1:
         return step
@@ -78,17 +102,20 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Step:
     return multi_step
 
 
-def _make_dense_step(model_cfg: ModelConfig, tx) -> Step:
+def _make_dense_step(model_cfg: ModelConfig, tx, train_cfg: TrainConfig) -> Step:
     def step(state: TrainState, data: SyntheticRecData, idx: torch.Tensor):
         params = state.params
         cfg = resolve_kernel_flags(model_cfg, params.item_id_table.device)
-        loss, metrics = train_loss(params, cfg, gather_batch(data, idx))
+        batch, logq_state = _extend_and_track(model_cfg, train_cfg, state, data,
+                                              gather_batch(data, idx))
+        loss, metrics = train_loss(params, cfg, batch)
         names, ps = zip(*params.named_parameters())
         grads = _grads(loss, ps)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
         opt_state = tx.update(params, dict(zip(names, grads)), state.opt_state)
-        return state._replace(step=state.step + 1, opt_state=opt_state), metrics
+        return state._replace(step=state.step + 1, opt_state=opt_state,
+                              logq_state=logq_state), metrics
 
     return step
 
@@ -103,7 +130,9 @@ def _make_lazy_table_step(model_cfg: ModelConfig, tx, train_cfg: TrainConfig) ->
     def step(state: TrainState, data: SyntheticRecData, idx: torch.Tensor):
         params = state.params
         cfg = resolve_kernel_flags(model_cfg, params.item_id_table.device)
-        params2, batch2, meta = build_minibatch(cfg, params, gather_batch(data, idx))
+        batch, logq_state = _extend_and_track(model_cfg, train_cfg, state, data,
+                                              gather_batch(data, idx))
+        params2, batch2, meta = build_minibatch(cfg, params, batch)
         minis = [params2._tables[n].requires_grad_() for n in SPARSE_TABLE_KEYS]
         loss, metrics = train_loss(params2, cfg, batch2)
         names, ps = zip(*((n, p) for n, p in params.named_parameters()
@@ -119,7 +148,8 @@ def _make_lazy_table_step(model_cfg: ModelConfig, tx, train_cfg: TrainConfig) ->
             s, dup = meta[name]
             apply_sparse_adam(getattr(params, name), moments["mu"][name], moments["nu"][name],
                               mini.detach(), g, s, dup, t, train_cfg)
-        return TrainState(step=t, params=params, opt_state=LazyAdamState(dense, moments)), metrics
+        return state._replace(step=t, opt_state=LazyAdamState(dense, moments),
+                              logq_state=logq_state), metrics
 
     return step
 
