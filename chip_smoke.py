@@ -269,6 +269,35 @@ Phases, in the order they run; any failure exits non-zero:
      head (id < 0.2 C) and tail, the corrected arm at least 0.25 and 5x the
      plain arm's, beside the JAX package's 0.453 and 0.0195
      (BASELINE.md:624, a TPU v5e run).
+  11. the rest of the model zoo at scripts/bench_presets.py:39-70's width
+     (65,536-row tables, D = 64, IU = II = 16, T = 3, H = 32 on the
+     whole-encoder kernel, bf16, fused loss, B = 4096, lr 1e-3;
+     LightRankerConfig()'s NI = 50, NU = 4; KD's labels [labels, 0.5 labels]).
+     11a: two_tower_plus_light_ranker, two_tower_plus_light_ranker_kd and
+     two_tower_with_main_ranker_reward, 3 warm-up and 20 timed steps each:
+     ms/step, device-busy ms (a trace) and peak memory beside phase 4's
+     flagship in the same call; one launch a step of B5, B6 and its reduce
+     and B18, and of B10, B11 + B12 and its reduce except on the reward
+     model (its loss takes the precomputed [B, B] scores), none of any
+     other kernel; 0 host syncs; finite metrics under the new names; and
+     train_loss with every grad leaf within 1e-2 of scale of a CPU copy at
+     B = 256 (the reward model's two item-tower biases at their own scale).
+     11b: one step of the KD preset and one of the reward model with 64
+     mixed negatives and the oracle logQ (phase 10's settings): the CE
+     kernels at (4096, 4160, 65) on the first, none on the second (the
+     scores route of _extended_ce); grads against the CPU copy as in 11a.
+     11c: the light ranker's RetrievalEngine from 11a's trained model over a
+     2^20-item catalog, B = 1024, num_items = 10 (validate() needs NI >=
+     num_items, so not bench_serving.py's 100), ten batches: ms/batch
+     beside phase 3's; a batch launches B1 once, B2, two B3 and B4 (k =
+     50); indices as sets equal to a CPU copy's on the card's user and
+     ranker embeddings, 128 rows a batch, on every row whose 10th and 11th
+     rerank values and 50th and 51st MIPS scores differ by more than 1e-5 of
+     its scale (the rows excluded counted). 11d: the trainer CLI (--preset
+     two_tower_plus_light_ranker_kd at phase 9's widths on 2^19 samples, cut
+     from 2^21) for one epoch with a checkpoint, then for two on that
+     checkpoint: its final state bit-equal to two epochs in this process;
+     and each models/zoo.py builder's init, train_forward and forward.
 
 Phase 2 also holds B2 and the exact pipeline on an integer-grid corpus whose
 scores hold +-inf and NaN of both signs (nonfinite_check).
@@ -332,6 +361,15 @@ MNS_EPOCHS = 8  # 10e: exp_mns_scale.py's --epochs
 MNS_EVAL = 16384  # 10e: exp_mns_scale.py's --eval_size
 # 10e's yardstick: the JAX package's recall@100 at lr 1e-3, seed 42 (BASELINE.md:624, TPU v5e)
 MNS_JAX_RECALL = {"mns+logq": 0.453, "plain": 0.0195}
+# phase 11, the rest of the zoo: scripts/bench_presets.py:39-70's width
+ZOO_PRESETS = ("two_tower_plus_light_ranker", "two_tower_plus_light_ranker_kd",
+               "two_tower_with_main_ranker_reward")
+ZOO_SHORT = {"two_tower_plus_light_ranker": "lightranker",
+             "two_tower_plus_light_ranker_kd": "kd",
+             "two_tower_with_main_ranker_reward": "reward"}
+ZOO_MNS_SAMPLES = 2 * TRAIN_BATCH  # 11b: make_synthetic_data's rows, for one step and its check
+ZOO_CLI_SAMPLES = 1 << 19  # 11d: phase 9's 2^21 samples cut to 128 steps an epoch
+ZOO_CHECK_ROWS = 128  # 11c: the rows of each batch held against the CPU copy
 # B18 launches a training step of a config that debiases by position: the
 # position-bias table's gradient, summed in a fixed order (nn.layers
 # embedding_lookup's fixed_order), where F.embedding's differs call to call
@@ -664,10 +702,11 @@ def grads_vs_cpu(torch, model, cfg, data, idx, failures, label: str,
     """train_loss and every grad leaf on the card against a CPU copy of the
     model, on the first ``rows`` rows of idx (or on the batch ``sub``, on the
     card, copied to the CPU as it is: an extended batch's drawn negatives
-    included), at BF16_TOL of each leaf's scale (the zero-gradient leaves
-    against ZERO_GRAD_FLOOR of the top).  With ``zero_exact`` the
-    zero-gradient leaves are held to their exact value, 0, instead: the
-    card's largest magnitude at most 1.5 times the CPU's, plus the same
+    included), at BF16_TOL of each leaf's scale (the leaves of
+    ``zero_grad_leaves(cfg)``, zero in exact arithmetic, against
+    ZERO_GRAD_FLOOR of the top; the reward model has none).  With
+    ``zero_exact`` those leaves are held to their exact value, 0, instead:
+    the card's largest magnitude at most 1.5 times the CPU's, plus the same
     allowance."""
     from two_tower_models_tpu_torch.models import two_tower as tt
     from two_tower_models_tpu_torch.training.data import gather_batch
@@ -689,10 +728,11 @@ def grads_vs_cpu(torch, model, cfg, data, idx, failures, label: str,
     (m_gpu, g_gpu), (m_cpu, g_cpu) = results
     top = max(float(g.abs().max()) for g in g_cpu.values())
     worst, worst_leaf, exact = 0.0, "", []
+    floor = tt.zero_grad_leaves(cfg)
     for name, want in g_cpu.items():
-        scale = tt.ZERO_GRAD_FLOOR * top if name in tt.ZERO_GRAD_LEAVES else float(want.abs().max())
+        scale = tt.ZERO_GRAD_FLOOR * top if name in floor else float(want.abs().max())
         rel = float((g_gpu[name] - want).abs().max()) / max(scale, 1e-30)
-        if name in tt.ZERO_GRAD_LEAVES and zero_exact:
+        if name in floor and zero_exact:
             card, cpu = float(g_gpu[name].abs().max()), float(want.abs().max())
             exact.append(f"{name} card {card / top:.3g}, CPU {cpu / top:.3g} of the top leaf "
                          f"(apart {rel:.3g} of ZERO_GRAD_FLOOR x top)")
@@ -709,9 +749,9 @@ def grads_vs_cpu(torch, model, cfg, data, idx, failures, label: str,
             failures.append(f"{label} metric {k} card vs CPU: {m_gpu[k]} vs {v}")
     print(f"{label}: train_loss B={rows} card vs CPU: loss {m_gpu['loss']:.6f} vs "
           f"{m_cpu['loss']:.6f}; worst grad leaf {worst_leaf} at {worst:.3g} of its "
-          f"scale (tol {BF16_TOL})" + (f"; zero in exact arithmetic (the card at most 1.5x the "
-                                       f"CPU's distance from 0): {'; '.join(exact)}" if exact
-                                       else ""), flush=True)
+          f"scale (tol {BF16_TOL}); leaves on the floor {list(floor)}"
+          + (f"; zero in exact arithmetic (the card at most 1.5x the CPU's distance from 0): "
+             f"{'; '.join(exact)}" if exact else ""), flush=True)
 
 
 def stack_input(torch, model, hist, lens):
@@ -3686,6 +3726,319 @@ def phase_mns(torch, args, smi, dev, entries, failures) -> None:
     print(f"mns: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def zoo_cfg(name: str, **kw):
+    """scripts/bench_presets.py:39-70's model for preset ``name``: 65,536-row
+    tables, D = 64, 16 features, T = 3, H = 32 on the whole-encoder kernel,
+    bf16, the fused loss; LightRankerConfig()'s NI = 50, NU = 4."""
+    import dataclasses
+
+    from two_tower_models_tpu_torch.config import preset
+
+    cfg = preset(name, user_id_hash_size=TRAIN_ROWS, user_id_embedding_dim=64,
+                 item_id_hash_size=TRAIN_ROWS, item_id_embedding_dim=64, user_features_size=16,
+                 item_features_size=16, user_value_weights=(1.0, 0.5, 0.25), history_len=HIST,
+                 compute_dtype="bfloat16", fused_loss=True, **kw)
+    return dataclasses.replace(
+        cfg, history_encoder=dataclasses.replace(cfg.history_encoder, fused_encoder=True))
+
+
+def zoo_train_launches(cfg) -> dict:
+    """A training step's launches for ``cfg``: B5, B6 and its reduce, B18 for
+    the position table, and B10, B11 + B12 and its reduce unless the loss
+    takes precomputed scores (the reward model); none of any other kernel."""
+    ce = 0 if cfg.reward_model else 1
+    return {"fused_history_encoder_res": 1, "fused_history_encoder_res_tc": 1,
+            "fused_history_encoder_bwd": 1, "fused_history_encoder_bwd_tc": 1,
+            "fused_history_encoder_bwd_reduce": 1, "rows_scatter_add": POS_B18,
+            "fused_in_batch_ce": ce, "in_batch_ce_bwd": ce, "in_batch_ce_bwd_reduce": ce}
+
+
+def zoo_metric_names(cfg) -> set:
+    names = {"loss", "softmax_ce", "debias_aux_loss", "nuv_mean", "grad_norm"}
+    if cfg.light_ranker is not None:
+        names.add("light_ranker_bce")
+    if cfg.kd:
+        names.add("kd_loss")
+    if cfg.reward_model:
+        names |= {"reward_kl", "proxy_ranker_bce"}
+    return names
+
+
+def phase_zoo(torch, args, smi, dev, entries, failures, b56_ms, busy56, serve_ms) -> None:
+    """Phase 11: the light ranker, KD and the reward model at
+    scripts/bench_presets.py's width (11a the three training steps, 11b
+    with mixed negatives and logQ, 11c the light ranker's serving, 11d the
+    trainer CLI's exact resume and the zoo builders)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from two_tower_models_tpu_torch.config import DataConfig, TrainConfig, resolve_kernel_flags
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.models import zoo
+    from two_tower_models_tpu_torch.ops import _lib
+    from two_tower_models_tpu_torch.retrieval.mips import mips_topk, topk_ordered
+    from two_tower_models_tpu_torch.serving import RetrievalEngine
+    from two_tower_models_tpu_torch.training import loop
+    from two_tower_models_tpu_torch.training.checkpoint import state_tensors
+    from two_tower_models_tpu_torch.training.data import gather_batch, make_synthetic_data
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import _extend_and_track, make_train_step
+
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    b = TRAIN_BATCH
+    train_cfg = TrainConfig(batch_size=b, learning_rate=1e-3)
+    fmt = lambda v: "not measured" if v is None else f"{v:.3f}"
+
+    # -- 11a: the three presets' training steps --
+    trained = {}
+    for preset_name in ZOO_PRESETS:
+        short = ZOO_SHORT[preset_name]
+        label = f"train-65k-{short}"
+        cfg = zoo_cfg(preset_name)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 20)
+        state = create_train_state(gen, cfg, train_cfg, device=dev)
+        data = fixed_batch(torch, gen, dev, cfg, b)
+        if cfg.kd:  # scripts/bench_presets.py:67-70: the soft labels are half the hard ones
+            data = data._replace(labels=torch.cat([data.labels, 0.5 * data.labels], 1))
+        idx = torch.arange(b, device=dev)
+        step = make_train_step(cfg, train_cfg)
+        state, metrics, _, _, _ = run_steps(torch, step, state, data, idx, 3)
+        torch.cuda.reset_peak_memory_stats()
+        state, timed, ms_step, host_ms, counts = run_steps(torch, step, state, data, idx,
+                                                           TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        metrics += timed
+        expect = zoo_train_launches(cfg)
+        print(f"launches on the {label} path ({TRAIN_STEPS} steps): {json.dumps(counts)}",
+              flush=True)
+        check_only_launches(counts, expect, TRAIN_STEPS, failures, label)
+        for k, per in expect.items():
+            if k in entries and per:
+                entries[k][f"launches_{label}"] = counts.get(k, 0)
+        if not finite(torch, metrics) or set(metrics[0]) != zoo_metric_names(cfg):
+            failures.append(f"{label} metrics {sorted(metrics[0])}, finite {finite(torch, metrics)}")
+        state, busy = trace_steps(torch, step, state, data, idx, label)
+        state, syncs = count_syncs(torch, step, state, data, idx)
+        if syncs:
+            failures.append(f"{label}: {syncs} host syncs in a step")
+        first, last = metrics[0], metrics[-1]
+        terms = " ".join(f"{k} {float(first[k]):.5f}->{float(last[k]):.5f}"
+                         for k in sorted(zoo_metric_names(cfg) - {"grad_norm", "nuv_mean"}))
+        print(f"{label} on {name} ({smi}): {TRAIN_STEPS} steps of B={b}: ms/step {ms_step:.3f}, "
+              f"examples/s {b / ms_step * 1e3:.0f}; host wall {host_ms:.3f} ms/step; device busy "
+              f"{fmt(busy)} ms/step (three profiled steps); peak device memory {peak:.2f} GiB; "
+              f"host syncs in a step {syncs}; the flagship's step in this call (phase 4) "
+              f"{b56_ms[0]:.3f} ms/step, busy {fmt(busy56)}; {terms}", flush=True)
+        grads_vs_cpu(torch, state.params, cfg, data, idx, failures, label)
+        trained[preset_name] = (cfg, state.params)
+        del state, step, data, metrics, timed
+        torch.cuda.empty_cache()
+
+    # -- 11b: mixed negatives and oracle logQ (phase 10's settings) --
+    kw = dict(mixed_negatives=MNS_NEGATIVES, logq_correction=True)
+    for preset_name in ("two_tower_plus_light_ranker_kd", "two_tower_with_main_ranker_reward"):
+        label = f"zoo 11b {ZOO_SHORT[preset_name]} mns+logq"
+        cfg = resolve_kernel_flags(zoo_cfg(preset_name, **kw), dev)
+        data_cfg = DataConfig(num_samples=ZOO_MNS_SAMPLES, num_users=MNS_ROWS, num_items=MNS_ROWS,
+                              feature_dim=16, history_len=HIST, num_tasks=cfg.num_tasks,
+                              popularity_skew=1.0, seed=42)
+        data = make_synthetic_data(data_cfg, label_cols=cfg.num_tasks * (2 if cfg.kd else 1),
+                                   device=dev)
+        tc = dataclasses.replace(train_cfg, grad_clip_norm=1.0)
+        state = create_train_state(args.seed + 21, cfg, tc, device=dev, catalog_size=MNS_ROWS)
+        step = make_train_step(cfg, tc)
+        idx = torch.arange(b, device=dev)
+        state = run_steps(torch, step, state, data, idx, 1)[0]  # a warm-up step
+        state, metrics, ms_step, _, counts = run_steps(torch, step, state, data, idx, 1)
+        expect = zoo_train_launches(cfg)
+        print(f"launches on the {label} path (1 step): {json.dumps(counts)}", flush=True)
+        check_only_launches(counts, expect, 1, failures, label)
+        if not finite(torch, metrics):
+            failures.append(f"{label} metrics not finite")
+        with torch.no_grad():
+            sub, _ = _extend_and_track(cfg, tc, state, data, gather_batch(data, idx[:CHECK_BATCH]))
+        if sub.neg_item_id.shape != (MNS_NEGATIVES,) or sub.item_logq is None:
+            failures.append(f"{label}: the batch was not extended")
+        print(f"{label} on {name} ({smi}): one step of B={b} with {MNS_NEGATIVES} mixed "
+              f"negatives, {ms_step:.3f} ms; loss {float(metrics[0]['loss']):.5f}; the CE "
+              f"kernels {'not launched: precomputed scores' if cfg.reward_model else 'at (4096, 4160, 65)'}",
+              flush=True)
+        grads_vs_cpu(torch, state.params, cfg, data, idx, failures, label, sub=sub)
+        del state, step, data, sub
+        torch.cuda.empty_cache()
+
+    # -- 11c: the light ranker's serving, from 11a's trained model --
+    cfg, model = trained["two_tower_plus_light_ranker"]
+    cfg = resolve_kernel_flags(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 22)
+    catalog_ids = torch.arange(CORPUS, device=dev) % TRAIN_ROWS  # the 65,536-row item table
+    catalog_feats = torch.randn(CORPUS, 16, generator=gen, device=dev)
+    engine = RetrievalEngine.from_params(model, cfg, catalog_ids, catalog_feats, device=dev)
+    engine.warmup(BATCH)
+    corpus = engine.corpus
+    batches = [(torch.randint(0, cfg.user_id_hash_size, (BATCH,), generator=gen, device=dev),
+                torch.randn(BATCH, 16, generator=gen, device=dev),
+                torch.randint(0, TRAIN_ROWS, (BATCH, HIST), generator=gen, device=dev))
+               for _ in range(args.batches)]
+    _lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in batches]
+    outs = []
+    for (s, e), (u, f, h) in zip(evs, batches):
+        s.record()
+        outs.append(engine.query(u, f, h))
+        e.record()
+    torch.cuda.synchronize()
+    counts = dict(_lib.launches)
+    ms = [s.elapsed_time(e) for s, e in evs]
+    label = "serve-1M-exact-lightranker"
+    print(f"launches on the {label} path: {json.dumps(counts)}", flush=True)
+    expect = {"fused_history_encoder": 1, "fused_history_encoder_tc": 1, **MIPS_ROUTE}
+    check_only_launches(counts, expect, len(batches), failures, label)
+    for k in expect:
+        if k in entries:
+            entries[k][f"launches_{label}"] = counts.get(k, 0)
+    cpu_model = copy.deepcopy(model).cpu()
+    corpus_cpu = corpus.cpu()
+    cfg_cpu = resolve_kernel_flags(cfg, "cpu")
+    n_items, ni = cfg.num_items, cfg.light_ranker.num_mips_items
+    margin_rows, mismatched, checked, rerank_ties = 0, 0, 0, 0
+    for (u, f, h), got in zip(batches, outs):
+        if got.shape != (BATCH, n_items) or int(got.min()) < 0 or int(got.max()) >= CORPUS:
+            failures.append(f"{label} output shape/range")
+        with torch.inference_mode():
+            q, ranker = tt.compute_user_embedding(model, cfg, u, f, h)
+            q, ranker = q[:ZOO_CHECK_ROWS].cpu(), ranker[:ZOO_CHECK_ROWS].cpu()
+            cand, sc, emb = mips_topk(corpus_cpu, q, ni + 1)
+            value = tt.rerank_values(cpu_model, cfg_cpu, ranker, sc[:, :ni], emb[:, :ni])
+            top_v, top_i = topk_ordered(value, n_items + 1)
+            want = torch.gather(cand, 1, top_i[:, :n_items])
+        # a clear row: its 10th and 11th rerank values, and its NI-th and
+        # (NI + 1)-th MIPS scores (which set the candidates), apart by more
+        # than 1e-5 of the row's scale
+        clear = ((top_v[:, n_items - 1] - top_v[:, n_items]) > 1e-5 * value.abs().amax(1))
+        mips_clear = (sc[:, ni - 1] - sc[:, ni]) > 1e-5 * sc[:, 0].abs()
+        rerank_ties += int((~clear).sum())
+        clear &= mips_clear
+        margin_rows += int(clear.sum())
+        checked += ZOO_CHECK_ROWS
+        same = (torch.sort(got[:ZOO_CHECK_ROWS].cpu()[clear], 1).values
+                == torch.sort(want[clear], 1).values)
+        mismatched += int((~same).any(1).sum())
+    u, f, h = (t[:32] for t in batches[0])
+    with torch.inference_mode():
+        g_q, g_r = tt.compute_user_embedding(model, cfg, u, f, h)
+        c_q, c_r = tt.compute_user_embedding(cpu_model, cfg_cpu, u.cpu(), f.cpu(), h.cpu())
+    ok_q, err_q = close(torch.cat([g_q, g_r.flatten(1)], 1).cpu(), torch.cat([c_q, c_r.flatten(1)], 1),
+                        3e-2, 3e-2)
+    if mismatched or not margin_rows or not ok_q:
+        failures.append(f"{label}: {mismatched} of {margin_rows} clear rows mismatched, "
+                        f"embeddings ok={ok_q}")
+    ms_batch = sum(ms) / len(ms)
+    print(f"{label} on {name} ({smi}): {len(batches)} batches of B={BATCH} over C={CORPUS}, "
+          f"MIPS k={cfg.light_ranker.num_mips_items} then the rerank to {n_items}: ms/batch mean "
+          f"{ms_batch:.3f} min {min(ms):.3f} max {max(ms):.3f}; QPS {BATCH / ms_batch * 1e3:.0f}; "
+          f"phase 3's exact serving (k={TOPK}) {serve_ms:.3f} ms/batch in this call; indices vs "
+          f"the CPU copy on the card's user and ranker embeddings, {ZOO_CHECK_ROWS} rows a batch: "
+          f"{mismatched} mismatched (as sets) of {margin_rows} rows whose 10th and 11th rerank "
+          f"values, and {ni}th and {ni + 1}st MIPS scores, differ by more than 1e-5 of the row's "
+          f"scale ({checked - margin_rows} of {checked} excluded, {rerank_ties} of them by the "
+          f"rerank values); "
+          f"user and ranker embeddings card vs CPU max_abs_err {err_q:.3g} (tol 3e-2)", flush=True)
+    del engine, corpus, corpus_cpu, cpu_model, batches, outs, trained
+    torch.cuda.empty_cache()
+
+    # -- 11d: the trainer CLI, one epoch with a checkpoint, then its resume,
+    # against the uninterrupted run in this process --
+    tmp = tempfile.TemporaryDirectory(prefix="zoo_", dir=_lib.BUILD_DIR)
+    ckpt = os.path.join(tmp.name, "cli")
+    argv = ["--preset", "two_tower_plus_light_ranker_kd", "--num_samples", str(ZOO_CLI_SAMPLES),
+            "--num_users", str(LOOP_USERS), "--num_items", str(LOOP_ITEMS),
+            "--user_id_hash_size", str(LOOP_USERS), "--item_id_hash_size", str(LOOP_ITEMS),
+            "--embedding_dim", "64", "--feature_dim", "16", "--user_history_seqlen", str(HIST),
+            "--batch_size", str(b), "--compute_dtype", "bfloat16", "--device", str(dev)]
+    cli = [sys.executable, "-m", "two_tower_models_tpu_torch.training.loop", *argv,
+           "--checkpoint_dir", ckpt]
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = [subprocess.run(cli + ["--num_epochs", str(e)], capture_output=True, text=True,
+                           timeout=600, cwd=here) for e in (1, 2)]
+    for i, r in enumerate(runs):
+        print(f"zoo 11d CLI run {i + 1}: rc {r.returncode}; stdout "
+              f"{r.stdout.strip().splitlines()}", flush=True)
+    n_batches = ZOO_CLI_SAMPLES // b
+    exp = loop.config_from_args(loop.build_argparser().parse_args(argv + ["--num_epochs", "2"]))
+    whole = loop.train(exp, loop_recorder(), device=dev)
+    path = os.path.join(ckpt, f"step_{2 * n_batches}.pt")
+    ok_files = all(r.returncode == 0 for r in runs) and os.path.exists(path)
+    differ = ["the CLI runs"]
+    if ok_files:
+        got = torch.load(path, map_location="cpu", weights_only=True)
+        want = {k: v.detach().cpu() for k, v in state_tensors(whole["state"]).items()}
+        differ = sorted(set(got) ^ set(want)) + [k for k in want if k in got
+                                                  and not torch.equal(got[k], want[k])]
+    restored = '"event": "restored"' in runs[1].stderr if ok_files else False
+    print(f"zoo 11d on {name} ({smi}): the CLI (--preset two_tower_plus_light_ranker_kd, "
+          f"{ZOO_CLI_SAMPLES} samples, {n_batches} steps an epoch) one epoch, then two epochs on "
+          f"its checkpoint (restored={restored}) against two epochs in this process: "
+          f"{len(differ)} tensors differ {differ[:8]} (the gate: bit-equal); losses "
+          f"{[round(v, 5) for v in whole['epoch_losses']]}", flush=True)
+    if differ or not restored or "Epoch [2/2] - Loss: " not in runs[1].stdout:
+        for r in runs:
+            print(r.stderr[-2000:], flush=True)
+        failures.append(f"zoo 11d: resume not bit-equal ({differ[:8]}) or not restored")
+    del whole
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    # -- 11d: each builder of models/zoo.py on the card --
+    widths = dict(user_id_hash_size=TRAIN_ROWS, user_id_embedding_dim=64,
+                  item_id_hash_size=TRAIN_ROWS, item_id_embedding_dim=64, user_features_size=16,
+                  item_features_size=16, user_value_weights=(1.0, 0.5, 0.25),
+                  compute_dtype="bfloat16")
+    hist = {"user_history_seqlen": HIST}
+    ranker = {**hist, "num_mips_items": 50, "num_ranker_user_embeddings": 4}
+    builders = {"two_tower_base_retrieval": {}, "two_tower_with_user_history_encoder": hist,
+                "two_tower_with_position_debiased_weights": hist,
+                "two_tower_with_user_debiased_weights": hist, "two_tower_with_debiasing": hist,
+                "two_tower_plus_light_ranker": ranker, "two_tower_plus_light_ranker_with_kd": ranker,
+                "two_tower_with_main_ranker_reward": hist}
+    ok_b = []
+    for bname, extra in builders.items():
+        handle = getattr(zoo, bname)(**widths, **extra)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 23)
+        params = handle.init(gen)
+        data = fixed_batch(torch, gen, dev, handle.cfg, b)
+        if handle.cfg.kd:
+            data = data._replace(labels=torch.cat([data.labels, 0.5 * data.labels], 1))
+        batch = gather_batch(data, torch.arange(b, device=dev))
+        with torch.enable_grad():
+            loss, _ = handle.train_forward(params, batch)
+            loss.backward()
+        with torch.no_grad():
+            corpus = handle.compute_item_embeddings(params, torch.arange(TRAIN_ROWS, device=dev),
+                                                    torch.randn(TRAIN_ROWS, 16, generator=gen,
+                                                                device=dev))
+        top = handle.forward(params, corpus, batch.user_id[:BATCH], batch.user_features[:BATCH],
+                             batch.user_history[:BATCH])
+        good = (bool(torch.isfinite(loss)) and top.shape == (BATCH, handle.cfg.num_items)
+                and top.device.type == "cuda" and int(top.max()) < TRAIN_ROWS
+                and params.item_id_table.grad is not None)
+        ok_b.append(good)
+        if not good:
+            failures.append(f"zoo builder {bname}")
+        del params, data, batch, corpus
+    print(f"zoo 11d builders on {name}: init, train_forward (B={b}, backward) and forward "
+          f"(B={BATCH} over {TRAIN_ROWS} items) of each of {len(builders)}: ok {ok_b}", flush=True)
+    torch.cuda.empty_cache()
+    print(f"zoo: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3946,7 +4299,7 @@ def main() -> int:
 
     # ---- phase 3: serve ------------------------------------------------
     cpu_model = copy.deepcopy(model).cpu()
-    counts, _ = serve_leg(
+    counts, serve_ms = serve_leg(
         torch, "serve", engine, model, cpu_model, cfg, [(*bt, None) for bt in batches],
         {"fused_history_encoder": 1, **MIPS_ROUTE, **ENC_TC, "fused_history_encoder_tc": 1},
         ["fused_history_encoder", "tile_max_scores", "select_topk_radix", "gather_rescore_invert",
@@ -4013,6 +4366,11 @@ def main() -> int:
 
     # ---- phase 10: mixed negatives and the logQ correction ---------------
     phase_mns(torch, args, smi, dev, entries, failures)
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: the light ranker, KD and the reward model --------------
+    phase_zoo(torch, args, smi, dev, entries, failures, b56_ms,
+              entries["fused_history_encoder_bwd_recompute"].get("busy_ms_step_b5_b6"), serve_ms)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     if failures:
         _fail(", ".join(failures))

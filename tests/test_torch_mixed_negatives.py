@@ -169,13 +169,25 @@ def test_extended_ce_rounds_corrections_like_jax():
     assert np.abs(unrounded.detach().numpy() - ce_j).max() > 1e-5 * np.abs(ce_j).max()
 
 
-def test_precomputed_scores_still_raise():
-    """The precomputed-scores route (the reward model's and the light
-    ranker's) stays with A8."""
-    _, cfg_t = _configs()
-    _, t, lq, _ = _ce_inputs(3, "float32")
-    with pytest.raises(NotImplementedError, match="A8 'Other zoo variants'"):
-        ttt._extended_ce(cfg_t, t[0], t[1], t[0] @ t[1].T, t[2], lq[0][1], lq[1][1])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "plain"])
+def test_precomputed_scores_match_jax(fused):
+    """The precomputed-scores route (the reward model's): the [B, B] logits
+    handed in, the diagonal as the positive, the negatives' logits appended,
+    whatever ``fused_loss`` says; ce and its gradients in u, the items and
+    the negatives against the JAX function at 1e-5 of scale."""
+    cfg_j, cfg_t = _configs(fused_loss=fused)
+    j, t, lq, w = _ce_inputs(3, "float32")
+
+    def f(u, i, n):
+        ce = jtt._extended_ce(cfg_j, u, i, u @ i.T, n, lq[0][0], lq[1][0])
+        return jnp.sum(ce * w), ce
+
+    (_, ce_j), g_j = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(*j)
+    ce_t = ttt._extended_ce(cfg_t, t[0], t[1], t[0] @ t[1].T, t[2], lq[0][1], lq[1][1])
+    (ce_t * torch.from_numpy(w)).sum().backward()
+    _scaled(ce_t.detach().numpy(), np.asarray(ce_j), 1e-5, "ce")
+    for name, x, g in zip(("u", "items", "negatives"), t, g_j):
+        _scaled(x.grad.numpy(), np.asarray(g), 1e-5, name)
 
 
 @pytest.mark.parametrize("stacked", [False, True], ids=["B", "KxB"])

@@ -5,12 +5,12 @@ Port of ``two_tower_models_tpu/models/two_tower.py``.
 any of the 8 presets, under the pytree's own path names
 (``history_encoder.attn_layers.0.in_proj.w``), so the weight bridge
 (``bridge.py``) is a mechanical flatten.  The towers are plain functions of
-(model, cfg, inputs), like their JAX counterparts.
+(model, cfg, inputs), like their JAX counterparts, and cover all eight
+presets: the light ranker's train terms and rerank, KD, the reward model
+and registered user-embedding arms included.
 
 Not ported yet, and raising ``NotImplementedError`` rather than taking
-another path: the light-ranker rerank and train terms, the reward model,
-precomputed ``scores``, ``approx_mips``, a quantized corpus, user-embedding
-arms other than the id table.
+another path: ``approx_mips`` and a quantized corpus.
 """
 
 from __future__ import annotations
@@ -69,15 +69,12 @@ def _not_ported(what: str, item: str):
 class TwoTowerModel(nn.Module):
     """All parameters of one config point, named as in the JAX pytree.
     Built empty; ``init_params`` draws the weights, ``bridge.params_from_jax``
-    copies them in."""
+    copies them in.  A registered user-embedding arm's module sits at
+    ``user_embedding_ext``, where the JAX package keeps its subtree."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         cfg.validate()
-        if cfg.user_embedding_arm != "table":
-            raise _not_ported(
-                f"user_embedding_arm {cfg.user_embedding_arm!r}", "A8 'Other zoo variants'"
-            )
         dt = cfg.pdtype
         du, di = cfg.user_id_embedding_dim, cfg.item_id_embedding_dim
         kw = dict(dtype=dt, device=device)
@@ -91,6 +88,11 @@ class TwoTowerModel(nn.Module):
             (cfg.item_features_size, cfg.feature_hidden_dim, di), dt, device
         )
         self.item_tower_head = Linear(2 * di, di, dt, device)
+        _, ext_init = _USER_EMBEDDING_ARMS[cfg.user_embedding_arm]
+        self._ext = None
+        if ext_init is not None:
+            self._ext = (ext_init, cfg)
+            self.user_embedding_ext = ext_init(_seeded(device, 0), cfg, device)
         if cfg.history_encoder is not None:
             self.history_encoder = HistoryEncoder(di, cfg.history_encoder, dt, device)
         if cfg.debias in (Debias.POSITION, Debias.BOTH):
@@ -111,11 +113,26 @@ class TwoTowerModel(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX package's distributions: tables N(0, 1), linear layers
-        U(+-1/sqrt(fan_in)), attention Xavier-uniform with zero biases."""
-        for child in self.children():
-            child.reset_parameters(generator)
+        U(+-1/sqrt(fan_in)), attention Xavier-uniform with zero biases; a
+        user-embedding arm's module takes the values its ``init_fn`` draws
+        from ``generator``."""
+        for name, child in self.named_children():
+            if name == "user_embedding_ext":
+                ext_init, cfg = self._ext
+                drawn = dict(ext_init(generator, cfg, generator.device).named_parameters())
+                with torch.no_grad():
+                    for n, p in child.named_parameters():
+                        p.copy_(drawn[n])
+            else:
+                child.reset_parameters(generator)
         for p in self.parameters(recurse=False):
             embedding_init(p, generator)
+
+
+def _seeded(device, seed: int) -> torch.Generator:
+    gen = torch.Generator(device=device or "cpu")
+    gen.manual_seed(seed)
+    return gen
 
 
 def init_params(seed, cfg: ModelConfig, device="cuda") -> TwoTowerModel:
@@ -123,17 +140,46 @@ def init_params(seed, cfg: ModelConfig, device="cuda") -> TwoTowerModel:
     (int) or a ``torch.Generator`` on that device."""
     dev = resolve_device(device)
     model = TwoTowerModel(cfg, dev)
-    gen = seed
-    if not isinstance(seed, torch.Generator):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
+    gen = seed if isinstance(seed, torch.Generator) else _seeded(dev, int(seed))
     model.reset_parameters(gen)
     return model
 
 
-def get_user_embedding(params: TwoTowerModel, cfg: ModelConfig, user_id) -> torch.Tensor:
-    """User-ID memorization arm [B, DU]: the id-table lookup."""
+# The user-ID memorization arm is an extension point, as in the JAX package
+# (``register_user_embedding_arm`` there): register a named arm and select
+# it with ``ModelConfig.user_embedding_arm``.
+#
+#     def my_init(generator, cfg, device) -> nn.Module   # -> model.user_embedding_ext
+#     def my_apply(model, cfg, user_id) -> [B, DU]        # the whole model in
+#     register_user_embedding_arm("mine", my_apply, my_init)
+#
+# ``my_init`` builds the module on ``device`` and draws its weights from
+# ``generator``; its parameter names follow the JAX subtree's paths, so
+# ``user_embedding_ext.proj.w`` crosses the weight bridge like any leaf.  An
+# arm trains end to end through autograd.  The default arm is the id-table
+# lookup.
+_USER_EMBEDDING_ARMS: Dict[str, tuple] = {}
+
+
+def register_user_embedding_arm(name: str, apply_fn, init_fn=None) -> None:
+    """apply_fn(model, cfg, user_id) -> [B, DU]; optional init_fn(generator,
+    cfg, device) returns the ``nn.Module`` held at
+    ``model.user_embedding_ext``."""
+    _USER_EMBEDDING_ARMS[name] = (apply_fn, init_fn)
+
+
+def _default_user_embedding(params: TwoTowerModel, cfg: ModelConfig, user_id) -> torch.Tensor:
     return table_lookup(params.user_id_table, user_id, cfg.user_id_embedding_dim)
+
+
+register_user_embedding_arm("table", _default_user_embedding)
+
+
+def get_user_embedding(params: TwoTowerModel, cfg: ModelConfig, user_id) -> torch.Tensor:
+    """User-ID memorization arm [B, DU]; dispatches on
+    ``cfg.user_embedding_arm``."""
+    apply_fn, _ = _USER_EMBEDDING_ARMS[cfg.user_embedding_arm]
+    return apply_fn(params, cfg, user_id)
 
 
 def user_tower_input(
@@ -287,11 +333,18 @@ def _extended_ce(
     (``logq_operands``), [u, 1] . [pool_j, -logq_j] = s_bj - logq_j, so
     ``fused_lse`` (B10, then B11 + B12 without the diagonal, at C = B + B'
     and D = DI + 1 on the card) runs unchanged and the [B, C] scores never
-    reach memory; otherwise the logits materialise."""
-    if scores is not None:
-        raise _not_ported("precomputed scores", "A8 'Other zoo variants'")
+    reach memory; otherwise the logits materialise.  Precomputed ``scores``
+    (the reward model's, which already holds the [B, B] logits) take the
+    diagonal as the positive and get the mixed negatives' logits appended,
+    whatever ``cfg.fused_loss`` says."""
     b = user_embedding.shape[0]
     pool, corr = _extended_pool(item_embeddings, neg_item_embeddings, item_logq, neg_logq)
+    if scores is not None:
+        full = scores.float()
+        pos = torch.diagonal(full) - corr[:b]
+        if neg_item_embeddings is not None:
+            full = torch.cat([full, user_embedding.float() @ neg_item_embeddings.float().T], dim=1)
+        return torch.logsumexp(full - corr[None, :], dim=-1) - pos
     pos = (user_embedding.float() * item_embeddings.float()).sum(-1) - corr[:b]
     if cfg.fused_loss:
         return fused_lse(*logq_operands(user_embedding, pool, corr)) - pos
@@ -299,10 +352,27 @@ def _extended_ce(
     return torch.logsumexp(full, dim=-1) - pos
 
 
+def _value_weights(cfg: ModelConfig, device) -> torch.Tensor:
+    """``user_value_weights`` [T] f32 on ``device``, copied without waiting
+    for the device."""
+    return torch.tensor(cfg.user_value_weights, dtype=torch.float32).to(device, non_blocking=True)
+
+
 def _net_user_value(cfg: ModelConfig, labels: torch.Tensor) -> torch.Tensor:
     """nuv = labels @ user_value_weights over the first T tasks, [B]."""
-    w = torch.tensor(cfg.user_value_weights, dtype=torch.float32).to(labels.device, non_blocking=True)
-    return labels[:, : cfg.num_tasks].float() @ w
+    return labels[:, : cfg.num_tasks].float() @ _value_weights(cfg, labels.device)
+
+
+def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross entropy with logits, the JAX package's formula
+    with its gradients at a logit of 0: ``jnp.maximum`` splits its gradient
+    at the tie (so does ``torch.maximum``), and ``jnp.abs``'s gradient there
+    is 1 (``torch.abs``'s is 0, so |x| is a ``where``).
+    ``F.binary_cross_entropy_with_logits`` rounds otherwise."""
+    logits, targets = logits.float(), targets.float()
+    abs_logits = torch.where(logits >= 0, logits, -logits)
+    per = _clip_min(logits, 0.0) - logits * targets + torch.log1p(torch.exp(-abs_logits))
+    return torch.mean(per)
 
 
 def example_weights(
@@ -336,9 +406,11 @@ def softmax_retrieval_loss(
     neg_logq: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """In-batch sampled-softmax loss weighted by the (debiased) net user
-    value, plus the debias aux loss.  ``cfg.fused_loss`` takes
-    ``fused_in_batch_ce`` (kernels B10-B12 on the card), otherwise the [B, B]
-    logits materialise.  ``neg_item_embeddings`` appends B' mixed negatives
+    value, plus the debias aux loss.  Precomputed [B, B] ``scores`` are used
+    as they are; otherwise ``cfg.fused_loss`` takes ``fused_in_batch_ce``
+    (kernels B10-B12 on the card), or the [B, B] logits materialise.
+    ``max_normalize=False`` (the light ranker's retrieval term) skips the
+    division by the batch max.  ``neg_item_embeddings`` appends B' mixed negatives
     to every row's candidates and ``item_logq``/``neg_logq`` subtract each
     candidate's log proposal probability from its logit, positives included
     (``_extended_ce``).  The port has one device, so the JAX package's mesh
@@ -347,7 +419,7 @@ def softmax_retrieval_loss(
         ce = _extended_ce(cfg, user_embedding, item_embeddings, scores,
                           neg_item_embeddings, item_logq, neg_logq)
     elif scores is not None:
-        raise _not_ported("precomputed scores", "A8 'Other zoo variants'")
+        ce = _in_batch_ce(scores)
     elif cfg.fused_loss:
         ce, _ = fused_in_batch_ce(user_embedding, item_embeddings)
     else:
@@ -362,42 +434,174 @@ def softmax_retrieval_loss(
     return loss, metrics
 
 
+def _light_ranker_train_terms(
+    params: TwoTowerModel,
+    cfg: ModelConfig,
+    ranker_user_embs: torch.Tensor,  # [B, NU, DI]
+    item_embeddings: torch.Tensor,  # [B, DI]
+    mips_scores_diag: torch.Tensor,  # [B]: the diagonal of the retrieval logits
+    labels: torch.Tensor,  # [B, T], [B, 2T] under KD
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Pointwise light-ranker loss on the impressed item: target-aware
+    attention of the item over the NU ranker embeddings, the features
+    [item, attended user, NU scores, MIPS score] [B, 2*DI + NU + 1], the
+    head's T task logits and their BCE against the hard labels; under KD,
+    ``kd_loss_weight`` times the BCE of the T aux logits against the soft
+    labels ``labels[:, T:2T]``.  Every product is f32 on f32 operands (the
+    towers' outputs are f32, so JAX's cast of the probabilities to the
+    ranker embeddings' dtype is a no-op)."""
+    t = cfg.num_tasks
+    r = ranker_user_embs.float()
+    items = item_embeddings.float()
+    ranker_scores = torch.einsum("bnd,bd->bn", r, items)  # [B, NU]
+    probs = torch.softmax(ranker_scores, dim=-1)
+    ta_user = torch.einsum("bn,bnd->bd", probs, r)  # [B, DI]
+    feat = torch.cat([items, ta_user, ranker_scores, mips_scores_diag[:, None].float()], dim=-1)
+    task_logits = linear_apply(params.light_ranker_head, feat)  # [B, T or 2T]
+    bce = _bce_with_logits(task_logits[:, :t], labels[:, :t])
+    metrics = {"light_ranker_bce": bce}
+    loss = bce
+    if cfg.kd:
+        kd_loss = _bce_with_logits(task_logits[:, t : 2 * t], labels[:, t : 2 * t])
+        loss = loss + cfg.kd_loss_weight * kd_loss
+        metrics["kd_loss"] = kd_loss
+    return loss, metrics
+
+
+def _reward_model_terms(
+    params: TwoTowerModel,
+    cfg: ModelConfig,
+    user_embedding: torch.Tensor,  # [B, DI]
+    item_embeddings: torch.Tensor,  # [B, DI]
+    scores: torch.Tensor,  # [B, B] retrieval logits
+    labels: torch.Tensor,  # [B, T]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Ranker-as-reward-model alignment: ``reward_model_loss_weight`` times
+    KL(ranker top probs || softmax(retrieval logits)), plus the proxy
+    ranker's BCE on the impressed (diagonal) pairs.
+
+    The proxy's pairwise linear over [u_b, i_j, s_bj] is decomposed over
+    its weight's segments [Wu; Wi; ws], and the task axis collapses into the
+    value weights first:
+
+        vm[b, j] = u_b @ (Wu @ uvw) + i_j @ (Wi @ uvw) + s_bj (ws . uvw) + b . uvw
+
+    so no [B, B, T] tensor exists.  The ranker's probabilities take no
+    gradient (JAX's ``stop_gradient``), so they are computed without
+    autograd and keep no [B, B] tensor for the backward."""
+    w_full = params.proxy_ranker.w.float()  # [2*DI + 1, T]
+    b_full = params.proxy_ranker.b.float()  # [T]
+    di = cfg.item_id_embedding_dim
+    wu, wi, ws = w_full[:di], w_full[di : 2 * di], w_full[2 * di]
+    u32, i32, s32 = user_embedding.float(), item_embeddings.float(), scores.float()
+    uvw = _value_weights(cfg, s32.device)
+    with torch.no_grad():
+        ranker_vm = ((u32 @ (wu @ uvw))[:, None] + (i32 @ (wi @ uvw))[None, :]
+                     + s32 * torch.dot(ws, uvw) + torch.dot(b_full, uvw))  # [B, B]
+        ranker_top_probs = torch.softmax(ranker_vm, dim=-1)
+        log_p = torch.log(ranker_top_probs.clamp_min(1e-30))
+        del ranker_vm
+    log_q = torch.log_softmax(s32, dim=-1)  # the retrieval distribution
+    kl = torch.mean(torch.sum(ranker_top_probs * (log_p - log_q), dim=-1))
+    diag_logits = u32 @ wu + i32 @ wi + torch.diagonal(s32)[:, None] * ws[None, :] + b_full
+    proxy_bce = _bce_with_logits(diag_logits, labels[:, : cfg.num_tasks])
+    loss = cfg.reward_model_loss_weight * kl + proxy_bce
+    return loss, {"reward_kl": kl, "proxy_ranker_bce": proxy_bce}
+
+
 def train_loss(
     params: TwoTowerModel, cfg: ModelConfig, batch: Batch
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Scalar training loss and metrics for the base, history and debias
-    presets, with the batch's mixed negatives (embedded by the item tower,
-    as any item) and logQ fields when ``training.data.extend_batch`` filled
-    them.  AUTO kernel flags resolve on the device of the params."""
-    if cfg.light_ranker is not None or cfg.reward_model:
-        raise _not_ported("the light-ranker and reward-model terms", "A8 'Other zoo variants'")
+    """Scalar training loss and metrics for any of the eight presets, with
+    the batch's mixed negatives (embedded by the item tower, as any item)
+    and logQ fields when ``training.data.extend_batch`` filled them: the
+    retrieval term (without the max normalisation under the light ranker)
+    plus the light ranker's BCE and KD terms, or the reward model's KL and
+    proxy BCE.  The [B, B] f32 logits materialise only for the reward
+    model, whose loss takes them precomputed.  AUTO kernel flags resolve on
+    the device of the params."""
     cfg = resolve_kernel_flags(cfg, params.item_id_table.device)
-    user_emb, _ = compute_user_embedding(
+    user_emb, ranker_embs = compute_user_embedding(
         params, cfg, batch.user_id, batch.user_features, batch.user_history,
         batch.history_len,
     )
     item_embs = compute_item_embeddings(params, cfg, batch.item_id, batch.item_features)
+    scores = user_emb.float() @ item_embs.float().T if cfg.reward_model else None
     neg_embs = (
         compute_item_embeddings(params, cfg, batch.neg_item_id, batch.neg_item_features)
         if batch.neg_item_id is not None
         else None
     )
-    loss, metrics = softmax_retrieval_loss(
-        params, cfg, user_emb, item_embs, batch.position, batch.labels,
-        neg_item_embeddings=neg_embs, item_logq=batch.item_logq, neg_logq=batch.neg_logq,
-    )
+    sampling_kw = dict(neg_item_embeddings=neg_embs, item_logq=batch.item_logq,
+                       neg_logq=batch.neg_logq)
+    if cfg.light_ranker is not None:
+        loss, metrics = softmax_retrieval_loss(
+            params, cfg, user_emb, item_embs, batch.position, batch.labels,
+            max_normalize=False, scores=scores, **sampling_kw,
+        )
+        diag = (torch.diagonal(scores) if scores is not None
+                else (user_emb.float() * item_embs.float()).sum(-1))
+        lr_loss, lr_metrics = _light_ranker_train_terms(
+            params, cfg, ranker_embs, item_embs, diag, batch.labels
+        )
+        loss = loss + lr_loss
+        metrics.update(lr_metrics)
+    else:
+        loss, metrics = softmax_retrieval_loss(
+            params, cfg, user_emb, item_embs, batch.position, batch.labels,
+            scores=scores, **sampling_kw,
+        )
+    if cfg.reward_model:
+        rm_loss, rm_metrics = _reward_model_terms(
+            params, cfg, user_emb, item_embs, scores, batch.labels
+        )
+        loss = loss + rm_loss
+        metrics.update(rm_metrics)
     metrics["loss"] = loss
     return loss, metrics
 
 
-# train_loss gradients that are zero in exact arithmetic: the item-tower head
-# bias and the item feature MLP's last bias each add one vector to every item
-# embedding, which shifts all logits of a row's softmax alike, so their
-# gradients cancel and hold only rounding noise.  A comparison of gradients
-# holds them relative to ZERO_GRAD_FLOOR times the largest magnitude over all
-# leaves instead of their own scale.
+# train_loss gradients that are zero in exact arithmetic under the softmax
+# terms alone: the item-tower head bias and the item feature MLP's last bias
+# each add one vector to every item embedding, which shifts all logits of a
+# row's softmax alike, so their gradients cancel and hold only rounding
+# noise.  A comparison of gradients holds them relative to ZERO_GRAD_FLOOR
+# times the largest magnitude over all leaves instead of their own scale.
 ZERO_GRAD_LEAVES = ("item_tower_head.b", "item_features_mlp.1.b")
 ZERO_GRAD_FLOOR = 1e-2
+
+
+def zero_grad_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The leaves a gradient comparison holds to ``ZERO_GRAD_FLOOR`` times
+    the top leaf for ``cfg``: none under the reward model, whose proxy
+    scores the item embedding and gives them a real gradient well above the
+    softmax's rounding noise.  The light ranker's head gives them a real
+    gradient too, but its retrieval term is not max-normalised: the
+    cancelling softmax part carries weights up to ``1 /
+    combined_debias_min``, and its f32 rounding noise (about 4e-8 of the
+    top leaf) reaches 1e-3 of their own scale, so they stay on the floor."""
+    return () if cfg.reward_model else ZERO_GRAD_LEAVES
+
+
+def rerank_values(
+    params: TwoTowerModel,
+    cfg: ModelConfig,
+    ranker_embs: torch.Tensor,  # [B, NU, DI]
+    mips_scores: torch.Tensor,  # [B, NI]
+    mips_item_emb: torch.Tensor,  # [B, NI, DI]
+) -> torch.Tensor:
+    """The light ranker's value [B, NI] of each MIPS candidate: target-aware
+    attention of the candidate over the NU ranker embeddings, the head's T
+    task logits (KD's aux logits are train-only) and their sum weighted by
+    ``user_value_weights``.  Every product is f32 on f32 operands."""
+    r = ranker_embs.float()
+    cand = mips_item_emb.float()
+    scores = torch.einsum("bnd,bkd->bkn", r, cand)  # [B, NI, NU]
+    probs = torch.softmax(scores, dim=-1)
+    ta_user = torch.einsum("bkn,bnd->bkd", probs, r)
+    feat = torch.cat([cand, ta_user, scores, mips_scores[:, :, None].float()], dim=-1)
+    task_logits = linear_apply(params.light_ranker_head, feat)[..., : cfg.num_tasks]
+    return torch.einsum("bkt,t->bk", task_logits, _value_weights(cfg, task_logits.device))
 
 
 def retrieve_from_embeddings(
@@ -407,11 +611,18 @@ def retrieve_from_embeddings(
     ranker_embs: Optional[torch.Tensor],
     topk_fn,  # (query [B, DI], k) -> (indices, scores, embeddings)
 ) -> torch.Tensor:
-    """Top ``cfg.num_items`` indices [B, num_items] from user embeddings."""
-    if cfg.light_ranker is not None:
-        raise _not_ported("the light-ranker rerank", "A8 'Other zoo variants'")
-    indices, _, _ = topk_fn(user_emb, cfg.num_items)
-    return indices
+    """Top ``cfg.num_items`` indices [B, num_items] from user embeddings.
+    Under the light ranker: the top ``num_mips_items`` by MIPS, reranked by
+    ``rerank_values`` in lax.top_k's order (``topk_ordered``)."""
+    from two_tower_models_tpu_torch.retrieval.mips import topk_ordered
+
+    if cfg.light_ranker is None:
+        indices, _, _ = topk_fn(user_emb, cfg.num_items)
+        return indices
+    mips_items, mips_scores, mips_item_emb = topk_fn(user_emb, cfg.light_ranker.num_mips_items)
+    value = rerank_values(params, cfg, ranker_embs, mips_scores, mips_item_emb)
+    _, top_idx = topk_ordered(value, cfg.num_items)  # [B, num_items]
+    return torch.gather(mips_items, 1, top_idx)
 
 
 def _on(x, dev: torch.device) -> torch.Tensor:
@@ -429,7 +640,8 @@ def retrieve(
     device="cuda",
 ) -> torch.Tensor:
     """Inference: top ``cfg.num_items`` corpus indices per user
-    [B, num_items] (int64), by the exact tile-max MIPS pipeline.  The model
+    [B, num_items] (int64), by the exact tile-max MIPS pipeline (and the
+    light ranker's rerank of its top ``num_mips_items``).  The model
     and corpus must already be on ``device``; the inputs are moved there."""
     from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact
 
