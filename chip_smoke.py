@@ -10,8 +10,9 @@ Phases, in the order they run; any failure exits non-zero:
      first use; cached under two_tower_models_tpu_torch/_build/); beside the
      build, nvcc -Xptxas -v on csrc/fused_softmax.cu, csrc/fused_mha.cu,
      csrc/select_topk.cu, csrc/rows_write.cu, csrc/fused_encoder.cu,
-     csrc/fused_encoder_bwd.cu, csrc/tile_max.cu, csrc/gather_rescore.cu and
-     csrc/history_attention.cu for the registers, stack and spills of each
+     csrc/fused_encoder_bwd.cu, csrc/tile_max.cu, csrc/gather_rescore.cu,
+     csrc/history_attention.cu and csrc/approx_scan.cu for the registers,
+     stack and spills of each
      instance of B15's tensor-core kernel, of the CE forward (B10:
      ce_fwd_tc_kernel<MULTI>, MULTI for D > 64) and backward, of B13's and
      B14's tensor-core kernels (each instance, by key bands), of both select
@@ -19,8 +20,9 @@ Phases, in the order they run; any failure exits non-zero:
      whole-encoder tensor-core kernel (encoder_tc_kernel<RES, STACK, Hp /
      16>: B1, B5, B8) and of its backward (encoder_bwd_tc_kernel<MODE, Hp /
      16, D>: B6, B7, B9), of the tile max (tile_max_kernel: B2) and of the
-     gather-rescore's inversion and scoring kernels (B4), and their shared
-     memory (a spill fails the run);
+     gather-rescore's inversion and scoring kernels (B4) and of both
+     instances of the approximate bin-max scan (approx_scan_kernel<INT8>:
+     N1), and their shared memory (a spill fails the run);
   2. kernels: each of the four kernels of the serving path is held against
      its plain PyTorch version on the card, on the tensors the serving path
      gives it, and timed beside that plain version, a one-call PyTorch
@@ -298,6 +300,33 @@ Phases, in the order they run; any failure exits non-zero:
      from 2^21) for one epoch with a checkpoint, then for two on that
      checkpoint: its final state bit-equal to two epochs in this process;
      and each models/zoo.py builder's init, train_forward and forward.
+  12. approximate and int8 MIPS at scripts/bench_serving.py's width (phase
+     3's model, catalog and batches, rebuilt from --seed; Debias.BOTH, bf16,
+     B = 1024, k = 100, mips_recall_target 0.95).  12a: the bin-max scan
+     (N1) on phase 3's user embeddings over the 2^20 x 64 corpus, f32 rows
+     and the int8 rows of quantize_corpus, at M = 2048 (k = 100) and 8192
+     (the rescore pool of 400): values within 1e-5 of each query's scale of
+     the plain version's, rows equal on every (query, bin) whose best two
+     scores differ by more (the pairs left out counted); bit for bit on an
+     integer grid with phase 2's +-inf and NaN rows (for int8, those rows'
+     scales) at valid_count C and C - 3000; each instance's device time,
+     plain version, library call (matmul + amax over the bins) and bound,
+     beside B2's device time in this call and phase 1's ptxas lines.  12b:
+     scripts/bench_serving.py's four legs (exact, approx_mips, approx_int8,
+     approx_int8_rescore), each a RetrievalEngine over the one corpus,
+     warmed up, then ten batches: ms/batch and QPS; recall@100 against the
+     exact leg (gates: 0.95 for approx_mips and approx_int8_rescore, 0.90 for
+     approx_int8); a batch launches B1 once and, on the approximate legs, N1
+     once and B3 once and nothing else (no B2, no B4); peak memory over the
+     batches under 1 GiB above what was allocated before them (no [B, C]
+     scores); indices as sets equal to a CPU copy's on 128 rows a batch,
+     fed the card's user embeddings, except rows whose k-th and (k+1)-th
+     bin values (and, rescored, pool scores) lie within 1e-5 of scale,
+     counted.  12c: scripts/bench_mips.py's width (1,000,000 x 64 bf16,
+     B = 1024, k = 100): mips_topk_exact_tilemax, mips_topk_segmented (64
+     and 256 segments) and chunked_mips_topk (131072) index-equal to
+     mips_topk_exact, and mips_topk_approx at 0.95 with recall >= 0.95
+     against it, each timed.
 
 Phase 2 also holds B2 and the exact pipeline on an integer-grid corpus whose
 scores hold +-inf and NaN of both signs (nonfinite_check).
@@ -369,7 +398,8 @@ ZOO_SHORT = {"two_tower_plus_light_ranker": "lightranker",
              "two_tower_with_main_ranker_reward": "reward"}
 ZOO_MNS_SAMPLES = 2 * TRAIN_BATCH  # 11b: make_synthetic_data's rows, for one step and its check
 ZOO_CLI_SAMPLES = 1 << 19  # 11d: phase 9's 2^21 samples cut to 128 steps an epoch
-ZOO_CHECK_ROWS = 128  # 11c: the rows of each batch held against the CPU copy
+ZOO_CHECK_ROWS = 128  # 11c and 12b: the rows of each batch held against the CPU copy
+MIPS_C = 1_000_000  # 12c: scripts/bench_mips.py's --corpus
 # B18 launches a training step of a config that debiases by position: the
 # position-bias table's gradient, summed in a fixed order (nn.layers
 # embedding_lookup's fixed_order), where F.embedding's differs call to call
@@ -966,6 +996,32 @@ def serve_cfg():
         compute_dtype="bfloat16",
         num_items=TOPK,
     )
+
+
+def serve_setup(torch, args, dev):
+    """Phase 3's model, catalog, engine (warmed up) and query batches, all
+    from --seed: (cfg, the generator, model, engine, batches)."""
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.serving import RetrievalEngine
+
+    cfg = serve_cfg()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    model = tt.init_params(gen, cfg, device=dev)
+    catalog_ids = torch.arange(CORPUS, device=dev)
+    catalog_feats = torch.randn(CORPUS, 16, generator=gen, device=dev)
+    engine = RetrievalEngine.from_params(model, cfg, catalog_ids, catalog_feats, device=dev)
+    engine.warmup(BATCH)
+    batches = [
+        (
+            torch.randint(0, cfg.user_id_hash_size, (BATCH,), generator=gen, device=dev),
+            torch.randn(BATCH, 16, generator=gen, device=dev),
+            torch.randint(0, CORPUS, (BATCH, HIST), generator=gen, device=dev),
+        )
+        for _ in range(args.batches)
+    ]
+    torch.cuda.synchronize()
+    return cfg, gen, model, engine, batches
 
 
 def fixed_batch(torch, gen, dev, cfg, b: int):
@@ -4038,6 +4094,289 @@ def phase_zoo(torch, args, smi, dev, entries, failures, b56_ms, busy56, serve_ms
     torch.cuda.empty_cache()
     print(f"zoo: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+def approx_nonfinite_check(torch, dev) -> tuple[bool, str]:
+    """12a's exact input: an integer-grid corpus (every finite score exact)
+    whose rows score +-inf and NaN as in nonfinite_check, and valid_count
+    below C; for the int8 instance integer rows whose scale is +inf or NaN
+    of either sign on the same rows.  N1 against its plain version bit for
+    bit, values as int32 keys and rows."""
+    from two_tower_models_tpu_torch.ops import approx_topk as at
+    from two_tower_models_tpu_torch.ops import mips_topk as mt
+
+    b, c, d, m = 256, 1 << 18, 64, 2048
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    corpus = torch.randint(-2, 3, (c, d), generator=gen, device=dev).float()
+    query = torch.randint(-2, 3, (b, d), generator=gen, device=dev).float()
+    query[: b // 2, 0] = 0
+    inf_rows = torch.arange(0, 300, device=dev) * mt.TILE + 5
+    ninf_rows = torch.arange(300, 400, device=dev) * mt.TILE + 7
+    corpus[inf_rows, 0] = float("inf")
+    corpus[ninf_rows, 1] = float("-inf")
+    bits = corpus.view(torch.int32)
+    bits[3, 2] = -(1 << 22)  # 0xFFC00000, a negative NaN
+    bits[77_777, 5] = 0x7FC00000  # a positive NaN
+    rows8 = torch.randint(-127, 128, (c, d), generator=gen, device=dev).to(torch.int8)
+    scale = torch.rand(c, generator=gen, device=dev) * 0.09 + 0.01
+    scale[::7] = 0.5
+    scale[inf_rows] = float("inf")
+    scale[ninf_rows] = float("-inf")
+    scale.view(torch.int32)[3] = -(1 << 22)
+    scale.view(torch.int32)[77_777] = 0x7FC00000
+    out = []
+    for label, rows, sc in (("f32", corpus, None), ("int8", rows8, scale)):
+        for valid in (c, c - 3000):
+            got = at.approx_scan(query, rows, m, valid, sc)
+            want = at.approx_scan_plain(query, rows, m, valid, sc)
+            out.append((f"{label} valid={valid}", torch.equal(got[1], want[1])
+                        and torch.equal(mt.f32_keys(got[0]), mt.f32_keys(want[0]))))
+    return all(ok for _, ok in out), "; ".join(f"{k} {ok}" for k, ok in out)
+
+
+def bin_margins(torch, q, rows, m, scale, tol):
+    """Per (query, bin) of the plain scan: its best score minus the second
+    best (+inf where the bin has one row), and whether that exceeds
+    ``tol`` [B, 1]; a query chunk at a time."""
+    b, c = q.shape[0], rows.shape[0]
+    w = -(-c // m)
+    rf = rows.float()
+    clear = []
+    for b0 in range(0, b, 64):
+        s = q[b0 : b0 + 64] @ rf.T
+        if scale is not None:
+            s = s * scale[None, :]
+        s = torch.nn.functional.pad(s, (0, w * m - c), value=float("-inf"))
+        top2 = torch.topk(s.view(s.shape[0], w, m), 2, dim=1).values
+        clear.append((top2[:, 0] - top2[:, 1]) > tol[b0 : b0 + 64])
+    return torch.cat(clear)
+
+
+def phase_approx(torch, args, smi, dev, entry, entries, failures, serve_ms: float,
+                 b2_device_ms: float, ptxas: dict) -> None:
+    """Phase 12: approximate and int8 MIPS at scripts/bench_serving.py's
+    width (12a N1 alone, 12b the four engine legs, 12c the exact scans at
+    scripts/bench_mips.py's width)."""
+    import dataclasses
+
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.ops import _lib
+    from two_tower_models_tpu_torch.ops import approx_topk as at
+    from two_tower_models_tpu_torch.ops import mips_topk as mt
+    from two_tower_models_tpu_torch.retrieval import mips as rm
+    from two_tower_models_tpu_torch.retrieval.quant import (
+        QuantizedCorpus,
+        mips_topk_quantized,
+        quantize_corpus,
+    )
+    from two_tower_models_tpu_torch.serving import RetrievalEngine
+
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    cfg, gen, model, engine, batches = serve_setup(torch, args, dev)
+    corpus = engine.corpus
+    b, c, d = BATCH, CORPUS, corpus.shape[1]
+    with torch.inference_mode():
+        q, _ = tt.compute_user_embedding(model, cfg, *batches[0])
+    qc = quantize_corpus(corpus)
+
+    # -- 12a: N1 alone on phase 3's user embeddings and corpus --
+    res, errs = {}, []
+    for k in (TOPK, 4 * TOPK):
+        m = at.approx_bins(c, k, cfg.mips_recall_target)
+        w = c // m
+        for inst, rows, sc in (("f32", corpus, None), ("int8", qc.q, qc.scale)):
+            fn = lambda: at.approx_scan(q, rows, m, None, sc)
+            got, want = fn(), at.approx_scan_plain(q, rows, m, None, sc)
+            tol = 1e-5 * want[0].abs().amax(dim=1, keepdim=True)
+            err = float((got[0] - want[0]).abs().max())
+            ok_v = bool(((got[0] - want[0]).abs() <= tol).all())
+            clear = bin_margins(torch, q, rows, m, sc, tol)
+            bad_rows = int(((got[1] != want[1]) & clear).sum())
+            lib = (lambda: (q @ rows.T).view(b, w, m).amax(1)) if sc is None else \
+                (lambda: (q @ rows.float().T * sc[None, :]).view(b, w, m).amax(1))
+            row_bytes = d * 4 if sc is None else d + 4
+            bms, by = bound(b * d * 4 + c * row_bytes + b * m * 8, 2 * b * c * d, F32_FLOPS)
+            res[f"{inst}_M{m}"] = r = {
+                "ok": ok_v and bad_rows == 0, "max_abs_err": err, "rows_left_out": int((~clear).sum()),
+                "rows_mismatched": bad_rows, "ms": time_ms(torch, fn),
+                "device_ms": device_ms(torch, fn, "approx_scan_kernel"),
+                "plain_ms": time_ms(torch, lambda: at.approx_scan_plain(q, rows, m, None, sc), 2),
+                "library_ms": time_ms(torch, lib, 3), "bound_ms": bms, "bound_by": by}
+            errs.append(err)
+            print(f"N1 {inst} at B={b}, C={c}, D={d}, M={m} (k={k}) on {name} ({smi}): values vs "
+                  f"plain ok={ok_v} max_abs_err {err:.3g} (tol 1e-5 of each query's scale), rows "
+                  f"mismatched {bad_rows} where a bin's best two differ by more ({r['rows_left_out']}"
+                  f" of {b * m} pairs left out); device {r['device_ms']:.4f} ms, with the host's "
+                  f"dispatch {r['ms']:.4f}; plain {r['plain_ms']:.3f}; library (matmul + amax over "
+                  f"the bins) {r['library_ms']:.3f}; bound {bms:.4f} ({by})", flush=True)
+            del got, want, clear
+    ok_nf, nf_line = approx_nonfinite_check(torch, dev)
+    b2_now = device_ms(torch, lambda: mt.tile_max_scores(q, corpus, mt.TILE, c),
+                       "tile_max_kernel")
+    print(f"N1 on an integer grid with +-inf and NaN rows, bit-equal to plain: {nf_line}; B2 in "
+          f"this call {b2_now:.4f} ms device (phase 2: {b2_device_ms:.4f}); ptxas "
+          + " | ".join(f"{k}: {'; '.join(v)}" for k, v in sorted(ptxas.items())), flush=True)
+    m0 = f"f32_M{at.approx_bins(c, TOPK, cfg.mips_recall_target)}"
+    r0 = res[m0]
+    entry("approx_scan", "two_tower_models_tpu_torch/csrc/approx_scan.cu",
+          "two_tower_models_tpu/retrieval/mips.py:356 (lax.approx_max_k; no pl.pallas_call site)",
+          all(r["ok"] for r in res.values()) and ok_nf, max(errs), r0["ms"], r0["plain_ms"],
+          b * d * 4 + c * d * 4 + b * int(m0.split("M")[1]) * 8, 2 * b * c * d, F32_FLOPS,
+          r0["library_ms"])
+    en = entries["approx_scan"]
+    en.update(device_ms=r0["device_ms"], instances=res, nonfinite_exact=ok_nf,
+              b2_device_ms_this_call=b2_now, ptxas=ptxas,
+              note=f"ms, plain, library and bound are the approx_mips leg's instance ({m0}: f32 "
+                   "rows, M bins for k = 100); instances holds each (f32 or int8 rows, M = 2048 "
+                   "for k = 100, 8192 for the rescore pool of 400); library is q @ rows^T (int8 "
+                   "rows widened, times the scale) and amax over the bins")
+    torch.cuda.empty_cache()
+
+    t_12b = time.perf_counter()
+
+    # -- 12b: the four engine legs of scripts/bench_serving.py --
+    approx = dataclasses.replace(cfg, approx_mips=True)
+    serve_only = {"fused_history_encoder": 1, "fused_history_encoder_tc": 1}
+    legs = (("exact", cfg, None, {**serve_only, **MIPS_ROUTE}),
+            ("approx_mips", approx, None, {**serve_only, "approx_scan": 1, "select_topk_radix": 1}),
+            ("approx_int8", approx, "int8", {**serve_only, "approx_scan": 1, "select_topk_radix": 1}),
+            ("approx_int8_rescore", approx, "int8_rescore",
+             {**serve_only, "approx_scan": 1, "select_topk_radix": 1}))
+    gates = {"approx_mips": cfg.mips_recall_target, "approx_int8": 0.90,
+             "approx_int8_rescore": cfg.mips_recall_target}
+    exact_out, n_approx, summary = None, 0, {}
+    corpus_cpu = corpus.cpu()
+    for label, lcfg, quant, expect in legs:
+        eng = RetrievalEngine(model, lcfg, corpus, quantize=quant, device=dev)
+        eng.warmup(BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _lib.reset_launch_counts()
+        evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+               for _ in batches]
+        outs = []
+        for (s, e), (u, f, h) in zip(evs, batches):
+            s.record()
+            outs.append(eng.query(u, f, h))
+            e.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = dict(_lib.launches)
+        ms = [s.elapsed_time(e) for s, e in evs]
+        check_only_launches(counts, expect, len(batches), failures, f"serve {label}")
+        n_approx += counts.get("approx_scan", 0)
+        if peak >= 1 << 30:
+            failures.append(f"serve {label}: peak {peak / 2**30:.2f} GiB above the corpus")
+        if any(o.shape != (BATCH, TOPK) or int(o.min()) < 0 or int(o.max()) >= CORPUS
+               for o in outs):
+            failures.append(f"serve {label} output shape/range")
+        recall = None
+        if exact_out is None:
+            exact_out = outs
+        else:
+            hits = sum(len(set(g) & set(r)) for go, ro in zip(outs, exact_out)
+                       for g, r in zip(go.tolist(), ro.tolist()))
+            recall = hits / (len(outs) * BATCH * TOPK)
+            if recall < gates[label]:
+                failures.append(f"serve {label}: recall {recall:.4f} < {gates[label]}")
+        # a CPU copy of the leg's MIPS, fed the card's user embeddings; the
+        # margins from the card's own bin values (and rescored pool)
+        left_out, mismatched, checked = 0, 0, 0
+        lc = eng.corpus
+        ccorp = corpus_cpu if quant is None else QuantizedCorpus(*(
+            None if t is None else t.cpu() for t in lc))
+        pool = TOPK * (4 if quant == "int8_rescore" else 1)
+        rows_d, sc_d = (lc, None) if quant is None else (lc.q, lc.scale)
+        for (u, f, h), got in zip(batches, outs):
+            with torch.inference_mode():
+                qd, _ = tt.compute_user_embedding(model, lcfg, u, f, h)
+            qd = qd[:ZOO_CHECK_ROWS]
+            qq = qd.cpu()
+            if label == "exact":
+                rsc = rm.mips_topk(lc, qd, TOPK + 1)[1]
+                clear = (rsc[:, TOPK - 1] - rsc[:, TOPK]) > 1e-5 * rsc[:, 0].abs()
+                ridx, _, _ = rm.mips_topk(ccorp, qq, TOPK)
+            else:
+                m = at.approx_bins(c, pool, lcfg.mips_recall_target)
+                top = torch.topk(at.approx_scan(qd, rows_d, m, None, sc_d)[0], pool + 1).values
+                clear = (top[:, pool - 1] - top[:, pool]) > 1e-5 * top[:, 0].abs()
+                if quant == "int8_rescore":  # and the rescored pool's k-th and (k+1)-th
+                    _, pre_i = at.approx_max_k(qd, rows_d, pool, lcfg.mips_recall_target,
+                                               scale=sc_d)
+                    ex = torch.einsum("bmd,bd->bm", lc.raw[pre_i].float(), qd)
+                    top = torch.topk(ex, TOPK + 1, dim=1).values
+                    clear &= (top[:, TOPK - 1] - top[:, TOPK]) > 1e-5 * top[:, 0].abs()
+                if quant is None:
+                    ridx, _, _ = rm.mips_topk_approx(ccorp, qq, TOPK, lcfg.mips_recall_target)
+                else:
+                    ridx, _, _ = mips_topk_quantized(ccorp, qq, TOPK, lcfg.mips_recall_target)
+            clear = clear.cpu()
+            g = torch.sort(got[:ZOO_CHECK_ROWS].cpu()[clear], 1).values
+            mismatched += int((g != torch.sort(ridx[clear], 1).values).any(1).sum())
+            left_out += int((~clear).sum())
+            checked += ZOO_CHECK_ROWS
+        if mismatched:
+            failures.append(f"serve {label}: {mismatched} rows differ from the CPU copy")
+        ms_batch = sum(ms) / len(ms)
+        summary[label] = {"ms_batch": ms_batch, "qps": BATCH / ms_batch * 1e3, "recall": recall,
+                          "peak_gib": peak / 2**30, "launches": counts}
+        print(f"serve {label} on {name} ({smi}): {len(batches)} batches of B={BATCH} over C={c}, "
+              f"k={TOPK}: ms/batch mean {ms_batch:.3f} min {min(ms):.3f} max {max(ms):.3f}; QPS "
+              f"{BATCH / ms_batch * 1e3:.0f}; recall@{TOPK} vs the exact leg "
+              f"{'-' if recall is None else f'{recall:.4f}'} (gate "
+              f"{gates.get(label, '-')}); peak {peak / 2**30:.3f} GiB above the corpus; launches "
+              f"{json.dumps(counts)}; vs a CPU copy on {ZOO_CHECK_ROWS} rows a batch: {mismatched} "
+              f"mismatched of {checked - left_out} ({left_out} left out within 1e-5 of scale)",
+              flush=True)
+        del eng, outs
+        torch.cuda.empty_cache()
+    en["launches"] = n_approx
+    en["serving_legs"] = summary
+    print(f"serve legs on {name}: " + "; ".join(
+        f"{k} {v['ms_batch']:.3f} ms/batch, recall {v['recall']}" for k, v in summary.items())
+        + f" (phase 3's exact leg {serve_ms:.3f})", flush=True)
+    del engine, corpus, corpus_cpu, qc, batches, model
+    torch.cuda.empty_cache()
+
+    t_12c = time.perf_counter()
+
+    # -- 12c: the exact scans at scripts/bench_mips.py's width --
+    g2 = torch.Generator(device=dev)
+    g2.manual_seed(args.seed + 12)
+    cm = torch.randn(MIPS_C, 64, generator=g2, device=dev).to(torch.bfloat16)
+    qm = torch.randn(BATCH, 64, generator=g2, device=dev).to(torch.bfloat16)
+    ref_i, _, _ = rm.mips_topk_exact(cm, qm, TOPK)
+    scans = {"tilemax": lambda: rm.mips_topk_exact_tilemax(cm, qm, TOPK),
+             "segmented64": lambda: rm.mips_topk_segmented(cm, qm, TOPK, 64),
+             "segmented256": lambda: rm.mips_topk_segmented(cm, qm, TOPK, 256),
+             "chunked": lambda: rm.chunked_mips_topk(cm, qm, TOPK, 131072)}
+    scan_res = {"exact": {"ms": time_ms(torch, lambda: rm.mips_topk_exact(cm, qm, TOPK), 3)}}
+    for sname, fn in scans.items():
+        idx, _, _ = fn()
+        same = torch.equal(idx, ref_i)
+        scan_res[sname] = {"equal": same, "rows_differ": int((idx != ref_i).any(1).sum()),
+                           "ms": time_ms(torch, fn, 3)}
+        if not same:
+            failures.append(f"mips scan {sname}: indices differ from mips_topk_exact")
+    ai, _, _ = rm.mips_topk_approx(cm, qm, TOPK, 0.95)
+    rec95 = sum(len(set(a) & set(r)) for a, r in zip(ai.tolist(), ref_i.tolist())) / ref_i.numel()
+    scan_res["approx95"] = {"recall": rec95,
+                            "ms": time_ms(torch, lambda: rm.mips_topk_approx(cm, qm, TOPK, 0.95), 3)}
+    if rec95 < 0.95:
+        failures.append(f"mips scan approx95: recall {rec95:.4f} < 0.95")
+    en["exact_scans"] = scan_res
+    print(f"mips scans at C={MIPS_C}, D=64 bf16, B={BATCH}, k={TOPK} on {name} ({smi}): " + "; ".join(
+        f"{k} {v['ms']:.3f} ms" + (f" indices = mips_topk_exact's {v['equal']} ({v['rows_differ']} "
+                                   f"rows differ)" if "equal" in v else "")
+        + (f" recall {v['recall']:.4f}" if "recall" in v else "") for k, v in scan_res.items()),
+        flush=True)
+    del cm, qm
+    torch.cuda.empty_cache()
+    t_end = time.perf_counter()
+    print(f"approx: phase wall {t_end - t_phase:.1f} s (set-up and 12a {t_12b - t_phase:.1f}, "
+          f"12b {t_12c - t_12b:.1f}, 12c {t_end - t_12c:.1f})", flush=True)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4047,6 +4386,7 @@ def main() -> int:
 
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs a GPU", file=sys.stderr)
         return 2
@@ -4059,7 +4399,6 @@ def main() -> int:
         from two_tower_models_tpu_torch.ops import fused_encoder as fe
         from two_tower_models_tpu_torch.ops import mips_topk as mt
         from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact
-        from two_tower_models_tpu_torch.serving import RetrievalEngine
     except ImportError as e:
         print(f"the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -4077,7 +4416,8 @@ def main() -> int:
          "-o", str(_lib.BUILD_DIR / f"ptxas_{src}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src in ("fused_softmax", "fused_mha", "select_topk", "rows_write", "fused_encoder",
-                    "fused_encoder_bwd", "tile_max", "gather_rescore", "history_attention")]
+                    "fused_encoder_bwd", "tile_max", "gather_rescore", "history_attention",
+                    "approx_scan")]
     _lib.library()
     ptxas_log = "\n".join(p.communicate(timeout=600)[0] for p in ptxas)
     print(smi, flush=True)
@@ -4088,6 +4428,7 @@ def main() -> int:
         f"(load {time.perf_counter() - t0:.1f} s)",
         flush=True,
     )
+    from two_tower_models_tpu_torch.ops import approx_topk as at
     from two_tower_models_tpu_torch.ops import fused_mha as fm
     from two_tower_models_tpu_torch.ops import fused_softmax as fs
     from two_tower_models_tpu_torch.ops import history_attention as ha
@@ -4101,7 +4442,8 @@ def main() -> int:
                     "select_radix_kernel", "select_topk_kernel", "rows_write_kernel",
                     "encoder_tc_kernel", "encoder_bwd_tc_kernel", "tile_max_kernel",
                     "rescore_kernel", "invert_count_kernel", "invert_scan_kernel",
-                    "invert_scatter_kernel", "attn_fwd_tc_kernel", "attn_bwd_tc_kernel"], {
+                    "invert_scatter_kernel", "attn_fwd_tc_kernel", "attn_bwd_tc_kernel",
+                    "approx_scan_kernel"], {
             # B10 (<MULTI>: D > 64), fwd::smem_bytes in csrc/fused_softmax.cu
             **{f"ce_fwd_tc_kernel<{m}>": fs.fwd_smem_bytes(m) for m in (0, 1)},
             # bwd::SMEM_FLOATS in csrc/fused_softmax.cu
@@ -4119,6 +4461,8 @@ def main() -> int:
             # B2 and B4 at the serving cell's D = 64
             "tile_max_kernel": mt._tile_max_smem_bytes(64),
             "rescore_kernel": mt._rescore_smem_bytes(64),
+            # N1 (<INT8>) at D = 64
+            **{f"approx_scan_kernel<{i}>": at.scan_smem_bytes(64, bool(i)) for i in (0, 1)},
             **{f"invert_{k}_kernel": 0 for k in ("count", "scan", "scatter")},
             # B15 on the tensor cores (<DH, warps on the n, keys a tile, stages>)
             **{f"attn_fwd_tc_kernel<{dh}, {', '.join(map(str, ha.tc_shape(i, dh)))}>":
@@ -4133,25 +4477,9 @@ def main() -> int:
     dev = torch.device(DEVICE)
 
     # ---- set-up: full-width model, catalog, engine ---------------------
-    cfg = serve_cfg()
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
-    model = tt.init_params(gen, cfg, device=dev)
-    catalog_ids = torch.arange(CORPUS, device=dev)
-    catalog_feats = torch.randn(CORPUS, 16, generator=gen, device=dev)
-    engine = RetrievalEngine.from_params(model, cfg, catalog_ids, catalog_feats, device=dev)
-    engine.warmup(BATCH)
+    cfg, gen, model, engine, batches = serve_setup(torch, args, dev)
     corpus = engine.corpus
-    batches = [
-        (
-            torch.randint(0, cfg.user_id_hash_size, (BATCH,), generator=gen, device=dev),
-            torch.randn(BATCH, 16, generator=gen, device=dev),
-            torch.randint(0, CORPUS, (BATCH, HIST), generator=gen, device=dev),
-        )
-        for _ in range(args.batches)
-    ]
-    torch.cuda.synchronize()
     print(f"setup: model + corpus {tuple(corpus.shape)} {corpus.dtype} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -4371,6 +4699,12 @@ def main() -> int:
     # ---- phase 11: the light ranker, KD and the reward model --------------
     phase_zoo(torch, args, smi, dev, entries, failures, b56_ms,
               entries["fused_history_encoder_bwd_recompute"].get("busy_ms_step_b5_b6"), serve_ms)
+    torch.cuda.empty_cache()
+
+    # ---- phase 12: approximate and int8 MIPS -----------------------------
+    phase_approx(torch, args, smi, dev, entry, entries, failures, serve_ms, e2["device_ms"],
+                 {k: v for k, v in ptxas_lines.items() if k.startswith("approx_scan_kernel")})
+    print(f"smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     if failures:
         _fail(", ".join(failures))

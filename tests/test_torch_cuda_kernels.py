@@ -40,7 +40,11 @@ for bit as on aligned ones.  The blockwise backward (B16, B17) on both
 its kernels (the tensor cores' 3xTF32 and the FMA kernels) within 1e-4 of
 each grad's scale of the plain backward (1e-3 at 30 sigma), at N = 1024,
 H = 4096 on the first four leading indices, bit-equal on repeat, masked
-keys' dk and dv exactly 0, NaN where the plain version has it.
+keys' dk and dv exactly 0, NaN where the plain version has it.  The
+approximate bin-max scan (N1) on f32 and int8 rows bit for bit on integer
+grids (non-finite rows and valid_count included), within 1e-5 of scale on
+normal rows with equal rows wherever a bin's best two differ by more, and
+the approximate top-k through it equal to the CPU's.
 """
 
 import math
@@ -52,6 +56,7 @@ import torch
 from two_tower_models_tpu_torch.config import HistoryEncoderConfig
 from two_tower_models_tpu_torch.models import history_encoder as he
 from two_tower_models_tpu_torch.ops import _lib
+from two_tower_models_tpu_torch.ops import approx_topk as at
 from two_tower_models_tpu_torch.ops import fused_encoder as fe
 from two_tower_models_tpu_torch.ops import fused_mha as fm
 from two_tower_models_tpu_torch.ops import fused_softmax as fs
@@ -2153,3 +2158,105 @@ def test_tile_max_orders_non_finite_scores_like_plain(dev):
 
     got_idx, _, _ = mips_topk_exact(cq, qq, k)
     assert torch.equal(got_idx, idx)
+
+
+# N1: B off the kernel's block of 64 queries (1, 100, 130), C not a
+# multiple of M, M off its block of 64 bins (300, 1000), M = C, D in {16,
+# 64, 128}, valid_count inside the corpus
+_N1_SHAPES = [(100, 5000, 64, 256, None), (64, 4096, 16, 128, 3000), (130, 20000, 128, 2048, None),
+              (1, 300, 64, 300, None), (65, 10000, 64, 1000, 9990), (200, 70000, 16, 8192, 60000)]
+
+
+def _n1_inputs(seed, b, c, d, int8, dev):
+    """Integer-grid queries and rows (int8 rows with per-row scales, some
+    equal, so that bins tie across rows): every score exact."""
+    r = np.random.default_rng(seed)
+    q = torch.from_numpy(r.integers(-2, 3, (b, d)).astype(np.float32)).to(dev)
+    if not int8:
+        return q, _grid(seed + 1, c, d, dev=dev), None
+    rows = torch.from_numpy(r.integers(-127, 128, (c, d)).astype(np.int8)).to(dev)
+    scale = r.uniform(0.01, 0.1, c).astype(np.float32)
+    scale[::7] = 0.5
+    return q, rows, torch.from_numpy(scale).to(dev)
+
+
+def _n1_equal(got, want):
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(mt.f32_keys(got[0]), mt.f32_keys(want[0]))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("b,c,d,m,valid", _N1_SHAPES)
+def test_approx_scan_matches_plain_exactly(dev, int8, b, c, d, m, valid):
+    q, rows, scale = _n1_inputs(30, b, c, d, int8, dev)
+    before = _lib.launches["approx_scan"]
+    got = at.approx_scan(q, rows, m, valid, scale)
+    assert _lib.launches["approx_scan"] == before + 1
+    assert got[0].shape == (b, m) and got[1].dtype == torch.int32
+    _n1_equal(got, at.approx_scan_plain(q, rows, m, valid, scale))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def test_approx_scan_on_normal_rows(dev, int8):
+    """f32 sums in the kernel's order against cuBLAS's: values within 1e-5
+    of each row's scale, rows equal wherever a bin's best two scores differ
+    by more."""
+    b, c, d, m = 130, 1 << 16, 64, 1024
+    q, rows = _randn(31, b, d, dev=dev), _randn(32, c, d, dev=dev)
+    scale = None
+    if int8:
+        qc = rows.abs().amax(-1) / 127.0
+        rows, scale = torch.round(rows / qc[:, None]).to(torch.int8), qc
+    got = at.approx_scan(q, rows, m, None, scale)
+    want = at.approx_scan_plain(q, rows, m, None, scale)
+    tol = 1e-5 * want[0].abs().amax(dim=1, keepdim=True)
+    assert bool(((got[0] - want[0]).abs() <= tol).all())
+    s = q @ rows.float().T * (1 if scale is None else scale[None, :])
+    second = s.scatter(1, want[1].long(), float("-inf")).view(b, c // m, m).amax(1)
+    clear = (want[0] - second) > tol
+    assert bool((got[1] == want[1])[clear].all()) and int(clear.sum()) > 0.9 * b * m
+
+
+def test_approx_scan_orders_non_finite_scores_like_plain(dev):
+    """Rows that score +-inf and NaN of both signs (+inf against a zeroed
+    query column gives 0 * inf), valid_count inside the corpus: bit-equal."""
+    b, c, d, m = 64, 1 << 16, 64, 2048
+    r = np.random.default_rng(33)
+    corpus = r.integers(-2, 3, size=(c, d)).astype(np.float32)
+    query = r.integers(-2, 3, size=(b, d)).astype(np.float32)
+    query[: b // 2, 0] = 0
+    corpus[np.arange(0, 150) * 128 + 5, 0] = np.inf
+    corpus[np.arange(150, 200) * 128 + 7, 1] = -np.inf
+    corpus.view(np.int32)[3, 2] = -(1 << 22)  # 0xFFC00000, a negative NaN
+    corpus.view(np.int32)[40_000, 5] = 0x7FC00000
+    cq, qq = torch.from_numpy(corpus).to(dev), torch.from_numpy(query).to(dev)
+    for valid in (c, c - 3000):
+        _n1_equal(at.approx_scan(qq, cq, m, valid), at.approx_scan_plain(qq, cq, m, valid))
+
+
+def test_approx_max_k_on_the_card_equals_the_cpu(dev):
+    """N1, then B3: indices and scores equal the CPU's plain route on an
+    integer grid; one launch of each."""
+    b, c, d, k = 100, 1 << 16, 64, 100
+    q, rows, scale = _n1_inputs(34, b, c, d, True, dev)
+    before = dict(_lib.launches)
+    got = at.approx_max_k(q, rows, k, 0.95, valid_count=c - 5, scale=scale)
+    assert _lib.launches["approx_scan"] == before.get("approx_scan", 0) + 1
+    assert _lib.launches["select_topk_radix"] == before.get("select_topk_radix", 0) + 1
+    want = at.approx_max_k(q.cpu(), rows.cpu(), k, 0.95, valid_count=c - 5, scale=scale.cpu())
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+
+
+def test_approx_scan_rejects_what_the_kernel_does_not_take(dev):
+    q, rows = _randn(35, 4, 64, dev=dev), _randn(36, 1024, 64, dev=dev)
+    with pytest.raises(TypeError):
+        at.approx_scan(q.half(), rows.half(), 128)
+    with pytest.raises(ValueError):
+        at.approx_scan(q, rows, 2048)  # M > C
+    with pytest.raises(ValueError):
+        at.approx_scan(q[:, :8], rows[:, :8].to(torch.int8), 128, None,
+                       torch.ones(1024, device=dev))  # int8 rows need D % 16 == 0
+    with pytest.raises(ValueError):
+        at.approx_scan(_randn(37, 4, 132, dev=dev), _randn(38, 1024, 132, dev=dev), 128)
+    with pytest.raises(TypeError):
+        at.approx_scan(q, rows.to(torch.int8), 128, None, torch.ones(512, device=dev))

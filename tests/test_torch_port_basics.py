@@ -131,15 +131,19 @@ def test_unported_paths_raise():
     corpus = torch.randn(64, cfg.item_id_embedding_dim)
     args = (torch.zeros(2, dtype=torch.long), torch.zeros(2, 8),
             torch.zeros(2, 4, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="approx_mips"):
-        ttt.retrieve(model, dataclasses.replace(cfg, approx_mips=True), corpus, *args,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
+    # approx_mips and the int8 corpus are ported (A11); the mesh and the
+    # tensor-parallel towers wait for A13
+    approx = ttt.retrieve(model, dataclasses.replace(cfg, approx_mips=True), corpus, *args,
+                          device="cpu")
+    assert approx.shape == (2, cfg.num_items)
+    with pytest.raises(TypeError, match="QuantizedCorpus"):
         ttt.retrieve(model, cfg, corpus.numpy(), *args, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="mesh.*A13"):
         RetrievalEngine(model, cfg, corpus, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        RetrievalEngine(model, cfg, corpus, quantize="int8", device="cpu")
+    with pytest.raises(NotImplementedError, match="tensor-parallel.*A13"):
+        RetrievalEngine(model, cfg, corpus, tower_tp=True, quantize="int8", device="cpu")
+    assert RetrievalEngine(model, cfg, corpus, quantize="int8",
+                           device="cpu").query(*args).shape == (2, cfg.num_items)
     lr = tcfg.preset("two_tower_plus_light_ranker", user_id_hash_size=16,
                      item_id_hash_size=64, history_len=4)
     lr_model = ttt.init_params(0, lr, device="cpu")

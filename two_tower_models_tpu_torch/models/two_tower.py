@@ -7,10 +7,9 @@ any of the 8 presets, under the pytree's own path names
 (``bridge.py``) is a mechanical flatten.  The towers are plain functions of
 (model, cfg, inputs), like their JAX counterparts, and cover all eight
 presets: the light ranker's train terms and rerank, KD, the reward model
-and registered user-embedding arms included.
-
-Not ported yet, and raising ``NotImplementedError`` rather than taking
-another path: ``approx_mips`` and a quantized corpus.
+and registered user-embedding arms included.  ``retrieve`` serves from an
+f32 corpus (the exact tile-max pipeline, or ``approx_mips``'s approximate
+top-k) or from an int8 ``QuantizedCorpus`` (``retrieval/quant.py``).
 """
 
 from __future__ import annotations
@@ -58,12 +57,6 @@ class Batch(NamedTuple):
     neg_item_features: Optional[torch.Tensor] = None  # [B', II]
     item_logq: Optional[torch.Tensor] = None  # [B] log proposal probability
     neg_logq: Optional[torch.Tensor] = None  # [B']
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue A, {item})"
-    )
 
 
 class TwoTowerModel(nn.Module):
@@ -640,17 +633,30 @@ def retrieve(
     device="cuda",
 ) -> torch.Tensor:
     """Inference: top ``cfg.num_items`` corpus indices per user
-    [B, num_items] (int64), by the exact tile-max MIPS pipeline (and the
-    light ranker's rerank of its top ``num_mips_items``).  The model
-    and corpus must already be on ``device``; the inputs are moved there."""
-    from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact
+    [B, num_items] (int64), and under the light ranker its rerank of the
+    MIPS top ``num_mips_items``.  The MIPS is the JAX package's dispatch: a
+    ``QuantizedCorpus`` takes ``mips_topk_quantized`` (approximate at
+    ``mips_recall_target`` under ``approx_mips``, else exact over the
+    quantized scores), ``approx_mips`` ``mips_topk_approx``, anything else
+    the exact tile-max pipeline.  The model and corpus must already be on
+    ``device``; the inputs are moved there."""
+    from two_tower_models_tpu_torch.retrieval.mips import mips_topk_approx, mips_topk_exact
+    from two_tower_models_tpu_torch.retrieval.quant import QuantizedCorpus, mips_topk_quantized
 
     dev = resolve_device(device)
-    if not isinstance(corpus, torch.Tensor):
-        raise _not_ported(f"a {type(corpus).__name__} corpus (int8)", "A11 'Approximate and int8 MIPS'")
-    if cfg.approx_mips:
-        raise _not_ported("approx_mips", "A11 'Approximate and int8 MIPS'")
-    for name, t in (("model", params.item_id_table), ("corpus", corpus)):
+    if isinstance(corpus, QuantizedCorpus):
+        target = cfg.mips_recall_target if cfg.approx_mips else None
+        topk_fn = lambda q, k: mips_topk_quantized(corpus, q, k, recall_target=target)
+        rows = corpus.q
+    elif isinstance(corpus, torch.Tensor):
+        if cfg.approx_mips:
+            topk_fn = lambda q, k: mips_topk_approx(corpus, q, k, cfg.mips_recall_target)
+        else:
+            topk_fn = lambda q, k: mips_topk_exact(corpus, q, k)
+        rows = corpus
+    else:
+        raise TypeError(f"retrieve takes a tensor or a QuantizedCorpus, not {type(corpus).__name__}")
+    for name, t in (("model", params.item_id_table), ("corpus", rows)):
         if t.device.type != dev.type:
             raise ValueError(f"{name} is on {t.device}, not {dev}")
     cfg = resolve_kernel_flags(cfg, dev)
@@ -660,7 +666,4 @@ def retrieve(
             _on(user_history, dev),
             None if history_len is None else _on(history_len, dev),
         )
-        return retrieve_from_embeddings(
-            params, cfg, user_emb, ranker_embs,
-            lambda q, k: mips_topk_exact(corpus, q, k),
-        )
+        return retrieve_from_embeddings(params, cfg, user_emb, ranker_embs, topk_fn)

@@ -1,8 +1,14 @@
-"""Exact maximum-inner-product search over an item corpus.
+"""Maximum-inner-product search over an item corpus.
 
-Port of ``two_tower_models_tpu/retrieval/mips.py``: the dense scan
-``mips_topk``, the fast exact path ``mips_topk_exact`` (the tile-max kernel
-pipeline, ``ops.mips_topk``) and the chunked corpus ``refresh_corpus``.
+Port of ``two_tower_models_tpu/retrieval/mips.py`` on one device: the random
+corpus ``mips_init``; the dense scan ``mips_topk``; the fast exact path
+``mips_topk_exact`` (the tile-max kernel pipeline, ``ops.mips_topk``); the
+other exact scans in plain torch, ``mips_topk_segmented`` (over
+``segmented_topk``), ``mips_topk_exact_tilemax`` (the same pruning as the
+kernels, query-blocked) and ``chunked_mips_topk``; the serving path
+``mips_topk_approx`` (``ops.approx_topk``: the bin-max kernel N1, then B3);
+and the chunked corpus ``refresh_corpus``.  The sharded scan waits for
+ROADMAP.md, queue A, A13 'Multi-device'.
 
 Tie order: ``torch.topk`` promises none, and a float compare treats -0.0
 and +0.0 as equal, while ``lax.top_k`` orders by the float total order and
@@ -15,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from two_tower_models_tpu_torch.config import resolve_device
+from two_tower_models_tpu_torch.ops.approx_topk import approx_max_k
 from two_tower_models_tpu_torch.ops.mips_topk import (
     f32_keys,
     mips_topk_exact_tiled,
@@ -30,6 +38,19 @@ def topk_ordered(scores: torch.Tensor, k: int):
     _, pos = select_keys_plain(f32_keys(scores), k)
     idx = pos.long()
     return torch.gather(scores, 1, idx), idx
+
+
+def mips_init(generator: torch.Generator, corpus_size: int, embedding_dim: int,
+              dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """Random corpus [C, DI], N(0, 1) from ``generator`` (which must live on
+    ``device``); refresh it with ``refresh_corpus`` after training."""
+    dev = resolve_device(device)
+    return torch.randn(corpus_size, embedding_dim, generator=generator, device=dev).to(dtype)
+
+
+def _scores(corpus: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """[B, C] f32 inner products (bf16 inputs are exact in f32)."""
+    return query.float() @ corpus.float().T
 
 
 def mips_topk(
@@ -48,7 +69,7 @@ def mips_topk(
     rows = max(1, _CHUNK_ELEMS // max(c, 1))
     idx_parts, score_parts = [], []
     for b0 in range(0, query.shape[0], rows):
-        s = query[b0 : b0 + rows].float() @ cf.T
+        s = _scores(cf, query[b0 : b0 + rows])
         if valid_count is not None and valid_count < c:
             s[:, valid_count:] = float("-inf")
         v, i = topk_ordered(s, k)
@@ -66,6 +87,143 @@ def mips_topk_exact(corpus: torch.Tensor, query: torch.Tensor, k: int):
     (``ops.mips_topk.mips_topk_exact_tiled``), equal to ``mips_topk``
     including tie order; small corpora take the dense scan."""
     return mips_topk_exact_tiled(corpus, query, k)
+
+
+def segmented_topk(scores: torch.Tensor, k: int, num_segments: int):
+    """(values [B, k], indices [B, k] int64): the exact top k of ``scores``
+    [B, C] through each of ``num_segments`` segments' top k (C padded with
+    -inf to a multiple), then the top k of those candidates, segment by
+    segment in order, so ties keep lax.top_k's lowest index."""
+    b, c = scores.shape
+    seg = -(-c // num_segments)
+    pad = seg * num_segments - c
+    if pad:
+        scores = torch.nn.functional.pad(scores, (0, pad), value=float("-inf"))
+    kk = min(k, seg)
+    loc_s, loc_i = topk_ordered(scores.reshape(b * num_segments, seg), kk)
+    offs = (torch.arange(num_segments, device=scores.device) * seg)[None, :, None]
+    cand_s = loc_s.reshape(b, -1)
+    cand_i = (loc_i.reshape(b, num_segments, kk) + offs).reshape(b, -1)
+    top_s, sel = topk_ordered(cand_s, k)
+    return top_s, torch.gather(cand_i, 1, sel)
+
+
+def mips_topk_segmented(corpus: torch.Tensor, query: torch.Tensor, k: int,
+                        num_segments: int = 64):
+    """Exact MIPS through ``segmented_topk``, a query chunk at a time:
+    (indices [B, k] int64, scores [B, k] f32, embeddings [B, k, DI])."""
+    c = corpus.shape[0]
+    rows = max(1, _CHUNK_ELEMS // max(c, 1))
+    idx, sc = [], []
+    for b0 in range(0, query.shape[0], rows):
+        v, i = segmented_topk(_scores(corpus, query[b0 : b0 + rows]), k, num_segments)
+        idx.append(i)
+        sc.append(v)
+    top_idx = torch.cat(idx)
+    return top_idx, torch.cat(sc), corpus[top_idx]
+
+
+def mips_topk_exact_tilemax(
+    corpus: torch.Tensor,  # [C, DI]
+    query: torch.Tensor,  # [B, DI]
+    k: int,
+    tile: int = 128,
+    chunk: int = 131072,
+    query_block: int = 256,
+):
+    """Exact MIPS by tile-max pruning in plain torch, ``query_block``
+    queries at a time: each tile's max score (chunk by chunk, so a block
+    holds [query_block, chunk] scores), the k best tiles, sorted ascending
+    so the candidates are in global index order, then the top k of their
+    rows' scores, each summed in d order as pass 1's GEMM sums it.  Equal
+    to ``mips_topk`` including tie order (the exactness note of
+    ``ops.mips_topk``); small corpora take the dense scan."""
+    c, di = corpus.shape
+    k = min(k, c)
+    n_tiles = -(-c // tile)
+    if k * tile >= c or n_tiles < k:
+        return mips_topk(corpus, query, k)
+    chunk = min(chunk, n_tiles * tile)
+    chunk = -(-chunk // tile) * tile
+    pad = (-c) % chunk if c > chunk else (n_tiles * tile - c)
+    corpus_p = torch.nn.functional.pad(corpus, (0, 0, 0, pad)) if pad else corpus
+    c_pad = corpus_p.shape[0]
+    tiles = corpus_p.view(c_pad // tile, tile, di)
+    dev = query.device
+
+    def topk_block(q):
+        qb = q.shape[0]
+        maxes = []
+        for r0 in range(0, c_pad, chunk):
+            s = _scores(corpus_p[r0 : r0 + chunk], q)
+            col = torch.arange(r0, r0 + chunk, device=dev)
+            s = s.masked_fill((col >= c)[None, :], float("-inf"))
+            maxes.append(s.view(qb, chunk // tile, tile).amax(dim=-1))
+        _, tile_idx = topk_ordered(torch.cat(maxes, dim=1), k)
+        tile_idx = torch.sort(tile_idx, dim=1).values
+        cand = tiles[tile_idx]  # [qb, k, tile, DI]
+        # one multiply-add a d, in d order: the order in which a GEMM of
+        # depth DI sums each score (cuBLAS's f32 GEMM, and the kernels'
+        # fmaf chain), so a row's score here is its bits in pass 1; a sum
+        # in another order could differ by an ulp and drop a true winner
+        cand_d = cand.float().permute(3, 0, 1, 2).contiguous()  # [DI, qb, k, tile]
+        qf = q.float()
+        cand_scores = torch.zeros(cand.shape[:3], device=dev)
+        for j in range(di):
+            cand_scores.addcmul_(cand_d[j], qf[:, j, None, None])
+        cand_gidx = tile_idx[:, :, None] * tile + torch.arange(tile, device=dev)
+        cand_scores = cand_scores.masked_fill(cand_gidx >= c, float("-inf"))
+        top_s, sel = topk_ordered(cand_scores.reshape(qb, k * tile), k)
+        top_i = torch.gather(cand_gidx.reshape(qb, k * tile), 1, sel)
+        return top_i, top_s
+
+    idx, sc = [], []
+    for b0 in range(0, query.shape[0], query_block):
+        i, v = topk_block(query[b0 : b0 + query_block])
+        idx.append(i)
+        sc.append(v)
+    top_idx = torch.cat(idx)
+    return top_idx, torch.cat(sc), corpus[top_idx]
+
+
+def mips_topk_approx(corpus: torch.Tensor, query: torch.Tensor, k: int,
+                     recall_target: float = 0.95):
+    """The serving path: the approximate top k (``ops.approx_topk``: the
+    bin-max kernel over ``approx_bins(C, k, recall_target)`` bins, then B3),
+    (indices [B, k] int64, scores [B, k] f32, embeddings [B, k, DI]).  The
+    rows are scored in f32 (a bf16 corpus is widened once)."""
+    scores, idx = approx_max_k(query, corpus.float(), min(k, corpus.shape[0]), recall_target)
+    return idx, scores, corpus[idx]
+
+
+def chunked_mips_topk(
+    corpus: torch.Tensor,  # [C, DI]
+    query: torch.Tensor,  # [B, DI]
+    k: int,
+    chunk_size: int = 65536,
+):
+    """Exact top-k keeping a running (scores, indices) of k per query over
+    corpus chunks of ``chunk_size`` rows, so the scores held are [B, chunk]:
+    each chunk's top k merged with the running set, the running set first,
+    so ties keep the lowest index."""
+    c = corpus.shape[0]
+    b = query.shape[0]
+    if c <= chunk_size:
+        return mips_topk(corpus, query, k)
+    k = min(k, c)
+    best_s = torch.full((b, k), float("-inf"), device=query.device)
+    best_i = torch.zeros((b, k), dtype=torch.int64, device=query.device)
+    n_chunks = -(-c // chunk_size)
+    for n in range(n_chunks):
+        base = n * chunk_size
+        s = _scores(corpus[base : base + chunk_size], query)
+        # the last chunk is padded with -inf rows, as the JAX scan's is
+        s = torch.nn.functional.pad(s, (0, chunk_size - s.shape[1]), value=float("-inf"))
+        local_s, local_i = topk_ordered(s, min(k, chunk_size))
+        new_s, sel = topk_ordered(torch.cat([best_s, local_s], dim=1), k)
+        best_i = torch.gather(torch.cat([best_i, local_i + base], dim=1), 1, sel)
+        best_s = new_s
+    return best_i, best_s, corpus[best_i]
 
 
 def refresh_corpus(

@@ -1,12 +1,16 @@
 """Serving-side retrieval engine.
 
 Port of ``two_tower_models_tpu/serving.py:RetrievalEngine`` for one device
-(``mesh=None``) and a raw f32 corpus (``quantize=None``).  The corpus is the
-trained item tower over the catalog (``retrieval.mips.refresh_corpus``);
-queries run the user tower and the exact tile-max MIPS kernels.  PyTorch
-runs eagerly, so there is nothing to compile per batch size: ``warmup``
-builds and loads the CUDA kernels and runs one batch, so the first real
-query does not pay for them.
+(``mesh=None``).  The corpus is the trained item tower over the catalog
+(``retrieval.mips.refresh_corpus``); queries run the user tower and the
+MIPS that ``models.two_tower.retrieve`` dispatches to: the exact tile-max
+kernels, or under ``cfg.approx_mips`` the approximate top-k (the bin-max
+kernel N1, then B3).  ``quantize="int8"`` serves from a symmetric per-row
+int8 corpus (``retrieval.quant``), quantized on the engine's device;
+``"int8_rescore"`` keeps the f32 rows and rescores an oversampled pool.
+PyTorch runs eagerly, so there is nothing to compile per batch size:
+``warmup`` builds and loads the CUDA kernels and runs one batch, so the
+first real query does not pay for them.
 """
 
 from __future__ import annotations
@@ -16,18 +20,28 @@ import torch
 from two_tower_models_tpu_torch.config import ModelConfig, resolve_device
 from two_tower_models_tpu_torch.models.two_tower import TwoTowerModel, retrieve
 from two_tower_models_tpu_torch.retrieval.mips import refresh_corpus
+from two_tower_models_tpu_torch.retrieval.quant import QuantizedCorpus, quantize_corpus
+
+QUANTIZE_MODES = (None, "int8", "int8_rescore")
 
 
-def _single_device_only(mesh, quantize) -> None:
+def _single_device_only(mesh, tower_tp, quantize) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "sharded serving (mesh) is not ported yet (ROADMAP.md, queue A, 'Multi-device')"
+            "sharded serving (mesh) is not ported yet (ROADMAP.md, queue A, A13 'Multi-device')"
         )
-    if quantize is not None:
+    if tower_tp:
         raise NotImplementedError(
-            "the int8 corpus (quantize) is not ported yet "
-            "(ROADMAP.md, queue A, 'Approximate and int8 MIPS')"
+            "tensor-parallel towers are not ported yet (ROADMAP.md, queue A, A13 'Multi-device')"
         )
+    if quantize not in QUANTIZE_MODES:
+        raise ValueError(f"quantize must be int8|int8_rescore, got {quantize!r}")
+
+
+def _quantized(corpus: torch.Tensor, quantize):
+    if quantize is None:
+        return corpus
+    return quantize_corpus(corpus, keep_raw=quantize == "int8_rescore")
 
 
 class RetrievalEngine:
@@ -38,21 +52,21 @@ class RetrievalEngine:
         self,
         params: TwoTowerModel,
         cfg: ModelConfig,
-        corpus: torch.Tensor,
+        corpus,  # [C, DI], or a QuantizedCorpus served as it is
         mesh=None,
         valid_count: int | None = None,
         tower_tp: bool = False,
         quantize: str | None = None,
         device="cuda",
     ):
-        _single_device_only(mesh, quantize)
-        if tower_tp:
-            raise NotImplementedError(
-                "tensor-parallel towers are not ported yet (ROADMAP.md, queue A, 'Multi-device')"
-            )
+        _single_device_only(mesh, tower_tp, quantize)
         self._device = resolve_device(device)
         params = params.to(self._device).eval()
-        corpus = corpus.to(self._device)
+        if isinstance(corpus, QuantizedCorpus):  # served as it is, on this device
+            corpus = QuantizedCorpus(*(None if t is None else t.to(self._device) for t in corpus))
+        else:
+            corpus = _quantized(corpus.to(self._device), quantize)
+        self._quantize = quantize
         # (params, corpus) live in ONE reference so refresh() swaps them
         # together: a query racing a refresh never scores new user
         # embeddings against an old-space corpus.
@@ -74,14 +88,15 @@ class RetrievalEngine:
         device="cuda",
     ) -> "RetrievalEngine":
         """Build the corpus from the trained item tower, then serve it."""
-        _single_device_only(mesh, quantize)
+        _single_device_only(mesh, tower_tp, quantize)
         dev = resolve_device(device)
         params = params.to(dev)
         corpus = _embed_catalog(params, cfg, catalog_ids, catalog_features, embed_batch_size, dev)
-        return cls(params, cfg, corpus, tower_tp=tower_tp, device=dev)
+        return cls(params, cfg, corpus, quantize=quantize, device=dev)
 
     @property
-    def corpus(self) -> torch.Tensor:
+    def corpus(self):
+        """The served corpus: [C, DI] f32, or a ``QuantizedCorpus``."""
         return self._state[1]
 
     def query(self, user_id, user_features, user_history, history_len=None) -> torch.Tensor:
@@ -115,13 +130,14 @@ class RetrievalEngine:
 
     def refresh(self, params: TwoTowerModel, catalog_ids, catalog_features,
                 embed_batch_size: int = 4096) -> None:
-        """Swap in new params and a corpus rebuilt from them; the corpus is
-        built before the single (params, corpus) reference swaps."""
+        """Swap in new params and a corpus rebuilt (and quantized again)
+        from them; the corpus is built before the single (params, corpus)
+        reference swaps."""
         params = params.to(self._device).eval()
         corpus = _embed_catalog(
             params, self._cfg, catalog_ids, catalog_features, embed_batch_size, self._device
         )
-        self._state = (params, corpus)
+        self._state = (params, _quantized(corpus, self._quantize))
 
 
 def _embed_catalog(params, cfg, ids, feats, batch_size, dev) -> torch.Tensor:
