@@ -2160,20 +2160,25 @@ def test_tile_max_orders_non_finite_scores_like_plain(dev):
     assert torch.equal(got_idx, idx)
 
 
-# N1: B off the kernel's block of 64 queries (1, 100, 130), C not a
+# N1: B off the kernel's block of 64 or 128 queries (1, 100, 130), C not a
 # multiple of M, M off its block of 64 bins (300, 1000), M = C, D in {16,
 # 64, 128}, valid_count inside the corpus
 _N1_SHAPES = [(100, 5000, 64, 256, None), (64, 4096, 16, 128, 3000), (130, 20000, 128, 2048, None),
               (1, 300, 64, 300, None), (65, 10000, 64, 1000, 9990), (200, 70000, 16, 8192, 60000)]
+# the routed kernel (the tensor cores at these widths) and the FMA kernel forced
+_N1_ROUTES = pytest.mark.parametrize("force", [None, "fma"], ids=["routed", "fma"])
+_N1_ROWS = pytest.mark.parametrize("kind", ["f32", "int8", "bf16"])
 
 
-def _n1_inputs(seed, b, c, d, int8, dev):
+def _n1_inputs(seed, b, c, d, kind, dev):
     """Integer-grid queries and rows (int8 rows with per-row scales, some
-    equal, so that bins tie across rows): every score exact."""
+    equal, so that bins tie across rows; bf16 rows the f32 grid, exact):
+    every score exact."""
     r = np.random.default_rng(seed)
     q = torch.from_numpy(r.integers(-2, 3, (b, d)).astype(np.float32)).to(dev)
-    if not int8:
-        return q, _grid(seed + 1, c, d, dev=dev), None
+    if kind != "int8":
+        rows = _grid(seed + 1, c, d, dev=dev)
+        return q, rows.to(torch.bfloat16) if kind == "bf16" else rows, None
     rows = torch.from_numpy(r.integers(-127, 128, (c, d)).astype(np.int8)).to(dev)
     scale = r.uniform(0.01, 0.1, c).astype(np.float32)
     scale[::7] = 0.5
@@ -2185,29 +2190,43 @@ def _n1_equal(got, want):
     assert torch.equal(mt.f32_keys(got[0]), mt.f32_keys(want[0]))
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def _n1_scan(q, rows, m, valid, scale, force):
+    """approx_scan with its launches checked: one N1 launch, on the
+    tensor cores unless the FMA kernel was forced."""
+    before = dict(_lib.launches)
+    got = at.approx_scan(q, rows, m, valid, scale, force=force)
+    assert _lib.launches["approx_scan"] == before.get("approx_scan", 0) + 1
+    tc = _lib.launches["approx_scan_tc"] - before.get("approx_scan_tc", 0)
+    assert tc == (0 if force == "fma" else 1)
+    return got
+
+
+@_N1_ROUTES
+@_N1_ROWS
 @pytest.mark.parametrize("b,c,d,m,valid", _N1_SHAPES)
-def test_approx_scan_matches_plain_exactly(dev, int8, b, c, d, m, valid):
-    q, rows, scale = _n1_inputs(30, b, c, d, int8, dev)
-    before = _lib.launches["approx_scan"]
-    got = at.approx_scan(q, rows, m, valid, scale)
-    assert _lib.launches["approx_scan"] == before + 1
+def test_approx_scan_matches_plain_exactly(dev, kind, force, b, c, d, m, valid):
+    q, rows, scale = _n1_inputs(30, b, c, d, kind, dev)
+    got = _n1_scan(q, rows, m, valid, scale, force)
     assert got[0].shape == (b, m) and got[1].dtype == torch.int32
     _n1_equal(got, at.approx_scan_plain(q, rows, m, valid, scale))
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
-def test_approx_scan_on_normal_rows(dev, int8):
-    """f32 sums in the kernel's order against cuBLAS's: values within 1e-5
-    of each row's scale, rows equal wherever a bin's best two scores differ
-    by more."""
+@_N1_ROUTES
+@_N1_ROWS
+def test_approx_scan_on_normal_rows(dev, kind, force):
+    """Sums in the kernel's order (3xTF32 or two TF32 products on the tensor
+    cores, the fmaf chain on the FMA kernel) against cuBLAS's: values
+    within 1e-5 of each row's scale, rows equal wherever a bin's best two
+    scores differ by more."""
     b, c, d, m = 130, 1 << 16, 64, 1024
     q, rows = _randn(31, b, d, dev=dev), _randn(32, c, d, dev=dev)
     scale = None
-    if int8:
+    if kind == "int8":
         qc = rows.abs().amax(-1) / 127.0
         rows, scale = torch.round(rows / qc[:, None]).to(torch.int8), qc
-    got = at.approx_scan(q, rows, m, None, scale)
+    elif kind == "bf16":
+        rows = rows.to(torch.bfloat16)
+    got = _n1_scan(q, rows, m, None, scale, force)
     want = at.approx_scan_plain(q, rows, m, None, scale)
     tol = 1e-5 * want[0].abs().amax(dim=1, keepdim=True)
     assert bool(((got[0] - want[0]).abs() <= tol).all())
@@ -2217,34 +2236,78 @@ def test_approx_scan_on_normal_rows(dev, int8):
     assert bool((got[1] == want[1])[clear].all()) and int(clear.sum()) > 0.9 * b * m
 
 
-def test_approx_scan_orders_non_finite_scores_like_plain(dev):
+@_N1_ROUTES
+@_N1_ROWS
+def test_approx_scan_orders_non_finite_scores_like_plain(dev, kind, force):
     """Rows that score +-inf and NaN of both signs (+inf against a zeroed
-    query column gives 0 * inf), valid_count inside the corpus: bit-equal."""
+    query column gives 0 * inf), valid_count inside the corpus: bit-equal.
+    Int8 rows take the non-finite values in their scales instead."""
     b, c, d, m = 64, 1 << 16, 64, 2048
     r = np.random.default_rng(33)
     corpus = r.integers(-2, 3, size=(c, d)).astype(np.float32)
     query = r.integers(-2, 3, size=(b, d)).astype(np.float32)
     query[: b // 2, 0] = 0
-    corpus[np.arange(0, 150) * 128 + 5, 0] = np.inf
-    corpus[np.arange(150, 200) * 128 + 7, 1] = -np.inf
+    inf_rows, ninf_rows = np.arange(0, 150) * 128 + 5, np.arange(150, 200) * 128 + 7
+    corpus[inf_rows, 0] = np.inf
+    corpus[ninf_rows, 1] = -np.inf
     corpus.view(np.int32)[3, 2] = -(1 << 22)  # 0xFFC00000, a negative NaN
     corpus.view(np.int32)[40_000, 5] = 0x7FC00000
-    cq, qq = torch.from_numpy(corpus).to(dev), torch.from_numpy(query).to(dev)
+    cq, qq, scale = torch.from_numpy(corpus).to(dev), torch.from_numpy(query).to(dev), None
+    if kind == "bf16":
+        cq = cq.to(torch.bfloat16)
+    elif kind == "int8":
+        cq = torch.from_numpy(r.integers(-127, 128, (c, d)).astype(np.int8)).to(dev)
+        sc = r.uniform(0.01, 0.1, c).astype(np.float32)
+        sc[inf_rows], sc[ninf_rows] = np.inf, -np.inf
+        sc.view(np.int32)[3], sc.view(np.int32)[40_000] = -(1 << 22), 0x7FC00000
+        scale = torch.from_numpy(sc).to(dev)
     for valid in (c, c - 3000):
-        _n1_equal(at.approx_scan(qq, cq, m, valid), at.approx_scan_plain(qq, cq, m, valid))
+        _n1_equal(_n1_scan(qq, cq, m, valid, scale, force),
+                  at.approx_scan_plain(qq, cq, m, valid, scale))
 
 
-def test_approx_max_k_on_the_card_equals_the_cpu(dev):
+@_N1_ROUTES
+def test_approx_max_k_on_the_card_equals_the_cpu(dev, force):
     """N1, then B3: indices and scores equal the CPU's plain route on an
     integer grid; one launch of each."""
     b, c, d, k = 100, 1 << 16, 64, 100
-    q, rows, scale = _n1_inputs(34, b, c, d, True, dev)
+    q, rows, scale = _n1_inputs(34, b, c, d, "int8", dev)
     before = dict(_lib.launches)
-    got = at.approx_max_k(q, rows, k, 0.95, valid_count=c - 5, scale=scale)
+    got = at.approx_max_k(q, rows, k, 0.95, valid_count=c - 5, scale=scale, force=force)
     assert _lib.launches["approx_scan"] == before.get("approx_scan", 0) + 1
+    assert _lib.launches["approx_scan_tc"] == before.get("approx_scan_tc", 0) + (force is None)
     assert _lib.launches["select_topk_radix"] == before.get("select_topk_radix", 0) + 1
     want = at.approx_max_k(q.cpu(), rows.cpu(), k, 0.95, valid_count=c - 5, scale=scale.cpu())
     assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+
+
+def test_approx_scan_routes_by_width(dev):
+    """D % 8 != 0 (f32 rows, D = 20) takes the FMA kernel, bf16 rows there
+    widened for it; D = 64 the tensor cores for every row kind; each bit-equal
+    to plain on an integer grid, with its launch counters."""
+    for d, kind, tc in ((20, "f32", 0), (20, "bf16", 0), (64, "f32", 1), (64, "int8", 1),
+                        (64, "bf16", 1)):
+        q, rows, scale = _n1_inputs(36, 70, 3000, d, kind, dev)
+        assert at.scan_route(d, kind) == ("tc" if tc else "fma")
+        before = dict(_lib.launches)
+        got = at.approx_scan(q, rows, 500, 2900, scale)
+        assert _lib.launches["approx_scan"] == before.get("approx_scan", 0) + 1
+        assert _lib.launches["approx_scan_tc"] == before.get("approx_scan_tc", 0) + tc
+        _n1_equal(got, at.approx_scan_plain(q, rows, 500, 2900, scale))
+
+
+def test_mips_topk_approx_reads_bf16_rows_on_the_tensor_cores(dev):
+    """A bf16 corpus goes to N1 unwidened: one tensor-core launch, and the
+    result equals the f32 widening's on an integer grid."""
+    from two_tower_models_tpu_torch.retrieval.mips import mips_topk_approx
+
+    q, rows, _ = _n1_inputs(37, 100, 1 << 16, 64, "bf16", dev)
+    before = dict(_lib.launches)
+    got = mips_topk_approx(rows, q, 100)
+    assert _lib.launches["approx_scan_tc"] == before.get("approx_scan_tc", 0) + 1
+    want = mips_topk_approx(rows.float(), q, 100)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[2].dtype == torch.bfloat16
 
 
 def test_approx_scan_rejects_what_the_kernel_does_not_take(dev):
@@ -2260,3 +2323,7 @@ def test_approx_scan_rejects_what_the_kernel_does_not_take(dev):
         at.approx_scan(_randn(37, 4, 132, dev=dev), _randn(38, 1024, 132, dev=dev), 128)
     with pytest.raises(TypeError):
         at.approx_scan(q, rows.to(torch.int8), 128, None, torch.ones(512, device=dev))
+    with pytest.raises(ValueError):  # the tensor cores take D % 8 == 0 only
+        at.approx_scan(q[:, :20], rows[:, :20], 128, force="tc")
+    with pytest.raises(ValueError):
+        at.approx_scan(q, rows, 128, force="mma")

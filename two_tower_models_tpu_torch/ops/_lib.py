@@ -82,6 +82,7 @@ _SIGNATURES = {
     "tt_blockwise_attn_dkv_tc": [_P] * 9 + [_I] * 4 + [_P],
     "tt_fused_adam": [_P] * 5 + [_F] * 6 + [_I] * 3 + [ctypes.c_longlong, _P],
     "tt_approx_scan": [_P] * 5 + [_I] * 6 + [_P],
+    "tt_approx_scan_tc": [_P] * 5 + [_I] * 9 + [_P],
 }
 
 

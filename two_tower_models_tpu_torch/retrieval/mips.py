@@ -191,8 +191,11 @@ def mips_topk_approx(corpus: torch.Tensor, query: torch.Tensor, k: int,
     """The serving path: the approximate top k (``ops.approx_topk``: the
     bin-max kernel over ``approx_bins(C, k, recall_target)`` bins, then B3),
     (indices [B, k] int64, scores [B, k] f32, embeddings [B, k, DI]).  The
-    rows are scored in f32 (a bf16 corpus is widened once)."""
-    scores, idx = approx_max_k(query, corpus.float(), min(k, corpus.shape[0]), recall_target)
+    rows are scored in f32; an f32 or bf16 corpus goes to the kernel as it
+    is (its tensor-core route reads bf16 rows, exact in TF32, without a
+    widened copy), any other dtype is widened first."""
+    rows = corpus if corpus.dtype in (torch.float32, torch.bfloat16) else corpus.float()
+    scores, idx = approx_max_k(query, rows, min(k, corpus.shape[0]), recall_target)
     return idx, scores, corpus[idx]
 
 
