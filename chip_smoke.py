@@ -336,6 +336,41 @@ Phases, in the order they run; any failure exits non-zero:
      mips_topk_exact, and mips_topk_approx at 0.95 with recall >= 0.95
      against it (N1 on the bf16 rows as they are, no widened copy: one
      tensor-core launch, its peak memory recorded), each timed.
+  13. raw-key ingest and reference-checkpoint interop at serve-1M-exact's
+     and the flagship's widths (the port's training.ingest, native and
+     interop; no new kernel).  13a: the host hasher's C++ path is built
+     (its library under the port's _build/) and agrees slot for slot with
+     the numpy fallback on 4,096 of the 2^20 catalog's string keys
+     ("sku-0000000"...) and on 131,072 uint64 keys from --seed (0 and
+     2^64 - 1 among them); host ms of the C++ path, strings and uint64
+     apart, for one serving batch's keys (1,024 users, 1,024 x 32 history
+     keys), one flagship batch's (4,096 + 4,096 + 4,096 x 32) and the
+     catalog, the hash call alone beside its marshalling, and the host
+     CPU's model.  13b: serve-1M-raw and serve-1M-raw-u64: phase 3's model
+     (serve_cfg) over a corpus built from the 2^20 string item keys through
+     hash_item_keys (collisions kept), warmed up, then ten batches of
+     RetrievalEngine.query_raw on string keys, or on uint64 keys: each
+     batch's indices bit-equal to query on training.ingest's slots of the
+     same keys; a batch launches B1 and the exact MIPS route and nothing
+     else; the hasher called only on its C++ path (two calls a batch);
+     on 128 rows a batch, a CPU copy hashing with the numpy fallback gives
+     the same slots, user embeddings within 3e-2, and, fed the card's
+     embeddings, the same index sets (serve_leg's rule); ms/batch of
+     query_raw by the host clock with a synchronize beside query's on the
+     same slots and the hash's host ms.  13c: train-65k-raw: the flagship
+     (flagship_cfg(TRAIN_ROWS), B = 4096) on batches ingested one a step
+     from a string event log made from --seed, 5 warm-up and 20 timed
+     steps: finite metrics, phase 4's launches a step, the hasher on its
+     C++ path only, ms/step with the ingest inline beside the ingest's host
+     ms a batch and the bare step's ms/step on the last batch, and
+     train_loss with every grad leaf within 1e-2 of scale of a CPU copy at
+     B = 256.  13d: reference state_dicts for serve_cfg and for
+     two_tower_plus_light_ranker_kd at phase 11's width, made in torch on
+     the CPU from --seed, imported onto the card and exported back bit for
+     bit on every key (KD's aux columns the card's fresh init); one serving
+     batch through the imported serve model against a CPU copy on 128 rows
+     (13b's rule).  13e: examples/raw_key_ingest_torch.py as a subprocess
+     on the card: exit 0 and its consistency line.
 
 Phase 2 also holds B2 and the exact pipeline on an integer-grid corpus whose
 scores hold +-inf and NaN of both signs (nonfinite_check).
@@ -349,6 +384,8 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
+import platform
 import statistics
 import subprocess
 import sys
@@ -410,6 +447,11 @@ ZOO_MNS_SAMPLES = 2 * TRAIN_BATCH  # 11b: make_synthetic_data's rows, for one st
 ZOO_CLI_SAMPLES = 1 << 19  # 11d: phase 9's 2^21 samples cut to 128 steps an epoch
 ZOO_CHECK_ROWS = 128  # 11c and 12b: the rows of each batch held against the CPU copy
 MIPS_C = 1_000_000  # 12c: scripts/bench_mips.py's --corpus
+# phase 13, raw-key ingest: examples/raw_key_ingest.py's key formats at the cells' widths
+RAW_USERS = 65536  # the user keys' population: serve_cfg's and the flagship's user table
+RAW_CHECK_KEYS = 4096  # 13a: string keys held C++ against the fallback (a Python loop)
+RAW_U64_KEYS = 131072  # 13a: uint64 keys held C++ against the fallback
+RAW_WARMUP, RAW_STEPS = 5, 20  # 13c: warm-up and timed steps
 # B18 launches a training step of a config that debiases by position: the
 # position-bias table's gradient, summed in a fixed order (nn.layers
 # embedding_lookup's fixed_order), where F.embedding's differs call to call
@@ -4443,6 +4485,406 @@ def phase_approx(torch, args, smi, dev, entry, entries, failures, serve_ms: floa
           f"12b {t_12c - t_12b:.1f}, 12c {t_end - t_12c:.1f})", flush=True)
 
 
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo gives its first processor: the model
+    name, or where /proc masks it ("unknown") the vendor, family, model
+    and clock; the machine's product name where /sys shows it; and the
+    cores this process may use."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if not ln.strip():
+                    break
+                key, _, value = ln.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = info.get("model name", "unknown")
+    if name == "unknown":
+        name = (f"model name masked: {info.get('vendor_id', '?')} family "
+                f"{info.get('cpu family', '?')} model {info.get('model', '?')}, "
+                f"{info.get('cpu MHz', '?')} MHz")
+    try:
+        with open("/sys/devices/virtual/dmi/id/product_name") as f:
+            name += f", in a {f.read().strip()}"
+    except OSError:
+        pass
+    return f"{name} ({platform.machine()}), {len(os.sched_getaffinity(0))} cores"
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of one call of ``fn`` (host work, no device)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def fallback_slots(native, keys, size: int, seed: int):
+    """``keys``' slots through the numpy fallback, whatever their kind."""
+    import numpy as np
+
+    arr = np.asarray(keys)
+    if arr.dtype.kind == "u":
+        return native.hash_ids(arr, size, seed=seed, force_fallback=True)
+    return native.hash_strings(list(arr.reshape(-1)), size, seed=seed,
+                               force_fallback=True).reshape(arr.shape)
+
+
+def raw_cpu_check(torch, cfg, model, cpu_model, corpus, corpus_cpu, slots, feats, got,
+                  raw_keys=None) -> tuple:
+    """serve_leg's rule on the first ZOO_CHECK_ROWS rows of one batch: the
+    CPU copy's user embeddings against the card's (3e-2), and the CPU's
+    exact MIPS fed the card's embeddings, index sets equal on every row
+    whose k-th and (k+1)-th card scores differ by more than 1e-5 of scale.
+    With ``raw_keys`` (user keys, history keys) the CPU copy hashes them with
+    the numpy fallback, and its slots must be the card's.  Returns (slots
+    equal, embedding error, rows mismatched, rows left out)."""
+    from two_tower_models_tpu_torch import native
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.retrieval import mips as rm
+    from two_tower_models_tpu_torch.training import ingest
+
+    r = ZOO_CHECK_ROWS
+    u, h = (t[:r] for t in slots)
+    f = feats[:r]
+    same_slots = True
+    if raw_keys is None:
+        u_cpu, h_cpu = u.cpu(), h.cpu()
+    else:
+        uk, hk = raw_keys
+        u_cpu = torch.as_tensor(fallback_slots(native, uk[:r], cfg.user_id_hash_size,
+                                               ingest.USER_TABLE_SEED))
+        h_cpu = torch.as_tensor(fallback_slots(native, hk[:r], cfg.item_id_hash_size,
+                                               ingest.ITEM_TABLE_SEED))
+        same_slots = torch.equal(u_cpu, u.cpu()) and torch.equal(h_cpu, h.cpu())
+    with torch.inference_mode():
+        q, _ = tt.compute_user_embedding(model, cfg, u, f, h)
+        q_cpu, _ = tt.compute_user_embedding(cpu_model, cfg, u_cpu, f.cpu(), h_cpu)
+        rsc = rm.mips_topk(corpus, q, TOPK + 1)[1]
+        ridx, _, _ = rm.mips_topk(corpus_cpu, q.cpu(), TOPK)
+    _, err = close(q.cpu(), q_cpu, 3e-2, 3e-2)
+    clear = ((rsc[:, TOPK - 1] - rsc[:, TOPK]) > 1e-5 * rsc[:, TOPK - 1].abs()).cpu()
+    g = torch.sort(got[:r].cpu()[clear], 1).values
+    mismatched = int((g != torch.sort(ridx[clear], 1).values).any(1).sum())
+    return same_slots, err, mismatched, int((~clear).sum())
+
+
+def phase_raw(torch, args, smi, dev, entries, failures, serve_ms: float) -> None:
+    """Phase 13: raw-key ingest (13a the hasher, 13b raw-key serving, 13c
+    ingested training) and reference-checkpoint interop (13d), and the
+    port's raw-key example (13e)."""
+    import ctypes
+    from pathlib import Path
+
+    import numpy as np
+
+    from two_tower_models_tpu_torch import interop, native
+    from two_tower_models_tpu_torch.config import TrainConfig
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.ops import _lib
+    from two_tower_models_tpu_torch.serving import RetrievalEngine
+    from two_tower_models_tpu_torch.training import ingest
+    from two_tower_models_tpu_torch.training.data import SyntheticRecData
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import make_train_step
+
+    t_phase = time.perf_counter()
+    name, cpu = torch.cuda.get_device_name(0), host_cpu()
+    rec = {"host_cpu": cpu}
+
+    # -- 13a: the host hasher --
+    so = native.library_path()
+    built = so is not None and native.BUILD_DIR.resolve() in so.resolve().parents
+    print(f"hasher 13a: C++ path available {native.native_available()}, library {so} "
+          f"(under the port's _build/: {built}); host CPU {cpu}", flush=True)
+    if not built:
+        print(f"hasher 13a: the C++ build failed:\n{native.build_error()}", flush=True)
+        failures.append("13a: the C++ hasher is not built under the port's _build/")
+        return
+    rng = np.random.default_rng(args.seed + 130)
+    catalog = np.array([f"sku-{i:07d}" for i in range(CORPUS)])
+    users = np.array([f"user:{i:06d}@example.com" for i in range(RAW_USERS)])
+    u64 = rng.integers(0, 1 << 64, RAW_U64_KEYS, dtype=np.uint64)
+    u64[:2] = [0, (1 << 64) - 1]
+    sample = list(catalog[rng.choice(CORPUS, RAW_CHECK_KEYS, replace=False)])
+    agree = {
+        "str": bool(np.array_equal(
+            native.hash_strings(sample, CORPUS, seed=ingest.ITEM_TABLE_SEED),
+            native.hash_strings(sample, CORPUS, seed=ingest.ITEM_TABLE_SEED, force_fallback=True))),
+        "u64": all(bool(np.array_equal(native.hash_ids(u64, size, seed=seed),
+                                       native.hash_ids(u64, size, seed=seed, force_fallback=True)))
+                   for size, seed in ((CORPUS, ingest.ITEM_TABLE_SEED),
+                                      (RAW_USERS, ingest.USER_TABLE_SEED))),
+    }
+    if not all(agree.values()):
+        failures.append(f"13a: the C++ path and the fallback disagree: {agree}")
+    cfg, fcfg = serve_cfg(), flagship_cfg(TRAIN_ROWS)
+    pick = lambda keys, *shape: keys[rng.integers(0, len(keys), shape)]
+    rand64 = lambda *shape: rng.integers(0, 1 << 64, shape, dtype=np.uint64)
+    sb = {"str": (pick(users, BATCH), pick(catalog, BATCH, HIST)),
+          "u64": (rand64(BATCH), rand64(BATCH, HIST))}
+    fb = {"str": (pick(users, TRAIN_BATCH), pick(catalog[:TRAIN_ROWS], TRAIN_BATCH),
+                  pick(catalog[:TRAIN_ROWS], TRAIN_BATCH, HIST)),
+          "u64": (rand64(TRAIN_BATCH), rand64(TRAIN_BATCH), rand64(TRAIN_BATCH, HIST))}
+    u64_catalog = rand64(CORPUS)
+    times = {}
+    for kind in ("str", "u64"):
+        times[kind] = {
+            "serve_batch_ms": host_ms(lambda: (ingest.hash_user_keys(sb[kind][0], cfg),
+                                               ingest.hash_item_keys(sb[kind][1], cfg))),
+            "flagship_batch_ms": host_ms(lambda: ingest.ingest_example_keys(fcfg, *fb[kind])),
+            "catalog_ms": host_ms(lambda: ingest.hash_item_keys(
+                catalog if kind == "str" else u64_catalog, cfg), 3),
+        }
+    # the catalog's hash call alone, its keys already one byte blob
+    lib = native._load()
+    raw = [k.encode() for k in catalog]
+    blob = np.frombuffer(b"".join(raw), np.uint8)
+    offsets = np.zeros(len(raw) + 1, np.int64)
+    np.cumsum([len(k) for k in raw], out=offsets[1:])
+    out = np.empty(len(raw), np.uint32)
+    ptr = lambda a, c: a.ctypes.data_as(ctypes.POINTER(c))
+    times["str"]["catalog_call_alone_ms"] = host_ms(lambda: lib.hash_ids_bytes(
+        ptr(blob, ctypes.c_uint8), ptr(offsets, ctypes.c_int64), len(raw),
+        ingest.ITEM_TABLE_SEED, CORPUS, ptr(out, ctypes.c_uint32)), 3)
+    del raw, blob
+    rec["hasher"] = {"agree_with_fallback": agree, "library": str(so), "host_ms": times}
+    print(f"hasher 13a on {cpu} (card {name}, {smi}): C++ path and numpy fallback agree on "
+          f"{RAW_CHECK_KEYS} catalog string keys {agree['str']} and {RAW_U64_KEYS} uint64 keys "
+          f"{agree['u64']}; host ms (median of 5; the catalog of 3), strings | uint64: serving "
+          f"batch ({BATCH} + {BATCH}x{HIST} keys) {times['str']['serve_batch_ms']:.3f} | "
+          f"{times['u64']['serve_batch_ms']:.3f}; flagship batch ({TRAIN_BATCH} + {TRAIN_BATCH} + "
+          f"{TRAIN_BATCH}x{HIST}) {times['str']['flagship_batch_ms']:.3f} | "
+          f"{times['u64']['flagship_batch_ms']:.3f}; catalog ({CORPUS}) "
+          f"{times['str']['catalog_ms']:.3f} | {times['u64']['catalog_ms']:.3f}, of which the "
+          f"string hash call alone {times['str']['catalog_call_alone_ms']:.3f}", flush=True)
+
+    # -- 13b: serve-1M-raw and serve-1M-raw-u64 --
+    t_13b = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 131)
+    model = tt.init_params(gen, cfg, device=dev)
+    cat_slots = ingest.hash_item_keys(catalog, cfg)
+    collided = 1 - len(np.unique(cat_slots)) / CORPUS
+    engine = RetrievalEngine.from_params(
+        model, cfg, torch.as_tensor(cat_slots, device=dev),
+        torch.randn(CORPUS, 16, generator=gen, device=dev), device=dev)
+    engine.warmup(BATCH)
+    corpus = engine.corpus
+    corpus_cpu, cpu_model = corpus.cpu(), copy.deepcopy(model).cpu()
+    expect = {"fused_history_encoder": 1, "fused_history_encoder_tc": 1, **MIPS_ROUTE}
+    legs = {}
+    for leg, kind in (("serve-1M-raw", "str"), ("serve-1M-raw-u64", "u64")):
+        batches = []
+        for _ in range(args.batches):
+            keys = (pick(users, BATCH), pick(catalog, BATCH, HIST)) if kind == "str" else (
+                rand64(BATCH), rand64(BATCH, HIST))
+            batches.append((keys[0], torch.randn(BATCH, 16, generator=gen, device=dev), keys[1]))
+        engine.query_raw(*batches[0])  # warm-up
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        native.reset_calls()
+        outs, raw_ms = [], []
+        for uk, f, hk in batches:
+            t0 = time.perf_counter()
+            outs.append(engine.query_raw(uk, f, hk))
+            torch.cuda.synchronize()
+            raw_ms.append((time.perf_counter() - t0) * 1e3)
+        counts, calls = dict(_lib.launches), dict(native.calls)
+        check_only_launches(counts, expect, len(batches), failures, leg)
+        if calls != {"cpp": 2 * len(batches)}:
+            failures.append(f"{leg}: the hasher's calls {calls}, not C++ only")
+        hash_ms, q_ms, unequal, slots = [], [], 0, []
+        for uk, _, hk in batches:
+            t0 = time.perf_counter()
+            us, hs = ingest.hash_user_keys(uk, cfg), ingest.hash_item_keys(hk, cfg)
+            hash_ms.append((time.perf_counter() - t0) * 1e3)
+            slots.append((torch.as_tensor(us, device=dev), torch.as_tensor(hs, device=dev)))
+        torch.cuda.synchronize()
+        for (us, hs), (_, f, _), got in zip(slots, batches, outs):
+            t0 = time.perf_counter()
+            want = engine.query(us, f, hs)
+            torch.cuda.synchronize()
+            q_ms.append((time.perf_counter() - t0) * 1e3)
+            unequal += not torch.equal(got, want)
+        if unequal or any(o.shape != (BATCH, TOPK) for o in outs):
+            failures.append(f"{leg}: {unequal} batches of query_raw differ from query on the slots")
+        bad_slots, errs, mismatched, left_out = 0, [], 0, 0
+        for (us, hs), (uk, f, hk), got in zip(slots, batches, outs):
+            same, err, mm, lo = raw_cpu_check(torch, cfg, model, cpu_model, corpus, corpus_cpu,
+                                              (us, hs), f, got, (uk, hk))
+            bad_slots += not same
+            errs.append(err)
+            mismatched += mm
+            left_out += lo
+        if bad_slots or mismatched or max(errs) > 3e-2:
+            failures.append(f"{leg} vs the CPU copy: {bad_slots} batches' slots differ, "
+                            f"{mismatched} rows mismatched, embeddings {max(errs):.3g}")
+        mean = lambda v: sum(v) / len(v)
+        legs[leg] = {"query_raw_ms": mean(raw_ms), "query_raw_median_ms": statistics.median(raw_ms),
+                     "query_ms": mean(q_ms), "query_median_ms": statistics.median(q_ms),
+                     "hash_host_ms": mean(hash_ms), "launches": counts, "hasher_calls": calls,
+                     "equal_to_query": not unequal, "cpu_rows_mismatched": mismatched,
+                     "cpu_rows_left_out": left_out}
+        print(f"{leg} on {name} ({smi}), host {cpu}: {len(batches)} batches of B={BATCH} over "
+              f"C={CORPUS} ({collided:.1%} of the catalog's keys share a slot), k={TOPK}: "
+              f"query_raw {mean(raw_ms):.3f} ms/batch (median {statistics.median(raw_ms):.3f}; "
+              f"host clock with a synchronize: hash, copy, query) beside query on the same slots "
+              f"{mean(q_ms):.3f} (median {statistics.median(q_ms):.3f}; phase 3's exact leg "
+              f"{serve_ms:.3f} by CUDA events); the hash alone {mean(hash_ms):.3f} host ms a "
+              f"batch; indices bit-equal to query's in every batch {not unequal}; launches "
+              f"{json.dumps(counts)}; hasher calls {json.dumps(calls)}; vs a CPU copy hashing "
+              f"with the numpy fallback on {ZOO_CHECK_ROWS} rows a batch: slots equal "
+              f"{not bad_slots}, user embeddings max_abs_err {max(errs):.3g} (tol 3e-2), "
+              f"{mismatched} rows mismatched ({left_out} left out within 1e-5 of scale)",
+              flush=True)
+    rec["serving"] = legs
+    del engine, corpus, corpus_cpu, cpu_model, model, outs, batches
+    torch.cuda.empty_cache()
+
+    # -- 13c: train-65k-raw --
+    t_13c = time.perf_counter()
+    b, n_steps = TRAIN_BATCH, RAW_WARMUP + RAW_STEPS
+    items = catalog[:TRAIN_ROWS]
+    gen.manual_seed(args.seed + 132)
+    train_cfg = TrainConfig(batch_size=b, learning_rate=1e-3)
+    state = create_train_state(gen, fcfg, train_cfg, device=dev)
+    step = make_train_step(fcfg, train_cfg)
+    log = [(pick(users, b), pick(items, b), pick(items, b, HIST)) for _ in range(n_steps)]
+    dense = [(torch.randn(b, 16, generator=gen, device=dev), torch.randn(b, 16, generator=gen, device=dev),
+              torch.randint(0, fcfg.position_table_size, (b,), generator=gen, device=dev),
+              torch.bernoulli(torch.full((b, fcfg.num_tasks), 0.5, device=dev), generator=gen))
+             for _ in range(n_steps)]
+    idx = torch.arange(b, device=dev)
+
+    def ingested(i):
+        t0 = time.perf_counter()
+        uid, iid, hist = ingest.ingest_example_keys(fcfg, *log[i])
+        ms = (time.perf_counter() - t0) * 1e3
+        uf, itf, pos, lab = dense[i]
+        on = lambda a: torch.as_tensor(a, device=dev)
+        return SyntheticRecData(
+            user_ids=on(uid), user_features=uf, user_history=on(hist), item_ids=on(iid),
+            item_features=itf, positions=pos, labels=lab, catalog_ids=torch.arange(4, device=dev),
+            catalog_features=torch.zeros(4, 16, device=dev)), ms
+
+    metrics, ingest_ms = [], []
+    with torch.enable_grad():
+        for i in range(RAW_WARMUP):
+            state, _ = step(state, ingested(i)[0], idx)
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        native.reset_calls()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(RAW_WARMUP, n_steps):
+            data, ms = ingested(i)
+            ingest_ms.append(ms)
+            state, m = step(state, data, idx)
+            metrics.append(m)
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / RAW_STEPS
+    counts, calls = dict(_lib.launches), dict(native.calls)
+    check_only_launches(counts, zoo_train_launches(fcfg), RAW_STEPS, failures, "train-65k-raw")
+    if calls != {"cpp": 3 * RAW_STEPS}:
+        failures.append(f"train-65k-raw: the hasher's calls {calls}, not C++ only")
+    if not finite(torch, metrics):
+        failures.append("train-65k-raw metrics not finite")
+    state, _, bare_ms, bare_host, _ = run_steps(torch, step, state, data, idx, RAW_STEPS)
+    ing = sum(ingest_ms) / len(ingest_ms)
+    rec["train"] = {"ms_step_with_ingest": wall, "device_ms_step": start.elapsed_time(end) / RAW_STEPS,
+                    "ingest_host_ms": ing, "bare_step_ms": bare_ms, "bare_step_host_ms": bare_host,
+                    "keeps_up": ing < bare_ms, "launches": counts, "hasher_calls": calls}
+    print(f"train-65k-raw on {name} ({smi}), host {cpu}: {RAW_STEPS} steps of B={b}, each on a "
+          f"batch ingested from string keys: {wall:.3f} ms/step with the ingest inline (host "
+          f"clock; CUDA events {rec['train']['device_ms_step']:.3f}); the ingest {ing:.3f} host ms "
+          f"a batch; the bare step on the last batch {bare_ms:.3f} ms/step (host wall "
+          f"{bare_host:.3f}); the ingest keeps up with the step: {ing < bare_ms} (ingest below "
+          f"the bare step's time); loss {float(metrics[0]['loss']):.5f}->"
+          f"{float(metrics[-1]['loss']):.5f}; launches {json.dumps(counts)}; hasher calls "
+          f"{json.dumps(calls)}", flush=True)
+    grads_vs_cpu(torch, state.params, fcfg, data, idx, failures, "train-65k-raw")
+    del state, step, data, log, dense
+    torch.cuda.empty_cache()
+
+    # -- 13d: reference-checkpoint interop --
+    t_13d = time.perf_counter()
+    rec["interop"] = {}
+    for label, icfg in (("serve-1M-exact", cfg), ("kd", zoo_cfg("two_tower_plus_light_ranker_kd"))):
+        g = torch.Generator()
+        g.manual_seed(args.seed + 133)
+        layout = interop.reference_state_dict_from_params(tt.init_params(0, icfg, device="cpu"), icfg)
+        sd = {k: torch.randn(v.shape, generator=g) * (1.0 if k.endswith("embedding_arch.weight")
+                                                      else 0.05) for k, v in layout.items()}
+        t0 = time.perf_counter()
+        imported = interop.params_from_reference_state_dict(sd, icfg, seed=args.seed, device=dev)
+        torch.cuda.synchronize()
+        import_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = interop.reference_state_dict_from_params(imported, icfg)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        exact = list(back) == list(sd) and all(torch.equal(back[k], sd[k]) for k in sd)
+        aux = True
+        if icfg.kd:
+            t = icfg.num_tasks
+            fresh = tt.init_params(args.seed, icfg, device=dev)
+            aux = torch.equal(imported.light_ranker_head.w[:, t:], fresh.light_ranker_head.w[:, t:])
+        serve = ""
+        if label == "serve-1M-exact":
+            eng = RetrievalEngine.from_params(imported, icfg, torch.arange(CORPUS, device=dev),
+                                              torch.randn(CORPUS, 16, generator=gen, device=dev),
+                                              device=dev)
+            u = torch.randint(0, icfg.user_id_hash_size, (BATCH,), generator=gen, device=dev)
+            h = torch.randint(0, CORPUS, (BATCH, HIST), generator=gen, device=dev)
+            f = torch.randn(BATCH, 16, generator=gen, device=dev)
+            got = eng.query(u, f, h)
+            _, err, mm, lo = raw_cpu_check(torch, icfg, imported, copy.deepcopy(imported).cpu(),
+                                           eng.corpus, eng.corpus.cpu(), (u, h), f, got)
+            serve = (f"; one batch of B={BATCH} through the imported model vs a CPU copy on "
+                     f"{ZOO_CHECK_ROWS} rows: user embeddings max_abs_err {err:.3g} (tol 3e-2), "
+                     f"{mm} rows mismatched ({lo} left out)")
+            if mm or err > 3e-2:
+                failures.append(f"13d {label}: the imported model's batch differs from the CPU copy")
+            del eng
+        if not (exact and aux):
+            failures.append(f"13d {label}: export not bit-equal to the state_dict ({exact}) or "
+                            f"KD's aux columns not the fresh init ({aux})")
+        n_el = sum(v.numel() for v in sd.values())
+        rec["interop"][label] = {"entries": len(sd), "elements": n_el, "import_ms": import_ms,
+                                 "export_ms": export_ms, "bit_equal": exact, "aux_fresh": aux}
+        print(f"interop 13d {label} on {name}: {len(sd)} reference entries, {n_el} values; "
+              f"imported onto the card in {import_ms:.1f} ms, exported in {export_ms:.1f} ms; "
+              f"export bit-equal to the state_dict on every key {exact}"
+              + (f"; KD's aux columns the fresh init {aux}" if icfg.kd else "") + serve,
+              flush=True)
+        del imported, back, sd, layout
+        torch.cuda.empty_cache()
+
+    # -- 13e: the port's raw-key example --
+    t_13e = time.perf_counter()
+    example = Path(__file__).resolve().parent / "examples" / "raw_key_ingest_torch.py"
+    res = subprocess.run([sys.executable, str(example)], capture_output=True, text=True,
+                         timeout=300)
+    line = "raw-key serving matches pre-hashed serving: OK"
+    ok = res.returncode == 0 and line in res.stdout
+    print(f"example 13e: {example.name} rc {res.returncode} in {time.perf_counter() - t_13e:.1f} s; "
+          f"{'; '.join(res.stdout.strip().splitlines()[-3:])}", flush=True)
+    if not ok:
+        print(res.stderr[-4000:], flush=True)
+        failures.append(f"13e: {example.name} rc {res.returncode}, consistency line {line in res.stdout}")
+    entries["fused_history_encoder"]["raw_key"] = rec
+    t_end = time.perf_counter()
+    print(f"raw: phase wall {t_end - t_phase:.1f} s (13a {t_13b - t_phase:.1f}, 13b "
+          f"{t_13c - t_13b:.1f}, 13c {t_13d - t_13c:.1f}, 13d {t_13e - t_13d:.1f}, 13e "
+          f"{t_end - t_13e:.1f})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4773,6 +5215,10 @@ def main() -> int:
     # ---- phase 12: approximate and int8 MIPS -----------------------------
     phase_approx(torch, args, smi, dev, entry, entries, failures, serve_ms, e2["device_ms"],
                  {k: v for k, v in ptxas_lines.items() if k.startswith("approx_scan")})
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: raw-key ingest and reference-checkpoint interop --------
+    phase_raw(torch, args, smi, dev, entries, failures, serve_ms)
     print(f"smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     if failures:

@@ -14,6 +14,7 @@ from two_tower_models_tpu import config as jcfg
 from two_tower_models_tpu.models import two_tower as jtt
 from two_tower_models_tpu_torch import bridge
 from two_tower_models_tpu_torch import config as tcfg
+from two_tower_models_tpu_torch import interop
 from two_tower_models_tpu_torch.models import two_tower as ttt
 from two_tower_models_tpu_torch.serving import RetrievalEngine
 
@@ -22,6 +23,7 @@ CHIP_SMOKE = PORT.parent / "chip_smoke.py"
 # runs on the GPU machine, which has no JAX
 CUDA_TESTS = PORT.parent / "tests" / "test_torch_cuda_kernels.py"
 EXAMPLE = PORT.parent / "examples" / "train_and_serve_torch.py"
+RAW_EXAMPLE = PORT.parent / "examples" / "raw_key_ingest_torch.py"
 
 
 def _imported_modules(path: Path):
@@ -34,11 +36,12 @@ def _imported_modules(path: Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [CHIP_SMOKE, CUDA_TESTS, EXAMPLE], ids=lambda p: p.name
+    "path", sorted(PORT.rglob("*.py")) + [CHIP_SMOKE, CUDA_TESTS, EXAMPLE, RAW_EXAMPLE],
+    ids=lambda p: p.name
 )
 def test_port_imports_no_jax(path):
     """Neither the port, nor chip_smoke.py, nor the GPU tests, nor the port's
-    example import JAX or the JAX package."""
+    examples import JAX or the JAX package."""
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "two_tower_models_tpu", "optax", "orbax"), (path, mod)
@@ -110,6 +113,9 @@ def test_cuda_entry_points_raise_without_gpu(monkeypatch):
         RetrievalEngine(model, cfg, corpus)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bridge.params_from_jax(bridge.params_to_jax(model), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.params_from_reference_state_dict(
+            interop.reference_state_dict_from_params(model, cfg), cfg)
     assert ttt.retrieve(model, cfg, corpus, *args, device="cpu").shape == (2, 10)
 
 
@@ -144,6 +150,10 @@ def test_unported_paths_raise():
         RetrievalEngine(model, cfg, corpus, tower_tp=True, quantize="int8", device="cpu")
     assert RetrievalEngine(model, cfg, corpus, quantize="int8",
                            device="cpu").query(*args).shape == (2, cfg.num_items)
+    # raw-key serving is ported (A12): string keys hash on the host
+    raw = RetrievalEngine(model, cfg, corpus, device="cpu").query_raw(
+        np.array(["u1", "u2"]), args[1], np.array([[f"sku-{i}" for i in range(4)]] * 2))
+    assert raw.shape == (2, cfg.num_items)
     lr = tcfg.preset("two_tower_plus_light_ranker", user_id_hash_size=16,
                      item_id_hash_size=64, history_len=4)
     lr_model = ttt.init_params(0, lr, device="cpu")

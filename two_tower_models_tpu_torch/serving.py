@@ -10,7 +10,8 @@ int8 corpus (``retrieval.quant``), quantized on the engine's device;
 ``"int8_rescore"`` keeps the f32 rows and rescores an oversampled pool.
 PyTorch runs eagerly, so there is nothing to compile per batch size:
 ``warmup`` builds and loads the CUDA kernels and runs one batch, so the
-first real query does not pay for them.
+first real query does not pay for them.  ``query_raw`` serves from raw
+entity keys through the host hasher of ``training.ingest``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from two_tower_models_tpu_torch.config import ModelConfig, resolve_device
 from two_tower_models_tpu_torch.models.two_tower import TwoTowerModel, retrieve
 from two_tower_models_tpu_torch.retrieval.mips import refresh_corpus
 from two_tower_models_tpu_torch.retrieval.quant import QuantizedCorpus, quantize_corpus
+from two_tower_models_tpu_torch.training.ingest import hash_item_keys, hash_user_keys
 
 QUANTIZE_MODES = (None, "int8", "int8_rescore")
 
@@ -108,9 +110,16 @@ class RetrievalEngine:
         )
 
     def query_raw(self, user_keys, user_features, history_keys, history_len=None):
-        raise NotImplementedError(
-            "raw-key serving (the ingest hasher) is not ported yet "
-            "(ROADMAP.md, queue A, 'Raw-key ingest')"
+        """Serve from RAW entity keys: user keys [B] and history keys [B, H]
+        (uint64 surrogate ids or str/bytes, newest first) hash on the host
+        with the training ingest's per-table seeds (``training.ingest``),
+        the slots go to the engine's device, and ``query`` runs on them."""
+        dev = self._device
+        return self.query(
+            torch.as_tensor(hash_user_keys(user_keys, self._cfg), device=dev),
+            user_features,
+            torch.as_tensor(hash_item_keys(history_keys, self._cfg), device=dev),
+            history_len,
         )
 
     def warmup(self, batch_size: int, variable_history: bool = False) -> None:
