@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (two_tower_models_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--batches 10]
+    python3 chip_smoke.py [--seed 0] [--batches 10] [--only sharded]
+
+With ``--only sharded`` it runs phase 1 and phase 14 alone, and the
+four-card legs must run (a host with four cards).
 
 Phases, in the order they run; any failure exits non-zero:
 
@@ -371,6 +374,39 @@ Phases, in the order they run; any failure exits non-zero:
      batch through the imported serve model against a CPU copy on 128 rows
      (13b's rule).  13e: examples/raw_key_ingest_torch.py as a subprocess
      on the card: exit 0 and its consistency line.
+  14. sharded serving (A13a: parallel/, sharded_mips_topk and
+     RetrievalEngine(mesh=...)), one process a card over NCCL, at
+     serve-1M-exact's width (serve_cfg), model, catalog and batches drawn
+     on the host from --seed so every rank holds the same.  14a, in this
+     process: a world of one on card 0, mesh (1, 1): from_params(mesh=...)
+     bit-equal (indices, and the scores of the towers + sharded_mips_topk)
+     to the single-device engine over the same rows on ten batches, with
+     phase 3's launches a batch; ms/batch beside the single-device query.
+     With four cards, four spawned ranks (the kernels built once, here,
+     before they start; a rank that fails fails the run, and the others
+     are stopped): 14b exact on meshes (1, 4) and (2, 2) and, on (1, 4), a
+     catalog of 2^20 - 3 items (the last shard padded, B2 on a cut valid
+     count): each rank holds 2^18 corpus rows and V / n_model table rows,
+     its refresh within one bf16 step of the single-device refresh, ten
+     batches bit-equal (indices and scores) to a single-device engine on
+     card 0 over the gathered rows, phase 3's launches a batch on every
+     rank; 14c approx_mips at 0.95, int8 and int8_rescore (under
+     approx_mips) on (1, 4): recall@100 against 14b's answers >= 0.95,
+     0.90, 0.95 (phase 12b's gates), N1 on the tensor cores once a batch
+     on every rank; 14d tower_tp on (1, 4) and (2, 2), the all_to_all
+     lookup on (1, 4), history_len in [1, 32] on (2, 2) (B8) and
+     serve-1M-exact-lightranker's model on (2, 2): indices equal to the
+     single-device engine's wherever the 100th and 101st scores (the light
+     ranker: its 10th and 11th rerank values and 50th and 51st MIPS
+     scores) differ by more than 1e-5, recall >= 0.999, and the two lookup
+     strategies' user embeddings bit-equal; 14e make_sharded_recall_fn on
+     (2, 2) equal to make_eval_recall_fn on the same examples.  Every
+     leg's answers equal on all ranks.  Times (CUDA events, the maximum
+     over ranks of the mean of ten batches) beside the single-device query
+     on card 0, split into the user tower, the local scan, the all-gather
+     and the merge, with the bytes a rank all-gathers a batch and the
+     sharded refresh's ms.  With fewer cards it says so on a line of its
+     own and goes on.
 
 Phase 2 also holds B2 and the exact pipeline on an integer-grid corpus whose
 scores hold +-inf and NaN of both signs (nonfinite_check).
@@ -452,6 +488,11 @@ RAW_USERS = 65536  # the user keys' population: serve_cfg's and the flagship's u
 RAW_CHECK_KEYS = 4096  # 13a: string keys held C++ against the fallback (a Python loop)
 RAW_U64_KEYS = 131072  # 13a: uint64 keys held C++ against the fallback
 RAW_WARMUP, RAW_STEPS = 5, 20  # 13c: warm-up and timed steps
+# phase 14, sharded serving: four ranks, one a card, over NCCL, on a host with four cards
+SHARD_CARDS = 4
+SHARD_PAD = 3  # 14b: a catalog of CORPUS - 3 items, so the last shard is padded
+SHARD_GATES = {"approx_mips": 0.95, "int8": 0.90, "int8_rescore": 0.95}  # phase 12b's recall gates
+SHARD_TIMEOUT = 420  # s the parent waits for the four ranks
 # B18 launches a training step of a config that debiases by position: the
 # position-bias table's gradient, summed in a fixed order (nn.layers
 # embedding_lookup's fixed_order), where F.embedding's differs call to call
@@ -4885,10 +4926,728 @@ def phase_raw(torch, args, smi, dev, entries, failures, serve_ms: float) -> None
           f"{t_end - t_13e:.1f})", flush=True)
 
 
+def free_port() -> int:
+    """A free TCP port on this host, for a process group's store."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class StageTimer:
+    """Device time of calls on this rank's stream: CUDA events on the card,
+    the host clock around a synchronised call on the CPU (the rehearsal)."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.cuda = torch, dev.type == "cuda"
+
+    def __call__(self, fn):
+        """(ms of one call of fn, its result)."""
+        torch = self.torch
+        if not self.cuda:
+            t0 = time.perf_counter()
+            out = fn()
+            return (time.perf_counter() - t0) * 1e3, out
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e), out
+
+
+def shard_inputs(torch, seed: int, nb: int, light_ranker: bool = False):
+    """The sharded legs' model (serve_cfg, or serve-1M-exact-lightranker's
+    zoo_cfg with its catalog ids modulo the 65,536-row table), catalog and
+    ``nb`` query batches, all on the CPU from ``seed`` (every rank draws
+    the same): (cfg, model, catalog ids, catalog features, batches)."""
+    from two_tower_models_tpu_torch.models import two_tower as tt
+
+    cfg = zoo_cfg("two_tower_plus_light_ranker") if light_ranker else serve_cfg()
+    gen = torch.Generator()
+    gen.manual_seed(seed + (31 if light_ranker else 30))
+    model = tt.init_params(gen, cfg, device="cpu")
+    ids = torch.arange(CORPUS) % cfg.item_id_hash_size
+    feats = torch.randn(CORPUS, cfg.item_features_size, generator=gen)
+    batches = [(torch.randint(0, cfg.user_id_hash_size, (BATCH,), generator=gen),
+                torch.randn(BATCH, cfg.user_features_size, generator=gen),
+                torch.randint(0, cfg.item_id_hash_size, (BATCH, HIST), generator=gen))
+               for _ in range(nb)]
+    return cfg, model, ids, feats, batches
+
+
+def varlen_batches(torch, seed: int, cfg, batches):
+    """``batches`` with per-example lengths uniform in [1, H] and id 0 past
+    each length (phase 2b's rule)."""
+    gen = torch.Generator()
+    gen.manual_seed(seed + 32)
+    out = []
+    for u, f, h in batches:
+        lens = torch.randint(1, HIST + 1, (BATCH,), generator=gen)
+        out.append((u, f, torch.where(torch.arange(HIST)[None, :] < lens[:, None], h, 0), lens))
+    return out
+
+
+def margin_compare(torch, got, want, scores, k: int):
+    """(rows whose k-th and (k+1)-th reference scores are more than 1e-5
+    apart, those of them whose indices differ as sets, recall@k of got
+    against want, rows equal in full)."""
+    clear = (scores[:, k - 1] - scores[:, k]) > 1e-5
+    same = torch.sort(got[clear], 1).values == torch.sort(want[clear], 1).values
+    hits = sum(len(set(g) & set(w)) for g, w in zip(got.tolist(), want.tolist()))
+    return (int(clear.sum()), int((~same).any(1).sum()), hits / want.numel(),
+            int((got == want).all(1).sum()))
+
+
+class ShardRank:
+    """One rank of the four-card legs (14b-14e): its process group, mesh
+    cache, timer and checks.  Rank 0 also holds the single-device
+    references on its card and prints the lines."""
+
+    def __init__(self, torch, rank: int, world: int, dev, seed: int, nb: int):
+        self.torch, self.rank, self.world, self.seed, self.nb = torch, rank, world, seed, nb
+        self.dev = dev
+        self.time = StageTimer(torch, dev)
+        self.failures, self.meshes, self.launches = [], {}, {}
+        # host ms a batch to issue a leg's ten calls (no sync between them):
+        # beside the device's ms/batch it says which of the two sets the pace
+        self.issue_ms = {}
+        self.name = torch.cuda.get_device_name(self.dev) if self.dev.type == "cuda" else "cpu"
+
+    def mesh(self, shape):
+        from two_tower_models_tpu_torch.config import MeshConfig
+        from two_tower_models_tpu_torch.parallel import mesh as pm
+
+        if shape not in self.meshes:  # every rank builds them in the same order
+            self.meshes[shape] = pm.make_mesh(MeshConfig(*shape), self.dev.type)
+        return self.meshes[shape]
+
+    def say(self, line: str) -> None:
+        if self.rank == 0:
+            print(line, flush=True)
+
+    def fail(self, what: str) -> None:
+        self.failures.append(f"rank {self.rank}: {what}")
+
+    def align(self) -> None:
+        """Every rank idle and past one barrier, so that a stage timed next
+        starts on all ranks together and its time is not another rank's lag."""
+        self.torch.distributed.barrier()
+        if self.dev.type == "cuda":
+            self.torch.cuda.synchronize(self.dev)
+
+    def max_over_ranks(self, values):
+        """The element-wise maximum of a list of floats over the ranks."""
+        torch = self.torch
+        t = torch.tensor(values, dtype=torch.float64, device=self.dev)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+        return t.tolist()
+
+    def same_on_every_rank(self, outs, label: str) -> bool:
+        """Each output equal to rank 0's, on every rank (one flag, all-reduced)."""
+        torch = self.torch
+        ok = True
+        for out in outs:
+            mine = out.contiguous()
+            first = mine.clone()
+            torch.distributed.broadcast(first, src=0)
+            ok &= torch.equal(mine, first)
+        flag = torch.tensor([int(ok)], device=self.dev)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MIN)
+        if not int(flag):
+            self.fail(f"{label}: the ranks' answers differ")
+        return bool(int(flag))
+
+    def gather_rows(self, rows):
+        """Every rank's rows, in rank order, on rank 0 (None elsewhere)."""
+        torch = self.torch
+        parts = [torch.empty_like(rows) for _ in range(self.world)] if self.rank == 0 else None
+        torch.distributed.gather(rows.contiguous(), parts, dst=0)
+        return torch.cat(parts) if self.rank == 0 else None
+
+    def serve(self, label, fn, batches, expect: dict | None = None, alone: bool = False):
+        """``fn(batch)`` on each batch, a CUDA event before and after each
+        and one synchronise at the end (phase 3's timing), launch counts
+        zeroed just before and read just after (``expect``: launches a
+        batch on every rank): (outputs, ms/batch, the maximum over the
+        ranks unless ``alone``: a call on this rank only)."""
+        from two_tower_models_tpu_torch.ops import _lib
+
+        torch = self.torch
+        cuda = self.dev.type == "cuda"
+        _lib.reset_launch_counts()
+        if cuda:
+            torch.cuda.synchronize(self.dev)
+        outs, marks = [], []
+        t0 = time.perf_counter()
+        for bt in batches:
+            if cuda:
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                outs.append(fn(bt))
+                e.record()
+                marks.append((s, e))
+            else:
+                t0 = time.perf_counter()
+                outs.append(fn(bt))
+                marks.append((time.perf_counter() - t0) * 1e3)
+        issue = (time.perf_counter() - t0) * 1e3 / len(batches)
+        if cuda:
+            torch.cuda.synchronize(self.dev)
+            marks = [s.elapsed_time(e) for s, e in marks]
+        ms = sum(marks) / len(marks)
+        counts = dict(_lib.launches)
+        self.launches[label] = counts
+        if expect is not None and self.dev.type == "cuda":
+            for name, per in expect.items():
+                if counts.get(name, 0) != per * len(batches):
+                    self.fail(f"{label} launches[{name}]={counts.get(name, 0)}")
+        if not alone:
+            ms, issue = self.max_over_ranks([ms, issue])
+        self.issue_ms[label] = issue
+        return outs, ms
+
+
+def shard_stage_times(ctx, local, cfg, mesh, corpus, valid: int, batches, recall_target=None):
+    """ms/batch (max over ranks, mean of the batches) of the user tower,
+    the local scan, the all-gather and the merge, each timed alone on the
+    batches' own tensors with the ranks aligned before it, and the bytes a
+    rank all-gathers a batch."""
+    torch = ctx.torch
+    from two_tower_models_tpu_torch.parallel.train_step import _user_tower
+    from two_tower_models_tpu_torch.retrieval.mips import _shard_topk, all_gather_stacked, topk_ordered
+
+    t = {"tower": [], "scan": [], "gather": [], "merge": []}
+    nbytes = 0
+    with torch.inference_mode():
+        for u, f, h in batches:
+            ctx.align()
+            ms, (q, _) = ctx.time(lambda: _user_tower(local, cfg, mesh, u, f, h, "psum"))
+            t["tower"].append(ms)
+            ctx.align()
+            ms, (top, idx, _, n_local) = ctx.time(lambda: _shard_topk(
+                corpus, q, TOPK, ctx.rank, valid, recall_target, 4))
+            t["scan"].append(ms)
+            gidx = idx.long() + ctx.rank * n_local
+            ctx.align()
+            ms, (cs, ci) = ctx.time(lambda: (all_gather_stacked(top.float()),
+                                             all_gather_stacked(gidx)))
+            t["gather"].append(ms)
+            nbytes = cs.numel() * 4 + ci.numel() * 8
+
+            def merge():
+                s = cs.movedim(0, 1).reshape(BATCH, -1)
+                i = ci.movedim(0, 1).reshape(BATCH, -1)
+                v, sel = topk_ordered(s, TOPK)
+                return torch.gather(i, 1, sel)
+
+            ctx.align()
+            t["merge"].append(ctx.time(merge)[0])
+    means = ctx.max_over_ranks([sum(v) / len(v) for v in t.values()])
+    return dict(zip(t, means)), nbytes
+
+
+def shard_exact_leg(ctx, cfg, model, ids, feats, batches, shape, c: int, ref=None):
+    """14b on mesh ``shape`` over the first ``c`` catalog rows: the engine
+    from from_params, each rank's rows and table rows, its refresh against
+    the single-device refresh on card 0 (within one bf16 step), ten batches
+    bit-equal (indices and scores) to a single-device engine over the
+    gathered rows, the stage split and the refresh's ms.  Returns rank 0's
+    reference engine and the leg's outputs."""
+    torch = ctx.torch
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.parallel.retrieval import make_sharded_refresh_fn, pad_catalog
+    from two_tower_models_tpu_torch.parallel.sharding import shard_params
+    from two_tower_models_tpu_torch.parallel.train_step import _user_tower
+    from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact, sharded_mips_topk
+    from two_tower_models_tpu_torch.serving import RetrievalEngine
+
+    label = f"sharded exact {shape[0]}x{shape[1]} C={c}"
+    mesh = ctx.mesh(shape)
+    dev = ctx.dev
+    eng = RetrievalEngine.from_params(model, cfg, ids[:c], feats[:c], mesh=mesh, device=dev.type)
+    eng.warmup(BATCH)
+    local, rows = eng._state
+    n = ctx.world
+    c_pad = -(-c // n) * n
+    held = (tuple(rows.shape), local.item_id_table.shape[0], local.user_id_table.shape[0])
+    want_held = ((c_pad // n, cfg.item_id_embedding_dim), cfg.item_id_hash_size // shape[1],
+                 cfg.user_id_hash_size // shape[1])
+    if held != want_held:
+        ctx.fail(f"{label}: a rank holds {held}, not {want_held}")
+    # the refresh alone, timed on each rank (the engine's was the warm-up)
+    ids_p, feats_p, valid = pad_catalog(ids[:c], feats[:c], mesh)
+    refresh = make_sharded_refresh_fn(cfg, mesh)
+    local2 = shard_params(model, cfg, mesh, False, dev)
+    refresh_ms = ctx.max_over_ranks([ctx.time(lambda: refresh(local2, ids_p, feats_p))[0]])[0]
+    del local2
+    full = ctx.gather_rows(rows)
+    dev_batches = [tuple(t.to(dev) for t in bt) for bt in batches]
+    outs, ms = ctx.serve(label, lambda bt: eng.query(*bt), dev_batches,
+                         {"fused_history_encoder": 1, **MIPS_ROUTE, **ENC_TC,
+                          "fused_history_encoder_tc": 1})
+    same = ctx.same_on_every_rank(outs, label)
+    # the scores: the towers and the scan of sharded_mips_topk, every rank
+    direct = []
+    with torch.inference_mode():
+        for u, f, h in dev_batches:
+            q, _ = _user_tower(local, cfg, mesh, u, f, h, "psum")
+            direct.append(sharded_mips_topk(rows, q, TOPK, valid_count=valid, embeddings=False))
+    stages, nbytes = shard_stage_times(ctx, local, cfg, mesh, rows, valid, dev_batches)
+    if ctx.rank == 0:
+        ref_model = ref[0] if ref is not None else copy.deepcopy(model).to(dev)
+        with torch.inference_mode():
+            single = tt.compute_item_embeddings  # the single-device refresh, 4096 rows a call
+            want_rows = torch.cat([single(ref_model, cfg, ids[i : min(i + 4096, c)].to(dev),
+                                          feats[i : min(i + 4096, c)].to(dev).float())
+                                   for i in range(0, c, 4096)])
+        steps = bf16_steps(torch, full[:c].bfloat16(), want_rows.bfloat16())
+        rows_equal = bool(torch.equal(full[:c], want_rows))
+        if int(steps.max()) > 1:
+            ctx.fail(f"{label}: refresh rows {int(steps.max())} bf16 steps from single-device")
+        del want_rows
+        ref_eng = RetrievalEngine(ref_model, cfg, full[:c], device=dev.type)
+        ref_eng.warmup(BATCH)
+        ref_outs, ref_batch = ctx.serve("single-device", lambda bt: ref_eng.query(*bt),
+                                        dev_batches, alone=True)
+        idx_equal = all(torch.equal(a, b) for a, b in zip(outs, ref_outs))
+        sc_equal = True
+        with torch.inference_mode():
+            for (u, f, h), (di, ds, _) in zip(dev_batches, direct):
+                q, _ = tt.compute_user_embedding(ref_model, cfg, u, f, h)
+                ri, rs, _ = mips_topk_exact(ref_eng.corpus, q, TOPK)
+                sc_equal &= torch.equal(di, ri) and torch.equal(ds, rs)
+        if not (idx_equal and sc_equal):
+            ctx.fail(f"{label}: indices equal {idx_equal}, scores equal {sc_equal}")
+        ctx.say(f"{label} on {n} x {ctx.name}: each rank holds {held[0][0]} corpus rows, "
+                f"{held[1]} item-table rows, {held[2]} user-table rows; refresh rows vs the "
+                f"single-device refresh: bit-equal={rows_equal}, at most {int(steps.max())} bf16 "
+                f"steps; {len(batches)} batches of B={BATCH}, k={TOPK}: indices bit-equal to the "
+                f"single-device engine over the gathered rows={idx_equal}, scores (towers + "
+                f"sharded_mips_topk vs mips_topk_exact) bit-equal={sc_equal}, equal on every "
+                f"rank={same}; ms/batch {ms:.3f} (max over ranks, mean of {len(batches)}; the "
+                f"host issues a batch in {ctx.issue_ms[label]:.3f}) beside the single-device "
+                f"query on card 0 {ref_batch:.3f} (issued in {ctx.issue_ms['single-device']:.3f}); "
+                f"stages, each timed alone: user tower "
+                f"{stages['tower']:.3f}, local scan {stages['scan']:.3f}, all-gather "
+                f"{stages['gather']:.3f}, merge {stages['merge']:.3f}; all-gathered "
+                f"{nbytes} bytes a rank a batch; sharded refresh {refresh_ms:.1f} ms "
+                f"({c_pad // shape[0]} rows a data group, 4096 a call)")
+        ref = (ref_model, ref_eng, ref_batch)
+    ctx.say(f"launches a rank on the {label} path (rank 0): {json.dumps(ctx.launches[label])}")
+    return ref, outs, (eng, local, rows, valid)
+
+
+def shard_approx_legs(ctx, cfg, model, ids, feats, batches, exact_outs) -> None:
+    """14c on (1, 4): approx_mips at 0.95, int8 and int8_rescore (under
+    approx_mips, as phase 12b's legs); recall@100 against the exact leg's
+    answers, N1 on the tensor cores once a batch on every rank."""
+    import dataclasses
+
+    from two_tower_models_tpu_torch.serving import RetrievalEngine
+
+    mesh = ctx.mesh((1, 4))
+    acfg = dataclasses.replace(cfg, approx_mips=True)
+    dev_batches = [tuple(t.to(ctx.dev) for t in bt) for bt in batches]
+    for leg, quant in (("approx_mips", None), ("int8", "int8"), ("int8_rescore", "int8_rescore")):
+        label = f"sharded {leg} 1x4"
+        eng = RetrievalEngine.from_params(model, acfg, ids, feats, mesh=mesh, quantize=quant,
+                                          device=ctx.dev.type)
+        eng.warmup(BATCH)
+        outs, ms = ctx.serve(label, lambda bt: eng.query(*bt), dev_batches,
+                             {**N1_TC, "fused_history_encoder_tc": 1, "tile_max_scores": 0})
+        same = ctx.same_on_every_rank(outs, label)
+        hits = sum(len(set(g) & set(w)) for a, b in zip(outs, exact_outs)
+                   for g, w in zip(a.tolist(), b.tolist()))
+        recall = hits / sum(b.numel() for b in exact_outs)
+        gate = SHARD_GATES[leg]
+        if recall < gate:
+            ctx.fail(f"{label}: recall@{TOPK} {recall:.4f} < {gate}")
+        n1 = -ctx.max_over_ranks([-ctx.launches[label].get("approx_scan_tc", 0)])[0]
+        local, rows = eng._state
+        q_rows = rows.q if quant else rows
+        stages, nbytes = shard_stage_times(ctx, local, acfg, mesh, rows, len(ids), dev_batches,
+                                           acfg.mips_recall_target)
+        ctx.say(f"{label} on {ctx.world} x {ctx.name}: recall@{TOPK} vs the exact 1x4 leg "
+                f"{recall:.4f} (gate {gate}); N1 on the tensor cores at least {int(n1)} launches "
+                f"a rank over {len(batches)} batches; equal on every rank={same}; each rank "
+                f"scans {q_rows.shape[0]} {q_rows.dtype} rows; ms/batch {ms:.3f} (max over "
+                f"ranks; issued in {ctx.issue_ms[label]:.3f}); stages: user tower "
+                f"{stages['tower']:.3f}, local scan "
+                f"{stages['scan']:.3f}, all-gather {stages['gather']:.3f}, merge "
+                f"{stages['merge']:.3f}; all-gathered {nbytes} bytes a rank a batch")
+        ctx.say(f"launches a rank on the {label} path (rank 0): {json.dumps(ctx.launches[label])}")
+        del eng, rows, local
+
+
+def shard_branch_legs(ctx, cfg, model, ids, feats, batches, ref, exact14) -> None:
+    """14d: tower_tp on (1, 4) and (2, 2), the all_to_all lookup on (1, 4),
+    history_len in [1, 32] on (2, 2) (B8), each against rank 0's
+    single-device engine by the margin rule (indices equal where the 100th
+    and 101st reference scores are more than 1e-5 apart, recall >= 0.999);
+    all_to_all and psum user embeddings bit-equal."""
+    torch = ctx.torch
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.parallel.retrieval import make_sharded_retrieval_fn
+    from two_tower_models_tpu_torch.parallel.train_step import _user_tower
+    from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact
+    from two_tower_models_tpu_torch.serving import RetrievalEngine
+
+    dev_batches = [tuple(t.to(ctx.dev) for t in bt) for bt in batches]
+    var_batches = [tuple(t.to(ctx.dev) for t in bt)
+                   for bt in varlen_batches(torch, ctx.seed, cfg, batches)]
+    eng14, local14, rows14, valid14 = exact14
+    a2a = make_sharded_retrieval_fn(cfg, ctx.mesh((1, 4)), lookup_strategy="all_to_all")
+    legs = []
+    for shape in ((1, 4), (2, 2)):
+        eng = RetrievalEngine.from_params(model, cfg, ids, feats, mesh=ctx.mesh(shape),
+                                          tower_tp=True, device=ctx.dev.type)
+        legs.append((f"tower_tp {shape[0]}x{shape[1]}", lambda bt, e=eng: e.query(*bt),
+                     dev_batches, None))
+    legs.append(("all_to_all 1x4", lambda bt: a2a(local14, rows14, *bt, None, valid14),
+                 dev_batches, None))
+    eng22 = RetrievalEngine.from_params(model, cfg, ids, feats, mesh=ctx.mesh((2, 2)),
+                                        device=ctx.dev.type)
+    eng22.warmup(BATCH, variable_history=True)
+    legs.append(("history_len 2x2", lambda bt: eng22.query(*bt[:3], history_len=bt[3]),
+                 var_batches, {"fused_attn_stack_tc": 1, "fused_history_encoder_tc": 0}))
+    for name, fn, bts, expect in legs:
+        label = f"sharded {name}"
+        fn(bts[0])  # warm
+        outs, ms = ctx.serve(label, fn, bts, expect)
+        same = ctx.same_on_every_rank(outs, label)
+        if ctx.rank == 0:
+            _, ref_eng, _ = ref
+            clear = bad = full = 0
+            hits = 0.0
+            for bt, got in zip(bts, outs):
+                with torch.inference_mode():
+                    q, _ = tt.compute_user_embedding(ref[0], cfg, *bt[:3],
+                                                     bt[3] if len(bt) > 3 else None)
+                    _, rs, _ = mips_topk_exact(ref_eng.corpus, q, TOPK + 1)
+                want = ref_eng.query(*bt[:3], history_len=bt[3] if len(bt) > 3 else None)
+                c_, b_, r_, f_ = margin_compare(torch, got, want, rs, TOPK)
+                clear, bad, hits, full = clear + c_, bad + b_, hits + r_ / len(bts), full + f_
+            if bad or hits < 0.999:
+                ctx.fail(f"{label}: {bad} of {clear} clear rows differ, recall {hits:.5f}")
+            ctx.say(f"{label} on {ctx.world} x {ctx.name}: vs the single-device engine: {bad} of "
+                    f"{clear} clear-margin rows differ (of {len(bts) * BATCH}), recall@{TOPK} "
+                    f"{hits:.5f} (gate 0.999), rows equal in full {full}; equal on every rank="
+                    f"{same}; ms/batch {ms:.3f} (max over ranks; issued in "
+                    f"{ctx.issue_ms[label]:.3f})")
+        ctx.say(f"launches a rank on the {label} path (rank 0): {json.dumps(ctx.launches[label])}")
+    # the two lookup strategies give the same user embeddings, bit for bit
+    mesh = ctx.mesh((1, 4))
+    with torch.inference_mode():
+        equal = all(torch.equal(_user_tower(local14, cfg, mesh, *bt, "psum")[0],
+                                _user_tower(local14, cfg, mesh, *bt, "all_to_all")[0])
+                    for bt in dev_batches)
+    if not equal:
+        ctx.fail("all_to_all and psum user embeddings differ")
+    ctx.say(f"sharded lookups 1x4: all_to_all and psum user embeddings bit-equal={equal} on "
+            f"{len(dev_batches)} batches")
+
+
+def shard_light_ranker_leg(ctx) -> None:
+    """14d: serve-1M-exact-lightranker's model on (2, 2) (MIPS k = 50,
+    rerank to 10; the rows all-gathered for the rerank) against rank 0's
+    single-device engine over the gathered rows: indices equal as sets
+    where the 10th and 11th rerank values and the 50th and 51st MIPS scores
+    are more than 1e-5 of scale apart, recall >= 0.999."""
+    torch = ctx.torch
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact, topk_ordered
+    from two_tower_models_tpu_torch.serving import RetrievalEngine
+
+    cfg, model, ids, feats, batches = shard_inputs(torch, ctx.seed, ctx.nb, light_ranker=True)
+    mesh = ctx.mesh((2, 2))
+    label = "sharded light ranker 2x2"
+    eng = RetrievalEngine.from_params(model, cfg, ids, feats, mesh=mesh, device=ctx.dev.type)
+    eng.warmup(BATCH)
+    dev_batches = [tuple(t.to(ctx.dev) for t in bt) for bt in batches]
+    outs, ms = ctx.serve(label, lambda bt: eng.query(*bt), dev_batches,
+                         {"fused_history_encoder_tc": 1, **MIPS_ROUTE})
+    same = ctx.same_on_every_rank(outs, label)
+    full = ctx.gather_rows(eng.corpus)
+    if ctx.rank == 0:
+        ref_model = model.to(ctx.dev)
+        ref_eng = RetrievalEngine(ref_model, cfg, full, device=ctx.dev.type)
+        ni, n_items = cfg.light_ranker.num_mips_items, cfg.num_items
+        clear_n = bad = 0
+        hits = 0
+        for bt, got in zip(dev_batches, outs):
+            want = ref_eng.query(*bt)
+            with torch.inference_mode():
+                q, ranker = tt.compute_user_embedding(ref_model, cfg, *bt)
+                _, sc, emb = mips_topk_exact(full, q, ni + 1)
+                value = tt.rerank_values(ref_model, cfg, ranker, sc[:, :ni], emb[:, :ni])
+                top_v, _ = topk_ordered(value, n_items + 1)
+            clear = ((top_v[:, n_items - 1] - top_v[:, n_items]) > 1e-5 * value.abs().amax(1)) & (
+                (sc[:, ni - 1] - sc[:, ni]) > 1e-5 * sc[:, 0].abs())
+            clear_n += int(clear.sum())
+            same_rows = torch.sort(got[clear], 1).values == torch.sort(want[clear], 1).values
+            bad += int((~same_rows).any(1).sum())
+            hits += sum(len(set(g) & set(w)) for g, w in zip(got.tolist(), want.tolist()))
+        recall = hits / (len(outs) * BATCH * n_items)
+        if bad or recall < 0.999 or not clear_n:
+            ctx.fail(f"{label}: {bad} of {clear_n} clear rows differ, recall {recall:.5f}")
+        nbytes = ctx.world * BATCH * ni * (4 + 8 + full.shape[1] * full.element_size())
+        ctx.say(f"{label} on {ctx.world} x {ctx.name}: MIPS k={ni} then the rerank to "
+                f"{n_items}: {bad} of {clear_n} clear rows differ from the single-device engine "
+                f"(of {len(outs) * BATCH}), recall@{n_items} {recall:.5f} (gate 0.999); equal on "
+                f"every rank={same}; ms/batch {ms:.3f} (max over ranks; issued in "
+                f"{ctx.issue_ms[label]:.3f}); all-gathered {nbytes} "
+                f"bytes a rank a batch (the candidates' scores, indices and rows)")
+    ctx.say(f"launches a rank on the {label} path (rank 0): {json.dumps(ctx.launches[label])}")
+
+
+def shard_recall_leg(ctx, cfg, model, ids, feats, batches, ref, exact_outs) -> None:
+    """14e: make_sharded_recall_fn on (2, 2) equals the single-device
+    make_eval_recall_fn on the same examples: batch 0's users, half of them
+    engaged with their own top exact item (so hits exist), three quarters
+    positive."""
+    torch = ctx.torch
+    from two_tower_models_tpu_torch.models.two_tower import Batch
+    from two_tower_models_tpu_torch.parallel.retrieval import (
+        make_sharded_recall_fn,
+        make_sharded_refresh_fn,
+        pad_catalog,
+    )
+    from two_tower_models_tpu_torch.parallel.sharding import shard_params
+    from two_tower_models_tpu_torch.training.step import make_eval_recall_fn
+
+    mesh = ctx.mesh((2, 2))
+    u, f, h = (t.to(ctx.dev) for t in batches[0])
+    gen = torch.Generator()
+    gen.manual_seed(ctx.seed + 33)
+    item = torch.randint(0, CORPUS, (BATCH,), generator=gen).to(ctx.dev)
+    item[: BATCH // 2] = exact_outs[0][: BATCH // 2, 0]
+    labels = (torch.arange(BATCH, device=ctx.dev) % 4 != 0)[:, None].float().expand(
+        BATCH, cfg.num_tasks)
+    batch = Batch(user_id=u, user_features=f, user_history=h, item_id=item, labels=labels)
+    local = shard_params(model, cfg, mesh, False, ctx.dev)
+    ids_p, feats_p, valid = pad_catalog(ids, feats, mesh)
+    rows = make_sharded_refresh_fn(cfg, mesh)(local, ids_p, feats_p)
+    ms, got = ctx.time(lambda: make_sharded_recall_fn(cfg, mesh, TOPK)(local, rows, batch, valid))
+    got = float(got)
+    vals = ctx.max_over_ranks([got, -got])
+    if vals[0] != -vals[1]:
+        ctx.fail("sharded recall differs between ranks")
+    if ctx.rank == 0:
+        want = float(make_eval_recall_fn(cfg, TOPK)(ref[0], ref[1].corpus, batch))
+        if got != want or not 0 < got < 1:
+            ctx.fail(f"sharded recall {got} != single-device {want}")
+        ctx.say(f"sharded recall 2x2 on {ctx.world} x {ctx.name}: recall@{TOPK} {got:.6f}, "
+                f"single-device make_eval_recall_fn {want:.6f}, equal={got == want} on "
+                f"{BATCH} examples; {ms:.2f} ms on rank 0")
+
+
+def shard_collectives(ctx, cfg) -> None:
+    """The collectives of an exact batch alone, at its sizes: the history
+    lookup's all-reduce over ``model`` on (1, 4) ([B * H, D] f32) and the
+    merge's all-gather of [B, k] f32 scores and int64 indices over all
+    ranks, each launched 20 times back to back between two CUDA events
+    (one host sync); and which peers each card reaches directly (P2P)."""
+    torch = ctx.torch
+    from two_tower_models_tpu_torch.retrieval.mips import all_gather_stacked
+
+    group = ctx.mesh((1, 4)).get_group("model")
+    rows = torch.ones(BATCH * HIST, cfg.item_id_embedding_dim, device=ctx.dev)
+    sc = torch.ones(BATCH, TOPK, device=ctx.dev)
+    ix = torch.ones(BATCH, TOPK, dtype=torch.int64, device=ctx.dev)
+    legs = {"all_reduce": lambda: torch.distributed.all_reduce(rows, group=group),
+            "all_gather": lambda: (all_gather_stacked(sc), all_gather_stacked(ix))}
+    ms = {}
+    for name, fn in legs.items():
+        fn()
+        ctx.time(lambda: [fn() for _ in range(20)])
+        ms[name] = ctx.max_over_ranks([ctx.time(lambda: [fn() for _ in range(20)])[0] / 20])[0]
+    if ctx.dev.type == "cuda":
+        peers = [torch.cuda.can_device_access_peer(ctx.dev.index, r)
+                 for r in range(ctx.world) if r != ctx.dev.index]
+    else:
+        peers = []
+    nbytes = {"all_reduce": rows.numel() * 4, "all_gather": ctx.world * BATCH * TOPK * 12}
+    ctx.say(f"sharded collectives on {ctx.world} x {ctx.name}: all_reduce of {nbytes['all_reduce']} "
+            f"bytes over model (1x4) {ms['all_reduce']:.3f} ms "
+            f"({nbytes['all_reduce'] / ms['all_reduce'] / 1e6:.1f} GB/s of the buffer); the "
+            f"merge's all_gather of scores and indices, {nbytes['all_gather']} bytes a rank, "
+            f"{ms['all_gather']:.3f} ms (max over ranks, mean of 20 back to back); rank 0 "
+            f"reaches its peers directly (P2P): {peers}")
+
+
+def shard_rank_main(torch, rank: int, world: int, port: int, seed: int, nb: int,
+                    device="cuda") -> dict:
+    """The four-card legs on one rank: {"failures": [...], "launches": {...}}."""
+    from two_tower_models_tpu_torch.parallel import mesh as pm
+
+    dev = pm.init_process_group(rank, world, f"tcp://localhost:{port}", device=device)
+    ctx = ShardRank(torch, rank, world, dev, seed, nb)
+    torch.set_grad_enabled(False)
+    t0 = time.perf_counter()
+    cfg, model, ids, feats, batches = shard_inputs(torch, seed, nb)
+    ctx.say(f"sharded set-up: {world} ranks over "
+            f"{torch.distributed.get_backend()}, model and catalog from --seed on the host in "
+            f"{time.perf_counter() - t0:.1f} s")
+    shard_collectives(ctx, cfg)
+    # 14b
+    ref, exact_outs, exact14 = shard_exact_leg(ctx, cfg, model, ids, feats, batches, (1, 4),
+                                               CORPUS)
+    shard_exact_leg(ctx, cfg, model, ids, feats, batches, (2, 2), CORPUS, ref)
+    shard_exact_leg(ctx, cfg, model, ids, feats, batches, (1, 4), CORPUS - SHARD_PAD, ref)
+    if ctx.dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # 14c
+    shard_approx_legs(ctx, cfg, model, ids, feats, batches, exact_outs)
+    # 14d
+    shard_branch_legs(ctx, cfg, model, ids, feats, batches, ref, exact14)
+    del exact14
+    shard_light_ranker_leg(ctx)
+    # 14e
+    shard_recall_leg(ctx, cfg, model, ids, feats, batches, ref, exact_outs)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return {"failures": ctx.failures, "launches": ctx.launches}
+
+
+def _shard_rank_entry(rank: int, world: int, port: int, seed: int, nb: int, out: str) -> None:
+    """A spawned rank of phase 14b-14e: its result (or its traceback) to ``out``."""
+    import traceback
+
+    import torch
+
+    try:
+        res = shard_rank_main(torch, rank, world, port, seed, nb)
+    except Exception:
+        res = {"failures": [f"rank {rank} raised:\n{traceback.format_exc()}"], "launches": {}}
+        with open(out, "w") as fh:
+            json.dump(res, fh)
+        raise SystemExit(1)
+    with open(out, "w") as fh:
+        json.dump(res, fh)
+
+
+def shard_one_leg(torch, args, smi, entries, failures) -> None:
+    """14a: a world of one over NCCL on card 0, mesh (1, 1), at full width:
+    RetrievalEngine.from_params(mesh=...) bit-equal (indices and scores) to
+    the single-device engine over the same corpus rows on ten batches,
+    with the exact route's launches a batch."""
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.parallel import mesh as pm
+    from two_tower_models_tpu_torch.parallel.train_step import _user_tower
+    from two_tower_models_tpu_torch.retrieval.mips import mips_topk_exact, sharded_mips_topk
+    from two_tower_models_tpu_torch.serving import RetrievalEngine
+
+    dev = pm.init_process_group(0, 1, f"tcp://localhost:{free_port()}", device="cuda")
+    try:
+        ctx = ShardRank(torch, 0, 1, dev, args.seed, args.batches)
+        mesh = pm.single_device_mesh("cuda")
+        cfg, model, ids, feats, batches = shard_inputs(torch, args.seed, args.batches)
+        eng = RetrievalEngine.from_params(model, cfg, ids, feats, mesh=mesh)
+        eng.warmup(BATCH)
+        local, rows = eng._state
+        ref = RetrievalEngine(model, cfg, rows)  # the model moves to the card here
+        ref.warmup(BATCH)
+        dev_batches = [tuple(t.to(dev) for t in bt) for bt in batches]
+        expect = {"fused_history_encoder": 1, **MIPS_ROUTE, **ENC_TC, "fused_history_encoder_tc": 1}
+        label = "sharded 1x1"
+        outs, ms = ctx.serve(label, lambda bt: eng.query(*bt), dev_batches, expect)
+        ref_outs, ref_ms = ctx.serve("single-device", lambda bt: ref.query(*bt), dev_batches,
+                                     alone=True)
+        counts = ctx.launches[label]
+        print(f"launches on the {label} path: {json.dumps(counts)}", flush=True)
+        for name in ("fused_history_encoder", "tile_max_scores", "select_topk_radix",
+                     "gather_rescore_invert", "gather_rescore"):
+            if name in entries:
+                entries[name]["launches_sharded_1x1"] = counts.get(name, 0)
+        idx_equal = all(torch.equal(a, b) for a, b in zip(outs, ref_outs))
+        sc_equal = True
+        with torch.inference_mode():
+            for u, f, h in dev_batches:
+                q, _ = _user_tower(local, cfg, mesh, u, f, h, "psum")
+                got = sharded_mips_topk(rows, q, TOPK, valid_count=CORPUS, embeddings=False)
+                q_ref, _ = tt.compute_user_embedding(ref._state[0], cfg, u, f, h)
+                want = mips_topk_exact(ref.corpus, q_ref, TOPK)
+                sc_equal &= torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        rows_ok = rows.shape == (CORPUS, cfg.item_id_embedding_dim)
+        if not (idx_equal and sc_equal and rows_ok):
+            ctx.fail(f"{label}: indices equal {idx_equal}, scores equal {sc_equal}, rows {rows_ok}")
+        failures.extend(ctx.failures)
+        print(f"sharded 14a, a world of one over {torch.distributed.get_backend()} on "
+              f"{torch.cuda.get_device_name(0)} ({smi}), mesh 1x1, C={CORPUS}, B={BATCH}, "
+              f"k={TOPK}: indices bit-equal to the single-device engine={idx_equal}, scores "
+              f"bit-equal={sc_equal} on {len(batches)} batches; ms/batch {ms:.3f} (issued in "
+              f"{ctx.issue_ms[label]:.3f}) beside the single-device query {ref_ms:.3f} (issued "
+              f"in {ctx.issue_ms['single-device']:.3f}) in this call", flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_sharded(torch, args, smi, entries, failures, only: bool) -> None:
+    """Phase 14: 14a in this process; 14b-14e in four spawned ranks, one a
+    card, when this host has four cards."""
+    import multiprocessing
+    import tempfile
+
+    t_phase = time.perf_counter()
+    shard_one_leg(torch, args, smi, entries, failures)
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    if n < SHARD_CARDS:
+        print(f"sharded 14b-14e: skipped: the four-card legs need {SHARD_CARDS} cards "
+              f"of one host (python3 chip_smoke.py --only sharded on such a host); this host "
+              f"has {n}",
+              flush=True)
+        if only:
+            failures.append(f"--only sharded needs {SHARD_CARDS} cards, this host has {n}")
+        return
+    port = free_port()
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(SHARD_CARDS)]
+        procs = [ctx.Process(target=_shard_rank_entry,
+                             args=(r, SHARD_CARDS, port, args.seed, args.batches, outs[r]))
+                 for r in range(SHARD_CARDS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARD_TIMEOUT
+        while time.monotonic() < deadline and any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break  # the others wait in a collective for the one that failed
+            time.sleep(0.5)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        launches = []
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if not os.path.exists(out):
+                failures.append(f"sharded rank {r} exited with {p.exitcode} and no result")
+                continue
+            with open(out) as fh:
+                res = json.load(fh)
+            failures.extend(res["failures"])
+            if p.exitcode != 0 and not res["failures"]:
+                failures.append(f"sharded rank {r} exited with {p.exitcode}")
+            launches.append(res["launches"])
+    for label in (launches[0] if launches else {}):
+        per_rank = [lc.get(label, {}) for lc in launches]
+        for name in ("fused_history_encoder", "tile_max_scores", "select_topk_radix",
+                     "gather_rescore_invert", "gather_rescore", "approx_scan", "fused_attn_stack"):
+            if name in entries and any(name in lc for lc in per_rank):
+                entries[name].setdefault("launches_sharded_4", {})[label] = [
+                    lc.get(name, 0) for lc in per_rank]
+    print(f"sharded: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batches", type=int, default=10)
+    ap.add_argument("--only", choices=["sharded"], default=None,
+                    help="run phase 1 (the build) and phase 14 (sharded serving) alone; "
+                         "the four-card legs then must run")
     args = ap.parse_args()
 
     import torch
@@ -4986,6 +5745,10 @@ def main() -> int:
                for i in range(len(ha._BWD_PLANS)) for dh in ha.HEAD_DIMS},
         })
     dev = torch.device(DEVICE)
+    if args.only == "sharded":
+        entries, failures = {}, [f"ptxas: {n} spills or gave no report" for n in spills]
+        phase_sharded(torch, args, smi, entries, failures, only=True)
+        return finish(torch, t_start, entries, failures)
 
     # ---- set-up: full-width model, catalog, engine ---------------------
     t0 = time.perf_counter()
@@ -5219,6 +5982,15 @@ def main() -> int:
 
     # ---- phase 13: raw-key ingest and reference-checkpoint interop --------
     phase_raw(torch, args, smi, dev, entries, failures, serve_ms)
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: sharded serving ----------------------------------------
+    phase_sharded(torch, args, smi, entries, failures, only=False)
+    return finish(torch, t_start, entries, failures)
+
+
+def finish(torch, t_start: float, entries: dict, failures: list) -> int:
+    """The wall, the kernels line and, if nothing failed, the ok line."""
     print(f"smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     if failures:

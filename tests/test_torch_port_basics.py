@@ -16,7 +16,9 @@ from two_tower_models_tpu_torch import bridge
 from two_tower_models_tpu_torch import config as tcfg
 from two_tower_models_tpu_torch import interop
 from two_tower_models_tpu_torch.models import two_tower as ttt
+from two_tower_models_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
 from two_tower_models_tpu_torch.serving import RetrievalEngine
+from two_tower_models_tpu_torch.training import loop as tloop
 
 PORT = Path(__file__).resolve().parent.parent / "two_tower_models_tpu_torch"
 CHIP_SMOKE = PORT.parent / "chip_smoke.py"
@@ -24,6 +26,8 @@ CHIP_SMOKE = PORT.parent / "chip_smoke.py"
 CUDA_TESTS = PORT.parent / "tests" / "test_torch_cuda_kernels.py"
 EXAMPLE = PORT.parent / "examples" / "train_and_serve_torch.py"
 RAW_EXAMPLE = PORT.parent / "examples" / "raw_key_ingest_torch.py"
+# imported by the spawned ranks of the sharded-serving tests
+SHARDED_WORKER = PORT.parent / "tests" / "torch_sharded_worker.py"
 
 
 def _imported_modules(path: Path):
@@ -36,12 +40,14 @@ def _imported_modules(path: Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [CHIP_SMOKE, CUDA_TESTS, EXAMPLE, RAW_EXAMPLE],
+    "path",
+    sorted(PORT.rglob("*.py")) + [CHIP_SMOKE, CUDA_TESTS, EXAMPLE, RAW_EXAMPLE, SHARDED_WORKER],
     ids=lambda p: p.name
 )
 def test_port_imports_no_jax(path):
     """Neither the port, nor chip_smoke.py, nor the GPU tests, nor the port's
-    examples import JAX or the JAX package."""
+    examples, nor the ranks of the sharded tests import JAX or the JAX
+    package."""
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "two_tower_models_tpu", "optax", "orbax"), (path, mod)
@@ -137,17 +143,22 @@ def test_unported_paths_raise():
     corpus = torch.randn(64, cfg.item_id_embedding_dim)
     args = (torch.zeros(2, dtype=torch.long), torch.zeros(2, 8),
             torch.zeros(2, 4, dtype=torch.long))
-    # approx_mips and the int8 corpus are ported (A11); the mesh and the
-    # tensor-parallel towers wait for A13
+    # approx_mips and the int8 corpus are ported (A11), and so is serving on a
+    # mesh (A13a); training on a mesh waits for A13b and A13d
     approx = ttt.retrieve(model, dataclasses.replace(cfg, approx_mips=True), corpus, *args,
                           device="cpu")
     assert approx.shape == (2, cfg.num_items)
     with pytest.raises(TypeError, match="QuantizedCorpus"):
         ttt.retrieve(model, cfg, corpus.numpy(), *args, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh.*A13"):
-        RetrievalEngine(model, cfg, corpus, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor-parallel.*A13"):
+    with pytest.raises(RuntimeError, match="process group"):  # a mesh needs its ranks first
+        make_mesh(tcfg.MeshConfig(2, 2), "cpu")
+    with pytest.raises(ValueError, match="tower_tp.*mesh"):  # tensor parallelism needs a mesh
         RetrievalEngine(model, cfg, corpus, tower_tp=True, quantize="int8", device="cpu")
+    with pytest.raises(NotImplementedError, match="A13b"):
+        tloop.train(tcfg.ExperimentConfig(model=cfg, mesh=tcfg.MeshConfig(model=4)),
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="A13d"):
+        initialize_multihost()
     assert RetrievalEngine(model, cfg, corpus, quantize="int8",
                            device="cpu").query(*args).shape == (2, cfg.num_items)
     # raw-key serving is ported (A12): string keys hash on the host

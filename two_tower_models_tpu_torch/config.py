@@ -152,9 +152,10 @@ class ModelConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Device-mesh layout, field for field the JAX package's ``MeshConfig``
-    (its comments say what each field does there).  The port runs on one
-    device: ``training.loop.train`` raises when ``data * model > 1``
-    (``check_single_device``)."""
+    (its comments say what each field does there).  Serving takes a mesh
+    (``parallel.mesh.make_mesh``, ``RetrievalEngine(mesh=...)``); training
+    on a mesh waits for A13b and A13d: ``training.loop.train`` raises when
+    ``data * model > 1`` (``check_single_device``)."""
 
     data: int = 1
     model: int = 1
@@ -166,12 +167,12 @@ class MeshConfig:
 
 
 def check_single_device(mesh: MeshConfig) -> None:
-    """Raise unless ``mesh`` is one device: the sharded paths are not
-    ported."""
+    """Raise unless ``mesh`` is one device: training on a mesh is not
+    ported (serving is: ``RetrievalEngine(mesh=...)``)."""
     if mesh.data * mesh.model > 1:
         raise NotImplementedError(
-            f"a {mesh.data} x {mesh.model} mesh is not ported yet "
-            "(ROADMAP.md, queue A, A13 'Multi-device')"
+            f"training on a {mesh.data} x {mesh.model} mesh is not ported yet "
+            "(ROADMAP.md, queue A, A13b and A13d of A13 'Multi-device')"
         )
 
 

@@ -7,8 +7,9 @@ other exact scans in plain torch, ``mips_topk_segmented`` (over
 ``segmented_topk``), ``mips_topk_exact_tilemax`` (the same pruning as the
 kernels, query-blocked) and ``chunked_mips_topk``; the serving path
 ``mips_topk_approx`` (``ops.approx_topk``: the bin-max kernel N1, then B3);
-and the chunked corpus ``refresh_corpus``.  The sharded scan waits for
-ROADMAP.md, queue A, A13 'Multi-device'.
+the chunked corpus ``refresh_corpus``; and ``sharded_mips_topk``, the scan of
+a corpus row-sharded over the ranks of a process group (one a device), each
+rank's top k then an all-gather and an exact merge.
 
 Tie order: ``torch.topk`` promises none, and a float compare treats -0.0
 and +0.0 as equal, while ``lax.top_k`` orders by the float total order and
@@ -20,6 +21,7 @@ distinct and the order is lax.top_k's.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from two_tower_models_tpu_torch.config import resolve_device
 from two_tower_models_tpu_torch.ops.approx_topk import approx_max_k
@@ -87,6 +89,113 @@ def mips_topk_exact(corpus: torch.Tensor, query: torch.Tensor, k: int):
     (``ops.mips_topk.mips_topk_exact_tiled``), equal to ``mips_topk``
     including tie order; small corpora take the dense scan."""
     return mips_topk_exact_tiled(corpus, query, k)
+
+
+def sharded_mips_topk(
+    corpus_shard,  # [C/n, DI] rows, or this shard's QuantizedCorpus
+    query: torch.Tensor,  # [B, DI], the same on every rank
+    k: int,
+    group=None,  # the process group the corpus is sharded over (None: the world)
+    valid_count: int | None = None,  # GLOBAL rows < this are real; the rest pad
+    recall_target: float | None = None,  # None = exact; else the local approximate top-k
+    oversample: int = 4,  # the int8_rescore pool factor
+    embeddings: bool = True,
+):
+    """Top-k over a corpus row-sharded over ``group``: (indices [B, k]
+    int64 global rows, scores [B, k] f32, embeddings [B, k, DI] or None).
+
+    Every rank of ``group`` calls it with the same query; rank s holds
+    global rows [s * C/n, (s+1) * C/n).  Each rank takes its local top k,
+    then the candidates of every rank are all-gathered and merged with one
+    exact top k, ties to the lower rank and so to the lower global index
+    (``_merge_shard_candidates``).  The local scan follows the JAX
+    package's three branches: a ``QuantizedCorpus`` goes to
+    ``quantized_shard_topk`` with the global ``valid_count`` and the
+    shard's row offset; an exact scan of a shard with ``k * 128 < C/n``
+    rows to the tile-max kernels (B2, B3, B4) with the shard's own valid
+    count; anything else to the dense scores masked at global row >=
+    ``valid_count``, then the ordered top k or, with a ``recall_target``,
+    the approximate top-k (N1, then B3).
+
+    ``embeddings=False`` all-gathers no rows and returns None for them:
+    JAX's ``jit`` drops that gather where the caller ignores the rows, and
+    the port, run eagerly, is told so."""
+    shard = dist.get_rank(group)
+    local_top, local_idx, local_emb, n_local = _shard_topk(
+        corpus_shard, query, k, shard, valid_count, recall_target, oversample
+    )
+    return _merge_shard_candidates(
+        local_top, local_idx, local_emb if embeddings else None, shard, n_local, k, group
+    )
+
+
+def _shard_topk(corpus_shard, query, k, shard, valid_count, recall_target, oversample):
+    """The local scan of ``sharded_mips_topk`` on shard ``shard``: (scores
+    [B, kk], shard-local rows [B, kk], embeddings [B, kk, DI], C/n)."""
+    from two_tower_models_tpu_torch.retrieval.quant import QuantizedCorpus, quantized_shard_topk
+
+    if isinstance(corpus_shard, QuantizedCorpus):
+        n_local = corpus_shard.q.shape[0]
+        local_top, local_idx, local_emb = quantized_shard_topk(
+            corpus_shard, query, min(k, n_local), recall_target=recall_target,
+            oversample=oversample, row_offset=shard * n_local, valid_count=valid_count,
+        )
+        return local_top, local_idx, local_emb, n_local
+    n_local = corpus_shard.shape[0]
+    kk = min(k, n_local)
+    local_valid = (
+        None if valid_count is None else max(0, min(int(valid_count) - shard * n_local, n_local))
+    )
+    if recall_target is None and kk * 128 < n_local:
+        # a large shard: the tile-max kernel pipeline, with the shard's valid rows
+        local_idx, local_top, local_emb = mips_topk_exact_tiled(
+            corpus_shard, query, kk, valid_count=local_valid
+        )
+    elif recall_target is None:
+        local_idx, local_top, local_emb = mips_topk(corpus_shard, query, kk, valid_count=local_valid)
+    else:
+        rows = (corpus_shard if corpus_shard.dtype in (torch.float32, torch.bfloat16)
+                else corpus_shard.float())
+        local_top, local_idx = approx_max_k(query, rows, kk, recall_target, valid_count=local_valid)
+        local_emb = corpus_shard[local_idx]
+    return local_top, local_idx, local_emb, n_local
+
+
+def all_gather_stacked(t: torch.Tensor, group=None) -> torch.Tensor:
+    """[n, *t.shape]: ``t`` of every rank of ``group``, in rank order."""
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, t.contiguous(), group=group)
+    return torch.stack(out)
+
+
+def _merge_shard_candidates(
+    local_top: torch.Tensor,  # [B, kk] this shard's candidate scores
+    local_idx: torch.Tensor,  # [B, kk] shard-local row indices
+    local_emb,  # [B, kk, DI], or None
+    shard: int,
+    n_local: int,
+    k: int,
+    group,
+):
+    """All-gather every shard's candidates (f32 scores, int64 global rows,
+    rows in their own dtype) in rank order, lay them out [B, n * kk]
+    shard-major within each row, and take the top k in lax.top_k's order:
+    ties go to the lower position, which is the lower global index."""
+    global_idx = local_idx.long() + shard * n_local
+    b = local_top.shape[0]
+    cand_scores = all_gather_stacked(local_top.float(), group)  # [n, B, kk]
+    cand_idx = all_gather_stacked(global_idx, group)
+    cand_scores = cand_scores.movedim(0, 1).reshape(b, -1)  # [B, n*kk]
+    cand_idx = cand_idx.movedim(0, 1).reshape(b, -1)
+    k = min(k, cand_scores.shape[1])
+    top_scores, merge_idx = topk_ordered(cand_scores, k)  # [B, k]
+    top_idx = torch.gather(cand_idx, 1, merge_idx)
+    top_emb = None
+    if local_emb is not None:
+        cand_emb = all_gather_stacked(local_emb, group)  # [n, B, kk, DI]
+        cand_emb = cand_emb.movedim(0, 1).reshape(b, -1, cand_emb.shape[-1])
+        top_emb = torch.gather(cand_emb, 1, merge_idx[:, :, None].expand(-1, -1, cand_emb.shape[-1]))
+    return top_idx, top_scores, top_emb
 
 
 def segmented_topk(scores: torch.Tensor, k: int, num_segments: int):

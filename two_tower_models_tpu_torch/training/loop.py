@@ -4,9 +4,9 @@ Port of ``two_tower_models_tpu/training/loop.py`` for one device: epochs of
 shuffled batches through ``make_train_step`` (with mixed negatives and the
 logQ correction, oracle or streaming, when the config asks), the loss
 summed on the device, corpus refresh and the recall@k eval, jsonl logging, checkpoints
-with exact-position resume, SIGTERM preemption and a profiled window.  The
-mesh and multihost paths are not ported (ROADMAP.md, queue A, A13
-'Multi-device') and raise.
+with exact-position resume, SIGTERM preemption and a profiled window.
+Training on a mesh and across hosts is not ported (ROADMAP.md, queue A,
+A13b and A13d of A13 'Multi-device') and raises.
 
 Run:  python -m two_tower_models_tpu_torch.training.loop --preset two_tower_base_retrieval
       (add ``--device cpu`` on a machine without a GPU)
@@ -323,8 +323,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--eval_every", type=int, default=0, help="mid-training recall@k every N steps")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
                    help="K optimizer steps per dispatch")
-    # mesh flags: parsed as the JAX trainer parses them; the port runs one
-    # device, and a mesh of more raises (ROADMAP.md, A13 'Multi-device')
+    # mesh flags: parsed as the JAX trainer parses them; the port trains on
+    # one device, and a mesh of more raises (ROADMAP.md, A13b and A13d of
+    # A13 'Multi-device')
     p.add_argument("--mesh_data", type=int, default=1, help="data-parallel mesh axis")
     p.add_argument("--mesh_model", type=int, default=1, help="table-sharding mesh axis")
     p.add_argument("--tower_tp", action="store_true",
@@ -397,7 +398,8 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     if args.multihost:
         raise NotImplementedError(
-            "multi-host training is not ported yet (ROADMAP.md, queue A, A13 'Multi-device')"
+            "multi-host training is not ported yet "
+            "(ROADMAP.md, queue A, A13d of A13 'Multi-device')"
         )
     exp = config_from_args(args)
     logger = JsonlLogger(args.log_file, tensorboard_dir=args.tensorboard_dir)
