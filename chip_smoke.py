@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--batches 10] [--only sharded]
 
-With ``--only sharded`` it runs phase 1 and phase 14 alone, and the
-four-card legs must run (a host with four cards).
+With ``--only sharded`` it runs phase 1 and phases 14 and 15 alone, and
+the four-card legs must run (a host with four cards).
 
 Phases, in the order they run; any failure exits non-zero:
 
@@ -407,6 +407,44 @@ Phases, in the order they run; any failure exits non-zero:
      and the merge, with the bytes a rank all-gathers a batch and the
      sharded refresh's ms.  With fewer cards it says so on a line of its
      own and goes on.
+  15. the explicit sharded training step (A13b:
+     parallel/train_step.make_sharded_train_step over parallel/sharding's
+     shard_state, the lookups' backward, parallel/collectives and
+     parallel/sparse_grads), in the same process and ranks as phase 14.
+     15a, in this process: a world of one on card 0, the flagship
+     (flagship_cfg(TRAIN_ROWS), B = 4096): SHARD_STEPS steps bit-equal to
+     make_train_step (every metric each step, parameters and moments
+     after), phase 4's launches a step, no host sync, both ms/step.  With
+     four cards, after 14e, in the four ranks (a card's batch SHARD_TRAIN_B,
+     scripts/scaling_prediction.py's weak scaling; batches and the
+     initial state drawn from --seed, rank 0's parameters broadcast): 15b
+     the flagship on meshes (4, 1), (2, 2) and (1, 4): every gradient leaf
+     (sharded_grads, assembled over model) within 1e-2 of its scale of one
+     card's train_loss gradients on the same global batch (the zero-
+     gradient leaves against 1e-2 of the top), the metrics within 1e-4
+     relative, grad_norm within 1e-3; the parameters after three steps
+     within 1e-2 of scale of three single-card steps (the elements of
+     near-zero first-step gradient left out: kept_params_close); then 3
+     warm-up and SHARD_STEPS timed steps (ms/step and the host's issue
+     ms, the maximum over ranks; the launches a step: phase 4's and one
+     B18 a sparse table; no host sync in a step), every replicated leaf
+     and table replica bit-equal on every rank, the step's collectives
+     each timed alone with the bytes a rank hands them, beside one card's
+     ms/step at B = SHARD_TRAIN_B (the weak-scaling efficiency), and B10
+     and B11 + B12 at (4096, 16384, 64) and (4096, 8192, 64) against plain
+     and timed beside the library calls; 15c on (2, 2): sparse_table_grads
+     on and off, the all_to_all lookup and tower_tp (gradients as 15b's),
+     SHARD_K steps a dispatch (bit-equal to SHARD_K single steps, the mean
+     metrics within 1e-2 of one card's K steps), and
+     scripts/exp_mns_scale.py's mns+logq model on a batch extended once by
+     extend_batch_for_idx (B10-B12 at D = 65; both CE kernels at (4096,
+     8256, 65) timed); 15d the light ranker, KD and the reward model
+     (scripts/bench_presets.py's width) on (2, 2), gradients as 15b's;
+     15e scripts/bench_tables.py's 2^22-row tables packed [2^21, 128] on
+     (2, 2): both tables through the sparse exchange, gradients as 15b's,
+     ms/step, the launches a step (B18 for each lookup's backward on the
+     packed shards, each exchange and the position table) and the peak
+     memory a rank.
 
 Phase 2 also holds B2 and the exact pipeline on an integer-grid corpus whose
 scores hold +-inf and NaN of both signs (nonfinite_check).
@@ -492,7 +530,12 @@ RAW_WARMUP, RAW_STEPS = 5, 20  # 13c: warm-up and timed steps
 SHARD_CARDS = 4
 SHARD_PAD = 3  # 14b: a catalog of CORPUS - 3 items, so the last shard is padded
 SHARD_GATES = {"approx_mips": 0.95, "int8": 0.90, "int8_rescore": 0.95}  # phase 12b's recall gates
-SHARD_TIMEOUT = 420  # s the parent waits for the four ranks
+SHARD_TIMEOUT = 600  # s the parent waits for the four ranks (14b-14e, then 15b-15e)
+SHARD_TRAIN_B = 4096  # 15b-15e: rows a card a step (scripts/scaling_prediction.py:8-13: weak scaling)
+SHARD_TABLE_ROWS = TABLE_ROWS  # 15e: scripts/bench_tables.py's 2^22-row tables, packed
+SHARD_STEPS = 20  # timed steps of 15a and 15b (half of them in 15e)
+SHARD_PARAM_STEPS = 3  # 15b: the parameters after three steps against one card's
+SHARD_K = 4  # 15c: steps a dispatch
 # B18 launches a training step of a config that debiases by position: the
 # position-bias table's gradient, summed in a fixed order (nn.layers
 # embedding_lookup's fixed_order), where F.embedding's differs call to call
@@ -5477,9 +5520,701 @@ def shard_collectives(ctx, cfg) -> None:
             f"reaches its peers directly (P2P): {peers}")
 
 
+# ---- phase 15: the explicit sharded training step ----------------------------
+
+
+def train_launches(cfg, b18: int = 0) -> dict:
+    """A sharded training step's launches for ``cfg``: zoo_train_launches',
+    the position table's B18 only where a position head runs, and ``b18``
+    more (the sparse exchange's scatters; the lookups' backward on shards
+    inside the scatter window)."""
+    from two_tower_models_tpu_torch.config import Debias
+
+    out = zoo_train_launches(cfg)
+    out["rows_scatter_add"] = (POS_B18 if cfg.debias in (Debias.POSITION, Debias.BOTH) else 0) + b18
+    return out
+
+
+def shard_train_data(torch, ctx, cfg, b: int, seed: int, kd: bool = False):
+    """A fixed global batch of ``b`` rows for ``cfg`` (fixed_batch's shapes),
+    drawn on the host from ``seed`` so every rank holds the same, on the
+    rank's device: (SyntheticRecData, Batch)."""
+    from two_tower_models_tpu_torch.training.data import gather_batch
+
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    data = fixed_batch(torch, gen, "cpu", cfg, b)
+    if kd:  # scripts/bench_presets.py:67-70: the soft labels are half the hard ones
+        data = data._replace(labels=torch.cat([data.labels, 0.5 * data.labels], 1))
+    data = type(data)(*(None if t is None else t.to(ctx.dev) for t in data))
+    return data, gather_batch(data, torch.arange(b, device=ctx.dev))
+
+
+def shard_full_state(torch, ctx, cfg, tcfg, n_model: int, broadcast: bool = True):
+    """The full TrainState from --seed on this rank's device, rank 0's
+    parameters broadcast to every rank (one init on every card); rank 0
+    alone passes ``broadcast=False``."""
+    from two_tower_models_tpu_torch.training.state import create_train_state
+
+    st = create_train_state(ctx.seed + 50, cfg, tcfg, device=ctx.dev, model_shards=n_model)
+    for p in st.params.parameters() if broadcast else ():
+        torch.distributed.broadcast(p.data, src=0)
+    return st
+
+
+def gather_leaves(torch, ctx, mesh, tensors: dict, specs: dict):
+    """Rank 0's view of whole leaves: each leaf's blocks from the ranks of
+    data row 0, joined on the dim its spec splits (None elsewhere)."""
+    if mesh.get_local_rank("data") != 0:
+        return None
+    group = mesh.get_group("model")
+    n = mesh.size(1)
+    out = {}
+    for name, t in tensors.items():
+        t = t.detach().contiguous()
+        if n == 1:
+            out[name] = t
+            continue
+        parts = [torch.empty_like(t) for _ in range(n)] if ctx.rank == 0 else None
+        torch.distributed.gather(t, parts, dst=0, group=group)
+        if ctx.rank == 0:
+            axes = [i for i, a in enumerate(specs[name]) if a == "model"]
+            out[name] = torch.cat(parts, axes[0]) if axes else parts[0]
+    return out if ctx.rank == 0 else None
+
+
+def leaf_errors(torch, cfg, got: dict, want: dict):
+    """(worst share of its scale over the leaves, that leaf): each leaf's
+    max |got - want| over its scale; the leaves of zero_grad_leaves(cfg)
+    against ZERO_GRAD_FLOOR of the top leaf (phase 4's rule)."""
+    from two_tower_models_tpu_torch.models import two_tower as tt
+
+    top = max(float(w.abs().max()) for w in want.values())
+    worst, leaf = 0.0, ""
+    for name, w in want.items():
+        g = got[name].reshape(w.shape).float()
+        scale = tt.ZERO_GRAD_FLOOR * top if name in tt.zero_grad_leaves(cfg) else float(w.abs().max())
+        rel = float((g - w.float()).abs().max()) / max(scale, 1e-30)
+        if rel > worst:
+            worst, leaf = rel, name
+    return worst, leaf
+
+
+def replicas_equal(torch, ctx, mesh, params) -> bool:
+    """Every leaf equal, bit for bit, to its replica on rank 0 (replicated
+    leaves) or on the data-row-0 rank of its model index (split leaves)."""
+    from two_tower_models_tpu_torch.parallel.sharding import param_pspecs
+
+    dist = torch.distributed
+    data = mesh.get_group("data")
+    ok = True
+    for name, spec in param_pspecs(params).items():
+        mine = dict(params.named_parameters())[name].detach().contiguous()
+        theirs = mine.clone()
+        if "model" in spec:
+            dist.broadcast(theirs, src=dist.get_global_rank(data, 0), group=data)
+        else:
+            dist.broadcast(theirs, src=0)
+        ok &= torch.equal(mine, theirs)
+    flag = torch.tensor([int(ok)], device=ctx.dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(int(flag))
+
+
+def kept_params_close(torch, cfg, got: dict, want: dict, g0: dict, tol: float):
+    """(worst error over each leaf's scale, fewest share of elements kept):
+    the parameters after a few steps, each element whose first-step
+    gradient on one card is 0 or at least 1e-2 of its leaf's largest (Adam
+    moves every other element by about lr whatever its gradient's size, so
+    the bf16 rounding of the two runs' sums there decides the sign); the
+    leaves of zero_grad_leaves(cfg) left out."""
+    from two_tower_models_tpu_torch.models import two_tower as tt
+
+    worst, kept = 0.0, 1.0
+    for name, w in want.items():
+        if name in tt.zero_grad_leaves(cfg):
+            continue
+        g = g0[name].abs()
+        keep = (g == 0) | (g >= 1e-2 * g.max())
+        d = (got[name].reshape(w.shape) - w).abs()[keep]
+        worst = max(worst, float(d.max()) / max(float(w.abs().max()), 1e-30) if d.numel() else 0.0)
+        kept = min(kept, float(keep.float().mean()))
+    return worst, kept
+
+
+def timed_steps(torch, ctx, label: str, step, state, batch, n: int, expect: dict | None):
+    """n steps after the caller's warm-up, the launch counts zeroed just
+    before and read just after: (state, metrics, ms/step by CUDA events,
+    host issue ms/step), both the maximum over the ranks."""
+    from two_tower_models_tpu_torch.ops import _lib
+
+    cuda = ctx.dev.type == "cuda"
+    ctx.align()
+    metrics = []
+    with torch.enable_grad():
+        _lib.reset_launch_counts()
+        if cuda:
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, m = step(state, batch)
+            metrics.append(m)
+        issue = (time.perf_counter() - t0) * 1e3 / n
+        if cuda:
+            e.record()
+            e.synchronize()
+            ms = s.elapsed_time(e) / n
+        else:
+            ms = issue
+        counts = dict(_lib.launches)
+    ctx.launches[label] = counts
+    if expect is not None and cuda:
+        check_only_launches(counts, expect, n, ctx.failures, f"rank {ctx.rank}: {label}")
+    ms, issue = ctx.max_over_ranks([ms, issue])
+    return state, metrics, ms, issue
+
+
+def lookup_b18(cfg, params, batch) -> int:
+    """The lookups a step whose backward takes B18 (shards inside the
+    scatter window: ``nn.layers._in_scatter_window``, packed ones uncapped)."""
+    from two_tower_models_tpu_torch.nn.layers import _in_scatter_window
+
+    n = 0
+    item_lookups = 1 + (cfg.history_encoder is not None) + (batch.neg_item_id is not None)
+    for name, dim, lookups in (("user_id_table", cfg.user_id_embedding_dim, 1),
+                               ("item_id_table", cfg.item_id_embedding_dim, item_lookups)):
+        t = getattr(params, name)
+        if _in_scatter_window(t.shape[0] * (t.shape[-1] // dim), capped=t.shape[-1] == dim):
+            n += lookups
+    return n
+
+
+def grads_leg(torch, ctx, label, cfg, mesh_cfg, shape, batch, tcfg=None, strategy="psum",
+              ref=None):
+    """One fixed global batch through sharded_grads on ``shape``: every
+    leaf (assembled over model) against one card's train_loss gradients
+    within BF16_TOL of its scale, the metrics within 1e-4 relative and
+    grad_norm within 1e-3, on rank 0; the forward's and backward's launches
+    (train_launches, on every rank).  ``ref`` (rank 0: the card's
+    (metrics, grads)) is computed when None.  (the rank's block, ref, the
+    line's text)."""
+    from two_tower_models_tpu_torch.config import TrainConfig
+    from two_tower_models_tpu_torch.models import two_tower as tt
+    from two_tower_models_tpu_torch.ops import _lib
+    from two_tower_models_tpu_torch.parallel.sharding import param_pspecs, shard_state
+    from two_tower_models_tpu_torch.parallel.sparse_grads import sparse_table_grad_names
+    from two_tower_models_tpu_torch.parallel.train_step import local_batch, sharded_grads
+    from two_tower_models_tpu_torch.training.state import global_norm
+    from two_tower_models_tpu_torch.training.step import _grads
+
+    tcfg = tcfg or TrainConfig(learning_rate=1e-3)
+    mesh = ctx.mesh(shape)
+    full = shard_full_state(torch, ctx, cfg, tcfg, shape[1])
+    block = shard_state(full, cfg, mesh, mesh_cfg.tower_tp, ctx.dev)
+    if ctx.rank == 0 and ref is None:
+        with torch.enable_grad():
+            loss, m = tt.train_loss(full.params, cfg, batch)
+            names, ps = zip(*full.params.named_parameters())
+            g = dict(zip(names, _grads(loss, ps)))
+        m = {k: float(v) for k, v in m.items()}
+        m["grad_norm"] = float(global_norm(list(g.values())))
+        ref = (m, g)
+    del full
+    ctx.align()
+    _lib.reset_launch_counts()
+    with torch.enable_grad():
+        names, grads, metrics = sharded_grads(block.params, cfg, mesh_cfg, mesh, batch, strategy)
+    counts = ctx.launches[label] = dict(_lib.launches)
+    local = local_batch(batch, mesh.get_local_rank("data"), shape[0])
+    n_sparse = len(sparse_table_grad_names(cfg, mesh_cfg, local, block.params))
+    expect = train_launches(cfg, n_sparse + lookup_b18(cfg, block.params, local))
+    if ctx.dev.type == "cuda":
+        check_only_launches(counts, expect, 1, ctx.failures, f"rank {ctx.rank}: {label}")
+    got = gather_leaves(torch, ctx, mesh, dict(zip(names, grads)),
+                        param_pspecs(block.params, mesh_cfg.tower_tp))
+    line = ""
+    if ctx.rank == 0:
+        want_m, want_g = ref
+        worst, leaf = leaf_errors(torch, cfg, got, want_g)
+        bad = [k for k, v in want_m.items() if k != "grad_norm"
+               and not abs(float(metrics[k]) - v) <= 1e-4 * max(abs(v), 1e-6)]
+        gn = abs(float(metrics["grad_norm"]) - want_m["grad_norm"]) / want_m["grad_norm"]
+        if worst > BF16_TOL or bad or gn > 1e-3 or set(metrics) != set(want_m):
+            ctx.fail(f"{label}: worst grad leaf {leaf} {worst:.3g} of scale, metrics off {bad}, "
+                     f"grad_norm {gn:.3g} relative")
+        line = (f"worst grad leaf {leaf} at {worst:.3g} of its scale (tol {BF16_TOL}), loss "
+                f"{float(metrics['loss']):.6f} vs {want_m['loss']:.6f} on one card, grad_norm "
+                f"{float(metrics['grad_norm']):.4f} vs {want_m['grad_norm']:.4f} ({gn:.2g} "
+                f"relative)")
+    return block, ref, line
+
+
+def shard_train_mesh(torch, ctx, cfg, tcfg, shape, single_ms: float | None):
+    """15b on one mesh: gradients against one card, three steps' parameters
+    against three single-card steps, then 3 warm-up and SHARD_STEPS timed
+    steps (ms/step and issue ms, the maximum over ranks; launches a step;
+    host syncs of one step), the replicas bit-equal, and the collectives of
+    a step timed alone."""
+    from two_tower_models_tpu_torch.config import MeshConfig
+    from two_tower_models_tpu_torch.parallel.sharding import param_pspecs
+    from two_tower_models_tpu_torch.parallel.sparse_grads import sparse_table_grad_names
+    from two_tower_models_tpu_torch.parallel.train_step import local_batch, make_sharded_train_step
+    from two_tower_models_tpu_torch.training.step import make_train_step
+
+    n_d, n_m = shape
+    b = SHARD_TRAIN_B * n_d
+    label = f"train {n_d}x{n_m}"
+    mesh_cfg = MeshConfig(*shape)
+    mesh = ctx.mesh(shape)
+    data, batch = shard_train_data(torch, ctx, cfg, b, ctx.seed + 51)
+    block, ref, line = grads_leg(torch, ctx, f"{label} grads", cfg, mesh_cfg, shape, batch)
+    # three steps beside three on one card (rank 0)
+    step = make_sharded_train_step(cfg, tcfg, mesh, mesh_cfg)
+    with torch.enable_grad():
+        for _ in range(SHARD_PARAM_STEPS):
+            block, _ = step(block, batch)
+    specs = param_pspecs(block.params)
+    got = gather_leaves(torch, ctx, mesh, dict(block.params.named_parameters()), specs)
+    if ctx.rank == 0:
+        full = shard_full_state(torch, ctx, cfg, tcfg, n_m, broadcast=False)
+        single = make_train_step(cfg, tcfg)
+        idx = torch.arange(b, device=ctx.dev)
+        with torch.enable_grad():
+            for _ in range(SHARD_PARAM_STEPS):
+                full, _ = single(full, data, idx)
+        want = {k: p.detach() for k, p in full.params.named_parameters()}
+        worst, kept = kept_params_close(torch, cfg, got, want, ref[1], BF16_TOL)
+        if worst > BF16_TOL:
+            ctx.fail(f"{label}: params after {SHARD_PARAM_STEPS} steps {worst:.3g} of scale from "
+                     f"one card's, {kept:.3f} of the elements kept")
+        line += (f"; params after {SHARD_PARAM_STEPS} steps {worst:.3g} of scale from one card's "
+                 f"(elements kept: at least {kept:.3f} of a leaf)")
+        del full, want
+    del got
+    local = local_batch(batch, mesh.get_local_rank("data"), n_d)
+    sparse = sparse_table_grad_names(cfg, mesh_cfg, local, block.params)
+    expect = train_launches(cfg, len(sparse) + lookup_b18(cfg, block.params, local))
+    with torch.enable_grad():
+        for _ in range(3):
+            block, _ = step(block, batch)
+    block, metrics, ms, issue = timed_steps(torch, ctx, label, step, block, batch, SHARD_STEPS,
+                                            expect)
+    syncs = 0
+    if ctx.dev.type == "cuda":
+        block, syncs = count_syncs(torch, lambda s, d, i: step(s, batch), block, None, None)
+        syncs = int(ctx.max_over_ranks([syncs])[0])
+        if syncs:
+            ctx.fail(f"{label}: {syncs} host syncs in a step")
+    equal = replicas_equal(torch, ctx, mesh, block.params)
+    if not equal:
+        ctx.fail(f"{label}: replicated leaves or table replicas differ between ranks")
+    if not finite(torch, metrics):
+        ctx.fail(f"{label}: metrics not finite")
+    coll = train_collectives(torch, ctx, cfg, shape, mesh, block, local, sparse)
+    eff = "not measured" if single_ms is None else f"{single_ms / ms:.3f}"
+    ctx.say(f"sharded {label} on {ctx.world} x {ctx.name}: train-65k-sharded-{n_d}x{n_m}, "
+            f"B={b} ({SHARD_TRAIN_B} a card), sparse tables {sorted(sparse)}: {line}; "
+            f"{SHARD_STEPS} steps: ms/step {ms:.3f} (max over ranks; issued in {issue:.3f}), "
+            f"examples/s {b / ms * 1e3:.0f}; one card at B={SHARD_TRAIN_B} in this call "
+            f"{'not measured' if single_ms is None else f'{single_ms:.3f}'} ms/step: weak-scaling "
+            f"efficiency {eff}; host syncs in a step {syncs}; replicas bit-equal on every rank="
+            f"{equal}; launches a step {json.dumps({k: v // SHARD_STEPS for k, v in ctx.launches[label].items() if v})}; "
+            f"loss {float(metrics[0]['loss']):.5f}->{float(metrics[-1]['loss']):.5f}")
+    ctx.say(f"sharded {label} collectives: {coll}")
+    return block
+
+
+def train_collectives(torch, ctx, cfg, shape, mesh, block, local, sparse) -> str:
+    """The collectives of one step of ``block`` on ``local``, each launched
+    20 times back to back between two CUDA events (the maximum over ranks
+    of the mean): the lookups' all-reduces over model, the negatives' and
+    nuv's all-gathers and reduce-scatters over data, the gradients'
+    all-reduces (flat buffers: the dense leaves over data, the replicated
+    over model), the sparse exchange's two all-gathers, and the metrics'.
+    Each with the bytes a rank hands it (its input); and their sum a step."""
+    from two_tower_models_tpu_torch.parallel.collectives import all_gather_into, reduce_scatter_into
+    from two_tower_models_tpu_torch.parallel.sharding import param_pspecs
+    from two_tower_models_tpu_torch.parallel.sparse_grads import table_touched_ids
+
+    dist = torch.distributed
+    n_d, n_m = shape
+    data, model = mesh.get_group("data"), mesh.get_group("model")
+    b, di = local.user_id.shape[0], cfg.item_id_embedding_dim
+    h = cfg.history_len if cfg.history_encoder is not None else 0
+    f32 = lambda *s: torch.ones(*s, device=ctx.dev)
+    specs = param_pspecs(block.params)
+    ps = dict(block.params.named_parameters())
+    legs = {}
+    if n_m > 1:
+        for name, rows in (("lookup user", b), ("lookup history", b * h), ("lookup item", b)):
+            t = f32(rows, di)
+            legs[name] = (lambda t=t: dist.all_reduce(t, group=model), t.numel() * 4)
+        rep = sum(p.numel() for k, p in ps.items() if "model" not in specs[k])
+        t = f32(rep)
+        legs["grads over model"] = (lambda t=t: dist.all_reduce(t, group=model), rep * 4)
+    if n_d > 1:
+        x, out = f32(b, di), f32(b * n_d, di)
+        legs["negatives all-gather"] = (lambda: all_gather_into(out, x, group=data), x.numel() * 4)
+        legs["negatives reduce-scatter"] = (lambda: reduce_scatter_into(x, out, group=data),
+                                            out.numel() * 4)
+        v, vo = f32(b), f32(b * n_d)
+        legs["nuv all-gather"] = (lambda: all_gather_into(vo, v, group=data), b * 4)
+        legs["nuv reduce-scatter"] = (lambda: reduce_scatter_into(v, vo, group=data), b * n_d * 4)
+        dense = sum(p.numel() for k, p in ps.items() if k.split(".")[0] not in sparse)
+        t = f32(dense)
+        legs["grads over data"] = (lambda t=t: dist.all_reduce(t, group=data), dense * 4)
+        ids = table_touched_ids(cfg, local)
+        for name in sorted(sparse):
+            u = ids[name].numel()
+            gi, gr = torch.ones(u, dtype=torch.int32, device=ctx.dev), f32(u, di)
+            oi, orow = torch.ones(u * n_d, dtype=torch.int32, device=ctx.dev), f32(u * n_d, di)
+            legs[f"sparse {name}"] = (lambda gi=gi, gr=gr, oi=oi, orow=orow: (
+                all_gather_into(oi, gi, group=data), all_gather_into(orow, gr, group=data)),
+                u * (di + 1) * 4)
+        t = f32(6)
+        legs["metrics"] = (lambda t=t: dist.all_reduce(t, group=data), 24)
+    parts, total = [], 0
+    for name, (fn, nbytes) in legs.items():
+        fn()
+        ctx.align()
+        ms = ctx.max_over_ranks([ctx.time(lambda: [fn() for _ in range(20)])[0] / 20])[0]
+        parts.append(f"{name} {nbytes} bytes {ms:.4f} ms")
+        total += nbytes
+    return "; ".join(parts) + f"; a rank hands the collectives {total} bytes a step"
+
+
+def ce_shape_times(torch, ctx, b: int, c: int, d: int) -> str:
+    """B10 and B11 + B12 at (b, c, d), rank 0 alone: against the plain
+    versions (1e-5 of scale) and timed (CUDA events, 20 back to back) beside
+    the library calls (logsumexp of U I^T; autograd's backward of it)."""
+    from two_tower_models_tpu_torch.ops import fused_softmax as fs
+
+    gen = torch.Generator(device=ctx.dev)
+    gen.manual_seed(ctx.seed + 52)
+    u = torch.randn(b, d, generator=gen, device=ctx.dev) * 0.3
+    i = torch.randn(c, d, generator=gen, device=ctx.dev) * 0.3
+    g = torch.rand(b, generator=gen, device=ctx.dev) / b
+    _, lse = fs.in_batch_ce_fwd(u, i, False)
+    _, lse_p = fs.in_batch_ce_fwd_plain(u, i, False)
+    ok_f, err_f = close(lse, lse_p, 0.0, 1e-5 * float(lse_p.abs().max()))
+    got, want = fs.in_batch_ce_bwd(u, i, lse, g, False), fs.in_batch_ce_bwd_plain(u, i, lse_p, g, False)
+    checks = [close(x, y, 0.0, 1e-5 * float(y.abs().max())) for x, y in zip(got, want)]
+    ok = ok_f and all(o for o, _ in checks)
+    if not ok:
+        ctx.fail(f"CE kernels at ({b}, {c}, {d}) vs plain: {err_f:.3g}, {[e for _, e in checks]}")
+    ua, ia = u.clone().requires_grad_(), i.clone().requires_grad_()
+    with torch.enable_grad():
+        lse_lib = torch.logsumexp(ua @ ia.T, 1)
+    legs = {"B10": lambda: fs.in_batch_ce_fwd(u, i, False),
+            "B11 + B12": lambda: fs.in_batch_ce_bwd(u, i, lse, g, False),
+            "library fwd": lambda: torch.logsumexp(u @ i.T, 1),
+            "library bwd": lambda: torch.autograd.grad(lse_lib, (ua, ia), g, retain_graph=True)}
+    ms = {}
+    for name, fn in legs.items():
+        fn()
+        ms[name] = ctx.time(lambda: [fn() for _ in range(20)])[0] / 20
+    fb = bound((b + c) * d * 4 + 2 * b * 4, 3 * 2 * b * c * d, TF32_FLOPS)
+    bb = bound(2 * (b + c) * d * 4 + 2 * b * 4, 6 * b * c * d, F32_FLOPS)
+    return (f"B10 at ({b}, {c}, {d}) {ms['B10']:.4f} ms (bound {fb[0]:.4f}, {fb[1]}; library "
+            f"{ms['library fwd']:.4f}); B11 + B12 {ms['B11 + B12']:.4f} ms with its reduce "
+            f"(bound {bb[0]:.4f}, {bb[1]}; library {ms['library bwd']:.4f}); against plain "
+            f"ok={ok} (max_abs_err {err_f:.3g}, {max(e for _, e in checks):.3g})")
+
+
+def single_card_ms(torch, ctx, cfg, tcfg) -> float | None:
+    """One card's make_train_step at B = SHARD_TRAIN_B, on rank 0 alone
+    (the others wait): ms/step of SHARD_STEPS steps after 3, by CUDA events."""
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import make_train_step
+
+    ms = None
+    if ctx.rank == 0:
+        data, _ = shard_train_data(torch, ctx, cfg, SHARD_TRAIN_B, ctx.seed + 53)
+        idx = torch.arange(SHARD_TRAIN_B, device=ctx.dev)
+        state = create_train_state(ctx.seed + 50, cfg, tcfg, device=ctx.dev)
+        step = make_train_step(cfg, tcfg)
+        with torch.enable_grad():
+            for _ in range(3):
+                state, _ = step(state, data, idx)
+            t = ctx.time(lambda: [step(state, data, idx) for _ in range(SHARD_STEPS)])[0]
+        ms = t / SHARD_STEPS
+    torch.distributed.barrier()
+    return ms
+
+
+def k_steps_leg(torch, ctx, cfg, tcfg) -> None:
+    """15c: SHARD_K steps a dispatch on (2, 2): one dispatch of [K, B]
+    batches bit-equal to K single sharded steps from the same block (the
+    parameters; the metrics their mean), SHARD_K launches of each kernel a
+    dispatch, and the mean metrics within 1e-4 of one card's K steps."""
+    import dataclasses
+
+    from two_tower_models_tpu_torch.config import MeshConfig
+    from two_tower_models_tpu_torch.models.two_tower import Batch
+    from two_tower_models_tpu_torch.ops import _lib
+    from two_tower_models_tpu_torch.parallel.sharding import shard_state
+    from two_tower_models_tpu_torch.parallel.train_step import local_batch, make_sharded_train_step
+    from two_tower_models_tpu_torch.parallel.sparse_grads import sparse_table_grad_names
+    from two_tower_models_tpu_torch.training.step import make_train_step
+
+    shape, label = (2, 2), f"train 2x2 K={SHARD_K}"
+    mesh, mesh_cfg = ctx.mesh(shape), MeshConfig(*shape)
+    b = SHARD_TRAIN_B * shape[0]
+    parts = [shard_train_data(torch, ctx, cfg, b, ctx.seed + 60 + k) for k in range(SHARD_K)]
+    stacked = Batch(*(None if ts[0] is None else torch.stack(ts)
+                      for ts in zip(*(bt for _, bt in parts))))
+    tk = dataclasses.replace(tcfg, steps_per_dispatch=SHARD_K)
+    full = shard_full_state(torch, ctx, cfg, tcfg, shape[1])
+    one, many = (shard_state(full, cfg, mesh, False, ctx.dev) for _ in range(2))
+    multi = make_sharded_train_step(cfg, tk, mesh, mesh_cfg)
+    step = make_sharded_train_step(cfg, tcfg, mesh, mesh_cfg)
+    ctx.align()
+    with torch.enable_grad():
+        _lib.reset_launch_counts()
+        many, m_k = multi(many, stacked)
+        counts = ctx.launches[label] = dict(_lib.launches)
+        singles = []
+        for _, bt in parts:
+            one, m = step(one, bt)
+            singles.append(m)
+    same = all(torch.equal(p, q) for p, q in zip(many.params.parameters(), one.params.parameters()))
+    mean_ok = all(torch.allclose(m_k[k], torch.stack([m[k] for m in singles]).mean(0), rtol=1e-6)
+                  for k in m_k)
+    local = local_batch(parts[0][1], mesh.get_local_rank("data"), shape[0])
+    expect = train_launches(cfg, len(sparse_table_grad_names(cfg, mesh_cfg, local, one.params)))
+    if ctx.dev.type == "cuda":
+        check_only_launches(counts, expect, SHARD_K, ctx.failures, f"rank {ctx.rank}: {label}")
+    if not (same and mean_ok):
+        ctx.fail(f"{label}: K steps a dispatch against K steps: params equal {same}, metrics "
+                 f"the mean {mean_ok}")
+    line = ""
+    if ctx.rank == 0:
+        data = type(parts[0][0])(*(None if ts[0] is None else torch.cat(ts)
+                                   for ts in zip(*(d for d, _ in parts))))
+        idx = torch.arange(SHARD_K * b, device=ctx.dev).view(SHARD_K, b)
+        with torch.enable_grad():
+            _, want = make_train_step(cfg, tk)(full, data, idx)
+        # steps 2-K follow two trajectories apart: Adam moves the elements of
+        # near-zero gradient by about lr whatever the bf16 noise says
+        rel = {k: abs(float(m_k[k]) - float(want[k])) / max(abs(float(want[k])), 1e-6)
+               for k in want}
+        worst = max(rel, key=rel.get)
+        if rel[worst] > BF16_TOL:
+            ctx.fail(f"{label}: mean {worst} {rel[worst]:.3g} from one card's")
+        line = (f"; mean loss {float(m_k['loss']):.6f} beside one card's {float(want['loss']):.6f} "
+                f"(K steps a dispatch there too), the worst metric {worst} at {rel[worst]:.3g} "
+                f"relative (tol {BF16_TOL})")
+    del full
+    ctx.say(f"sharded {label} on {ctx.world} x {ctx.name}: one dispatch of {SHARD_K} x B={b} "
+            f"bit-equal to {SHARD_K} single steps={same}, metrics their mean={mean_ok}; launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}{line}")
+
+
+def mns_leg(torch, ctx) -> None:
+    """15c: scripts/exp_mns_scale.py's mns+logq model on (2, 2), one global
+    batch extended once by training.data.extend_batch_for_idx (64 mixed
+    negatives, oracle logQ) on the host, handed to every rank: gradients
+    against one card (the step refuses the arm's grad_clip_norm, so none),
+    B10-B12 at D = 65; and B10, B11 + B12 at that width timed on rank 0."""
+    import dataclasses
+
+    from two_tower_models_tpu_torch.config import MeshConfig, TrainConfig, resolve_kernel_flags
+    from two_tower_models_tpu_torch.training.data import (
+        extend_batch_for_idx,
+        gather_batch,
+        make_synthetic_data,
+    )
+
+    shape = (2, 2)
+    b = SHARD_TRAIN_B * shape[0]
+    cfg = resolve_kernel_flags(mns_cfg("mns+logq"), ctx.dev)
+    data_cfg = dataclasses.replace(mns_exp("mns+logq", 1).data, num_samples=b)
+    data = make_synthetic_data(data_cfg, device="cpu")
+    idx = torch.arange(b)
+    batch = extend_batch_for_idx(cfg, data, gather_batch(data, idx), ctx.seed + 55, idx)
+    batch = type(batch)(*(None if t is None else t.to(ctx.dev) for t in batch))
+    label = "train 2x2 mns+logq"
+    _, _, line = grads_leg(torch, ctx, label, cfg, MeshConfig(*shape), shape, batch,
+                           TrainConfig(learning_rate=1e-3))
+    ctx.say(f"sharded {label} on {ctx.world} x {ctx.name}: train-65k-sharded-branches, B={b}, "
+            f"{cfg.mixed_negatives} mixed negatives: {line}; launches "
+            f"{json.dumps({k: v for k, v in ctx.launches[label].items() if v})}")
+    if ctx.rank == 0:
+        ctx.say(f"sharded {label} CE on {ctx.name}: " + ce_shape_times(
+            torch, ctx, SHARD_TRAIN_B, b + cfg.mixed_negatives, cfg.item_id_embedding_dim + 1))
+    torch.distributed.barrier()
+
+
+def packed_leg(torch, ctx) -> None:
+    """15e: scripts/bench_tables.py's 2^22-row tables, packed [2^21, 128],
+    on (2, 2) at SHARD_TRAIN_B rows a card: both tables through the sparse
+    exchange ("auto"), gradients against one card, SHARD_STEPS // 2 timed
+    steps (launches: B18 for each lookup's backward on the packed shards,
+    each exchange's scatter and the position table), the peak memory a rank."""
+    from two_tower_models_tpu_torch.config import MeshConfig, TrainConfig
+    from two_tower_models_tpu_torch.parallel.sparse_grads import sparse_table_grad_names
+    from two_tower_models_tpu_torch.parallel.train_step import local_batch, make_sharded_train_step
+
+    shape, label = (2, 2), "train 2x2 4M packed"
+    cfg = flagship_cfg(SHARD_TABLE_ROWS)
+    tcfg = TrainConfig(learning_rate=1e-3, pack_tables_min_rows=SHARD_TABLE_ROWS)
+    b = SHARD_TRAIN_B * shape[0]
+    mesh, mesh_cfg = ctx.mesh(shape), MeshConfig(*shape)
+    _, batch = shard_train_data(torch, ctx, cfg, b, ctx.seed + 56)
+    block, ref, line = grads_leg(torch, ctx, f"{label} grads", cfg, mesh_cfg, shape, batch, tcfg)
+    del ref
+    local = local_batch(batch, mesh.get_local_rank("data"), shape[0])
+    sparse = sparse_table_grad_names(cfg, mesh_cfg, local, block.params)
+    packed = {n: tuple(getattr(block.params, n).shape) for n in ("user_id_table", "item_id_table")}
+    if sparse != {"user_id_table", "item_id_table"}:
+        ctx.fail(f"{label}: sparse tables {sorted(sparse)}")
+    step = make_sharded_train_step(cfg, tcfg, mesh, mesh_cfg)
+    cuda = ctx.dev.type == "cuda"
+    with torch.enable_grad():
+        for _ in range(3):
+            block, _ = step(block, batch)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(ctx.dev)
+    n = max(SHARD_STEPS // 2, 1)
+    block, metrics, ms, issue = timed_steps(
+        torch, ctx, label, step, block, batch, n,
+        train_launches(cfg, len(sparse) + lookup_b18(cfg, block.params, local)))
+    peak = ctx.max_over_ranks([torch.cuda.max_memory_allocated(ctx.dev) / 2**30 if cuda else 0.0])[0]
+    held = sum(t.numel() * t.element_size() for t in (*block.params.parameters(),
+                                                      *block.opt_state.mu.values(),
+                                                      *block.opt_state.nu.values())) / 2**30
+    if not finite(torch, metrics):
+        ctx.fail(f"{label}: metrics not finite")
+    ctx.say(f"sharded {label} on {ctx.world} x {ctx.name}: train-4M-packed-sharded, B={b} "
+            f"({SHARD_TRAIN_B} a card), shards {packed}, sparse tables {sorted(sparse)}: {line}; "
+            f"{n} steps: ms/step {ms:.3f} (max over ranks; issued in {issue:.3f}); launches a step "
+            f"{json.dumps({k: v // n for k, v in ctx.launches[label].items() if v})}; a rank holds "
+            f"{held:.2f} GiB of parameters and moments, peak {peak:.2f} GiB (max over ranks)")
+
+
+def train_rank_legs(ctx) -> None:
+    """Phase 15b-15e on this rank (every rank runs every leg, in order)."""
+    from two_tower_models_tpu_torch.config import MeshConfig, TrainConfig
+
+    torch = ctx.torch
+    t0 = time.perf_counter()
+    cfg, tcfg = flagship_cfg(TRAIN_ROWS), TrainConfig(learning_rate=1e-3)
+    cuda = ctx.dev.type == "cuda"
+    # 15b: the flagship on each mesh, beside one card
+    single = single_card_ms(torch, ctx, cfg, tcfg)
+    for shape in ((4, 1), (2, 2), (1, 4)):
+        shard_train_mesh(torch, ctx, cfg, tcfg, shape, single)
+        if cuda:
+            torch.cuda.empty_cache()
+    if ctx.rank == 0:
+        for n_d in (4, 2):
+            ctx.say(f"sharded train CE on {ctx.name}: " + ce_shape_times(
+                torch, ctx, SHARD_TRAIN_B, SHARD_TRAIN_B * n_d, cfg.item_id_embedding_dim))
+    torch.distributed.barrier()
+    # 15c: the step's other branches on (2, 2), one fixed batch each
+    shape = (2, 2)
+    _, batch = shard_train_data(torch, ctx, cfg, SHARD_TRAIN_B * shape[0], ctx.seed + 51)
+    ref = None
+    for name, kw, strategy in (("sparse on", {"sparse_table_grads": "on"}, "psum"),
+                               ("sparse off", {"sparse_table_grads": "off"}, "psum"),
+                               ("all_to_all", {}, "all_to_all"),
+                               ("tower_tp", {"tower_tp": True}, "psum")):
+        label = f"train 2x2 {name}"
+        _, ref, line = grads_leg(torch, ctx, label, cfg, MeshConfig(*shape, **kw), shape, batch,
+                                 tcfg, strategy, ref)
+        ctx.say(f"sharded {label} on {ctx.world} x {ctx.name}: train-65k-sharded-branches: "
+                f"{line}; launches {json.dumps({k: v for k, v in ctx.launches[label].items() if v})}")
+    del ref
+    k_steps_leg(torch, ctx, cfg, tcfg)
+    mns_leg(torch, ctx)
+    # 15d: the rest of the zoo
+    for preset_name in ZOO_PRESETS:
+        zc = zoo_cfg(preset_name)
+        label = f"train 2x2 {ZOO_SHORT[preset_name]}"
+        _, zb = shard_train_data(torch, ctx, zc, SHARD_TRAIN_B * shape[0], ctx.seed + 57, zc.kd)
+        _, _, line = grads_leg(torch, ctx, label, zc, MeshConfig(*shape), shape, zb, tcfg)
+        ctx.say(f"sharded {label} on {ctx.world} x {ctx.name}: train-65k-sharded-zoo: {line}; "
+                f"launches {json.dumps({k: v for k, v in ctx.launches[label].items() if v})}")
+    if cuda:
+        torch.cuda.empty_cache()
+    # 15e: the packed 4M tables
+    packed_leg(torch, ctx)
+    if cuda:
+        torch.cuda.empty_cache()
+    ctx.say(f"sharded 15b-15e: wall {time.perf_counter() - t0:.1f} s")
+
+
+def train_one_leg(torch, args, smi, entries, failures) -> None:
+    """15a: a world of one over NCCL on card 0, mesh (1, 1), the flagship at
+    B = TRAIN_BATCH: SHARD_STEPS steps of make_sharded_train_step beside
+    make_train_step on the same batch from the same state, bit-equal (every
+    metric each step; parameters and moments after), then SHARD_STEPS timed
+    steps of each: the sharded step's launches a step (phase 4's), no host
+    sync in a step."""
+    from two_tower_models_tpu_torch.config import MeshConfig, TrainConfig
+    from two_tower_models_tpu_torch.parallel import mesh as pm
+    from two_tower_models_tpu_torch.parallel.sharding import shard_state
+    from two_tower_models_tpu_torch.parallel.train_step import make_sharded_train_step
+    from two_tower_models_tpu_torch.training.data import gather_batch
+    from two_tower_models_tpu_torch.training.state import create_train_state
+    from two_tower_models_tpu_torch.training.step import make_train_step
+
+    dev = pm.init_process_group(0, 1, f"tcp://localhost:{free_port()}", device="cuda")
+    try:
+        mesh = pm.single_device_mesh("cuda")
+        cfg, tcfg = flagship_cfg(TRAIN_ROWS), TrainConfig(learning_rate=1e-3)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 40)
+        data = fixed_batch(torch, gen, dev, cfg, TRAIN_BATCH)
+        idx = torch.arange(TRAIN_BATCH, device=dev)
+        batch = gather_batch(data, idx)
+        ref = create_train_state(args.seed + 41, cfg, tcfg, device=dev)
+        st = shard_state(ref, cfg, mesh)  # a copy; ref is left as it is
+        single = make_train_step(cfg, tcfg)
+        sharded = make_sharded_train_step(cfg, tcfg, mesh, MeshConfig())
+        same_m = True
+        with torch.enable_grad():
+            for _ in range(SHARD_STEPS):
+                ref, want = single(ref, data, idx)
+                st, got = sharded(st, batch)
+                same_m &= list(got) == list(want) and all(torch.equal(got[k], want[k])
+                                                          for k in want)
+        pairs = list(zip(st.params.parameters(), ref.params.parameters()))
+        pairs += [(st.opt_state.mu[k], ref.opt_state.mu[k]) for k in ref.opt_state.mu]
+        pairs += [(st.opt_state.nu[k], ref.opt_state.nu[k]) for k in ref.opt_state.nu]
+        same_p = all(torch.equal(p, q) for p, q in pairs)
+        on_batch = lambda s, d, i: sharded(s, batch)
+        st, metrics, ms, host, counts = run_steps(torch, on_batch, st, data, idx, SHARD_STEPS)
+        ref, _, ms_ref, host_ref, _ = run_steps(torch, single, ref, data, idx, SHARD_STEPS)
+        label = "sharded 15a"
+        check_only_launches(counts, train_launches(cfg), SHARD_STEPS, failures, label)
+        st, syncs = count_syncs(torch, on_batch, st, data, idx)
+        if not (same_m and same_p) or syncs or not finite(torch, metrics):
+            failures.append(f"{label}: metrics bit-equal {same_m}, params bit-equal {same_p}, "
+                            f"host syncs {syncs}")
+        for k in ("fused_history_encoder_res", "fused_history_encoder_bwd", "fused_in_batch_ce",
+                  "in_batch_ce_bwd", "rows_scatter_add"):
+            if k in entries:
+                entries[k]["launches_sharded_train_1x1"] = counts.get(k, 0)
+        print(f"launches on the sharded 1x1 training path ({SHARD_STEPS} steps): "
+              f"{json.dumps(counts)}", flush=True)
+        print(f"sharded 15a, a world of one over {torch.distributed.get_backend()} on "
+              f"{torch.cuda.get_device_name(0)} ({smi}), mesh 1x1, train-65k-sharded-1x1, "
+              f"B={TRAIN_BATCH}: {SHARD_STEPS} steps of make_sharded_train_step beside "
+              f"make_train_step: every metric bit-equal each step={same_m}, parameters and "
+              f"moments bit-equal after={same_p}; ms/step {ms:.3f} (host {host:.3f}) beside "
+              f"make_train_step's {ms_ref:.3f} (host {host_ref:.3f}) in this call; host syncs in "
+              f"a step {syncs}", flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def shard_rank_main(torch, rank: int, world: int, port: int, seed: int, nb: int,
-                    device="cuda") -> dict:
-    """The four-card legs on one rank: {"failures": [...], "launches": {...}}."""
+                    device="cuda", train: bool = True) -> dict:
+    """The four-card legs on one rank (14b-14e, then with ``train``
+    15b-15e): {"failures": [...], "launches": {...}}."""
     from two_tower_models_tpu_torch.parallel import mesh as pm
 
     dev = pm.init_process_group(rank, world, f"tcp://localhost:{port}", device=device)
@@ -5506,6 +6241,11 @@ def shard_rank_main(torch, rank: int, world: int, port: int, seed: int, nb: int,
     shard_light_ranker_leg(ctx)
     # 14e
     shard_recall_leg(ctx, cfg, model, ids, feats, batches, ref, exact_outs)
+    del ref, exact_outs, model, batches
+    if ctx.dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if train:  # 15b-15e
+        train_rank_legs(ctx)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     return {"failures": ctx.failures, "launches": ctx.launches}
@@ -5585,17 +6325,21 @@ def shard_one_leg(torch, args, smi, entries, failures) -> None:
 
 
 def phase_sharded(torch, args, smi, entries, failures, only: bool) -> None:
-    """Phase 14: 14a in this process; 14b-14e in four spawned ranks, one a
-    card, when this host has four cards."""
+    """Phases 14 and 15: 14a and 15a in this process; 14b-14e and 15b-15e
+    in four spawned ranks, one a card, when this host has four cards."""
     import multiprocessing
     import tempfile
 
     t_phase = time.perf_counter()
     shard_one_leg(torch, args, smi, entries, failures)
     torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    train_one_leg(torch, args, smi, entries, failures)
+    torch.cuda.empty_cache()
+    print(f"sharded 15a: wall {time.perf_counter() - t15:.1f} s", flush=True)
     n = torch.cuda.device_count()
     if n < SHARD_CARDS:
-        print(f"sharded 14b-14e: skipped: the four-card legs need {SHARD_CARDS} cards "
+        print(f"sharded 14b-14e, 15b-15e: skipped: the four-card legs need {SHARD_CARDS} cards "
               f"of one host (python3 chip_smoke.py --only sharded on such a host); this host "
               f"has {n}",
               flush=True)
@@ -5646,8 +6390,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batches", type=int, default=10)
     ap.add_argument("--only", choices=["sharded"], default=None,
-                    help="run phase 1 (the build) and phase 14 (sharded serving) alone; "
-                         "the four-card legs then must run")
+                    help="run phase 1 (the build) and phases 14 and 15 (sharded serving "
+                         "and training) alone; the four-card legs then must run")
     args = ap.parse_args()
 
     import torch
@@ -5984,7 +6728,7 @@ def main() -> int:
     phase_raw(torch, args, smi, dev, entries, failures, serve_ms)
     torch.cuda.empty_cache()
 
-    # ---- phase 14: sharded serving ----------------------------------------
+    # ---- phases 14 and 15: sharded serving and training ------------------
     phase_sharded(torch, args, smi, entries, failures, only=False)
     return finish(torch, t_start, entries, failures)
 

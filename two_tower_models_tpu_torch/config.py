@@ -153,9 +153,11 @@ class ModelConfig:
 class MeshConfig:
     """Device-mesh layout, field for field the JAX package's ``MeshConfig``
     (its comments say what each field does there).  Serving takes a mesh
-    (``parallel.mesh.make_mesh``, ``RetrievalEngine(mesh=...)``); training
-    on a mesh waits for A13b and A13d: ``training.loop.train`` raises when
-    ``data * model > 1`` (``check_single_device``)."""
+    (``parallel.mesh.make_mesh``, ``RetrievalEngine(mesh=...)``), and so
+    does the explicit training step
+    (``parallel.train_step.make_sharded_train_step``); the training loop on
+    a mesh waits for A13b, part 2, and A13d: ``training.loop.train`` raises
+    when ``data * model > 1`` (``check_single_device``)."""
 
     data: int = 1
     model: int = 1
@@ -167,12 +169,13 @@ class MeshConfig:
 
 
 def check_single_device(mesh: MeshConfig) -> None:
-    """Raise unless ``mesh`` is one device: training on a mesh is not
-    ported (serving is: ``RetrievalEngine(mesh=...)``)."""
+    """Raise unless ``mesh`` is one device: the training loop on a mesh is
+    not ported (serving is, ``RetrievalEngine(mesh=...)``, and the step,
+    ``parallel.train_step.make_sharded_train_step``)."""
     if mesh.data * mesh.model > 1:
         raise NotImplementedError(
-            f"training on a {mesh.data} x {mesh.model} mesh is not ported yet "
-            "(ROADMAP.md, queue A, A13b and A13d of A13 'Multi-device')"
+            f"the training loop on a {mesh.data} x {mesh.model} mesh is not ported yet "
+            "(ROADMAP.md, queue A, A13b, part 2, and A13d of A13 'Multi-device')"
         )
 
 

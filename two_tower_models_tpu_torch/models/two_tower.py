@@ -59,6 +59,11 @@ class Batch(NamedTuple):
     neg_logq: Optional[torch.Tensor] = None  # [B']
 
 
+# The mixed negatives' [B'] fields: candidates every rank of a mesh scores
+# alike, not rows of the batch, so they replicate over ``data``.
+REPLICATED_BATCH_FIELDS = frozenset({"neg_item_id", "neg_item_features", "neg_logq"})
+
+
 class TwoTowerModel(nn.Module):
     """All parameters of one config point, named as in the JAX pytree.
     Built empty; ``init_params`` draws the weights, ``bridge.params_from_jax``
@@ -384,6 +389,29 @@ def example_weights(
     return nuv, aux_loss
 
 
+def retrieval_ce(
+    cfg: ModelConfig,
+    user_embedding: torch.Tensor,  # [B, DI]
+    item_embeddings: torch.Tensor,  # [B, DI]
+    scores: Optional[torch.Tensor] = None,  # [B, B] precomputed logits
+    neg_item_embeddings: Optional[torch.Tensor] = None,  # [B', DI]
+    item_logq: Optional[torch.Tensor] = None,  # [B]
+    neg_logq: Optional[torch.Tensor] = None,  # [B']
+) -> torch.Tensor:
+    """Per-row in-batch softmax CE [B] against the diagonal: over the
+    extended pool (``_extended_ce``) with mixed negatives or logQ, on
+    precomputed ``scores``, through ``fused_in_batch_ce`` (B10-B12 on the
+    card) with ``cfg.fused_loss``, else on materialised [B, B] logits."""
+    if neg_item_embeddings is not None or item_logq is not None:
+        return _extended_ce(cfg, user_embedding, item_embeddings, scores,
+                            neg_item_embeddings, item_logq, neg_logq)
+    if scores is not None:
+        return _in_batch_ce(scores)
+    if cfg.fused_loss:
+        return fused_in_batch_ce(user_embedding, item_embeddings)[0]
+    return _in_batch_ce(user_embedding.float() @ item_embeddings.float().T)
+
+
 def softmax_retrieval_loss(
     params: TwoTowerModel,
     cfg: ModelConfig,
@@ -406,17 +434,10 @@ def softmax_retrieval_loss(
     division by the batch max.  ``neg_item_embeddings`` appends B' mixed negatives
     to every row's candidates and ``item_logq``/``neg_logq`` subtract each
     candidate's log proposal probability from its logit, positives included
-    (``_extended_ce``).  The port has one device, so the JAX package's mesh
-    branch has no counterpart here (ROADMAP.md, queue A, 'Multi-device')."""
-    if neg_item_embeddings is not None or item_logq is not None:
-        ce = _extended_ce(cfg, user_embedding, item_embeddings, scores,
-                          neg_item_embeddings, item_logq, neg_logq)
-    elif scores is not None:
-        ce = _in_batch_ce(scores)
-    elif cfg.fused_loss:
-        ce, _ = fused_in_batch_ce(user_embedding, item_embeddings)
-    else:
-        ce = _in_batch_ce(user_embedding.float() @ item_embeddings.float().T)
+    (``_extended_ce``).  On a mesh the loss is
+    ``parallel.train_step.sharded_loss_fn``'s."""
+    ce = retrieval_ce(cfg, user_embedding, item_embeddings, scores, neg_item_embeddings,
+                      item_logq, neg_logq)
     nuv, aux_loss = example_weights(params, cfg, user_embedding, position, labels, max_normalize)
     loss = torch.mean(ce * nuv) + aux_loss
     metrics = {
@@ -466,12 +487,17 @@ def _reward_model_terms(
     cfg: ModelConfig,
     user_embedding: torch.Tensor,  # [B, DI]
     item_embeddings: torch.Tensor,  # [B, DI]
-    scores: torch.Tensor,  # [B, B] retrieval logits
+    scores: torch.Tensor,  # [B, C] retrieval logits
     labels: torch.Tensor,  # [B, T]
+    candidates: Optional[torch.Tensor] = None,  # [C, DI]: the items of scores' columns
+    pos: Optional[torch.Tensor] = None,  # [B]: each row's impressed pair's score
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Ranker-as-reward-model alignment: ``reward_model_loss_weight`` times
     KL(ranker top probs || softmax(retrieval logits)), plus the proxy
-    ranker's BCE on the impressed (diagonal) pairs.
+    ranker's BCE on the impressed (diagonal) pairs.  The columns default to
+    the batch's own items and the impressed scores to the diagonal; on a
+    mesh they are the global batch's items and the rank's own pairs
+    (``parallel.train_step._sharded_reward_model_terms``).
 
     The proxy's pairwise linear over [u_b, i_j, s_bj] is decomposed over
     its weight's segments [Wu; Wi; ws], and the task axis collapses into the
@@ -487,16 +513,18 @@ def _reward_model_terms(
     di = cfg.item_id_embedding_dim
     wu, wi, ws = w_full[:di], w_full[di : 2 * di], w_full[2 * di]
     u32, i32, s32 = user_embedding.float(), item_embeddings.float(), scores.float()
+    c32 = i32 if candidates is None else candidates.float()
     uvw = _value_weights(cfg, s32.device)
     with torch.no_grad():
-        ranker_vm = ((u32 @ (wu @ uvw))[:, None] + (i32 @ (wi @ uvw))[None, :]
-                     + s32 * torch.dot(ws, uvw) + torch.dot(b_full, uvw))  # [B, B]
+        ranker_vm = ((u32 @ (wu @ uvw))[:, None] + (c32 @ (wi @ uvw))[None, :]
+                     + s32 * torch.dot(ws, uvw) + torch.dot(b_full, uvw))  # [B, C]
         ranker_top_probs = torch.softmax(ranker_vm, dim=-1)
         log_p = torch.log(ranker_top_probs.clamp_min(1e-30))
         del ranker_vm
     log_q = torch.log_softmax(s32, dim=-1)  # the retrieval distribution
     kl = torch.mean(torch.sum(ranker_top_probs * (log_p - log_q), dim=-1))
-    diag_logits = u32 @ wu + i32 @ wi + torch.diagonal(s32)[:, None] * ws[None, :] + b_full
+    pos = torch.diagonal(s32) if pos is None else pos
+    diag_logits = u32 @ wu + i32 @ wi + pos[:, None] * ws[None, :] + b_full
     proxy_bce = _bce_with_logits(diag_logits, labels[:, : cfg.num_tasks])
     loss = cfg.reward_model_loss_weight * kl + proxy_bce
     return loss, {"reward_kl": kl, "proxy_ranker_bce": proxy_bce}

@@ -152,6 +152,18 @@ class _Lookup(torch.autograd.Function):
         return grad.to(g.dtype), None, None, None
 
 
+def lookup_grad(ids: torch.Tensor, g: torch.Tensor, vocab: int, capped: bool = True) -> torch.Tensor:
+    """The table gradient [vocab, D] of ``embedding_lookup(table, ids,
+    capped)`` for the cotangent ``g`` [*ids.shape, D], computed by the
+    function its autograd takes: ``scatter_add_rows`` inside the window,
+    ``F.embedding``'s gradient below it.  For a lookup whose forward runs
+    elsewhere (``parallel.embedding``)."""
+    ids, g = ids.reshape(-1).long(), g.reshape(-1, g.shape[-1])
+    if _in_scatter_window(vocab, capped):
+        return scatter_add_rows(ids, g, vocab, capped).to(g.dtype)
+    return torch.ops.aten.embedding_dense_backward(g, ids, vocab, -1, False)
+
+
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, capped: bool = True,
                      fixed_order: bool = False) -> torch.Tensor:
     """Rows ``table[ids]``; ``ids`` of any shape, values in [0, V).

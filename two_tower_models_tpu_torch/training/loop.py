@@ -5,8 +5,9 @@ shuffled batches through ``make_train_step`` (with mixed negatives and the
 logQ correction, oracle or streaming, when the config asks), the loss
 summed on the device, corpus refresh and the recall@k eval, jsonl logging, checkpoints
 with exact-position resume, SIGTERM preemption and a profiled window.
-Training on a mesh and across hosts is not ported (ROADMAP.md, queue A,
-A13b and A13d of A13 'Multi-device') and raises.
+The loop on a mesh and across hosts is not ported (ROADMAP.md, queue A,
+A13b, part 2, and A13d of A13 'Multi-device') and raises; the mesh's step
+is (``parallel.train_step.make_sharded_train_step``).
 
 Run:  python -m two_tower_models_tpu_torch.training.loop --preset two_tower_base_retrieval
       (add ``--device cpu`` on a machine without a GPU)
@@ -323,9 +324,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--eval_every", type=int, default=0, help="mid-training recall@k every N steps")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
                    help="K optimizer steps per dispatch")
-    # mesh flags: parsed as the JAX trainer parses them; the port trains on
-    # one device, and a mesh of more raises (ROADMAP.md, A13b and A13d of
-    # A13 'Multi-device')
+    # mesh flags: parsed as the JAX trainer parses them; the port's loop
+    # trains on one device, and a mesh of more raises (ROADMAP.md, A13b,
+    # part 2, and A13d of A13 'Multi-device')
     p.add_argument("--mesh_data", type=int, default=1, help="data-parallel mesh axis")
     p.add_argument("--mesh_model", type=int, default=1, help="table-sharding mesh axis")
     p.add_argument("--tower_tp", action="store_true",

@@ -161,7 +161,8 @@ def maybe_pack_tables(params: TwoTowerModel, model_cfg: ModelConfig,
     place on the model: the parameter is replaced, under the same name.
     Numerics-neutral; the model dispatches on the table's shape.  A table
     packs only if its physical rows split evenly over ``model_shards``
-    (1 in the port, which has one device)."""
+    (the mesh's model axis), so each shard's physical range stays a
+    contiguous range of logical rows (``parallel.embedding``)."""
     if not train_cfg.pack_tables:
         return params
     for name, vocab, dim in (
@@ -183,14 +184,17 @@ _RNG_SALT = 0x5DEECE66D
 
 
 def create_train_state(seed, model_cfg: ModelConfig, train_cfg: TrainConfig,
-                       device="cuda", catalog_size: Optional[int] = None) -> TrainState:
+                       device="cuda", catalog_size: Optional[int] = None,
+                       model_shards: int = 1) -> TrainState:
     """Fresh params from ``seed`` (an int or a ``torch.Generator`` on
     ``device``), packed where ``maybe_pack_tables`` says
     (``TrainConfig.pack_tables=False`` keeps plain [V, D] tables), a zero
     optimizer state (``AdamState``, or with ``lazy_table_adam`` a
     ``LazyAdamState`` whose table moments take the tables' storage shape),
     ``rng`` seeded from ``seed`` and, with ``streaming_logq``, an empty
-    estimator over ``catalog_size`` items."""
+    estimator over ``catalog_size`` items.  For a mesh, pass its model axis
+    as ``model_shards``: a table whose packed rows would not split evenly
+    over it stays plain (``maybe_pack_tables``)."""
     if train_cfg.streaming_logq:
         if not model_cfg.logq_correction:
             raise ValueError(
@@ -203,7 +207,8 @@ def create_train_state(seed, model_cfg: ModelConfig, train_cfg: TrainConfig,
                 "items the estimator tracks)"
             )
     tx = make_optimizer(train_cfg)
-    params = maybe_pack_tables(init_params(seed, model_cfg, device=device), model_cfg, train_cfg)
+    params = maybe_pack_tables(init_params(seed, model_cfg, device=device), model_cfg, train_cfg,
+                               model_shards)
     if train_cfg.lazy_table_adam:
         opt_state = LazyAdamState(tx.init(params, exclude=SPARSE_TABLE_KEYS),
                                   init_table_moments(params))
